@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels (nvcc by hand, bound with ctypes).
+"""Build and load the hand-written CUDA kernels (nvcc by hand, bound with
+ctypes), and count their launches.
 
-The sources under `kernels/csrc/` compile with nvcc into a shared library
-with a plain C interface, in `build/repro_torch/` at the root of the
-checkout (a cache: delete it freely). The library's file name carries a hash
-of the sources, so an edited source rebuilds at first use and an unchanged
-one loads the cached build. Nothing is built at import time: `load()` builds
-on the first kernel launch.
+Each source under `kernels/csrc/` compiles with its own nvcc process, all
+started together, and the objects link into one shared library with a plain
+C interface, `build/repro_torch/librepro_torch_<hash>.so` at the root of the
+checkout (a cache: delete it freely). The hash covers the sources and flags,
+so an edited source rebuilds at first use and an unchanged one loads the
+cached build. Nothing is built at import time: `load()` builds on the first
+kernel launch.
 
 A build that fails raises with nvcc's output; there is no fallback.
 """
@@ -20,12 +22,15 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sto_rk4.cu",)
+SOURCES = ("sto_rk4.cu", "flash_attention.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
+# Launches of each kernel in this process (plain-version calls not counted):
+# each wrapper adds one to its entry where it launches its kernel.
+LAUNCHES = {"rk4_chunk": 0, "rk4_fused": 0, "field_tiled": 0, "flash_attention": 0}
 # what the last build printed (ptxas registers / shared memory / spills);
 # None when the library came from the cache
 BUILD_LOG = None
@@ -33,15 +38,25 @@ BUILD_LOG = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "sto_tile_n": ((), _I),
     "sto_tile_e": ((), _I),
     "sto_rk4_coop": (
-        (_I, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+        (_I, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
         _I,
     ),
     "sto_field_tiled": ((_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P), _I),
+    "flash_attention_fwd": (
+        (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I) + (_L,) * 12 + (_I, _I, _F, _P),
+        _I,
+    ),
 }
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -69,18 +84,43 @@ def _source_hash() -> str:
 def build() -> pathlib.Path:
     """Compile the sources if no library with their hash exists; return its path."""
     global BUILD_LOG
-    out = BUILD_DIR / f"libsto_rk4_{_source_hash()}.so"
+    digest = _source_hash()
+    out = BUILD_DIR / f"librepro_torch_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{pathlib.Path(s).stem}.{tag}.o" for s in SOURCES]
+    nvcc = _nvcc()
+    cmds = [
+        [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        for src, obj in zip(SOURCES, objs)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    BUILD_LOG = "".join(f"== {src}\n{log}" for src, log in zip(SOURCES, logs))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        for cmd, proc in zip(cmds, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
+                )
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -33,20 +33,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401 (re-exported)
 from repro_torch.kernels.ref import NP
 
 # Tile sizes of the CUDA kernels (TILE_N / TILE_E in csrc/sto_rk4.cu): the
 # kernels take N and E padded to multiples of these (kernels/ops.py pads).
 TILE_N = 64
 TILE_E = 64
-
-# Launches of each kernel in this process (plain-version calls not counted).
-LAUNCHES = {"rk4_chunk": 0, "rk4_fused": 0, "field_tiled": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _field_planes(mx, my, mz, hx, p):

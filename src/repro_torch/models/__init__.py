@@ -1,0 +1,4 @@
+"""The LM substrate, dense attention family: layers, attention, the
+transformer stack, parameter counting and the public Model API."""
+
+from repro_torch.models.model import Model, build_model, make_input_specs  # noqa: F401

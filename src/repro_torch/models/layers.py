@@ -1,0 +1,140 @@
+"""Shared model layers: norms, MLPs, RoPE, embeddings, the LM head.
+
+The counterpart of the reference's models/layers.py. Params are plain
+nested dicts of tensors with the reference's names and layouts:
+
+    kernel shapes: (in, out) for projections, (vocab, d) for embeddings.
+    Names: w_in/w_gate/w_out (mlp), wq/wk/wv/wo (attention), embed, lm_head.
+
+Initialisers draw from an explicit `torch.Generator` (on its own device) and
+return tensors on that device; they do not reproduce the reference's
+jax.random draws (tests carry the reference's weights across instead,
+convert.lm_params_from_numpy). Casts follow the reference op for op: `dense`
+multiplies in the parameter dtype, norms and RoPE compute in f32 and cast
+back, `lm_logits` multiplies f32-cast operands.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(generator, shape, scale, dtype):
+    x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return (scale * x).to(dtype)
+
+
+def make_dense(generator, d_in, d_out, dtype, scale: Optional[float] = None, bias=False):
+    if scale is None:
+        scale = d_in**-0.5
+    p = {"kernel": _normal(generator, (d_in, d_out), scale, dtype)}
+    if bias:
+        p["bias"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
+    return p
+
+
+def dense(p, x):
+    y = x @ p["kernel"]
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+# --- norms -----------------------------------------------------------------
+
+
+def make_norm(norm_type: str, d: int, dtype, device):
+    if norm_type == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if norm_type == "layernorm":
+        return {
+            "scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device),
+        }
+    raise ValueError(norm_type)
+
+
+def apply_norm(p, x, eps: float = 1e-6):
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+# --- MLPs ------------------------------------------------------------------
+
+
+def make_mlp(generator, d_model, d_ff, mlp_type, dtype, bias=False, out_scale=None):
+    p = {}
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = make_dense(generator, d_model, d_ff, dtype, bias=bias)
+    p["w_in"] = make_dense(generator, d_model, d_ff, dtype, bias=bias)
+    p["w_out"] = make_dense(generator, d_ff, d_model, dtype, scale=out_scale, bias=bias)
+    return p
+
+
+def apply_mlp(p, x, mlp_type):
+    if mlp_type == "swiglu":
+        h = F.silu(dense(p["w_gate"], x)) * dense(p["w_in"], x)
+    elif mlp_type == "geglu":
+        h = F.gelu(dense(p["w_gate"], x), approximate="tanh") * dense(p["w_in"], x)
+    elif mlp_type == "gelu":
+        h = F.gelu(dense(p["w_in"], x), approximate="tanh")
+    else:
+        raise ValueError(mlp_type)
+    return dense(p["w_out"], h)
+
+
+# --- rotary embeddings -------------------------------------------------------
+
+
+def rope_freqs(positions: torch.Tensor, dim: int, theta: float) -> torch.Tensor:
+    """(..., S) int positions -> (..., S, dim/2) f32 angles."""
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv = 1.0 / (theta**exponent)
+    return positions.float()[..., None] * inv
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); angles: (..., S, D/2). Rotates the first half of
+    the head dims against the second half (half-split, as the reference's
+    code does), in f32, and casts back."""
+    d = x.shape[-1]
+    x1 = x[..., : d // 2].float()
+    x2 = x[..., d // 2 :].float()
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- embeddings ----------------------------------------------------------------
+
+
+def make_embedding(generator, vocab_padded: int, d: int, dtype):
+    return {"embed": _normal(generator, (vocab_padded, d), 0.02, dtype)}
+
+
+def embed_tokens(p, tokens: torch.Tensor, scale: bool = False):
+    x = p["embed"][tokens]
+    if scale:
+        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype, device=x.device)
+    return x
+
+
+def lm_logits(p_head, x, tied_embed=None, softcap: float = 0.0):
+    """Project to (padded) vocab logits in f32 (f32-cast operands)."""
+    w = tied_embed["embed"].T if tied_embed is not None else p_head["kernel"]
+    logits = x.float() @ w.float()
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (coupled-STO RK4 and flash attention) against
+their plain PyTorch versions, on a card.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -108,3 +109,91 @@ def test_f64_state_on_cuda_is_refused(cuda):
     m, w, pv, h, mask = _inputs(cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sto_step.rk4_chunk(m.double(), w, pv, DT, 1, h, mask)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernels/csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+# kernel vs plain version: bf16 3e-2 (the reference's own bf16 flash test;
+# bf16 probabilities in the P.V product), f32 5e-6 (its f32 tests); and per
+# row, max|err| / max|plain| (as chip_smoke.py holds it; bf16 admits one
+# ulp of the row's largest element, 2^-7 of it)
+FLASH_ATOL = {torch.bfloat16: 3e-2, torch.float32: 5e-6}
+FLASH_RTOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+
+def _row_rel_err(out, ref):
+    o, r = out.float(), ref.float()
+    return ((o - r).abs().amax(-1) / r.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _qkv(dev, b, h, kvh, sq, sk, d, dtype, seed=0):
+    """q (B, Sq, H, D), k/v (B, Sk, KVH, D), the model's layout."""
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g).to(dtype).to(dev)  # noqa: E731
+    return mk(b, sq, h, d), mk(b, sk, kvh, d), mk(b, sk, kvh, d)
+
+
+def _plain_bshd(q, k, v, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    return t(flash_attention_plain(t(q), t(k), t(v), causal, window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "shape,causal,window",
+    [
+        ((1, 32, 8, 200, 200, 80), True, 64),  # h2o-danube heads, ragged S, window bites
+        ((2, 8, 2, 129, 129, 64), True, 0),  # ragged causal
+        ((1, 4, 4, 96, 300, 128), True, 0),  # Sq < Sk, MHA
+        ((1, 12, 4, 70, 70, 32), False, 0),  # G = 3, bidirectional
+        ((1, 8, 1, 64, 64, 96), True, 16),  # MQA, narrow window
+    ],
+)
+def test_flash_matches_plain(cuda, dtype, shape, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(cuda, *shape, dtype)
+    fa.LAUNCHES["flash_attention"] = 0
+    out = fa.flash_attention_bshd(q, k, v, causal=causal, window=window)
+    ref = _plain_bshd(q, k, v, causal, window)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL[dtype]
+    assert _row_rel_err(out, ref) <= FLASH_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_user_layout_and_masked_rows(cuda):
+    """The (B, H, S, D) entry reads the same kernel through other strides;
+    with Sq > Sk and causal, the first rows see no key and come back 0."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(cuda, 1, 4, 2, 48, 40, 64, torch.float32)
+    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    out = fa.flash_attention(t(q), t(k), t(v), causal=True)
+    ref = fa.flash_attention_plain(t(q), t(k), t(v), causal=True)
+    assert (out - ref).abs().max().item() <= FLASH_ATOL[torch.float32]
+    assert torch.equal(out[:, :, :8], torch.zeros_like(out[:, :, :8]))
+
+
+@pytest.mark.cuda
+def test_grouped_attend_on_cuda_launches_flash(cuda):
+    """Prefill-style calls (q_offset 0, no kv_len) go to the kernel; decode
+    calls (per-row offsets) take the einsum path and launch nothing."""
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import attention
+
+    q, k, v = _qkv(cuda, 2, 8, 2, 40, 40, 80, torch.bfloat16)
+    LAUNCHES["flash_attention"] = 0
+    out = attention.grouped_attend(q, k, v, causal=True, window=16, q_offset=0)
+    assert LAUNCHES["flash_attention"] == 1
+    ref = attention._grouped_attend_dense(q, k, v, causal=True, window=16, q_offset=0)
+    assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL[torch.bfloat16]
+    pos = torch.tensor([39, 20], device=cuda)
+    attention.grouped_attend(q[:, -1:], k, v, causal=True, q_offset=pos, kv_len=pos + 1)
+    assert LAUNCHES["flash_attention"] == 1
