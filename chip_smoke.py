@@ -14,7 +14,15 @@ on failure:
    with lanes frozen, retired and admitted mid-chunk (and again with a bf16
    W), rk4_fused with n_inner=5, field_tiled at c = 0, dt/2 and dt. Prints
    each kernel's error, its time, the plain version's time, one torch.matmul
-   over the same coupling products (a yardstick only) and the bound.
+   over the same coupling products (a yardstick only) and the bound; for
+   rk4_chunk and rk4_fused also the share of the bound, the time over the
+   library's, the launch configuration of the work split (blocks, cluster
+   size = contraction slices, tile rows, rounds) and ptxas's registers,
+   stack and spills for the kernel, read from the build log. Each of these
+   rows is held a second time on the coupling's share of the state alone,
+   f(W) - f(0), and a plain version with a fault planted in the product
+   (none of it; one contraction slice of the split dropped or summed twice)
+   must fail that measure (and, for rk4_chunk, the row's atol).
 3. Serve 512 NARMA-10 sessions (16-40 ticks, per-tenant params on some
    lanes, a readout on every session) through ReservoirEngine with
    backend chunk, fused and tiled, launch counters set to 0 before each run
@@ -56,6 +64,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,7 +107,16 @@ REPLACES = {
 STO_KERNELS = ("rk4_chunk", "rk4_fused", "field_tiled")
 # tolerances, kernel vs plain version on the same inputs:
 STATE_ATOL = 1e-4  # f32 state over one chunk (FP32 sums in another order)
-BF16_ATOL = 5e-3  # bf16-W state (the reference's bf16 NARMA guardrail scale)
+# bf16-W state: both versions round the x-plane operand to bf16 and sum the
+# exact products in f32, so they differ as the f32 ones do (3.0e-7 read on an
+# H100 for either W)
+BF16_ATOL = 1e-5
+# the coupling's share of the state, f(W) - f(0), kernel vs plain version,
+# relative to its largest magnitude: here the coupling moves the live lanes
+# by ~2.3e-3 over a chunk and f32 rounding moves that share by ~3e-4 of
+# itself (a float64 run of the plain version on the CPU), while a
+# contraction slice dropped or summed twice moves it by ~0.4 of itself
+COUPLING_RTOL = 2e-3
 SLOPE_RTOL = 1e-5  # field_tiled slopes (~1e10 Oe/s) relative to their max
 # flash attention vs its plain version: bf16 3e-2 (the reference's bf16
 # flash test; bf16 probabilities in P.V), f32 5e-6 (its f32 tests); and per
@@ -182,6 +200,56 @@ def time_ms(fn, reps):
     return sorted(times)[len(times) // 2]
 
 
+def ptxas_info(log, fragment):
+    """Registers, stack and spills ptxas printed for the entry function whose
+    mangled name holds `fragment`; None without a build log (cached build)."""
+    if not log:
+        return None
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and fragment in line:
+            block = []
+            for nxt in lines[i + 1 :]:
+                if "Compiling entry function" in nxt:
+                    break
+                block.append(nxt)
+            text = "\n".join(block)
+            num = lambda pat: int(m.group(1)) if (m := re.search(pat, text)) else None  # noqa: E731
+            return dict(
+                registers=num(r"Used (\d+) registers"),
+                stack_bytes=num(r"(\d+) bytes stack frame"),
+                spill_store_bytes=num(r"(\d+) bytes spill stores"),
+                spill_load_bytes=num(r"(\d+) bytes spill loads"),
+            )
+    raise AssertionError(f"no ptxas entry for {fragment} in the build log")
+
+
+# rk4_coop_kernel<float> and <__nv_bfloat16>, as mangled in the build log
+COOP_MANGLED = {
+    torch.float32: "rk4_coop_kernelIf",
+    torch.bfloat16: "rk4_coop_kernelI13__nv_bfloat16",
+}
+
+
+def launch_config(w_dtype):
+    """The work split rk4_chunk / rk4_fused launch at the padded serving
+    shape, with the kernel's resources."""
+    split = sto_step.coop_launch_config(
+        ops._round_up(N, ops.BLOCK_N), E, w_dtype, torch.device("cuda")
+    )
+    return dict(
+        blocks=split.blocks,
+        cluster=split.cluster,
+        slices=split.cluster,
+        clusters=split.clusters,
+        tile_rows=split.rows,
+        tiles=split.items,
+        rounds=split.rounds,
+        dynamic_smem_bytes=sto_step.coop_smem_bytes(w_dtype),
+        ptxas=ptxas_info(_build.BUILD_LOG, COOP_MANGLED[w_dtype]),
+    )
+
+
 def kernel_inputs(dev):
     """The serving path's padded operands: N=2500 -> 2560, E=256."""
     g = torch.Generator().manual_seed(0)
@@ -201,6 +269,42 @@ def kernel_inputs(dev):
     mask[4:, 64:96] = 0
     mask[:4, 96:128] = 0
     return [t.to(dev).contiguous() for t in (m, w, pv, h, mask)]
+
+
+def coupling_check(label, kern, plain, w_k, atol=None):
+    """The coupling product's share of the result, f(W) - f(0), kernel vs
+    plain version (COUPLING_RTOL); then the plain version with a fault
+    planted in the product (none of it; the last rank's contraction slice
+    of the launch's split dropped, or summed twice) must fail this measure,
+    which shows it can see a split fault, and, where `atol` is given, the
+    row's absolute tolerance too. Over one hold window (rk4_fused) a dropped
+    slice moves the state by less than STATE_ATOL, so there only the
+    coupling measure can see it."""
+    n_p = w_k.shape[0]
+    split = sto_step.coop_launch_config(n_p, E, w_k.dtype, torch.device("cuda"))
+    zero = torch.zeros_like(w_k)
+    p0 = plain(zero)
+    d_plain = plain(w_k) - p0
+    scale = d_plain.abs().max().item()
+    rel = lambda d: (d - d_plain).abs().max().item() / scale  # noqa: E731
+    err = rel(kern(w_k) - kern(zero))
+    assert err <= COUPLING_RTOL, f"{label}: coupling share differs by {err} (relative)"
+    k0, k1 = next(sto_step.coop_block_work(split, n_p, E, split.cluster - 1)).k
+    faults = {}
+    for fault, gain in (("coupling dropped", None), ("last slice dropped", 0.0),
+                        ("last slice summed twice", 2.0)):
+        w_f = zero if gain is None else w_k.clone()
+        if gain is not None:
+            w_f[:, k0:k1] *= gain
+        d = plain(w_f) - p0
+        faults[fault] = dict(coupling_rel_err=rel(d), max_abs_err=(d - d_plain).abs().max().item())
+        assert faults[fault]["coupling_rel_err"] > COUPLING_RTOL, (label, fault, faults[fault])
+        assert atol is None or faults[fault]["max_abs_err"] > atol, (label, fault, faults[fault])
+    return dict(coupling_rel_err=err, coupling_max=scale, coupling_faults=faults)
+
+
+def _flat(*ts):
+    return torch.cat([t.flatten() for t in ts])
 
 
 def check_kernels(name):
@@ -228,6 +332,12 @@ def check_kernels(name):
             "lanes admitted at tick 4 moved before it"
         )
         assert not torch.equal(sk[4, :, 96:128], m[0, :, 96:128]), "admitted lanes never ran"
+        coupling = coupling_check(
+            f"rk4_chunk ({wdt})",
+            lambda w_: _flat(*sto_step.rk4_chunk(m, w_, pv, DT, HOLD, h, mask)),
+            lambda w_: _flat(*kref.rk4_chunk_planes(m, w_, pv, DT, HOLD, h, mask > 0.5)),
+            w_k, tol,
+        )
         gemm = 2.0 * N * N * e * 4 * HOLD * K
         epi = EPILOGUE_FLOPS * N * e * 4 * HOLD * K
         nbytes = N * N * w_k.element_size() + 2 * state_bytes + 10 * e * 4 + 2 * K * plane + K * e * 4
@@ -241,6 +351,10 @@ def check_kernels(name):
             bound_by=b_by,
             library_ms=time_ms(lambda: torch.matmul(w_k, x), 5),
         )
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        row.update(coupling)
+        row["launch"] = launch_config(wdt)
         del x
         if wdt == torch.float32:
             rows["rk4_chunk"] = row
@@ -255,6 +369,12 @@ def check_kernels(name):
     torch.cuda.synchronize()
     err = (mf - mfp).abs().max().item()
     assert err <= STATE_ATOL, f"rk4_fused differs from its plain version by {err}"
+    coupling = coupling_check(
+        "rk4_fused",
+        lambda w_: sto_step.rk4_fused(m, w_, pv, DT, n_inner=HOLD, h_in=h0),
+        lambda w_: kref.rk4_multi_step_planes(m, w_, pv, DT, HOLD, h0),
+        w,
+    )
     gemm = 2.0 * N * N * e * 4 * HOLD
     epi = EPILOGUE_FLOPS * N * e * 4 * HOLD
     nbytes = N * N * 4 + 2 * state_bytes + 10 * e * 4 + plane
@@ -268,7 +388,12 @@ def check_kernels(name):
         bound_by=b_by,
         library_ms=time_ms(lambda: torch.matmul(w, x), 10),
     )
-    print("kernel rk4_fused: " + json.dumps(rows["rk4_fused"]), flush=True)
+    fused = rows["rk4_fused"]
+    fused["share_of_bound"] = fused["bound_ms"] / fused["ms"]
+    fused["vs_library"] = fused["ms"] / fused["library_ms"]
+    fused.update(coupling)
+    fused["launch"] = launch_config(torch.float32)
+    print("kernel rk4_fused: " + json.dumps(fused), flush=True)
 
     # -- field_tiled at c = 0, dt/2, dt --------------------------------------
     kprev = kref.llg_field_planes(m, w, pv, h0)

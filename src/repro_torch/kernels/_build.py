@@ -42,8 +42,14 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "sto_tile_n": ((), _I),
     "sto_tile_e": ((), _I),
+    "sto_coop_rows": ((_I,), _I),
+    "sto_coop_slice": ((), _I),
+    "sto_coop_lanes": ((), _I),
+    "sto_coop_max_cluster": ((), _I),
+    "sto_coop_smem": ((_I,), _I),
+    "sto_coop_max_clusters": ((_I, _I), _I),
     "sto_rk4_coop": (
-        (_I, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+        (_I, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
         _I,
     ),
     "sto_field_tiled": ((_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P), _I),

@@ -8,6 +8,11 @@ the Pallas kernel of the same name in the reference's kernels/sto_step.py:
    frozen lane comes back bit-identical) and the per-tick x-plane states.
 2. `rk4_fused`  (small/medium N): n_inner RK4 steps under a constant input
    drive in one cooperative launch.
+   Both launch `rk4_coop_kernel` with the work split of `coop_split`:
+   thread-block clusters that each sum one output tile (64 rows for an f32
+   W, 128 for a bf16 W, x 256 lanes), one contraction slice per block;
+   `coop_block_work` says what each block computes, in the kernel's own
+   formulas.
 3. `field_tiled` (large N): one LLG slope per (N-row, E) tile, one launch per
    RK4 stage; `rk4_tiled_step` does the stage algebra and the RK4 combine
    in torch around four launches.
@@ -27,7 +32,9 @@ rounded once to f32.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Callable, Iterator
 
 import torch
 
@@ -40,6 +47,14 @@ from repro_torch.kernels.ref import NP
 # kernels take N and E padded to multiples of these (kernels/ops.py pads).
 TILE_N = 64
 TILE_E = 64
+# rk4_coop_kernel (Product<WT>::ROWS, SLICE, CO_LANES, MAX_CLUSTER in
+# csrc/sto_rk4.cu): an output tile is COOP_ROWS[W dtype] rows x COOP_LANES
+# lanes, the contraction is cut into slices of whole SLICE units, and a
+# cluster has at most MAX_CLUSTER blocks (the portable cluster size).
+COOP_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+SLICE = 64
+COOP_LANES = 256
+MAX_CLUSTER = 8
 
 
 def _field_planes(mx, my, mz, hx, p):
@@ -111,10 +126,18 @@ def _check_tiles(name: str, n: int, e: int, block_n: int, block_e: int) -> None:
 def _lib():
     """The kernel library, built on first use; its tiles must be ours."""
     lib = _build.load()
-    if (lib.sto_tile_n(), lib.sto_tile_e()) != (TILE_N, TILE_E):
+    theirs = (
+        lib.sto_tile_n(), lib.sto_tile_e(), lib.sto_coop_rows(0), lib.sto_coop_rows(1),
+        lib.sto_coop_slice(), lib.sto_coop_lanes(), lib.sto_coop_max_cluster(),
+    )
+    ours = (
+        TILE_N, TILE_E, COOP_ROWS[torch.float32], COOP_ROWS[torch.bfloat16], SLICE,
+        COOP_LANES, MAX_CLUSTER,
+    )
+    if theirs != ours:
         raise RuntimeError(
-            f"csrc/sto_rk4.cu tiles ({lib.sto_tile_n()}, {lib.sto_tile_e()}) differ "
-            f"from sto_step.TILE_N/TILE_E ({TILE_N}, {TILE_E})"
+            f"csrc/sto_rk4.cu tiles {theirs} differ from sto_step's (TILE_N, TILE_E, "
+            f"COOP_ROWS f32/bf16, SLICE, COOP_LANES, MAX_CLUSTER) {ours}"
         )
     return lib
 
@@ -132,20 +155,147 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+# ---------------------------------------------------------------------------
+# The cooperative kernel's work split
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CoopSplit:
+    """How one rk4_coop_kernel launch divides a stage's coupling product.
+
+    `clusters` clusters of `cluster` blocks each; the `items` output tiles
+    (`rows` rows x COOP_LANES lanes) go to the clusters in turn, and rank r
+    of a cluster sums contraction slice r of each of its tiles
+    (`coop_block_work`).
+    """
+
+    cluster: int  # blocks per cluster = contraction slices per tile
+    clusters: int  # clusters launched (co-resident)
+    rows: int  # rows per output tile (COOP_ROWS of the W dtype)
+    col_tiles: int  # lane tiles: ceil(E / COOP_LANES)
+    items: int  # output tiles: ceil(N / rows) x col_tiles
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.clusters
+
+    @property
+    def rounds(self) -> int:
+        return -(-self.items // self.clusters)
+
+
+def coop_split(
+    n: int, e: int, max_clusters: Callable[[int], int], rows: int = COOP_ROWS[torch.float32]
+) -> CoopSplit:
+    """The split for a padded (N, E) and tiles of `rows` rows, given the
+    co-resident clusters of each size (cudaOccupancyMaxActiveClusters on the
+    card).
+
+    The cluster size C is chosen from N alone, so a lane's sums never depend
+    on E: with T = ceil(N / rows) row tiles and U = N / SLICE slice units,
+    C minimises (rounds of T tiles over the co-resident clusters) x (work of
+    one round: the longest slice, ceil(U / C) units of a rows-high tile,
+    plus a quarter of a 64-row unit for the round's tile setup and two
+    cluster barriers), ties to the smaller C (fewer partials to reduce). The
+    lane tiles only add items, taken in rounds. The quarter is the ratio of
+    those per-round phases (~1.6 us) to one f32 slice unit (~6.8 us) that
+    tools/sto_phase_times.py read on an H100; the epilogue, ~12 us a stage
+    at any C there, does not enter.
+    """
+    if n % SLICE or e % TILE_E or n < SLICE or e < TILE_E:
+        raise ValueError(f"coop_split: N={n}, E={e} must be padded to ({SLICE}, {TILE_E})")
+    tiles, units = -(-n // rows), n // SLICE
+    best = None
+    for c in range(1, min(MAX_CLUSTER, units) + 1):
+        resident = max_clusters(c)
+        if resident < 1:
+            continue
+        cost = -(-tiles // min(resident, tiles)) * (4 * (-(-units // c) * rows // SLICE) + 1)
+        if best is None or cost < best[0]:
+            best = (cost, c, resident)
+    if best is None:
+        raise RuntimeError("rk4_coop_kernel: no cluster size fits the card")
+    _, c, resident = best
+    col_tiles = -(-e // COOP_LANES)
+    items = tiles * col_tiles
+    return CoopSplit(
+        cluster=c, clusters=min(resident, items), rows=rows, col_tiles=col_tiles, items=items
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class CoopWork:
+    """One output tile as one block sees it, every stage: it sums W[rows, k]
+    x[k, lanes] over k in `k` into its partial tile, then reduces the rows
+    `reduce_rows` x `lanes` over the cluster's partials and runs the epilogue
+    there. Ranges are half-open."""
+
+    rows: tuple
+    lanes: tuple
+    k: tuple
+    reduce_rows: tuple
+
+
+def coop_block_work(split: CoopSplit, n: int, e: int, block: int) -> Iterator[CoopWork]:
+    """What block `block` of the launch computes each stage, in the formulas
+    of rk4_coop_kernel (csrc/sto_rk4.cu)."""
+    c, rows = split.cluster, split.rows
+    rank, cid = block % c, block // c
+    units = n // SLICE
+    k = (SLICE * (rank * units // c), SLICE * ((rank + 1) * units // c))
+    red = (rank * rows // c, (rank + 1) * rows // c)
+    for item in range(cid, split.items, split.clusters):
+        r0 = (item // split.col_tiles) * rows
+        c0 = (item % split.col_tiles) * COOP_LANES
+        yield CoopWork(
+            rows=(r0, min(r0 + rows, n)),
+            lanes=(c0, min(c0 + COOP_LANES, e)),
+            k=k,
+            reduce_rows=(min(r0 + red[0], n), min(r0 + red[1], n)),  # rows past N are padding
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(w_bf16: bool, device_index: int, cluster: int) -> int:
+    with torch.cuda.device(device_index):
+        count = _lib().sto_coop_max_clusters(int(w_bf16), cluster)
+    if count < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with cudaError {-count}")
+    return count
+
+
+def coop_launch_config(n: int, e: int, w_dtype: torch.dtype, device) -> CoopSplit:
+    """The split rk4_chunk / rk4_fused launch with on `device` for a padded
+    (N, E) and a W of `w_dtype`."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    bf16 = w_dtype == torch.bfloat16
+    return coop_split(n, e, lambda c: _max_clusters(bf16, index, c), COOP_ROWS[w_dtype])
+
+
+def coop_smem_bytes(w_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one rk4_coop_kernel block."""
+    return _lib().sto_coop_smem(int(w_dtype == torch.bfloat16))
+
+
 def _coop_launch(name, m, w_cp, params, dt, steps, h, h_stride, mask, states):
     """One cooperative launch of the shared chunk/fused body; returns m'."""
     _, n, e = m.shape
     m_out = torch.empty_like(m)
     m_out.copy_(m)
+    bf16 = w_cp.dtype == torch.bfloat16
+    # f32 planes: stage x-plane x2 (a bf16 W: one f32 + two bf16), y/z, accumulator x3
     scratch = torch.empty((7, n, e), dtype=m.dtype, device=m.device)
+    split = coop_launch_config(n, e, w_cp.dtype, m.device)
     dt = float(dt)
     lib = _lib()
     err = lib.sto_rk4_coop(
-        int(w_cp.dtype == torch.bfloat16), _ptr(params), _ptr(w_cp), _ptr(h), h_stride,
+        int(bf16), _ptr(params), _ptr(w_cp), _ptr(h), h_stride,
         None if mask is None else _ptr(mask), _ptr(m_out),
         None if states is None else _ptr(states), _ptr(scratch),
         n, e, h.shape[0] if h_stride else 1, steps,
-        dt / 2.0, dt, dt / 6.0, _stream(m.device),
+        dt / 2.0, dt, dt / 6.0, split.cluster, split.clusters, _stream(m.device),
     )
     _raise_on(err, name)
     LAUNCHES[name] += 1

@@ -7,10 +7,14 @@ installed:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: f32 state STATE_ATOL = 5e-5 over one short chunk (FP32 sums in
-another order than cuBLAS); slopes (~1e10 Oe/s) SLOPE_RTOL = 1e-5 relative
-to their largest magnitude; frozen lanes exact.
+Tolerances: state STATE_ATOL = 5e-5 over one short chunk, for an f32 and a
+bf16 W (FP32 sums in another order than cuBLAS); the coupling's share of the
+state, f(W) - f(0), COUPLING_RTOL = 2e-3 relative to its largest magnitude;
+slopes (~1e10 Oe/s) SLOPE_RTOL = 1e-5 relative to their largest magnitude;
+frozen lanes exact.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -33,6 +37,11 @@ def cuda():
     return torch.device("cuda")
 
 
+@functools.lru_cache(maxsize=None)
+def _coupling(n, seed):
+    return coupling.make_coupling_matrix(n, seed=seed)
+
+
 def _inputs(dev, n=128, e=64, k=3, seed=0):
     """Operands at kernel tiles; lane 0 frozen all chunk, lane 1 retired and
     lane 2 admitted mid-chunk."""
@@ -40,7 +49,7 @@ def _inputs(dev, n=128, e=64, k=3, seed=0):
     m = rng.normal(size=(3, n, e))
     m[2] += 3.0
     m /= np.linalg.norm(m, axis=0, keepdims=True)
-    w = coupling.make_coupling_matrix(n, seed=seed)
+    w = _coupling(n, seed)
     params = broadcast_params(
         constants.default_params(torch.float64, device="cpu"), e,
         current=rng.uniform(2e-3, 3e-3, e),
@@ -77,6 +86,126 @@ def test_rk4_fused_matches_plain(cuda):
     out = sto_step.rk4_fused(m, w, pv, DT, n_inner=5, h_in=h[0].contiguous())
     ref = kref.rk4_multi_step_planes(m, w, pv, DT, 5, h[0])
     assert (out - ref).abs().max().item() <= STATE_ATOL
+
+
+# The cooperative kernel's work split (sto_step.coop_split) changes with N.
+# On an H100 SXM, f32 / bf16 W: one block (N = 64); clusters of 5 with one
+# 64-row unit each (320); 8 in three rounds of tiles / 5 (2560); 2 / 3
+# (4096). N = 320 ends in a ragged 128-row bf16 tile; E = 320 adds a second,
+# 64-lane tile.
+SPLIT_N = (64, 320, 2560, 4096)
+SPLIT_E = (64, 320)
+W_DTYPES = (torch.float32, torch.bfloat16)
+# The coupling moves these states by ~1.3e-3 over a chunk, and f32 rounding
+# moves that share by ~2e-4 of itself (a float64 run of the plain version
+# on the CPU), while a contraction slice dropped or summed twice moves it
+# by 0.4 of itself or more.
+COUPLING_RTOL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("w_dtype", W_DTYPES)
+@pytest.mark.parametrize("e", SPLIT_E)
+@pytest.mark.parametrize("n", SPLIT_N)
+def test_rk4_chunk_split_matches_plain(cuda, n, e, w_dtype, k):
+    m, w, pv, h, mask = _inputs(cuda, n=n, e=e, k=k)
+    w = w.to(w_dtype)
+    mk, sk = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
+    mp, sp = kref.rk4_chunk_planes(m, w, pv, DT, 2, h, mask > 0.5)
+    assert (mk - mp).abs().max().item() <= STATE_ATOL
+    assert (sk - sp).abs().max().item() <= STATE_ATOL
+    assert torch.equal(mk[:, :, 0], m[:, :, 0])  # frozen all chunk
+    if k == 1:
+        assert torch.equal(mk[:, :, 1], m[:, :, 1])  # retired from tick 0
+    else:
+        assert torch.equal(sk[2, :, 1], sk[0, :, 1])  # retired after tick 0
+        assert torch.equal(sk[0, :, 2], m[0, :, 2])  # admitted at tick 1
+        assert not torch.equal(sk[2, :, 2], m[0, :, 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_inner", [1, 3])
+@pytest.mark.parametrize("w_dtype", W_DTYPES)
+@pytest.mark.parametrize("e", SPLIT_E)
+@pytest.mark.parametrize("n", SPLIT_N)
+def test_rk4_fused_split_matches_plain(cuda, n, e, w_dtype, n_inner):
+    m, w, pv, h, _ = _inputs(cuda, n=n, e=e, k=1)
+    w = w.to(w_dtype)
+    out = sto_step.rk4_fused(m, w, pv, DT, n_inner=n_inner, h_in=h[0])
+    ref = kref.rk4_multi_step_planes(m, w, pv, DT, n_inner, h[0])
+    assert (out - ref).abs().max().item() <= STATE_ATOL
+
+
+def _flat(*ts):
+    return torch.cat([t.flatten() for t in ts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rk4_chunk", "rk4_fused"])
+@pytest.mark.parametrize("w_dtype", W_DTYPES)
+@pytest.mark.parametrize("n", SPLIT_N)
+def test_coupling_term_matches_plain(cuda, n, w_dtype, kernel):
+    """f(W) - f(0), kernel against plain version: the coupling product's
+    share of the state alone, so a fault of the split (a slice dropped or
+    summed twice, a partial on the wrong rows or lanes) cannot hide under
+    the LLG's own motion. The plain version with the last rank's slice
+    dropped fails the same measure."""
+    m, w, pv, h, mask = _inputs(cuda, n=n, e=320, k=3)
+    w = w.to(w_dtype)
+    if kernel == "rk4_chunk":
+        kern = lambda w_: _flat(*sto_step.rk4_chunk(m, w_, pv, DT, 2, h, mask))  # noqa: E731
+        plain = lambda w_: _flat(*kref.rk4_chunk_planes(m, w_, pv, DT, 2, h, mask > 0.5))  # noqa: E731
+    else:
+        kern = lambda w_: sto_step.rk4_fused(m, w_, pv, DT, n_inner=3, h_in=h[0])  # noqa: E731
+        plain = lambda w_: kref.rk4_multi_step_planes(m, w_, pv, DT, 3, h[0])  # noqa: E731
+    zero = torch.zeros_like(w)
+    d_plain = plain(w) - plain(zero)
+    scale = d_plain.abs().max()
+    rel = lambda d: ((d - d_plain).abs().max() / scale).item()  # noqa: E731
+    assert rel(kern(w) - kern(zero)) <= COUPLING_RTOL
+    split = sto_step.coop_launch_config(n, 320, w_dtype, cuda)
+    k0, k1 = next(sto_step.coop_block_work(split, n, 320, split.cluster - 1)).k
+    dropped = w.clone()
+    dropped[:, k0:k1] = 0
+    assert rel(plain(dropped) - plain(zero)) > 100 * COUPLING_RTOL
+
+
+def _lanes(t, e):
+    return t[..., :e].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", W_DTYPES)
+@pytest.mark.parametrize("n", [320, 2560])
+def test_lanes_independent_of_launch_width(cuda, n, w_dtype):
+    """Lanes 0-63 of an E = 256 launch equal the same lanes run alone in an
+    E = 64 launch, bit for bit: the contraction split follows N, not E."""
+    m, w, pv, h, mask = _inputs(cuda, n=n, e=256, k=3)
+    w = w.to(w_dtype)
+    wide = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
+    narrow = sto_step.rk4_chunk(
+        _lanes(m, 64), w, _lanes(pv, 64), DT, 2, _lanes(h, 64), _lanes(mask, 64)
+    )
+    assert torch.equal(_lanes(wide[0], 64), narrow[0])
+    assert torch.equal(_lanes(wide[1], 64), narrow[1])
+    fw = sto_step.rk4_fused(m, w, pv, DT, n_inner=2, h_in=h[0])
+    fn = sto_step.rk4_fused(_lanes(m, 64), w, _lanes(pv, 64), DT, n_inner=2, h_in=_lanes(h[0], 64))
+    assert torch.equal(_lanes(fw, 64), fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", W_DTYPES)
+def test_reruns_are_bit_identical(cuda, w_dtype):
+    m, w, pv, h, mask = _inputs(cuda, n=2560, e=320, k=3)
+    w = w.to(w_dtype)
+    first = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
+    second = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(
+        sto_step.rk4_fused(m, w, pv, DT, n_inner=3, h_in=h[0]),
+        sto_step.rk4_fused(m, w, pv, DT, n_inner=3, h_in=h[0]),
+    )
 
 
 @pytest.mark.cuda
