@@ -12,22 +12,36 @@ on failure:
    shapes the serving path gives it (N=2500 padded to 2560, E=256,
    hold_steps=5, K=8, W from make_coupling_matrix(2500, seed=0)): rk4_chunk
    with lanes frozen, retired and admitted mid-chunk (and again with a bf16
-   W), rk4_fused with n_inner=5, field_tiled at c = 0, dt/2 and dt. Prints
-   each kernel's error, its time, the plain version's time, one torch.matmul
-   over the same coupling products (a yardstick only) and the bound; for
-   rk4_chunk and rk4_fused also the share of the bound, the time over the
-   library's, the launch configuration of the work split (blocks, cluster
-   size = contraction slices, tile rows, rounds) and ptxas's registers,
-   stack and spills for the kernel, read from the build log. Each of these
-   rows is held a second time on the coupling's share of the state alone,
-   f(W) - f(0), and a plain version with a fault planted in the product
-   (none of it; one contraction slice of the split dropped or summed twice)
-   must fail that measure (and, for rk4_chunk, the row's atol).
+   W), rk4_fused with n_inner=5, field_tiled at c = 0, dt/2 and dt with an
+   f32 and a bf16 W, and again at the paper's largest N = 10^4 (padded to
+   10048; W made on the card from a torch.Generator, zero diagonal, scaled
+   like make_coupling_matrix), and one rk4_tiled_step (four field_tiled
+   launches with the stage algebra in their epilogue) at N = 2500 for each
+   W. Prints each kernel's error, its time, the plain version's time, one
+   torch.matmul over the same coupling products (a yardstick only) and the
+   bound, the share of the bound, the time over the library's, the launch
+   configuration of the work split (blocks, cluster size = contraction
+   slices, tile rows, rounds or waves) and ptxas's registers, stack and
+   spills for the kernel, read from the build log; for rk4_tiled_step its
+   time beside four field_tiled launches; round_bf16_kernel (the bf16
+   operand of a bf16-W stage) bit-equal to torch's cast. The field_tiled,
+   rk4_tiled_step and round_bf16 rows (and their plain and library calls)
+   are timed with the calls queued back to back behind a device-side sleep
+   that must outlast the host's queuing, the card's time without the
+   host's between launches (queued_ms), and per call too (single_call_ms);
+   the others per call with CUDA events (time_ms). Each STO row is held a
+   second time on the coupling's share of the result alone, f(W) - f(0),
+   and a plain version with a fault planted in the product (none of it;
+   one contraction slice of the split dropped or summed twice) must fail
+   that measure (and, for rk4_chunk, the row's atol).
 3. Serve 512 NARMA-10 sessions (16-40 ticks, per-tenant params on some
    lanes, a readout on every session) through ReservoirEngine with
-   backend chunk, fused and tiled, launch counters set to 0 before each run
-   and read after it; check every result is finite and the chunk run
-   against an interpret=True run (the plain versions) of the same engine.
+   backend chunk, fused and tiled, and tiled again with a bf16 coupling
+   (precision="bf16_coupling", which launches round_bf16), launch counters
+   set to 0 before each run and read after it; check every result is
+   finite, and the chunk and the tiled runs against interpret=True runs (the
+   plain versions) of the same engine. Prints what impl="auto" resolves to
+   at N = 2500, E = 256.
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -89,12 +103,14 @@ from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from repro_torch.serve.reservoir import ReservoirEngine, StreamSession  # noqa: E402
 
 N, E, HOLD, K = 2500, 256, 5, 8
+N_LARGE = 10000  # the paper's largest reservoir (its 23.8x GPU factor)
 DT = constants.DT
 SESSIONS = 512
 SOURCE = {
     "rk4_chunk": "src/repro_torch/kernels/csrc/sto_rk4.cu",
     "rk4_fused": "src/repro_torch/kernels/csrc/sto_rk4.cu",
     "field_tiled": "src/repro_torch/kernels/csrc/sto_rk4.cu",
+    "round_bf16": "src/repro_torch/kernels/csrc/sto_rk4.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 # the Pallas kernel each CUDA kernel replaces
@@ -102,9 +118,11 @@ REPLACES = {
     "rk4_chunk": "src/repro/kernels/sto_step.py:237",
     "rk4_fused": "src/repro/kernels/sto_step.py:95",
     "field_tiled": "src/repro/kernels/sto_step.py:167",
+    # the bf16 cast of the stage x-plane inside _field_tiled_kernel
+    "round_bf16": "src/repro/kernels/sto_step.py:185",
     "flash_attention": "src/repro/kernels/flash_attention.py:35",
 }
-STO_KERNELS = ("rk4_chunk", "rk4_fused", "field_tiled")
+STO_KERNELS = ("rk4_chunk", "rk4_fused", "field_tiled", "round_bf16")
 # tolerances, kernel vs plain version on the same inputs:
 STATE_ATOL = 1e-4  # f32 state over one chunk (FP32 sums in another order)
 # bf16-W state: both versions round the x-plane operand to bf16 and sum the
@@ -118,6 +136,11 @@ BF16_ATOL = 1e-5
 # contraction slice dropped or summed twice moves it by ~0.4 of itself
 COUPLING_RTOL = 2e-3
 SLOPE_RTOL = 1e-5  # field_tiled slopes (~1e10 Oe/s) relative to their max
+# The coupling's share of field_tiled's slopes (~2.4e7 of ~1e10 Oe/s) and of
+# one rk4_tiled_step's state (~2.4e-4) is held to COUPLING_RTOL as well: f32
+# rounding moves those shares by ~1.4e-4 and ~3.1e-4 of themselves (a
+# float64 run of the plain versions on the CPU, either W), a contraction
+# slice dropped by ~1/C.
 # flash attention vs its plain version: bf16 3e-2 (the reference's bf16
 # flash test; bf16 probabilities in P.V), f32 5e-6 (its f32 tests); and per
 # row, max|err| / max|plain| (row_rel_err): in bf16 the two may round the
@@ -151,6 +174,9 @@ FLASH_CASES = (
 # logits flips far more steps than rounding does.
 LOGIT_MARGIN = 0.05
 MAX_OFF_ARGMAX = 0.03
+# device-side sleep ahead of a queued timing (queued_ms): ~20 ms at the
+# H100's 1.98 GHz, longer than the host takes to queue the timed calls
+SLEEP_CYCLES = 40_000_000
 # LLG epilogue + stage algebra, FLOPs per (oscillator, lane, stage)
 EPILOGUE_FLOPS = 60
 # published peaks (NVIDIA H100 data sheet, dense): FP32 outside the tensor
@@ -200,6 +226,48 @@ def time_ms(fn, reps):
     return sorted(times)[len(times) // 2]
 
 
+def queued_ms(fn, reps, batches=3):
+    """ms per call of fn, the card's time: `reps` calls queued back to back
+    behind a device-side sleep (torch.cuda._sleep), so the card runs them
+    without waiting for the host between launches; the median of `batches`
+    batches, after one untimed call. A batch counts only if the card was
+    still asleep when the host had queued its last call (the event after the
+    sleep not yet reached); otherwise it runs again behind a sleep twice as
+    long, and after four doublings this raises. Returns (ms per call, the
+    host's ms to queue one call, the longest sleep's ms): host x reps stays
+    under the sleep. A full launch queue (~1000 launches) stalls the host as
+    well, so reps x the launches of one call stay below that."""
+    fn()
+    torch.cuda.synchronize()
+    times, host, slept = [], [], []
+    cycles = SLEEP_CYCLES
+    for _ in range(batches):
+        while True:
+            asleep, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            asleep.record()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            queued = time.perf_counter() - t0
+            woke = start.query()
+            stop.record()
+            stop.synchronize()
+            if not woke:
+                break
+            assert cycles < 16 * SLEEP_CYCLES, (
+                f"queuing {reps} calls took the host {1e3 * queued:.3f} ms, longer than a "
+                f"{asleep.elapsed_time(start):.3f} ms sleep"
+            )
+            cycles *= 2
+        host.append(1e3 * queued / reps)
+        slept.append(asleep.elapsed_time(start))
+        assert host[-1] * reps < slept[-1], (host[-1], reps, slept[-1])
+        times.append(start.elapsed_time(stop) / reps)
+    return sorted(times)[batches // 2], max(host), max(slept)
+
+
 def ptxas_info(log, fragment):
     """Registers, stack and spills ptxas printed for the entry function whose
     mangled name holds `fragment`; None without a build log (cached build)."""
@@ -224,10 +292,15 @@ def ptxas_info(log, fragment):
     raise AssertionError(f"no ptxas entry for {fragment} in the build log")
 
 
-# rk4_coop_kernel<float> and <__nv_bfloat16>, as mangled in the build log
+# rk4_coop_kernel<float> and <__nv_bfloat16>, field_stage_kernel<...>, as
+# mangled in the build log
 COOP_MANGLED = {
     torch.float32: "rk4_coop_kernelIf",
     torch.bfloat16: "rk4_coop_kernelI13__nv_bfloat16",
+}
+FIELD_MANGLED = {
+    torch.float32: "field_stage_kernelIf",
+    torch.bfloat16: "field_stage_kernelI13__nv_bfloat16",
 }
 
 
@@ -247,6 +320,23 @@ def launch_config(w_dtype):
         rounds=split.rounds,
         dynamic_smem_bytes=sto_step.coop_smem_bytes(w_dtype),
         ptxas=ptxas_info(_build.BUILD_LOG, COOP_MANGLED[w_dtype]),
+    )
+
+
+def field_launch_config(n_p, w_dtype):
+    """The work split field_tiled / rk4_tiled_step launch at a padded N."""
+    split = sto_step.field_launch_config(n_p, E, w_dtype, torch.device("cuda"))
+    return dict(
+        blocks=split.blocks,
+        cluster=split.cluster,
+        slices=split.cluster,
+        clusters=split.clusters,
+        resident_clusters=split.resident,
+        tile_rows=split.rows,
+        tiles=split.items,
+        waves=split.waves,
+        dynamic_smem_bytes=sto_step.field_smem_bytes(w_dtype),
+        ptxas=ptxas_info(_build.BUILD_LOG, FIELD_MANGLED[w_dtype]),
     )
 
 
@@ -271,7 +361,29 @@ def kernel_inputs(dev):
     return [t.to(dev).contiguous() for t in (m, w, pv, h, mask)]
 
 
-def coupling_check(label, kern, plain, w_k, atol=None):
+def device_inputs(n_p, n, dev, seed=0):
+    """Operands for n oscillators padded to n_p, made on the card from a
+    torch.Generator: W zero on the diagonal and past n, U[-1, 1] elsewhere
+    scaled by sqrt(3 / n), which puts its spectral radius near 1 by the
+    circular law (make_coupling_matrix reaches 1 through eigenvalues; a
+    kernel's time does not depend on W's spectrum); m near the initial
+    state; default params; a drive h in [0, 0.5). Returns (m (3, n_p, E), W,
+    params, h (n_p, E))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.zeros((n_p, n_p), device=dev)
+    w[:n, :n] = (2.0 * torch.rand((n, n), generator=g, device=dev) - 1.0) * math.sqrt(3.0 / n)
+    w.fill_diagonal_(0.0)
+    m = constants.initial_magnetization(n, device=dev).expand(E, n, 3)
+    m = m + 0.05 * torch.randn((E, n, 3), generator=g, device=dev)
+    m = ops.to_planes(m / m.norm(dim=-1, keepdim=True))
+    m = torch.nn.functional.pad(m, (0, 0, 0, n_p - n)).contiguous()
+    pv = kref.pack_params(constants.default_params(device=dev), E).contiguous()
+    h = torch.zeros((n_p, E), device=dev)
+    h[:n] = 0.5 * torch.rand((n, E), generator=g, device=dev)
+    return m, w, pv, h
+
+
+def coupling_check(label, kern, plain, w_k, atol=None, launch_config=None):
     """The coupling product's share of the result, f(W) - f(0), kernel vs
     plain version (COUPLING_RTOL); then the plain version with a fault
     planted in the product (none of it; the last rank's contraction slice
@@ -279,9 +391,11 @@ def coupling_check(label, kern, plain, w_k, atol=None):
     which shows it can see a split fault, and, where `atol` is given, the
     row's absolute tolerance too. Over one hold window (rk4_fused) a dropped
     slice moves the state by less than STATE_ATOL, so there only the
-    coupling measure can see it."""
+    coupling measure can see it. `launch_config` gives the split (the
+    cooperative kernel's by default)."""
     n_p = w_k.shape[0]
-    split = sto_step.coop_launch_config(n_p, E, w_k.dtype, torch.device("cuda"))
+    config = launch_config or sto_step.coop_launch_config
+    split = config(n_p, E, w_k.dtype, torch.device("cuda"))
     zero = torch.zeros_like(w_k)
     p0 = plain(zero)
     d_plain = plain(w_k) - p0
@@ -395,33 +509,176 @@ def check_kernels(name):
     fused["launch"] = launch_config(torch.float32)
     print("kernel rk4_fused: " + json.dumps(fused), flush=True)
 
-    # -- field_tiled at c = 0, dt/2, dt --------------------------------------
+    # -- field_tiled (f32, bf16 W) and rk4_tiled_step at N = 2500 ------------
+    rows["field_tiled"] = field_rows(name, m, w, pv, h0, N, step=True)
+    rows["round_bf16"] = round_row(name, m[0].contiguous())
+    # the tiled impl over one chunk through ops: lanes frozen, retired, admitted
+    args = (m, w, pv, DT, HOLD, h, mask > 0.5)
+    mt, st = ops.sto_rk4_tick_chunk_planes(*args, impl="tiled")
+    mp, sp = ops.sto_rk4_tick_chunk_planes(*args, impl="tiled", interpret=True)
+    torch.cuda.synchronize()
+    err = max((mt - mp).abs().max().item(), (st - sp).abs().max().item())
+    assert err <= STATE_ATOL, f"tiled chunk differs from its plain version by {err}"
+    assert torch.equal(mt[:, :, :64], m[:, :, :64]), "tiled: frozen lanes changed"
+    assert all(torch.equal(st[t, :, 64:96], st[3, :, 64:96]) for t in range(4, K)), (
+        "tiled: lanes retired after tick 3 moved"
+    )
+    assert all(torch.equal(st[t, :, 96:128], m[0, :, 96:128]) for t in range(4)), (
+        "tiled: lanes admitted at tick 4 moved before it"
+    )
+    rows["field_tiled"]["tiled_chunk"] = dict(max_abs_err=err, atol=STATE_ATOL, frozen_lanes="exact")
+    print("tiled chunk (K=8, hold 5) vs plain: " + json.dumps(rows["field_tiled"]["tiled_chunk"]),
+          flush=True)
+    del mt, st, mp, sp
+    del m, w, pv, h, mask, h0
+    torch.cuda.empty_cache()
+    # -- field_tiled at the paper's largest N ----------------------------------
+    n_p = ops._round_up(N_LARGE, ops.BLOCK_N)
+    m, w, pv, h = device_inputs(n_p, N_LARGE, dev)
+    large = field_rows(name, m, w, pv, h, N_LARGE, step=False)
+    rows["field_tiled"][f"n{N_LARGE}"] = large
+    rows["field_tiled"][f"n{N_LARGE}_bf16_w"] = large.pop("bf16_w")
+    del m, w, pv, h
+    torch.cuda.empty_cache()
+    return rows
+
+
+def field_rows(name, m, w, pv, h0, n, step):
+    """field_tiled at c = 0, dt/2 and dt for an f32 and a bf16 W at n
+    oscillators (m, W, h padded), each held against its plain version by
+    SLOPE_RTOL and by the coupling's share, timed, with its bound and split;
+    with `step`, one rk4_tiled_step too, held by STATE_ATOL (f32) or
+    BF16_ATOL and the coupling's share, and timed beside four field_tiled
+    launches. Returns the f32 row with the bf16 row under "bf16_w"."""
+    e, n_p = E, m.shape[1]
     kprev = kref.llg_field_planes(m, w, pv, h0)
-    errs, rel = [], []
-    for c in (0.0, 0.5 * DT, DT):
-        yx = (m[0] + c * kprev[0]).contiguous()
-        kt = sto_step.field_tiled(m, yx, kprev, w, pv, c, h_in=h0)
-        ktp = sto_step.field_tiled_plain(m, yx, kprev, w, pv, c, h0)
-        torch.cuda.synchronize()
-        errs.append((kt - ktp).abs().max().item())
-        rel.append(errs[-1] / ktp.abs().max().item())
-        assert rel[-1] <= SLOPE_RTOL, f"field_tiled (c={c}) differs by {rel[-1]} (relative)"
     yx = (m[0] + 0.5 * DT * kprev[0]).contiguous()
-    gemm = 2.0 * N * N * e
-    epi = EPILOGUE_FLOPS * N * e
-    nbytes = N * N * 4 + 3 * state_bytes + 2 * plane + 10 * e * 4
-    b_ms, b_by = bound_ms(name, gemm, epi, nbytes, False)
-    rows["field_tiled"] = dict(
-        max_abs_err=max(errs),
-        max_rel_err=max(rel),
-        ms=time_ms(lambda: sto_step.field_tiled(m, yx, kprev, w, pv, 0.5 * DT, h_in=h0), 20),
-        plain_ms=time_ms(lambda: sto_step.field_tiled_plain(m, yx, kprev, w, pv, 0.5 * DT, h0), 10),
+    out = {}
+    for wdt in (torch.float32, torch.bfloat16):
+        label = f"field_tiled N={n} W={str(wdt).split('.')[-1]}"
+        w_k = w.to(wdt)
+        errs, rel = [], []
+        for c in (0.0, 0.5 * DT, DT):
+            yc = (m[0] + c * kprev[0]).contiguous()
+            kt = sto_step.field_tiled(m, yc, kprev, w_k, pv, c, h_in=h0)
+            ktp = sto_step.field_tiled_plain(m, yc, kprev, w_k, pv, c, h0)
+            torch.cuda.synchronize()
+            errs.append((kt - ktp).abs().max().item())
+            rel.append(errs[-1] / ktp.abs().max().item())
+            assert rel[-1] <= SLOPE_RTOL, f"{label} (c={c}) differs by {rel[-1]} (relative)"
+        del kt, ktp, yc
+        coupling = coupling_check(
+            label,
+            lambda w_: sto_step.field_tiled(m, yx, kprev, w_, pv, 0.5 * DT, h_in=h0),
+            lambda w_: sto_step.field_tiled_plain(m, yx, kprev, w_, pv, 0.5 * DT, h0),
+            w_k, launch_config=sto_step.field_launch_config,
+        )
+        # one stage: W, m, k_prev and the drive and x-plane read, k written
+        gemm, epi = 2.0 * n * n * e, EPILOGUE_FLOPS * n * e
+        nbytes = n * n * w_k.element_size() + 3 * (3 * n * e * 4) + 2 * n * e * 4 + 10 * e * 4
+        b_ms, b_by = bound_ms(name, gemm, epi, nbytes, wdt == torch.bfloat16)
+        x = yx.to(wdt)
+        kern = lambda: sto_step.field_tiled(m, yx, kprev, w_k, pv, 0.5 * DT, h_in=h0)  # noqa: E731
+        before = sto_step.LAUNCHES["round_bf16"]
+        kern()
+        rounds = sto_step.LAUNCHES["round_bf16"] - before
+        assert rounds == (wdt == torch.bfloat16), f"{label}: round_bf16 launched {rounds} times"
+        ms, host_ms, sleep_ms = queued_ms(kern, 50)
+        row = dict(
+            max_abs_err=max(errs),
+            max_rel_err=max(rel),
+            ms=ms,
+            plain_ms=queued_ms(
+                lambda: sto_step.field_tiled_plain(m, yx, kprev, w_k, pv, 0.5 * DT, h0), 10
+            )[0],
+            bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=queued_ms(lambda: torch.matmul(w_k, x), 50)[0],
+            timing="queued_ms: 50 calls behind a device-side sleep",
+            host_queue_ms=host_ms,
+            sleep_ms=sleep_ms,
+            single_call_ms=time_ms(kern, 20),
+        )
+        # the tensor-rate operations beside a bytes bound (bf16)
+        row["ops_bound_ms"] = 1e3 * (gemm / peaks(name)[1 if wdt == torch.bfloat16 else 0]
+                                     + epi / peaks(name)[0])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        row.update(coupling)
+        row["launch"] = field_launch_config(n_p, wdt)
+        del x
+        if step:
+            tol = STATE_ATOL if wdt == torch.float32 else BF16_ATOL
+            before = dict(sto_step.LAUNCHES)
+            st = sto_step.rk4_tiled_step(m, w_k, pv, DT, h_in=h0)
+            launches = sto_step.LAUNCHES["field_tiled"] - before["field_tiled"]
+            rounds = sto_step.LAUNCHES["round_bf16"] - before["round_bf16"]
+            sp = sto_step.rk4_tiled_step_plain(m, w_k, pv, DT, h0)
+            torch.cuda.synchronize()
+            err = (st - sp).abs().max().item()
+            assert err <= tol, f"rk4_tiled_step W={wdt} differs from its plain version by {err}"
+            assert launches == 4, f"rk4_tiled_step launched field_tiled {launches} times"
+            assert rounds == (wdt == torch.bfloat16), f"rk4_tiled_step: round_bf16 x{rounds}"
+            del st, sp
+            stepc = coupling_check(
+                f"rk4_tiled_step W={wdt}",
+                lambda w_: sto_step.rk4_tiled_step(m, w_, pv, DT, h_in=h0),
+                lambda w_: sto_step.rk4_tiled_step_plain(m, w_, pv, DT, h0),
+                w_k, launch_config=sto_step.field_launch_config,
+            )
+            step_fn = lambda: sto_step.rk4_tiled_step(m, w_k, pv, DT, h_in=h0)  # noqa: E731
+            st_ms, st_host, st_sleep = queued_ms(step_fn, 50)
+            row["rk4_tiled_step"] = dict(
+                max_abs_err=err,
+                atol=tol,
+                field_tiled_launches=launches,
+                round_bf16_launches=rounds,
+                ms=st_ms,
+                four_field_tiled_ms=4 * row["ms"],
+                over_four_field_tiled_us=1e3 * (st_ms - 4 * row["ms"]),
+                # ~170 torch launches a call: 3 calls stay inside the card's launch queue
+                plain_ms=queued_ms(lambda: sto_step.rk4_tiled_step_plain(m, w_k, pv, DT, h0), 3)[0],
+                host_queue_ms=st_host,
+                sleep_ms=st_sleep,
+                single_call_ms=time_ms(step_fn, 20),
+                **stepc,
+            )
+        del w_k
+        print(f"kernel {label}: " + json.dumps(row), flush=True)
+        out[wdt] = row
+    out[torch.float32]["bf16_w"] = out[torch.bfloat16]
+    return out[torch.float32]
+
+
+def round_row(name, x):
+    """round_bf16_kernel on the tiled step's (N, E) x-plane against torch's
+    cast, which also rounds to nearest even: bit-equal. Timed queued, as the
+    field_tiled rows; the plain version and the library call are both
+    x.to(bf16), timed apart."""
+    y = sto_step._round_bf16(x)
+    ref = x.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    assert torch.equal(y, ref), f"round_bf16 differs from torch's cast by {err}"
+    # each value read in f32 and written in bf16; one conversion a value
+    b_ms, b_by = bound_ms(name, 0.0, x.numel(), x.numel() * (4 + 2), False)
+    ms, host_ms, sleep_ms = queued_ms(lambda: sto_step._round_bf16(x), 50)
+    row = dict(
+        max_abs_err=err,
+        ms=ms,
+        plain_ms=queued_ms(lambda: x.to(torch.bfloat16), 50)[0],
         bound_ms=b_ms,
         bound_by=b_by,
-        library_ms=time_ms(lambda: torch.matmul(w, yx), 20),
+        library_ms=queued_ms(lambda: x.to(torch.bfloat16), 50)[0],
+        timing="queued_ms: 50 calls behind a device-side sleep",
+        host_queue_ms=host_ms,
+        sleep_ms=sleep_ms,
+        shape=list(x.shape),
     )
-    print("kernel field_tiled: " + json.dumps(rows["field_tiled"]), flush=True)
-    return rows
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    print("kernel round_bf16: " + json.dumps(row), flush=True)
+    return row
 
 
 def unmasked_pairs(sq, sk, causal, window):
@@ -703,9 +960,10 @@ def make_sessions(rng):
     return sessions
 
 
-def serve(spec, backend, interpret=False):
+def serve(spec, backend, interpret=False, precision=None):
     eng = ReservoirEngine(
-        spec, num_slots=E, chunk_ticks=K, backend=backend, interpret=interpret, device="cuda"
+        spec, num_slots=E, chunk_ticks=K, backend=backend, interpret=interpret,
+        precision=precision, device="cuda",
     )
     sessions = make_sessions(np.random.default_rng(0))
     sto_step.reset_launches()
@@ -745,6 +1003,7 @@ def main():
     for backend, kern in impl_kernel.items():
         results, seconds, launches, sessions = serve(spec, backend)
         assert launches[kern] > 0, f"backend {backend} never launched {kern}: {launches}"
+        assert launches["round_bf16"] == 0, f"f32 W rounded to bf16: {launches}"
         rows[kern]["launches"] = launches[kern]
         served[backend] = results
         print(
@@ -752,25 +1011,45 @@ def main():
             f"{SESSIONS / seconds:.1f} sessions/s, launches {launches} ({name_power})",
             flush=True,
         )
-
-    # the chunk run against the plain versions of the same engine
-    ref, seconds, launches, sessions = serve(spec, "chunk", interpret=True)
-    assert not any(launches.values()), f"interpret run launched kernels: {launches}"
-    worst_state = worst_out = 0.0
-    for sess in sessions:
-        a, b = served["chunk"][sess.sid], ref[sess.sid]
-        ds = np.abs(a.states - b.states).max()
-        dm = np.abs(a.final_m - b.final_m).max()
-        do = np.abs(a.outputs - b.outputs).max()
-        # outputs: |dy| <= ||w_out||_1 * max|dx|
-        out_tol = STATE_ATOL * np.abs(sess.readout.w_out.numpy()).sum()
-        assert max(ds, dm) <= STATE_ATOL, f"session {sess.sid}: chunk vs plain state {ds}, {dm}"
-        assert do <= out_tol, f"session {sess.sid}: chunk vs plain output {do} > {out_tol}"
-        worst_state, worst_out = max(worst_state, ds, dm), max(worst_out, do)
+    # the tiled engine with a bf16 coupling: field_tiled and round_bf16
+    _, seconds, launches, _ = serve(spec, "tiled", precision="bf16_coupling")
+    assert launches["field_tiled"] > 0 and launches["round_bf16"] > 0, launches
+    assert launches["field_tiled"] == 4 * launches["round_bf16"], launches
+    rows["round_bf16"]["launches"] = launches["round_bf16"]
+    rows["field_tiled"]["bf16_w"]["launches"] = launches["field_tiled"]
     print(
-        f"serve chunk vs interpret (plain versions): max |state| diff {worst_state:.3e} "
-        f"(atol {STATE_ATOL}), max |output| diff {worst_out:.3e}; plain run "
-        f"{SESSIONS / seconds:.1f} sessions/s",
+        f"serve backend=tiled precision=bf16_coupling: {SESSIONS} sessions in {seconds:.3f} s = "
+        f"{SESSIONS / seconds:.1f} sessions/s, launches {launches} ({name_power})",
+        flush=True,
+    )
+
+    # the chunk and tiled runs against the plain versions of the same engine
+    for backend in ("chunk", "tiled"):
+        ref, seconds, launches, sessions = serve(spec, backend, interpret=True)
+        assert not any(launches.values()), f"interpret run launched kernels: {launches}"
+        worst_state = worst_out = 0.0
+        for sess in sessions:
+            a, b = served[backend][sess.sid], ref[sess.sid]
+            ds = np.abs(a.states - b.states).max()
+            dm = np.abs(a.final_m - b.final_m).max()
+            do = np.abs(a.outputs - b.outputs).max()
+            # outputs: |dy| <= ||w_out||_1 * max|dx|
+            out_tol = STATE_ATOL * np.abs(sess.readout.w_out.numpy()).sum()
+            assert max(ds, dm) <= STATE_ATOL, (
+                f"session {sess.sid}: {backend} vs plain state {ds}, {dm}"
+            )
+            assert do <= out_tol, f"session {sess.sid}: {backend} vs plain output {do} > {out_tol}"
+            worst_state, worst_out = max(worst_state, ds, dm), max(worst_out, do)
+        print(
+            f"serve {backend} vs interpret (plain versions): max |state| diff {worst_state:.3e} "
+            f"(atol {STATE_ATOL}), max |output| diff {worst_out:.3e}; plain run "
+            f"{SESSIONS / seconds:.1f} sessions/s",
+            flush=True,
+        )
+    print(
+        f"impl='auto' at N={N}, E={E}: f32 W -> {ops.choose_impl(N, E, platform='cuda')}, "
+        f"bf16 W -> {ops.choose_impl(N, E, platform='cuda', precision='bf16_coupling')} "
+        f"(fused_fits_l2: {ops.fused_fits_l2(ops._round_up(N, ops.BLOCK_N), E)})",
         flush=True,
     )
 

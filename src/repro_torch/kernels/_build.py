@@ -30,7 +30,9 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB = None
 # Launches of each kernel in this process (plain-version calls not counted):
 # each wrapper adds one to its entry where it launches its kernel.
-LAUNCHES = {"rk4_chunk": 0, "rk4_fused": 0, "field_tiled": 0, "flash_attention": 0}
+LAUNCHES = {
+    "rk4_chunk": 0, "rk4_fused": 0, "field_tiled": 0, "round_bf16": 0, "flash_attention": 0,
+}
 # what the last build printed (ptxas registers / shared memory / spills);
 # None when the library came from the cache
 BUILD_LOG = None
@@ -52,7 +54,13 @@ _SIGNATURES = {
         (_I, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
         _I,
     ),
-    "sto_field_tiled": ((_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P), _I),
+    "sto_field_smem": ((_I,), _I),
+    "sto_field_max_clusters": ((_I, _I), _I),
+    "sto_field_stage": (
+        (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _P),
+        _I,
+    ),
+    "sto_round_bf16": ((_P, _P, _L, _P), _I),
     "flash_attention_fwd": (
         (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I) + (_L,) * 12 + (_I, _I, _F, _P),
         _I,

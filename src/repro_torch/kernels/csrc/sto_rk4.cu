@@ -76,13 +76,39 @@
 //   the build uses. The launch is cudaLaunchKernelEx with the cooperative and
 //   cluster-dimension attributes.
 //
-// field_tiled (the reference's kernels/sto_step.py `_field_tiled_kernel`)
-//   One ordinary launch per RK4 stage over a (E / TILE_E, N / TILE_N) grid:
-//   k = f(m + c k_prev) with the coupling taken against the caller's full
-//   stage x-plane. The RK4 combine stays in torch (the reference leaves it to
-//   XLA). Same FP32 bound per stage: 2 N^2 E FLOP, 0.48 ms at N=2500, E=256.
-//   A shared-memory-tiled FP32 product with 4 x 4 outputs per thread; its
-//   redesign is later work.
+// field_tiled and rk4_tiled_step (the reference's kernels/sto_step.py
+// `_field_tiled_kernel`, which `rk4_tiled_step` drives): field_stage_kernel
+//   One ordinary launch per RK4 stage computes k = f(m + c k_prev) with the
+//   coupling taken against the whole stage x-plane. Its epilogue also
+//   writes, when asked, the next stage's x-plane m^x + c_next k^x (in W's
+//   type, so a bf16 operand is copied without converting), the running sum
+//   k1 + 2 k2 + 2 k3 (in place) and, at stage 4, m + (dt/6)(sum + k4), in
+//   the reference's left-to-right order: rk4_tiled_step is four launches and
+//   no elementwise torch op, and field_tiled is the same kernel with those
+//   outputs off. For a bf16 W the caller's (or m's) f32 x-plane is first
+//   rounded by round_bf16_kernel.
+//
+//   What bounds one stage (N = 2500 -> 2560, E = 256, 2 N^2 E = 3.2 GFLOP):
+//   - f32 W: FP32 operations on the CUDA cores, 48 us at 67 TFLOP/s;
+//   - bf16 W: bytes, 41 MB (W 12.5 MB and the planes) = 12 us at 3.35 TB/s
+//     (the bf16 tensor rate would take 3 us); at N = 10048 W alone is 202 MB
+//     and streams from HBM every stage.
+//
+//   The design, for those limits: rk4_coop_kernel's split and products with
+//   one output tile per cluster. A cluster of C blocks (C from N alone:
+//   kernels/sto_step.py field_split) owns a 64 x 256 (f32) or 128 x 256
+//   (bf16) tile, so W's rows are read once a stage for all 256 lanes; rank r
+//   sums one contraction slice through the 3-deep cp.async ring (W
+//   evict_first, planes evict_last; bf16 on mma.sync m16n8k16), and the
+//   partials are reduced in rank order in distributed shared memory (no
+//   atomics: reruns are bit-identical and a lane's bits do not depend on
+//   E). Without a grid barrier, the tiles past the co-resident clusters run
+//   in waves. One 8-warp block an SM: two would cap the registers at 128,
+//   where the f32 tile spills. At N = 2560 f32 runs 40 tiles in clusters of
+//   8 (3 waves of 15) and bf16 20 tiles in clusters of 5 (one wave).
+//   What stays open: the FP32 loop's share of the SM's FMA rate (as in
+//   rk4_coop_kernel), the last wave's idle SMs, and mma.sync's per-SM rate
+//   for bf16 at N = 10048 (wgmma).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -126,13 +152,10 @@ __device__ __forceinline__ unsigned long long phase_clock() {
 
 namespace {
 
-constexpr int TILE_N = 64;   // padding multiple of N; field_tiled rows per tile
-constexpr int TILE_E = 64;   // padding multiple of E; field_tiled lanes per tile
-constexpr int TILE_K = 32;   // field_tiled contraction depth per shared-memory stage
-constexpr int THREADS = 256; // field_tiled: 16 x 16 threads, 4 x 4 outputs each
-constexpr int SUB = 16;      // field_tiled thread grid side; outputs are strided by SUB
+constexpr int TILE_N = 64;   // padding multiple of N
+constexpr int TILE_E = 64;   // padding multiple of E
 
-// rk4_coop_kernel
+// rk4_coop_kernel and field_stage_kernel
 constexpr int SLICE = 64;                // contraction slice unit (= the padding multiple)
 constexpr int CO_LANES = 256;            // lanes per output tile
 constexpr int CO_RING = 3;               // cp.async ring depth
@@ -145,35 +168,6 @@ enum { P_PREF, P_ALPHA, P_HS, P_LAM, P_HAPPL, P_DEMAG, P_ACP, P_PX, P_PY, P_PZ, 
 struct Params {
     float pref, alpha, hs, lam, happl, demag, acp, px, py, pz;
 };
-
-__device__ __forceinline__ Params load_params(const float* __restrict__ p, int e, int col) {
-    Params q;
-    q.pref = p[P_PREF * e + col];
-    q.alpha = p[P_ALPHA * e + col];
-    q.hs = p[P_HS * e + col];
-    q.lam = p[P_LAM * e + col];
-    q.happl = p[P_HAPPL * e + col];
-    q.demag = p[P_DEMAG * e + col];
-    q.acp = p[P_ACP * e + col];
-    q.px = p[P_PX * e + col];
-    q.py = p[P_PY * e + col];
-    q.pz = p[P_PZ * e + col];
-    return q;
-}
-
-template <typename WT> __device__ __forceinline__ float w_value(WT v);
-template <> __device__ __forceinline__ float w_value<float>(float v) { return v; }
-template <> __device__ __forceinline__ float w_value<__nv_bfloat16>(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-}
-
-// The stage x-plane as the coupling operand: unchanged for an f32 W,
-// rounded to bf16 for a bf16 W (the reference's mx.astype(w.dtype)).
-template <typename WT> __device__ __forceinline__ float x_operand(float v);
-template <> __device__ __forceinline__ float x_operand<float>(float v) { return v; }
-template <> __device__ __forceinline__ float x_operand<__nv_bfloat16>(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // Elementwise LLG slope, in the op order of the reference's _field_planes.
 __device__ __forceinline__ void llg(float mx, float my, float mz, float hx, const Params& p,
@@ -738,85 +732,169 @@ __global__ void __launch_bounds__(Product<WT>::THREADS, 1) rk4_coop_kernel(CoopA
 }
 
 // ---------------------------------------------------------------------------
-// field_tiled
+// field_tiled and the tiled RK4 stage: field_stage_kernel
 // ---------------------------------------------------------------------------
 
-struct Smem {
-    float a[TILE_N][TILE_K + 1];  // W row block; +1 keeps the two rows a warp reads on different banks
-    float b[TILE_K][TILE_E];      // stage x-plane block
+// One launch = one RK4 stage (or one field_tiled call). A null pointer turns
+// its input or output off.
+struct FieldArgs {
+    const float* params;     // (NP, E)
+    const void* w;           // (N, N) f32 or bf16
+    const void* x;           // (N, E) coupling operand y^x: f32, or bf16 for a bf16 W
+    const float* h;          // (N, E) input drive
+    const float* m;          // (3, N, E) base state
+    const float* kprev;      // (3, N, E): y = m + c kprev; null: y = m
+    const float* acc_in;     // (3, N, E) RK4 sum so far; null: kprev (stage 2)
+    float* k;                // (3, N, E) this stage's slope
+    void* x_next;            // (N, E) next operand m^x + c_next k^x, in x's type
+    float* acc_out;          // (3, N, E) acc_in + 2 k (may alias acc_in)
+    float* m_out;            // (3, N, E) m + c_out (acc_in + k)
+    float c, c_next, c_out;
+    int n, e, col_tiles;
 };
 
-// acc[i][j] = sum_k W[r0 + ty + SUB i, k] * x[k, c0 + tx + SUB j].
+// One cluster of C blocks per output tile (ROWS rows x CO_LANES lanes):
+// rank r sums contraction slice [r U / C, (r + 1) U / C) of 64-deep units
+// with the Product<WT> ring, the partials meet in distributed shared memory,
+// and rank r reduces tile rows [ROWS r / C, ROWS (r + 1) / C) over ranks
+// 0..C-1 in that order and runs the epilogue for them (the formulas of
+// rk4_coop_kernel, with one tile per cluster: kernels/sto_step.py
+// field_split). Tiles past the co-resident clusters run in later waves.
 template <typename WT>
-__device__ __forceinline__ void tile_gemm(Smem& s, const WT* __restrict__ w, const float* x,
-                                          int n, int e, int r0, int c0, float acc[4][4]) {
-    const int tid = threadIdx.x;
-    const int tx = tid % SUB, ty = tid / SUB;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int k0 = 0; k0 < n; k0 += TILE_K) {
-        __syncthreads();  // the previous block of a and b has been consumed
-#pragma unroll
-        for (int q = 0; q < (TILE_N * TILE_K) / THREADS; ++q) {
-            const int idx = tid + q * THREADS;
-            const int row = idx / TILE_K, kk = idx % TILE_K;
-            s.a[row][kk] = w_value<WT>(w[(long long)(r0 + row) * n + k0 + kk]);
+__global__ void __launch_bounds__(Product<WT>::THREADS, 1) field_stage_kernel(FieldArgs a) {
+    using XT = typename Product<WT>::XT;
+    constexpr int ROWS = Product<WT>::ROWS;
+    constexpr int THREADS = Product<WT>::THREADS;
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* part = reinterpret_cast<float*>(smem);  // aliases the ring after the slice
+    cg::cluster_group cluster = cg::this_cluster();
+
+    const int n = a.n, e = a.e, tid = threadIdx.x;
+    const long long plane = (long long)n * e;
+    const int csize = (int)cluster.num_blocks();
+    const int rank = (int)cluster.block_rank();
+    const int item = blockIdx.x / csize;
+    const int units = n / SLICE;
+    const int k_begin = SLICE * (rank * units / csize);
+    const int k_end = SLICE * ((rank + 1) * units / csize);
+    const int red_lo = rank * ROWS / csize, red_hi = (rank + 1) * ROWS / csize;
+    const int r0 = (item / a.col_tiles) * ROWS;
+    const int c0 = (item % a.col_tiles) * CO_LANES;
+    const int ncols = min(CO_LANES, e - c0);
+    const int rows = min(red_hi, n - r0) - red_lo;  // rows past N pad the last tile
+
+    slice_product<WT>(smem, static_cast<const WT*>(a.w), static_cast<const XT*>(a.x), n, e, r0, c0,
+                      k_begin, k_end, part);
+    cluster.sync();  // every rank's partial tile visible
+
+    // every plane written here is read by the next stage: keep it in L2
+    const uint64_t keep_pol = l2_evict_last();
+    const int quads = ncols / 4;
+    for (int q = tid; q < rows * quads; q += THREADS) {
+        const int rr = red_lo + q / quads, cq = 4 * (q % quads);
+        const long long idx = (long long)(r0 + rr) * e + c0 + cq;
+        // partials summed in rank order: a fixed order, no atomics
+        float4 s4 = ld4(cluster.map_shared_rank(part, 0) + rr * PART_STRIDE + cq);
+        for (int r = 1; r < csize; ++r) {
+            const float4 v = ld4(cluster.map_shared_rank(part, r) + rr * PART_STRIDE + cq);
+            s4.x += v.x, s4.y += v.y, s4.z += v.z, s4.w += v.w;
         }
+        float dot[4], hv[4], mx[4], my[4], mz[4], yx[4], yy[4], yz[4], px[4], py[4], pz[4];
+        unpack(s4, dot);
+        unpack(ldp4(a.h + idx, keep_pol), hv);
+        unpack(ldp4(a.m + idx, keep_pol), mx);
+        unpack(ldp4(a.m + plane + idx, keep_pol), my);
+        unpack(ldp4(a.m + 2 * plane + idx, keep_pol), mz);
+        if (a.kprev != nullptr) {
+            unpack(ldp4(a.kprev + idx, keep_pol), px);
+            unpack(ldp4(a.kprev + plane + idx, keep_pol), py);
+            unpack(ldp4(a.kprev + 2 * plane + idx, keep_pol), pz);
 #pragma unroll
-        for (int q = 0; q < (TILE_K * TILE_E) / THREADS; ++q) {
-            const int idx = tid + q * THREADS;
-            const int kk = idx / TILE_E, col = idx % TILE_E;
-            s.b[kk][col] = x_operand<WT>(__ldcg(x + (long long)(k0 + kk) * e + c0 + col));
+            for (int j = 0; j < 4; ++j) {
+                yx[j] = mx[j] + a.c * px[j];
+                yy[j] = my[j] + a.c * py[j];
+                yz[j] = mz[j] + a.c * pz[j];
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) yx[j] = mx[j], yy[j] = my[j], yz[j] = mz[j];
         }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < TILE_K; ++kk) {
-            float av[4], bv[4];
+        float pv[NP][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) av[i] = s.a[ty + SUB * i][kk];
+        for (int p = 0; p < NP; ++p) unpack(ld4(a.params + (long long)p * e + c0 + cq), pv[p]);
+        float kx[4], ky[4], kz[4];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) bv[j] = s.b[kk][tx + SUB * j];
+        for (int j = 0; j < 4; ++j) {
+            const Params p = {pv[P_PREF][j], pv[P_ALPHA][j], pv[P_HS][j], pv[P_LAM][j],
+                              pv[P_HAPPL][j], pv[P_DEMAG][j], pv[P_ACP][j], pv[P_PX][j],
+                              pv[P_PY][j], pv[P_PZ][j]};
+            const float hx = p.acp * dot[j] + hv[j];
+            llg(yx[j], yy[j], yz[j], hx, p, kx[j], ky[j], kz[j]);
+        }
+        if (a.k != nullptr) {
+            st4(a.k + idx, kx, keep_pol);
+            st4(a.k + plane + idx, ky, keep_pol);
+            st4(a.k + 2 * plane + idx, kz, keep_pol);
+        }
+        if (a.x_next != nullptr) {
+            float xn[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int j = 0; j < 4; ++j) xn[j] = mx[j] + a.c_next * kx[j];
+            if constexpr (sizeof(XT) == 2) {
+                st4_bf16(static_cast<__nv_bfloat16*>(a.x_next) + idx, xn, keep_pol);
+            } else {
+                st4(static_cast<float*>(a.x_next) + idx, xn, keep_pol);
+            }
+        }
+        if (a.acc_out != nullptr || a.m_out != nullptr) {
+            // the RK4 sum k1 + 2 k2 + 2 k3 + k4, left to right as the reference adds it
+            float ax[4], ay[4], az[4];
+            if (a.acc_in != nullptr) {
+                unpack(ldp4(a.acc_in + idx, keep_pol), ax);
+                unpack(ldp4(a.acc_in + plane + idx, keep_pol), ay);
+                unpack(ldp4(a.acc_in + 2 * plane + idx, keep_pol), az);
+            } else {
 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+                for (int j = 0; j < 4; ++j) ax[j] = px[j], ay[j] = py[j], az[j] = pz[j];
+            }
+            if (a.acc_out != nullptr) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    ax[j] = ax[j] + 2.0f * kx[j];
+                    ay[j] = ay[j] + 2.0f * ky[j];
+                    az[j] = az[j] + 2.0f * kz[j];
+                }
+                st4(a.acc_out + idx, ax, keep_pol);
+                st4(a.acc_out + plane + idx, ay, keep_pol);
+                st4(a.acc_out + 2 * plane + idx, az, keep_pol);
+            } else {
+                float ox[4], oy[4], oz[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    ox[j] = mx[j] + a.c_out * (ax[j] + kx[j]);
+                    oy[j] = my[j] + a.c_out * (ay[j] + ky[j]);
+                    oz[j] = mz[j] + a.c_out * (az[j] + kz[j]);
+                }
+                st4(a.m_out + idx, ox, keep_pol);
+                st4(a.m_out + plane + idx, oy, keep_pol);
+                st4(a.m_out + 2 * plane + idx, oz, keep_pol);
+            }
         }
     }
+    cluster.sync();  // no block exits while another rank may still read its partial tile
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(THREADS) field_tiled_kernel(
-    const float* __restrict__ params, const WT* __restrict__ w, const float* __restrict__ h,
-    const float* __restrict__ yx_full, const float* __restrict__ m,
-    const float* __restrict__ kprev, float* __restrict__ out, float c, int use_c, int n, int e) {
-    __shared__ Smem s;
-    const long long plane = (long long)n * e;
-    const int tx = threadIdx.x % SUB, ty = threadIdx.x / SUB;
-    const int r0 = blockIdx.y * TILE_N, c0 = blockIdx.x * TILE_E;
-    float acc[4][4];
-    tile_gemm<WT>(s, w, yx_full, n, e, r0, c0, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + SUB * j;
-        const Params p = load_params(params, e, col);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const long long idx = (long long)(r0 + ty + SUB * i) * e + col;
-            const float hx = p.acp * acc[i][j] + h[idx];
-            float yxv = m[idx], yyv = m[plane + idx], yzv = m[2 * plane + idx];
-            if (use_c) {
-                yxv = yxv + c * kprev[idx];
-                yyv = yyv + c * kprev[plane + idx];
-                yzv = yzv + c * kprev[2 * plane + idx];
-            }
-            float kx, ky, kz;
-            llg(yxv, yyv, yzv, hx, p, kx, ky, kz);
-            out[idx] = kx;
-            out[plane + idx] = ky;
-            out[2 * plane + idx] = kz;
-        }
+// y = x rounded to bf16 (round to nearest even), four values a thread per
+// step: the bf16 coupling operand of a stage whose x-plane comes from the
+// caller in f32 (field_tiled, and the first stage of rk4_tiled_step).
+__global__ void round_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ y,
+                                  long long count) {
+    const uint64_t pol = l2_evict_last();
+    for (long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x); i < count;
+         i += 4LL * gridDim.x * blockDim.x) {
+        float v[4];
+        unpack(ld4(x + i), v);
+        st4_bf16(y + i, v, pol);
     }
 }
 
@@ -877,12 +955,47 @@ cudaError_t launch_coop(const CoopArgs& args, int cluster, int clusters, cudaStr
 }
 
 template <typename WT>
-cudaError_t launch_field(const float* params, const WT* w, const float* h, const float* yx,
-                         const float* m, const float* kprev, float* out, float c, int use_c, int n,
-                         int e, cudaStream_t stream) {
-    const dim3 grid(e / TILE_E, n / TILE_N);
-    field_tiled_kernel<WT><<<grid, THREADS, 0, stream>>>(params, w, h, yx, m, kprev, out, c, use_c,
-                                                         n, e);
+cudaError_t field_config(int cluster, int clusters, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                         cudaLaunchAttribute (&attrs)[1]) {
+    cudaError_t err = cudaFuncSetAttribute(field_stage_kernel<WT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           ring_bytes<WT>());
+    if (err != cudaSuccess) return err;
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = cluster;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(cluster * clusters);
+    cfg.blockDim = dim3(Product<WT>::THREADS);
+    cfg.dynamicSmemBytes = ring_bytes<WT>();
+    cfg.stream = stream;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;
+    return cudaSuccess;
+}
+
+template <typename WT>
+int field_max_clusters(int cluster) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attrs[1];
+    cudaError_t err = field_config<WT>(cluster, 1, nullptr, cfg, attrs);
+    if (err != cudaSuccess) return -(int)err;
+    int count = 0;
+    err = cudaOccupancyMaxActiveClusters(&count, field_stage_kernel<WT>, &cfg);
+    if (err != cudaSuccess) return -(int)err;
+    return count;
+}
+
+template <typename WT>
+cudaError_t launch_field(const FieldArgs& args, int cluster, cudaStream_t stream) {
+    const int items = ((args.n + Product<WT>::ROWS - 1) / Product<WT>::ROWS) * args.col_tiles;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attrs[1];
+    cudaError_t err = field_config<WT>(cluster, items, stream, cfg, attrs);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, field_stage_kernel<WT>, args);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
@@ -955,22 +1068,70 @@ int sto_phase_zero() {
 }
 #endif
 
-// field_tiled: one LLG slope k = f(m + c k_prev) for every (row, lane).
-int sto_field_tiled(int w_bf16, const void* params, const void* w, const void* h, const void* yx,
-                    const void* m, const void* kprev, void* out, float c, int use_c, int n, int e,
-                    void* stream) {
-    if (bad_shape(n, e)) return cudaErrorInvalidValue;
+// Dynamic shared memory of one field_stage_kernel block, bytes.
+int sto_field_smem(int w_bf16) {
+    return w_bf16 ? ring_bytes<__nv_bfloat16>() : ring_bytes<float>();
+}
+
+// Co-resident clusters of `cluster` blocks of field_stage_kernel on the
+// current device (cudaOccupancyMaxActiveClusters); a negative value is
+// -cudaError_t.
+int sto_field_max_clusters(int w_bf16, int cluster) {
+    if (cluster < 1 || cluster > MAX_CLUSTER) return -(int)cudaErrorInvalidValue;
+    return w_bf16 ? field_max_clusters<__nv_bfloat16>(cluster) : field_max_clusters<float>(cluster);
+}
+
+// One RK4 stage, or one field_tiled call (kprev null when c = 0; acc_in,
+// x_next, acc_out, m_out null): k = f(m + c kprev) with the coupling taken
+// against x, plus the outputs that are not null (FieldArgs). One cluster of
+// `cluster` blocks per output tile (kernels/sto_step.py field_split).
+// Returns a cudaError_t.
+int sto_field_stage(int w_bf16, const void* params, const void* w, const void* x, const void* h,
+                    const void* m, const void* kprev, const void* acc_in, void* k, void* x_next,
+                    void* acc_out, void* m_out, float c, float c_next, float c_out, int n, int e,
+                    int cluster, void* stream) {
+    if (bad_shape(n, e) || cluster < 1 || cluster > MAX_CLUSTER || cluster > n / SLICE)
+        return cudaErrorInvalidValue;
+    if ((m_out != nullptr && acc_in == nullptr) ||
+        (acc_out != nullptr && acc_in == nullptr && kprev == nullptr))
+        return cudaErrorInvalidValue;
+    FieldArgs args;
+    args.params = static_cast<const float*>(params);
+    args.w = w;
+    args.x = x;
+    args.h = static_cast<const float*>(h);
+    args.m = static_cast<const float*>(m);
+    args.kprev = static_cast<const float*>(kprev);
+    args.acc_in = static_cast<const float*>(acc_in);
+    args.k = static_cast<float*>(k);
+    args.x_next = x_next;
+    args.acc_out = static_cast<float*>(acc_out);
+    args.m_out = static_cast<float*>(m_out);
+    args.c = c;
+    args.c_next = c_next;
+    args.c_out = c_out;
+    args.n = n;
+    args.e = e;
+    args.col_tiles = (e + CO_LANES - 1) / CO_LANES;
     const auto st = static_cast<cudaStream_t>(stream);
-    const auto* pp = static_cast<const float*>(params);
-    const auto* hp = static_cast<const float*>(h);
-    const auto* yp = static_cast<const float*>(yx);
-    const auto* mp = static_cast<const float*>(m);
-    const auto* kp = static_cast<const float*>(kprev);
-    auto* op = static_cast<float*>(out);
-    if (w_bf16)
-        return launch_field(pp, static_cast<const __nv_bfloat16*>(w), hp, yp, mp, kp, op, c, use_c,
-                            n, e, st);
-    return launch_field(pp, static_cast<const float*>(w), hp, yp, mp, kp, op, c, use_c, n, e, st);
+    if (w_bf16) return launch_field<__nv_bfloat16>(args, cluster, st);
+    return launch_field<float>(args, cluster, st);
+}
+
+// y = bf16(x) over `count` values (a multiple of 4), in at most 8 blocks of
+// 256 threads an SM. Returns a cudaError_t.
+int sto_round_bf16(const void* x, void* y, long long count, void* stream) {
+    if (count <= 0 || count % 4 != 0) return cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const long long want = (count / 4 + 255) / 256;
+    const int blocks = (int)(want < 8LL * sms ? want : 8LL * sms);
+    round_bf16_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<__nv_bfloat16*>(y), count);
+    return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -13,9 +13,15 @@ the Pallas kernel of the same name in the reference's kernels/sto_step.py:
    W, 128 for a bf16 W, x 256 lanes), one contraction slice per block;
    `coop_block_work` says what each block computes, in the kernel's own
    formulas.
-3. `field_tiled` (large N): one LLG slope per (N-row, E) tile, one launch per
-   RK4 stage; `rk4_tiled_step` does the stage algebra and the RK4 combine
-   in torch around four launches.
+3. `field_tiled` (large N): one LLG slope k = f(m + c k_prev) per (row,
+   lane), from `field_stage_kernel` with the work split of `field_split`
+   (the same clusters and slices as `coop_split`, one output tile per
+   cluster, in an ordinary launch). `rk4_tiled_step` is four launches of
+   the same kernel, one per RK4 stage, whose epilogue also writes the next
+   stage's x-plane, the running RK4 sum and, at stage 4, the new state; no
+   elementwise torch op runs between them. For a bf16 W, a small kernel
+   (`round_bf16_kernel`, counted under LAUNCHES["round_bf16"]) first rounds
+   the f32 x-plane the caller gives (field_tiled) or m^x (rk4_tiled_step).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with torch.empty, launches on the current stream,
@@ -34,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Tuple
 
 import torch
 
@@ -123,8 +129,10 @@ def _check_tiles(name: str, n: int, e: int, block_n: int, block_e: int) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
-    """The kernel library, built on first use; its tiles must be ours."""
+    """The kernel library, built on first use; its tiles must be ours (checked
+    once)."""
     lib = _build.load()
     theirs = (
         lib.sto_tile_n(), lib.sto_tile_e(), lib.sto_coop_rows(0), lib.sto_coop_rows(1),
@@ -171,10 +179,11 @@ class CoopSplit:
     """
 
     cluster: int  # blocks per cluster = contraction slices per tile
-    clusters: int  # clusters launched (co-resident)
+    clusters: int  # clusters launched (co-resident; field_split: one per tile)
     rows: int  # rows per output tile (COOP_ROWS of the W dtype)
     col_tiles: int  # lane tiles: ceil(E / COOP_LANES)
     items: int  # output tiles: ceil(N / rows) x col_tiles
+    resident: int = 0  # co-resident clusters of this size on the card
 
     @property
     def blocks(self) -> int:
@@ -182,45 +191,85 @@ class CoopSplit:
 
     @property
     def rounds(self) -> int:
+        """Tiles a cluster takes in turn (rk4_coop_kernel)."""
         return -(-self.items // self.clusters)
+
+    @property
+    def waves(self) -> int:
+        """Waves of co-resident clusters that run the items."""
+        return -(-self.items // max(self.resident, 1))
+
+
+def split_cost(n: int, rows: int, cluster: int, resident: int) -> int:
+    """The time `_cluster_size` weighs for clusters of `cluster` blocks, of
+    which `resident` fit the card at once, at a padded N and tiles of `rows`
+    rows, in quarters of a 64-row slice unit: with T = ceil(N / rows) row
+    tiles and U = N / SLICE slice units, (rounds or waves of T tiles over the
+    co-resident clusters) x (work of one: the longest slice, ceil(U / C)
+    units of a rows-high tile, plus a quarter of a 64-row unit for the
+    tile's setup and two cluster barriers). The quarter is the ratio of
+    those per-round phases (~1.6 us) to one f32 slice unit (~6.8 us) that
+    tools/sto_phase_times.py read on an H100; the epilogue, ~12 us a stage at
+    any C there, does not enter."""
+    tiles, units = -(-n // rows), n // SLICE
+    return -(-tiles // min(resident, tiles)) * (4 * (-(-units // cluster) * rows // SLICE) + 1)
+
+
+def _cluster_size(n: int, rows: int, max_clusters: Callable[[int], int]) -> Tuple[int, int]:
+    """The cluster size C for a padded N and tiles of `rows` rows, and the
+    co-resident clusters of that size: C minimises `split_cost`, ties to the
+    smaller C (fewer partials to reduce). N alone decides, so a lane's sums
+    never depend on E."""
+    best = None
+    for c in range(1, min(MAX_CLUSTER, n // SLICE) + 1):
+        resident = max_clusters(c)
+        if resident < 1:
+            continue
+        cost = split_cost(n, rows, c, resident)
+        if best is None or cost < best[0]:
+            best = (cost, c, resident)
+    if best is None:
+        raise RuntimeError("no cluster size fits the card")
+    return best[1], best[2]
+
+
+def _check_split_shape(name: str, n: int, e: int) -> None:
+    if n % SLICE or e % TILE_E or n < SLICE or e < TILE_E:
+        raise ValueError(f"{name}: N={n}, E={e} must be padded to ({SLICE}, {TILE_E})")
 
 
 def coop_split(
     n: int, e: int, max_clusters: Callable[[int], int], rows: int = COOP_ROWS[torch.float32]
 ) -> CoopSplit:
-    """The split for a padded (N, E) and tiles of `rows` rows, given the
-    co-resident clusters of each size (cudaOccupancyMaxActiveClusters on the
-    card).
-
-    The cluster size C is chosen from N alone, so a lane's sums never depend
-    on E: with T = ceil(N / rows) row tiles and U = N / SLICE slice units,
-    C minimises (rounds of T tiles over the co-resident clusters) x (work of
-    one round: the longest slice, ceil(U / C) units of a rows-high tile,
-    plus a quarter of a 64-row unit for the round's tile setup and two
-    cluster barriers), ties to the smaller C (fewer partials to reduce). The
-    lane tiles only add items, taken in rounds. The quarter is the ratio of
-    those per-round phases (~1.6 us) to one f32 slice unit (~6.8 us) that
-    tools/sto_phase_times.py read on an H100; the epilogue, ~12 us a stage
-    at any C there, does not enter.
-    """
-    if n % SLICE or e % TILE_E or n < SLICE or e < TILE_E:
-        raise ValueError(f"coop_split: N={n}, E={e} must be padded to ({SLICE}, {TILE_E})")
-    tiles, units = -(-n // rows), n // SLICE
-    best = None
-    for c in range(1, min(MAX_CLUSTER, units) + 1):
-        resident = max_clusters(c)
-        if resident < 1:
-            continue
-        cost = -(-tiles // min(resident, tiles)) * (4 * (-(-units // c) * rows // SLICE) + 1)
-        if best is None or cost < best[0]:
-            best = (cost, c, resident)
-    if best is None:
-        raise RuntimeError("rk4_coop_kernel: no cluster size fits the card")
-    _, c, resident = best
+    """The rk4_coop_kernel split for a padded (N, E) and tiles of `rows`
+    rows, given the co-resident clusters of each size
+    (cudaOccupancyMaxActiveClusters on the card): `_cluster_size` picks C
+    from N; a cooperative launch holds only co-resident clusters, so the
+    tiles (lane tiles add items) are taken in rounds."""
+    _check_split_shape("coop_split", n, e)
+    c, resident = _cluster_size(n, rows, max_clusters)
     col_tiles = -(-e // COOP_LANES)
-    items = tiles * col_tiles
+    items = -(-n // rows) * col_tiles
     return CoopSplit(
-        cluster=c, clusters=min(resident, items), rows=rows, col_tiles=col_tiles, items=items
+        cluster=c, clusters=min(resident, items), rows=rows, col_tiles=col_tiles, items=items,
+        resident=resident,
+    )
+
+
+def field_split(
+    n: int, e: int, max_clusters: Callable[[int], int], rows: int = COOP_ROWS[torch.float32]
+) -> CoopSplit:
+    """The field_stage_kernel split: the cluster size of `_cluster_size`
+    (from N alone, weighing waves as coop_split weighs rounds) and one
+    cluster per output tile, in an ordinary launch whose tiles past the
+    co-resident clusters run in waves. `coop_block_work` says what each
+    block computes."""
+    _check_split_shape("field_split", n, e)
+    c, resident = _cluster_size(n, rows, max_clusters)
+    col_tiles = -(-e // COOP_LANES)
+    items = -(-n // rows) * col_tiles
+    return CoopSplit(
+        cluster=c, clusters=items, rows=rows, col_tiles=col_tiles, items=items, resident=resident
     )
 
 
@@ -239,7 +288,7 @@ class CoopWork:
 
 def coop_block_work(split: CoopSplit, n: int, e: int, block: int) -> Iterator[CoopWork]:
     """What block `block` of the launch computes each stage, in the formulas
-    of rk4_coop_kernel (csrc/sto_rk4.cu)."""
+    of rk4_coop_kernel and field_stage_kernel (csrc/sto_rk4.cu)."""
     c, rows = split.cluster, split.rows
     rank, cid = block % c, block // c
     units = n // SLICE
@@ -256,27 +305,55 @@ def coop_block_work(split: CoopSplit, n: int, e: int, block: int) -> Iterator[Co
         )
 
 
+def _coop_resident(w_bf16: int, cluster: int) -> int:
+    return _lib().sto_coop_max_clusters(w_bf16, cluster)
+
+
+def _field_resident(w_bf16: int, cluster: int) -> int:
+    return _lib().sto_field_max_clusters(w_bf16, cluster)
+
+
 @functools.lru_cache(maxsize=None)
-def _max_clusters(w_bf16: bool, device_index: int, cluster: int) -> int:
+def _max_clusters(query, w_bf16: bool, device_index: int, cluster: int) -> int:
+    """Co-resident clusters of `cluster` blocks on a card, from the library's
+    occupancy `query` (_coop_resident or _field_resident)."""
     with torch.cuda.device(device_index):
-        count = _lib().sto_coop_max_clusters(int(w_bf16), cluster)
+        count = query(int(w_bf16), cluster)
     if count < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with cudaError {-count}")
     return count
 
 
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_config(split, query, n: int, e: int, w_dtype: torch.dtype, index: int) -> CoopSplit:
+    bf16 = w_dtype == torch.bfloat16
+    return split(n, e, lambda c: _max_clusters(query, bf16, index, c), COOP_ROWS[w_dtype])
+
+
 def coop_launch_config(n: int, e: int, w_dtype: torch.dtype, device) -> CoopSplit:
     """The split rk4_chunk / rk4_fused launch with on `device` for a padded
     (N, E) and a W of `w_dtype`."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    bf16 = w_dtype == torch.bfloat16
-    return coop_split(n, e, lambda c: _max_clusters(bf16, index, c), COOP_ROWS[w_dtype])
+    return _launch_config(coop_split, _coop_resident, n, e, w_dtype, _device_index(device))
+
+
+def field_launch_config(n: int, e: int, w_dtype: torch.dtype, device) -> CoopSplit:
+    """The split field_tiled / rk4_tiled_step launch with on `device`."""
+    return _launch_config(field_split, _field_resident, n, e, w_dtype, _device_index(device))
 
 
 def coop_smem_bytes(w_dtype: torch.dtype) -> int:
     """Dynamic shared memory of one rk4_coop_kernel block."""
     return _lib().sto_coop_smem(int(w_dtype == torch.bfloat16))
+
+
+def field_smem_bytes(w_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one field_stage_kernel block."""
+    return _lib().sto_field_smem(int(w_dtype == torch.bfloat16))
 
 
 def _coop_launch(name, m, w_cp, params, dt, steps, h, h_stride, mask, states):
@@ -343,6 +420,46 @@ def field_tiled_plain(m, yx_full, k_prev, w_cp, params, stage_coef, h_in):
     return _field_planes(y[0], y[1], y[2], hx, p)
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x (f32, contiguous, on the card) rounded to bf16 by round_bf16_kernel."""
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    _raise_on(_lib().sto_round_bf16(_ptr(x), _ptr(out), x.numel(), _stream(x.device)), "round_bf16")
+    LAUNCHES["round_bf16"] += 1
+    return out
+
+
+def _field_launch(
+    m, x, w_cp, params, h_in, *, kprev=None, acc_in=None, k=None, x_next=None, acc_out=None,
+    m_out=None, c=0.0, c_next=0.0, c_out=0.0,
+):
+    """One field_stage_kernel launch (csrc/sto_rk4.cu FieldArgs); x and x_next
+    are in W's dtype, every other plane f32."""
+    _, n, e = m.shape
+    split = field_launch_config(n, e, w_cp.dtype, m.device)
+    opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
+    err = _lib().sto_field_stage(
+        int(w_cp.dtype == torch.bfloat16), _ptr(params), _ptr(w_cp), _ptr(x), _ptr(h_in),
+        _ptr(m), opt(kprev), opt(acc_in), opt(k), opt(x_next), opt(acc_out), opt(m_out),
+        float(c), float(c_next), float(c_out), n, e, split.cluster, _stream(m.device),
+    )
+    _raise_on(err, "field_tiled")
+    LAUNCHES["field_tiled"] += 1
+
+
+def _check_field(name, m, w_cp, params, h_in, block_n, block_e, **planes):
+    _, n, e = m.shape
+    _check_cuda(name, m=m, w_cp=w_cp, params=params, h_in=h_in, **planes)
+    _check_tiles(name, n, e, block_n, block_e)
+    if (
+        w_cp.shape != (n, n)
+        or params.shape != (NP, e)
+        or h_in.shape != (n, e)
+        or any(t.shape[-2:] != (n, e) or t.dim() != (2 if key == "yx_full" else 3)
+               for key, t in planes.items())
+    ):
+        raise ValueError(f"{name}: operand shapes do not match m (3, N, E)")
+
+
 def field_tiled(
     m: torch.Tensor,  # (3, N, E) base state
     yx_full: torch.Tensor,  # (N, E) x-plane of the stage state y
@@ -354,33 +471,23 @@ def field_tiled(
     block_e: int = TILE_E,
     h_in: torch.Tensor = None,  # (N, E) input-drive x-field; None = undriven
 ) -> torch.Tensor:
-    """One LLG slope k = f(m + stage_coef * k_prev) per (row, lane)."""
+    """One LLG slope k = f(m + stage_coef * k_prev) per (row, lane). For a
+    bf16 W the x-plane is first rounded to bf16 by a second, elementwise
+    kernel (round_bf16_kernel), which the product then reads."""
     _, n, e = m.shape
     if h_in is None:
         h_in = torch.zeros((n, e), dtype=m.dtype, device=m.device)
     if _on_cpu(m):
         return field_tiled_plain(m, yx_full, k_prev, w_cp, params, stage_coef, h_in)
-    _check_cuda(
-        "field_tiled", m=m, yx_full=yx_full, k_prev=k_prev, w_cp=w_cp, params=params, h_in=h_in
+    _check_field(
+        "field_tiled", m, w_cp, params, h_in, block_n, block_e, yx_full=yx_full, k_prev=k_prev
     )
-    _check_tiles("field_tiled", n, e, block_n, block_e)
-    if (
-        w_cp.shape != (n, n)
-        or params.shape != (NP, e)
-        or yx_full.shape != (n, e)
-        or h_in.shape != (n, e)
-        or k_prev.shape != m.shape
-    ):
-        raise ValueError("field_tiled: operand shapes do not match m (3, N, E)")
+    x = _round_bf16(yx_full) if w_cp.dtype == torch.bfloat16 else yx_full
     out = torch.empty_like(m)
-    lib = _lib()
-    err = lib.sto_field_tiled(
-        int(w_cp.dtype == torch.bfloat16), _ptr(params), _ptr(w_cp), _ptr(h_in),
-        _ptr(yx_full), _ptr(m), _ptr(k_prev), _ptr(out), float(stage_coef),
-        int(stage_coef != 0.0), n, e, _stream(m.device),
+    _field_launch(
+        m, x, w_cp, params, h_in, kprev=None if stage_coef == 0.0 else k_prev, k=out,
+        c=stage_coef,
     )
-    _raise_on(err, "field_tiled")
-    LAUNCHES["field_tiled"] += 1
     return out
 
 
@@ -427,18 +534,41 @@ def rk4_chunk(
 
 
 # ---------------------------------------------------------------------------
-# One RK4 step from four tiled field launches
+# One RK4 step from four field_stage_kernel launches
 # ---------------------------------------------------------------------------
 
+STAGES = 4
 
-def _tiled_step(field, m, dt, h_in):
+
+def _stage_coefs(dt: float):
+    """Stage coefficients c_1..c_4 (c_1 = 0: y = m) and the final dt / 6."""
+    return (0.0, 0.5 * dt, 0.5 * dt, dt), dt / 6.0
+
+
+def rk4_tiled_stage_plain(stage, m, yx, k_prev, acc, w_cp, params, dt, h_in):
+    """Stage `stage` (1..4) of the tiled RK4 step, as the kernel's epilogue
+    computes it. k = f(m + c_stage k_prev) against the stage x-plane yx
+    (`field_tiled_plain`); stages 1-3 return (k, the next stage's x-plane
+    m^x + c_next k^x, the running sum), stage 4 returns m + (dt/6)(acc + k).
+    The sum is the reference's k1 + 2 k2 + 2 k3 + k4, left to right: k1
+    (stage 1 returns k itself), acc + 2 k (stage 2 starts from k_prev = k1)."""
     dt = float(dt)
-    zeros = torch.zeros_like(m)
-    k1 = field(m, m[0], zeros, stage_coef=0.0, h_in=h_in)
-    k2 = field(m, m[0] + (0.5 * dt) * k1[0], k1, stage_coef=0.5 * dt, h_in=h_in)
-    k3 = field(m, m[0] + (0.5 * dt) * k2[0], k2, stage_coef=0.5 * dt, h_in=h_in)
-    k4 = field(m, m[0] + dt * k3[0], k3, stage_coef=dt, h_in=h_in)
-    return m + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    coefs, sixth = _stage_coefs(dt)
+    k = field_tiled_plain(m, yx, k_prev, w_cp, params, coefs[stage - 1], h_in)
+    if stage == STAGES:
+        return m + sixth * (acc + k)
+    acc_out = k if stage == 1 else (k_prev if stage == 2 else acc) + 2.0 * k
+    return k, m[0] + coefs[stage] * k[0], acc_out
+
+
+def rk4_tiled_step_plain(m, w_cp, params, dt, h_in=None):
+    """`rk4_tiled_step` through the plain stages (any device)."""
+    if h_in is None:
+        h_in = torch.zeros(m.shape[1:], dtype=m.dtype, device=m.device)
+    yx, k, acc = m[0], None, None
+    for stage in range(1, STAGES):
+        k, yx, acc = rk4_tiled_stage_plain(stage, m, yx, k, acc, w_cp, params, dt, h_in)
+    return rk4_tiled_stage_plain(STAGES, m, yx, k, acc, w_cp, params, dt, h_in)
 
 
 def rk4_tiled_step(
@@ -450,21 +580,23 @@ def rk4_tiled_step(
     block_e: int = TILE_E,
     h_in: torch.Tensor = None,
 ) -> torch.Tensor:
-    """One RK4 step built from four `field_tiled` launches; the y^x stage
-    planes and the RK4 combine are O(N E) torch ops beside the O(N^2 E)
-    in-kernel coupling."""
-    field = functools.partial(
-        field_tiled, w_cp=w_cp, params=params, block_n=block_n, block_e=block_e
-    )
-    return _tiled_step(field, m, dt, h_in)
-
-
-def rk4_tiled_step_plain(m, w_cp, params, dt, h_in=None):
-    """`rk4_tiled_step` through the plain field (any device)."""
+    """One RK4 step: four field_stage_kernel launches (`field_tiled` with
+    the stage algebra in the epilogue), no elementwise torch op between
+    them; for a bf16 W, round_bf16_kernel first rounds m^x to bf16. Each
+    launch reads the x-plane the one before wrote (double-buffered)."""
+    _, n, e = m.shape
     if h_in is None:
-        h_in = torch.zeros(m.shape[1:], dtype=m.dtype, device=m.device)
-
-    def field(m_, yx, kp, stage_coef, h_in):
-        return field_tiled_plain(m_, yx, kp, w_cp, params, stage_coef, h_in)
-
-    return _tiled_step(field, m, dt, h_in)
+        h_in = torch.zeros((n, e), dtype=m.dtype, device=m.device)
+    if _on_cpu(m):
+        return rk4_tiled_step_plain(m, w_cp, params, dt, h_in)
+    _check_field("rk4_tiled_step", m, w_cp, params, h_in, block_n, block_e)
+    coefs, sixth = _stage_coefs(float(dt))
+    ka, kb, acc, out = (torch.empty_like(m) for _ in range(4))
+    x1, x2 = torch.empty((2, n, e), dtype=w_cp.dtype, device=m.device)
+    x0 = _round_bf16(m[0]) if w_cp.dtype == torch.bfloat16 else m[0]
+    launch = functools.partial(_field_launch, m, w_cp=w_cp, params=params, h_in=h_in)
+    launch(x0, k=ka, x_next=x1, c_next=coefs[1])
+    launch(x1, kprev=ka, k=kb, x_next=x2, acc_out=acc, c=coefs[1], c_next=coefs[2])
+    launch(x2, kprev=kb, acc_in=acc, k=ka, x_next=x1, acc_out=acc, c=coefs[2], c_next=coefs[3])
+    launch(x1, kprev=ka, acc_in=acc, m_out=out, c=coefs[3], c_out=sixth)
+    return out

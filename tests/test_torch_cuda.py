@@ -9,9 +9,9 @@ installed:
 
 Tolerances: state STATE_ATOL = 5e-5 over one short chunk, for an f32 and a
 bf16 W (FP32 sums in another order than cuBLAS); the coupling's share of the
-state, f(W) - f(0), COUPLING_RTOL = 2e-3 relative to its largest magnitude;
-slopes (~1e10 Oe/s) SLOPE_RTOL = 1e-5 relative to their largest magnitude;
-frozen lanes exact.
+state or of field_tiled's slopes, f(W) - f(0), COUPLING_RTOL = 2e-3 relative
+to its largest magnitude; slopes (~1e10 Oe/s) SLOPE_RTOL = 1e-5 relative to
+their largest magnitude; frozen lanes exact.
 """
 
 import functools
@@ -99,7 +99,10 @@ W_DTYPES = (torch.float32, torch.bfloat16)
 # The coupling moves these states by ~1.3e-3 over a chunk, and f32 rounding
 # moves that share by ~2e-4 of itself (a float64 run of the plain version
 # on the CPU), while a contraction slice dropped or summed twice moves it
-# by 0.4 of itself or more.
+# by 0.4 of itself or more. field_tiled's slopes and one rk4_tiled_step's
+# state carry shares of ~2.3e7 Oe/s and ~2.3e-4, which f32 rounding moves by
+# ~1.4e-4 and ~3.1e-4 of themselves (the same float64 proxy, either W);
+# a slice dropped moves them by ~1/C.
 COUPLING_RTOL = 2e-3
 
 
@@ -141,30 +144,49 @@ def _flat(*ts):
     return torch.cat([t.flatten() for t in ts])
 
 
+def _field_operands(m, w, pv, h0):
+    """A previous slope and the stage x-plane at c = dt/2, as field_tiled's
+    callers give them."""
+    kprev = kref.llg_field_planes(m, w, pv, h0)
+    return kprev, (m[0] + 0.5 * DT * kprev[0]).contiguous()
+
+
+COOP_KERNELS = ("rk4_chunk", "rk4_fused")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["rk4_chunk", "rk4_fused"])
+@pytest.mark.parametrize("kernel", [*COOP_KERNELS, "field_tiled", "rk4_tiled_step"])
 @pytest.mark.parametrize("w_dtype", W_DTYPES)
 @pytest.mark.parametrize("n", SPLIT_N)
 def test_coupling_term_matches_plain(cuda, n, w_dtype, kernel):
     """f(W) - f(0), kernel against plain version: the coupling product's
-    share of the state alone, so a fault of the split (a slice dropped or
-    summed twice, a partial on the wrong rows or lanes) cannot hide under
-    the LLG's own motion. The plain version with the last rank's slice
-    dropped fails the same measure."""
+    share of the state (or of the slopes) alone, so a fault of the split (a
+    slice dropped or summed twice, a partial on the wrong rows or lanes)
+    cannot hide under the LLG's own motion. The plain version with the last
+    rank's slice dropped fails the same measure."""
     m, w, pv, h, mask = _inputs(cuda, n=n, e=320, k=3)
     w = w.to(w_dtype)
+    h0 = h[0]
     if kernel == "rk4_chunk":
         kern = lambda w_: _flat(*sto_step.rk4_chunk(m, w_, pv, DT, 2, h, mask))  # noqa: E731
         plain = lambda w_: _flat(*kref.rk4_chunk_planes(m, w_, pv, DT, 2, h, mask > 0.5))  # noqa: E731
+    elif kernel == "rk4_fused":
+        kern = lambda w_: sto_step.rk4_fused(m, w_, pv, DT, n_inner=3, h_in=h0)  # noqa: E731
+        plain = lambda w_: kref.rk4_multi_step_planes(m, w_, pv, DT, 3, h0)  # noqa: E731
+    elif kernel == "field_tiled":
+        kprev, yx = _field_operands(m, w, pv, h0)
+        kern = lambda w_: sto_step.field_tiled(m, yx, kprev, w_, pv, 0.5 * DT, h_in=h0)  # noqa: E731
+        plain = lambda w_: sto_step.field_tiled_plain(m, yx, kprev, w_, pv, 0.5 * DT, h0)  # noqa: E731
     else:
-        kern = lambda w_: sto_step.rk4_fused(m, w_, pv, DT, n_inner=3, h_in=h[0])  # noqa: E731
-        plain = lambda w_: kref.rk4_multi_step_planes(m, w_, pv, DT, 3, h[0])  # noqa: E731
+        kern = lambda w_: sto_step.rk4_tiled_step(m, w_, pv, DT, h_in=h0)  # noqa: E731
+        plain = lambda w_: sto_step.rk4_tiled_step_plain(m, w_, pv, DT, h0)  # noqa: E731
     zero = torch.zeros_like(w)
     d_plain = plain(w) - plain(zero)
     scale = d_plain.abs().max()
     rel = lambda d: ((d - d_plain).abs().max() / scale).item()  # noqa: E731
     assert rel(kern(w) - kern(zero)) <= COUPLING_RTOL
-    split = sto_step.coop_launch_config(n, 320, w_dtype, cuda)
+    config = sto_step.coop_launch_config if kernel in COOP_KERNELS else sto_step.field_launch_config
+    split = config(n, 320, w_dtype, cuda)
     k0, k1 = next(sto_step.coop_block_work(split, n, 320, split.cluster - 1)).k
     dropped = w.clone()
     dropped[:, k0:k1] = 0
@@ -175,48 +197,108 @@ def _lanes(t, e):
     return t[..., :e].contiguous()
 
 
+PATHS = ("cooperative", "tiled")
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("w_dtype", W_DTYPES)
 @pytest.mark.parametrize("n", [320, 2560])
-def test_lanes_independent_of_launch_width(cuda, n, w_dtype):
+def test_lanes_independent_of_launch_width(cuda, n, w_dtype, path):
     """Lanes 0-63 of an E = 256 launch equal the same lanes run alone in an
     E = 64 launch, bit for bit: the contraction split follows N, not E."""
     m, w, pv, h, mask = _inputs(cuda, n=n, e=256, k=3)
     w = w.to(w_dtype)
-    wide = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
-    narrow = sto_step.rk4_chunk(
-        _lanes(m, 64), w, _lanes(pv, 64), DT, 2, _lanes(h, 64), _lanes(mask, 64)
-    )
-    assert torch.equal(_lanes(wide[0], 64), narrow[0])
-    assert torch.equal(_lanes(wide[1], 64), narrow[1])
-    fw = sto_step.rk4_fused(m, w, pv, DT, n_inner=2, h_in=h[0])
-    fn = sto_step.rk4_fused(_lanes(m, 64), w, _lanes(pv, 64), DT, n_inner=2, h_in=_lanes(h[0], 64))
-    assert torch.equal(_lanes(fw, 64), fn)
+    n64 = lambda t: _lanes(t, 64)  # noqa: E731
+    if path == "cooperative":
+        wide = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
+        narrow = sto_step.rk4_chunk(n64(m), w, n64(pv), DT, 2, n64(h), n64(mask))
+        assert torch.equal(n64(wide[0]), narrow[0])
+        assert torch.equal(n64(wide[1]), narrow[1])
+        fw = sto_step.rk4_fused(m, w, pv, DT, n_inner=2, h_in=h[0])
+        fn = sto_step.rk4_fused(n64(m), w, n64(pv), DT, n_inner=2, h_in=n64(h[0]))
+        assert torch.equal(n64(fw), fn)
+    else:
+        kprev, yx = _field_operands(m, w, pv, h[0])
+        fw = sto_step.field_tiled(m, yx, kprev, w, pv, 0.5 * DT, h_in=h[0])
+        fn = sto_step.field_tiled(
+            n64(m), n64(yx), n64(kprev), w, n64(pv), 0.5 * DT, h_in=n64(h[0])
+        )
+        assert torch.equal(n64(fw), fn)
+        sw = sto_step.rk4_tiled_step(m, w, pv, DT, h_in=h[0])
+        sn = sto_step.rk4_tiled_step(n64(m), w, n64(pv), DT, h_in=n64(h[0]))
+        assert torch.equal(n64(sw), sn)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("w_dtype", W_DTYPES)
-def test_reruns_are_bit_identical(cuda, w_dtype):
+def test_reruns_are_bit_identical(cuda, w_dtype, path):
     m, w, pv, h, mask = _inputs(cuda, n=2560, e=320, k=3)
     w = w.to(w_dtype)
-    first = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
-    second = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
-    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
-    assert torch.equal(
-        sto_step.rk4_fused(m, w, pv, DT, n_inner=3, h_in=h[0]),
-        sto_step.rk4_fused(m, w, pv, DT, n_inner=3, h_in=h[0]),
-    )
+    if path == "cooperative":
+        first = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
+        second = sto_step.rk4_chunk(m, w, pv, DT, 2, h, mask)
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+        assert torch.equal(
+            sto_step.rk4_fused(m, w, pv, DT, n_inner=3, h_in=h[0]),
+            sto_step.rk4_fused(m, w, pv, DT, n_inner=3, h_in=h[0]),
+        )
+    else:
+        kprev, yx = _field_operands(m, w, pv, h[0])
+        assert torch.equal(
+            sto_step.field_tiled(m, yx, kprev, w, pv, 0.5 * DT, h_in=h[0]),
+            sto_step.field_tiled(m, yx, kprev, w, pv, 0.5 * DT, h_in=h[0]),
+        )
+        assert torch.equal(
+            sto_step.rk4_tiled_step(m, w, pv, DT, h_in=h[0]),
+            sto_step.rk4_tiled_step(m, w, pv, DT, h_in=h[0]),
+        )
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [0.0, 0.5 * DT, DT])
-def test_field_tiled_matches_plain(cuda, c):
-    m, w, pv, h, _ = _inputs(cuda)
+@pytest.mark.parametrize("w_dtype", W_DTYPES)
+@pytest.mark.parametrize("e", SPLIT_E)
+@pytest.mark.parametrize("n", SPLIT_N)
+def test_field_tiled_matches_plain(cuda, n, e, w_dtype, c):
+    m, w, pv, h, _ = _inputs(cuda, n=n, e=e, k=1)
+    w = w.to(w_dtype)
     kprev = kref.llg_field_planes(m, w, pv, h[0])
     yx = (m[0] + c * kprev[0]).contiguous()
-    out = sto_step.field_tiled(m, yx, kprev, w, pv, c, h_in=h[0].contiguous())
+    sto_step.reset_launches()
+    out = sto_step.field_tiled(m, yx, kprev, w, pv, c, h_in=h[0])
     ref = sto_step.field_tiled_plain(m, yx, kprev, w, pv, c, h[0])
+    assert sto_step.LAUNCHES["field_tiled"] == 1
+    assert sto_step.LAUNCHES["round_bf16"] == (w_dtype == torch.bfloat16)
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= SLOPE_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", W_DTYPES)
+@pytest.mark.parametrize("e", SPLIT_E)
+@pytest.mark.parametrize("n", SPLIT_N)
+def test_rk4_tiled_step_matches_plain(cuda, n, e, w_dtype):
+    """Four launches with the stage algebra in the epilogue against the
+    plain stages."""
+    m, w, pv, h, _ = _inputs(cuda, n=n, e=e, k=1)
+    w = w.to(w_dtype)
+    sto_step.reset_launches()
+    out = sto_step.rk4_tiled_step(m, w, pv, DT, h_in=h[0])
+    ref = sto_step.rk4_tiled_step_plain(m, w, pv, DT, h[0])
+    assert sto_step.LAUNCHES["field_tiled"] == 4
+    assert sto_step.LAUNCHES["round_bf16"] == (w_dtype == torch.bfloat16)
+    assert (out - ref).abs().max().item() <= STATE_ATOL
+
+
+@pytest.mark.cuda
+def test_round_bf16_matches_torch(cuda):
+    """The bf16 operand kernel rounds to nearest even, as torch's cast."""
+    x = torch.randn((320, 320), device=cuda) * 3.0
+    x[0, :4] = torch.tensor([1.00390625, 1.01171875, -1.00390625, 0.0])  # ties to even
+    sto_step.reset_launches()
+    assert torch.equal(sto_step._round_bf16(x), x.to(torch.bfloat16))
+    assert sto_step.LAUNCHES["round_bf16"] == 1
 
 
 @pytest.mark.cuda

@@ -11,6 +11,8 @@ Tolerances, stated once:
   F32_ATOL = 5e-5   f32 state, the bound of tests/test_kernels_sto.py
   F64_ATOL = 1e-10  f64 state, port plain vs JAX ref over <= 40 RK4 steps
   BF16_ATOL = 5e-3  bf16-W state, the `run.py --smoke` guardrail scale
+  SLOPE_RTOL = 1e-5 slopes (~1e10 Oe/s) relative to their largest magnitude
+                    (the card tests' kernel-vs-plain bound)
   frozen lanes      exact (torch.equal)
 """
 
@@ -36,6 +38,7 @@ torch.set_num_threads(2)
 F32_ATOL = 5e-5
 F64_ATOL = 1e-10
 BF16_ATOL = 5e-3
+SLOPE_RTOL = 1e-5
 DT = 1e-11
 
 
@@ -166,6 +169,78 @@ def test_rk4_tiled_step_matches_pallas_interpret():
     sj = step(mj_, wj, pj, hj)
     st = sto_step.rk4_tiled_step(mt, wt, pt, DT, h_in=ht)
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=F32_ATOL)
+
+
+W_TYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("w_type", ["f32", "bf16"])
+def test_tiled_stages_match_pallas_interpret(w_type):
+    """The plain stage function (the tiled kernel's epilogue algebra), stage
+    by stage, against the reference's field_tiled in interpret mode fed the
+    same stage operands; its next x-plane against the reference's
+    m^x + c k^x; then the plain step built from it against the reference's
+    rk4_tiled_step in interpret mode. A bf16 W rounds the x-plane on both
+    sides and both accumulate in f32, so the f32 bounds hold for it too."""
+    n, e = 32, 8
+    jdt, tdt = W_TYPES[w_type]
+    m, w, current, h, _ = _inputs(n, e)
+    pj = _params(e, current, jnp.float32)
+    mj, hj = jnp.asarray(m, jnp.float32), jnp.asarray(h[0], jnp.float32)
+    wj = jnp.asarray(w, jnp.float32).astype(jdt)
+    pt, mt, ht = _tparams(e, current, torch.float32), _t(m), _t(h[0])
+    wt = _t(w).to(tdt)
+    coefs = (0.0, 0.5 * DT, 0.5 * DT, DT)
+    yx, k, acc = mt[0], torch.zeros_like(mt), None
+    for stage in range(1, 5):
+        kj = np.asarray(
+            jstep.field_tiled(
+                mj, jnp.asarray(yx.numpy()), jnp.asarray(k.numpy()), wj, pj, coefs[stage - 1],
+                block_n=n, block_e=e, h_in=hj, interpret=True,
+            )
+        )
+        kt = sto_step.field_tiled_plain(mt, yx, k, wt, pt, coefs[stage - 1], ht)
+        assert np.abs(kt.numpy() - kj).max() / np.abs(kj).max() <= SLOPE_RTOL
+        out = sto_step.rk4_tiled_stage_plain(stage, mt, yx, k, acc, wt, pt, DT, ht)
+        if stage < 4:
+            k_s, yx, acc = out
+            assert torch.equal(k_s, kt)
+            np.testing.assert_allclose(yx.numpy(), m[0] + np.float32(coefs[stage]) * kj[0],
+                                       rtol=0, atol=F32_ATOL)
+            k = k_s
+    step = jax.jit(
+        lambda *a: jstep.rk4_tiled_step(*a[:3], DT, block_n=n, block_e=e, h_in=a[3], interpret=True)
+    )
+    sj = np.asarray(step(mj, wj, pj, hj))
+    np.testing.assert_allclose(out.numpy(), sj, atol=F32_ATOL)
+    np.testing.assert_allclose(sto_step.rk4_tiled_step_plain(mt, wt, pt, DT, ht).numpy(), sj,
+                               atol=F32_ATOL)
+    if w_type == "bf16":
+        # the bf16 rounding really happened: the port agrees with the bf16
+        # reference more closely than with the f32 one
+        s32 = np.asarray(step(mj, jnp.asarray(w, jnp.float32), pj, hj))
+        assert np.abs(out.numpy() - sj).max() < np.abs(out.numpy() - s32).max()
+
+
+@pytest.mark.parametrize("precision", [None, "bf16_coupling"])
+def test_ragged_tiled_matches_pallas_interpret(precision):
+    """N = 70, E = 5 through ops with impl="tiled" and interpret=True: the
+    port pads to its 64-multiples and runs the plain stages, the reference
+    pads to 128 and runs field_tiled in interpret mode (bounds as above)."""
+    n, e = 70, 5
+    m, w, current, _, _ = _inputs(n, e)
+    m_user = np.ascontiguousarray(np.transpose(m, (2, 1, 0)))  # (E, N, 3)
+    jout = jops.sto_rk4_integrate(
+        jnp.asarray(m_user, jnp.float32), jnp.asarray(w, jnp.float32),
+        _params(e, current, jnp.float32), DT, 3, impl="tiled", interpret=True,
+        precision=precision,
+    )
+    out = ops.sto_rk4_integrate(
+        _t(m_user), _t(w), _tparams(e, current, torch.float32), DT, 3,
+        impl="tiled", interpret=True, precision=precision,
+    )
+    assert out.shape == (e, n, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=F32_ATOL)
 
 
 @pytest.mark.parametrize(

@@ -1,10 +1,11 @@
-"""The instruction mix of the cooperative RK4 kernel's product loop, from its SASS.
+"""The instruction mix of the STO kernels' product loops, from their SASS.
 
     python3 tools/sto_sass_mix.py
 
 Builds the kernel library as the wrappers do (src/repro_torch/kernels/_build.py),
 disassembles it with cuobjdump -sass and, for rk4_coop_kernel<float> and
-<__nv_bfloat16>, finds the k-tile loop: the smallest loop (a backward branch
+<__nv_bfloat16> and field_stage_kernel<float> and <__nv_bfloat16> (field_tiled
+and the tiled RK4 stage), finds the k-tile loop: the smallest loop (a backward branch
 and its target) holding at least 90 % of the most FFMA (f32) or HMMA (bf16)
 instructions any loop holds (the outer loops add the epilogue's). For
 that loop it prints the count of each opcode, the share of the math opcode
@@ -30,8 +31,10 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels import _build  # noqa: E402
 
 KERNELS = {
-    "float": ("rk4_coop_kernelIf", "FFMA"),
-    "bf16": ("rk4_coop_kernelI13__nv_bfloat16", "HMMA"),
+    "rk4_coop_kernel<float>": ("rk4_coop_kernelIf", "FFMA"),
+    "rk4_coop_kernel<bf16>": ("rk4_coop_kernelI13__nv_bfloat16", "HMMA"),
+    "field_stage_kernel<float>": ("field_stage_kernelIf", "FFMA"),
+    "field_stage_kernel<bf16>": ("field_stage_kernelI13__nv_bfloat16", "HMMA"),
 }
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
@@ -104,7 +107,7 @@ def main():
         math = sum(v for k, v in ops.items() if k.startswith(math_op))
         spills = sum(v for k, v in ops.items() if k.startswith(("LDL", "STL")))
         dist = first_use_distances(body)
-        print(f"rk4_coop_kernel<{label}> k-tile loop {body[0][0]:#x}-{body[-1][0]:#x}: "
+        print(f"{label} k-tile loop {body[0][0]:#x}-{body[-1][0]:#x}: "
               f"{len(body)} instructions, {math} {math_op} ({math / len(body):.1%}), "
               f"{spills} local loads/stores", flush=True)
         print("  opcodes: " + ", ".join(f"{k} {v}" for k, v in ops.most_common(14)), flush=True)
