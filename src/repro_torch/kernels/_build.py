@@ -62,9 +62,10 @@ _SIGNATURES = {
     ),
     "sto_round_bf16": ((_P, _P, _L, _P), _I),
     "flash_attention_fwd": (
-        (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I) + (_L,) * 12 + (_I, _I, _F, _P),
+        (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I) + (_L,) * 12 + (_I, _I, _F, _I, _I, _P),
         _I,
     ),
+    "flash_bf16_config": ((_I, _P), _I),
 }
 
 

@@ -6,9 +6,9 @@ The kernel replaces the reference's Pallas kernel `_flash_kernel` /
 softmax over KV tiles, GQA groups folded into the q tile (K/V are never
 repeated), causal and sliding-window masks with the last q row aligned to
 the last k row, zeros for a row with no unmasked key, f32 sums and the
-output in q's dtype. It takes bf16 (tensor cores) and f32 (CUDA cores), any
-Sq and Sk (the kernel masks the ragged edges), and head dims in
-HEAD_DIMS.
+output in q's dtype. It takes bf16 (tensor cores: TMA loads and wgmma,
+flash_bf16) and f32 (CUDA cores, flash_f32), any Sq and Sk (the kernel masks
+the ragged edges), and head dims in HEAD_DIMS.
 
 Two entries, one kernel (it reads its operands through strides):
     flash_attention_bshd  the model's layout: q (B, Sq, H, D),
@@ -19,19 +19,111 @@ Two entries, one kernel (it reads its operands through strides):
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `flash_attention_plain`, and nothing else does. Each launch adds one
 to LAUNCHES["flash_attention"].
+
+`tile_plan` and `tile_work` mirror the bf16 kernel's tiles: whole positions
+of a kv head's q heads per 128-row tile, the KV tiles each q tile reads, and
+the launch order (heaviest first). The wrapper passes the plan's tile shape
+to the kernel; the tests hold the rest against a brute-force band count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Iterator
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES
 
-HEAD_DIMS = (32, 64, 80, 96, 128)  # the kernel's template instantiations
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)  # the kernel's template instantiations
 _DTYPES = (torch.bfloat16, torch.float32)
+TMAP_ERROR = 1000  # + CUresult: the driver refused a TMA tensor map
+
+# flash_bf16's tile (csrc/flash_attention.cu, Tile<D>): q rows per tile, and
+# the shared memory a block may use on an H100
+ROWS = 128
+SMEM_LIMIT = 232448
+
+
+def kv_tile(d: int) -> int:
+    """Keys per KV tile: 64 at D = 256 (S, P and a 64 x 256 f32 O within a
+    consumer's registers), else 128."""
+    return 64 if d > 128 else 128
+
+
+def ring_depth(d: int) -> int:
+    """Stages of the K/V ring: 2 from D = 128 (to fit shared memory), else 3."""
+    return 2 if d >= 128 else 3
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one flash_bf16 block: the Q tile, the ring of
+    K and V tiles, and 1024 bytes to align the swizzled boxes."""
+    return ROWS * d * 2 + ring_depth(d) * 2 * kv_tile(d) * d * 2 + 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """flash_bf16's q tile for a group of G q heads per kv head: `heads` (Gc)
+    heads x `positions` (P) whole positions, row = position * Gc + head;
+    G > ROWS splits into `head_chunks` equal chunks. `q_tiles` tiles per
+    (batch, kv head, chunk) cover Sq."""
+
+    heads: int
+    positions: int
+    head_chunks: int
+    q_tiles: int
+    kv_tile: int
+    ring: int
+
+
+def tile_plan(g: int, sq: int, d: int) -> TilePlan:
+    chunks = -(-g // ROWS)
+    gc = -(-g // chunks)
+    positions = ROWS // gc
+    return TilePlan(gc, positions, chunks, -(-sq // positions), kv_tile(d), ring_depth(d))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileWork:
+    """One block of the launch: q positions [q0, q1) of heads [h0, h0 + Gc)
+    of its kv head (those < G stored), reading KV tiles [kv0, kv1)."""
+
+    batch: int
+    kv_head: int
+    h0: int
+    q0: int
+    q1: int
+    kv0: int
+    kv1: int
+
+
+def tile_work(plan: TilePlan, batch: int, kv_heads: int, sq: int, sk: int, causal: bool,
+              window: int) -> Iterator[TileWork]:
+    """The blocks in launch order (blockIdx.x), in the formulas of
+    flash_bf16's q_tile and make_band: the q tiles run backwards under a
+    causal mask (later tiles read more keys) and forwards without one (a
+    window makes earlier tiles heavier), each over all (batch, kv head,
+    chunk) groups."""
+    groups = batch * kv_heads * plan.head_chunks
+    bk, off = plan.kv_tile, sk - sq
+    for bid in range(plan.q_tiles * groups):
+        r, grp = divmod(bid, groups)
+        qt = plan.q_tiles - 1 - r if causal else r
+        q0 = qt * plan.positions
+        q1 = min(q0 + plan.positions, sq)
+        k_begin = max(0, q0 + off - window + 1) if window > 0 else 0
+        k_end = min(sk, q1 - 1 + off + 1) if causal else sk
+        kv0 = k_begin // bk
+        kv1 = -(-k_end // bk) if k_end > k_begin else kv0
+        yield TileWork(
+            batch=grp // (kv_heads * plan.head_chunks),
+            kv_head=(grp // plan.head_chunks) % kv_heads,
+            h0=(grp % plan.head_chunks) * plan.heads,
+            q0=q0, q1=q1, kv0=kv0, kv1=kv1,
+        )
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0, scale=None):
@@ -80,8 +172,7 @@ def _launch(q, k, v, o, dims, causal, window, scale):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention: head dim {d} is not one of the kernel's {HEAD_DIMS} "
-            "(head dim 256, gemma-7b: ROADMAP queue 2, flash kernel head dims)"
+            f"flash_attention: head dim {d} is not one of the kernel's {HEAD_DIMS}"
         )
     align = 16 // q.element_size()  # elements per 16-byte row alignment
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -92,17 +183,22 @@ def _launch(q, k, v, o, dims, causal, window, scale):
                 f"flash_attention: {name}'s rows must be 16-byte aligned (strides "
                 f"{t.stride()} in elements)"
             )
-    if b * kvh > 65535:
+    bf16 = q.dtype == torch.bfloat16
+    if not bf16 and b * kvh > 65535:
         raise ValueError(f"flash_attention: batch x kv heads = {b * kvh} exceeds 65535")
+    plan = tile_plan(h // kvh, sq, d)
     err = _build.load().flash_attention_fwd(
-        int(q.dtype == torch.bfloat16),
+        int(bf16),
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
         b, h, kvh, sq, sk, d,
         *(t.stride(i) for t in (q, k, v, o) for i in dims),
-        int(causal), int(window), float(scale),
+        int(causal), int(window), float(scale), plan.heads, plan.positions,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
+    if err >= TMAP_ERROR:
+        raise RuntimeError(f"flash_attention: the driver refused a TMA tensor map (CUresult "
+                           f"{err - TMAP_ERROR}; strides {[t.stride() for t in (q, k, v)]})")
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed with cudaError {err}")
     LAUNCHES["flash_attention"] += 1

@@ -363,6 +363,12 @@ def _plain_bshd(q, k, v, causal, window):
         ((1, 4, 4, 96, 300, 128), True, 0),  # Sq < Sk, MHA
         ((1, 12, 4, 70, 70, 32), False, 0),  # G = 3, bidirectional
         ((1, 8, 1, 64, 64, 96), True, 16),  # MQA, narrow window
+        ((1, 16, 16, 300, 300, 256), True, 0),  # gemma-7b heads (D = 256), ragged
+        ((1, 12, 4, 333, 333, 80), True, 100),  # G = 3: 42 positions a tile, 2 rows past P x G
+        ((1, 6, 2, 77, 700, 80), True, 5),  # G = 3, Sq < Sk, window narrower than a tile
+        ((2, 8, 1, 150, 150, 128), True, 0),  # MQA (G = 8), batch 2
+        ((1, 4, 4, 1, 129, 80), True, 0),  # one query row
+        ((1, 258, 2, 40, 40, 32), True, 0),  # G = 129: two chunks of 65 heads, one past the group
     ],
 )
 def test_flash_matches_plain(cuda, dtype, shape, causal, window):
@@ -376,6 +382,77 @@ def test_flash_matches_plain(cuda, dtype, shape, causal, window):
     assert out.dtype == dtype and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL[dtype]
     assert _row_rel_err(out, ref) <= FLASH_RTOL[dtype]
+
+
+# Sk of many KV tiles with the last one ragged, every residue of the tile
+# count modulo the ring depth (3 at D = 80, 2 at D = 128 and 256), so the
+# mbarrier parities wrap at every point of the ring
+RING_CASES = [(80, 16), (80, 17), (80, 18), (128, 16), (128, 17), (256, 16), (256, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,tiles", RING_CASES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_ring_parities(cuda, d, tiles, causal):
+    """Bidirectional, every q tile reads all `tiles` KV tiles; causal with
+    Sq = Sk, the tiles read 1 ... `tiles` KV tiles."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sk = tiles * fa.kv_tile(d) - 3
+    sq = 96 if not causal else sk
+    q, k, v = _qkv(cuda, 1, 8, 2, sq, sk, d, torch.bfloat16, seed=tiles)
+    plan = fa.tile_plan(4, sq, d)
+    counts = {w.kv1 - w.kv0 for w in fa.tile_work(plan, 1, 2, sq, sk, causal, 0)}
+    assert max(counts) == tiles and (causal or counts == {tiles})
+    out = fa.flash_attention_bshd(q, k, v, causal=causal)
+    ref = _plain_bshd(q, k, v, causal, 0)
+    assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL[torch.bfloat16]
+    assert _row_rel_err(out, ref) <= FLASH_RTOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,window", [(80, 300), (256, 0)])
+def test_flash_reruns_are_bit_identical(cuda, d, window):
+    """Two launches on the same inputs agree bit for bit (no race between
+    the ring's stages, the two consumers or the output staging), many KV
+    tiles per block."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(cuda, 1, 8, 2, 1100, 1100, d, torch.bfloat16, seed=7)
+    first = fa.flash_attention_bshd(q, k, v, causal=True, window=window)
+    for _ in range(3):
+        assert torch.equal(fa.flash_attention_bshd(q, k, v, causal=True, window=window), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 256])
+def test_flash_bf16_user_layout_and_masked_rows(cuda, d):
+    """The bf16 kernel through the (B, H, S, D) entry (its tensor maps over
+    other strides); with Sq > Sk and causal, the first rows see no key and
+    come back 0."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(cuda, 1, 6, 2, 200, 150, d, torch.bfloat16)
+    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    out = fa.flash_attention(t(q), t(k), t(v), causal=True)
+    ref = fa.flash_attention_plain(t(q), t(k), t(v), causal=True)
+    assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL[torch.bfloat16]
+    assert torch.equal(out[:, :, :50], torch.zeros_like(out[:, :, :50]))
+
+
+@pytest.mark.cuda
+def test_flash_bf16_config_matches_mirror(cuda):
+    """The library's tile (rows, keys per KV tile, ring, shared memory) is
+    the one the Python tile plan mirrors."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    for d in fa.HEAD_DIMS:
+        out = (ctypes.c_int * 4)()
+        assert _build.load().flash_bf16_config(d, out) == 0
+        assert list(out) == [fa.ROWS, fa.kv_tile(d), fa.ring_depth(d), fa.smem_bytes(d)], d
 
 
 @pytest.mark.cuda

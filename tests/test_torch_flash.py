@@ -4,7 +4,7 @@
 is held against the reference's Pallas kernel run in interpret mode
 (`repro.kernels.flash_attention.flash_attention(..., interpret=True)`) and
 its oracle `mha_reference`, over the reference test's shapes (D = 80, GQA,
-MQA, Sq < Sk), causal and not, and sliding windows; and, at ragged lengths
+MQA, Sq < Sk) and gemma-7b's D = 256, causal and not, and sliding windows; and, at ragged lengths
 the Pallas kernel does not take, against the reference model's einsum path
 `_grouped_attend_dense`. Inputs are numpy draws handed to both packages.
 
@@ -34,6 +34,7 @@ SHAPES = [
     (1, 4, 1, 128, 128, 128),  # MQA
     (2, 4, 4, 128, 384, 64),  # q shorter than k
     (1, 16, 4, 256, 256, 80),  # non-pow2 head dim (h2o-danube style)
+    (1, 2, 2, 128, 128, 256),  # gemma-7b's head dim
 ]
 # non-causal only where Sq == Sk (offset alignment is a causal notion)
 CASES = [(s, c) for s in SHAPES for c in (True, False) if c or s[3] == s[4]]

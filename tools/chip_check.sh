@@ -6,15 +6,17 @@
 #
 # In order: chip_smoke.py; chip_smoke.py copied alone into an empty
 # directory, which must fail; the card tests (tests/test_torch_cuda.py);
-# faults planted in a copy of the STO kernel against them
-# (tools/plant_faults.py); field_tiled at every cluster size, as the source
-# stands and as its regs128 variant (tools/field_split_sweep.py); the
-# k-loop instruction mix (tools/sto_sass_mix.py); and, given PARENT_SRC (the
-# src/ of an older checkout), field_tiled and rk4_tiled_step of that
+# faults planted in a copy of the STO kernel, then of the flash kernel,
+# against them (tools/plant_faults.py); field_tiled at every cluster size,
+# as the source stands and as its regs128 variant
+# (tools/field_split_sweep.py); the loops' instruction mix, STO and flash
+# (tools/sto_sass_mix.py); and, given PARENT_SRC (the src/ of an older
+# checkout), field_tiled and rk4_tiled_step, then the flash kernel, of that
 # checkout against this one's, in the order parent, this, this, parent
-# (tools/field_tiled_time.py). Each step writes its whole output to
-# OUT_DIR/<step>.txt (default OUT_DIR: chiprun_out/chip_check) and prints
-# its exit code and the end of its output. Exits non-zero if a step failed.
+# (tools/field_tiled_time.py, tools/flash_time.py). Each step writes its
+# whole output to OUT_DIR/<step>.txt (default OUT_DIR:
+# chiprun_out/chip_check) and prints its exit code and the end of its
+# output. Exits non-zero if a step failed.
 
 set -u
 out=${1:-chiprun_out/chip_check}
@@ -46,12 +48,17 @@ rm -rf "$alone"
 step card_tests ok 800 600 env PYTHONPATH=src python3 -m pytest tests/test_torch_cuda.py -q \
     -p no:cacheprovider
 step plant_faults ok 3000 1500 python3 tools/plant_faults.py
+step plant_faults_flash ok 3000 1200 python3 tools/plant_faults.py --kernel flash
 step split_sweep ok 6000 600 python3 tools/field_split_sweep.py --variant regs128
-step sass_mix ok 3500 300 python3 tools/sto_sass_mix.py
+step sass_mix ok 9000 300 python3 tools/sto_sass_mix.py
 if [ -n "$parent" ]; then
     step parent_vs_this ok 4000 1200 bash -c "
         for src in '$parent' src src '$parent'; do
             python3 tools/field_tiled_time.py --src \"\$src\" || exit 1
+        done"
+    step flash_parent_vs_this ok 6000 900 bash -c "
+        for src in '$parent' src src '$parent'; do
+            python3 tools/flash_time.py --src \"\$src\" || exit 1
         done"
 fi
 exit $failed

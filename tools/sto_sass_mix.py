@@ -1,4 +1,5 @@
-"""The instruction mix of the STO kernels' product loops, from their SASS.
+"""The instruction mix of the STO kernels' product loops and of the bf16
+flash kernel's two loops, from their SASS.
 
     python3 tools/sto_sass_mix.py
 
@@ -13,6 +14,13 @@ in all instructions (an upper bound on the issue share the math can reach),
 the local-memory (spill) loads and stores inside it, and how many
 instructions after each shared-memory load its result is first read. Needs
 the CUDA toolkit (nvcc, cuobjdump), not a card.
+
+For flash_bf16<D> (flash_attention.cu) at every head dim it prints the same
+for the consumers' KV-tile loop (the smallest loop holding 90 % of the most
+HGMMA any loop holds) and the producer's (the same for UTMALDG, the TMA
+load), and the whole kernel's HGMMA, UTMALDG and HMMA counts; it exits 1
+unless every consumer loop holds HGMMA, every producer loop UTMALDG, and no
+flash_bf16 an HMMA (mma.sync).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ KERNELS = {
     "field_stage_kernel<float>": ("field_stage_kernelIf", "FFMA"),
     "field_stage_kernel<bf16>": ("field_stage_kernelI13__nv_bfloat16", "HMMA"),
 }
+FLASH_DIMS = (32, 64, 80, 96, 128, 256)
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
@@ -93,6 +102,46 @@ def first_use_distances(body):
     return out
 
 
+def report(label, ins, math_op):
+    """Print the opcode mix of the loop `k_loop` finds for `math_op` in the
+    function `ins`; return that loop."""
+    body = k_loop(ins, math_op)
+    ops = collections.Counter(opcode(t) for _, t in body)
+    math = sum(v for k, v in ops.items() if k.startswith(math_op))
+    spills = sum(v for k, v in ops.items() if k.startswith(("LDL", "STL")))
+    dist = first_use_distances(body)
+    print(f"{label} loop {body[0][0]:#x}-{body[-1][0]:#x}: "
+          f"{len(body)} instructions, {math} {math_op} ({math / len(body):.1%}), "
+          f"{spills} local loads/stores", flush=True)
+    print("  opcodes: " + ", ".join(f"{k} {v}" for k, v in ops.most_common(14)), flush=True)
+    if dist:
+        print(f"  shared loads to first use (instructions): {len(dist)} loads, "
+              f"min {min(dist)}, median {statistics.median(dist)}, max {max(dist)}, "
+              f"{sum(d < 16 for d in dist)} under 16", flush=True)
+    total = collections.Counter(opcode(t) for _, t in ins)
+    local = sum(v for k, v in total.items() if k.startswith(("LDL", "STL")))
+    print(f"  whole kernel: {sum(total.values())} instructions, {local} local loads/stores",
+          flush=True)
+    return body
+
+
+def flash(funcs) -> bool:
+    """flash_bf16 at every head dim: its consumer and producer loops and its
+    whole-kernel HGMMA, UTMALDG and HMMA counts. Whether every consumer loop
+    holds HGMMA, every producer loop UTMALDG, and no HMMA is left."""
+    ok = True
+    for d in FLASH_DIMS:
+        name = next(n for n in funcs if f"flash_bf16ILi{d}E" in n)
+        total = collections.Counter(opcode(t).split(".")[0] for _, t in funcs[name])
+        print(f"flash_bf16<{d}> whole kernel: HGMMA {total['HGMMA']}, UTMALDG "
+              f"{total['UTMALDG']}, HMMA {total['HMMA']}", flush=True)
+        for role, op in (("consumer KV-tile", "HGMMA"), ("producer", "UTMALDG")):
+            body = report(f"flash_bf16<{d}> {role}", funcs[name], op)
+            ok = ok and any(opcode(t).startswith(op) for _, t in body)
+        ok = ok and total["HMMA"] == 0
+    return ok
+
+
 def main():
     lib = _build.build()
     tool = shutil.which("cuobjdump") or str(pathlib.Path(_build._nvcc()).parent / "cuobjdump")
@@ -102,23 +151,10 @@ def main():
     funcs = functions(sass)
     for label, (fragment, math_op) in KERNELS.items():
         name = next(n for n in funcs if fragment in n)
-        body = k_loop(funcs[name], math_op)
-        ops = collections.Counter(opcode(t) for _, t in body)
-        math = sum(v for k, v in ops.items() if k.startswith(math_op))
-        spills = sum(v for k, v in ops.items() if k.startswith(("LDL", "STL")))
-        dist = first_use_distances(body)
-        print(f"{label} k-tile loop {body[0][0]:#x}-{body[-1][0]:#x}: "
-              f"{len(body)} instructions, {math} {math_op} ({math / len(body):.1%}), "
-              f"{spills} local loads/stores", flush=True)
-        print("  opcodes: " + ", ".join(f"{k} {v}" for k, v in ops.most_common(14)), flush=True)
-        if dist:
-            print(f"  shared loads to first use (instructions): {len(dist)} loads, "
-                  f"min {min(dist)}, median {statistics.median(dist)}, max {max(dist)}, "
-                  f"{sum(d < 16 for d in dist)} under 16", flush=True)
-        total = collections.Counter(opcode(t) for _, t in funcs[name])
-        local = sum(v for k, v in total.items() if k.startswith(("LDL", "STL")))
-        print(f"  whole kernel: {sum(total.values())} instructions, {local} local loads/stores",
-              flush=True)
+        report(f"{label} k-tile", funcs[name], math_op)
+    if not flash(funcs):
+        sys.exit("flash_bf16: a consumer loop without HGMMA, a producer loop without UTMALDG, "
+                 "or an HMMA left")
 
 
 if __name__ == "__main__":
