@@ -43,6 +43,24 @@ on failure:
    finite, and the chunk and the tiled runs against interpret=True runs (the
    plain versions) of the same engine. Prints what impl="auto" resolves to
    at N = 2500, E = 256.
+3b. Online learning on the same 512 sessions, each now with its NARMA-10
+   targets (its readout warm-starts the learned weights, LEARN_WASHOUT
+   ticks before the first update): engines with backend chunk and
+   learn="rls" (launches rk4_chunk), tiled and learn="lms" (field_tiled) and
+   scan and learn="rls" (the exact oracle: no STO kernel), counters set to 0
+   before each run. Every session returns a finite learned readout and
+   online NMSE; its learned W must be bit-equal to a replay of its
+   harvested states through rls_chunk / lms_chunk at the engine's width
+   (E = 256, the session in its own lane, blocks aligned to its admission,
+   the other lanes masked) and within ORACLE_RTOL of fit_rls / fit_lms at
+   E = 1; the scan run's states within STATE_ATOL of the chunk run's.
+   Prints each run's sessions/s and peak device memory, and the learn
+   tail's time per chunk (CUDA events) beside the chunk's, with a profiler
+   table of the tail's device kernels.
+3c. The paper's ladder: ms per RK4 step of integrate_python_loop,
+   integrate_scan and the fused kernel (CompiledSim.integrate, impl="fused",
+   E = 1) at N = 1, 100, 1000, 2500 and 10^4 (W from a torch.Generator), on
+   the card and on the host CPU (device="cpu", the kernel's plain version).
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -101,11 +119,13 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.api import make_spec  # noqa: E402
+from repro_torch.api import ExecPlan, SimSpec, compile_plan, make_spec  # noqa: E402
+from repro_torch.api import compiled  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import constants, coupling, tasks  # noqa: E402
-from repro_torch.core.reservoir import Readout  # noqa: E402
+from repro_torch.core import constants, coupling, integrators, sto, tasks  # noqa: E402
+from repro_torch.core.reservoir import Readout, fit_lms, fit_rls  # noqa: E402
 from repro_torch.kernels import _build, ops, sto_step  # noqa: E402
+from repro_torch.kernels import rls as krls  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import build_model, counting, transformer  # noqa: E402
@@ -159,6 +179,21 @@ SLOPE_RTOL = 1e-5  # field_tiled slopes (~1e10 Oe/s) relative to their max
 # an H100 at 1024 keys.
 FLASH_ATOL = {torch.bfloat16: 3e-2, torch.float32: 5e-6}
 FLASH_RTOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+# phase 3b, online learning: every session's first LEARN_WASHOUT ticks update
+# nothing; RLS starts from P = I / LEARN_REG, NLMS steps by LEARN_MU
+LEARN_WASHOUT = 4
+LEARN_REG = 1e-2
+LEARN_MU = 0.5
+# a learned W against the E = 1 oracle on the card (fit_rls / fit_lms over
+# the session's harvested states), relative to max |W|: the two may take
+# other GEMM and reduction orders. f32 rounding alone moves RLS's W by up to
+# 4.3e-5 of max |W| and NLMS's by 1.4e-7 (f32 against f64 on a CPU, six of
+# these sessions at N = 2500); these limits are ~10x and ~35x that. An
+# H100 read 1.45e-4 and 2.5e-7 over the 512 sessions.
+ORACLE_RTOL = {"rls": 5e-4, "lms": 5e-6}
+# phase 3c, the paper's ladder: ms per RK4 step at these N
+LADDER_N = (1, 100, 1000, 2500, 10000)
 
 # the LM path: h2o-danube-1.8b at full width
 LM_ARCH = "h2o-danube-1.8b"
@@ -1070,12 +1105,13 @@ def trace(label, fn, name_power, top=8, match=None):
     return busy_us, matched
 
 
-def make_sessions(rng):
+def make_sessions(rng, learn=False):
     """512 NARMA-10 streams of 16-40 ticks (disjoint windows of one series),
     per-tenant params on every fourth, a readout (random, from the seed) on
-    every one."""
+    every one; with learn, each also carries its NARMA-10 targets (the
+    readout then warm-starts the learned weights)."""
     base = constants.default_params(device="cpu")
-    u_all, _ = tasks.narma_series(SESSIONS * 40, order=10, seed=0)
+    u_all, y_all = tasks.narma_series(SESSIONS * 40, order=10, seed=0)
     sessions = []
     for sid in range(SESSIONS):
         t = int(rng.integers(16, 41))
@@ -1087,9 +1123,11 @@ def make_sessions(rng):
                 a_in=torch.tensor(rng.uniform(0.5, 1.5)),
             )
         w_out = rng.normal(0.0, 1.0 / math.sqrt(N), (N + 1, 1)).astype(np.float32)
-        sessions.append(
-            StreamSession(sid=sid, u_seq=u, params=params, readout=Readout(torch.from_numpy(w_out), 0))
-        )
+        sess = StreamSession(sid=sid, u_seq=u, params=params, readout=Readout(torch.from_numpy(w_out), 0))
+        if learn:
+            sess.targets = y_all[sid * 40 : sid * 40 + t]
+            sess.learn_washout = LEARN_WASHOUT
+        sessions.append(sess)
     return sessions
 
 
@@ -1115,6 +1153,252 @@ def serve(spec, backend, interpret=False, precision=None):
         for a in (r.states, r.outputs, r.final_m):
             assert np.isfinite(a).all(), f"{backend}: session {sess.sid} not finite"
     return results, seconds, launches, sessions
+
+
+def serve_learning(spec, backend, learn, name_power):
+    """One learning engine run over the 512 sessions, launch counters set to
+    0 before it; every session returns finite states, predictions, learned
+    readout and online NMSE. Returns (results, sessions, launches)."""
+    eng = ReservoirEngine(
+        spec, num_slots=E, chunk_ticks=K, backend=backend, learn=learn,
+        learn_reg=LEARN_REG, learn_mu=LEARN_MU, device="cuda",
+    )
+    sessions = make_sessions(np.random.default_rng(0), learn=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sto_step.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run(sessions)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(sto_step.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del eng
+    torch.cuda.empty_cache()
+    assert len(results) == SESSIONS, f"{backend}/{learn}: {len(results)} of {SESSIONS} sessions"
+    for sess in sessions:
+        r = results[sess.sid]
+        t = sess.u_seq.shape[0]
+        assert r.error is None, r.error
+        assert r.learned_readout is not None and r.learned_readout.w_out.shape == (N + 1, 1)
+        assert r.predictions.shape == (t, 1) and r.states.shape == (t, N)
+        for a in (r.states, r.predictions, r.learned_readout.w_out.numpy()):
+            assert np.isfinite(a).all(), f"{backend}/{learn}: session {sess.sid} not finite"
+        assert r.learn_nmse is not None and np.isfinite(r.learn_nmse), (sess.sid, r.learn_nmse)
+    nmse = np.median([results[s.sid].learn_nmse for s in sessions])
+    print(
+        f"serve backend={backend} learn={learn}: {SESSIONS} sessions in {seconds:.3f} s = "
+        f"{SESSIONS / seconds:.1f} sessions/s, median online NMSE {nmse:.4f}, peak memory "
+        f"{peak / 2**30:.3f} GiB, launches {launches} ({name_power})",
+        flush=True,
+    )
+    return results, sessions, launches
+
+
+def replay(group, results, learn):
+    """The learned W of each (slot, session) in `group` again, from its
+    harvested states, at the engine's width E on the card: each session in
+    the lane it was served in, its ticks in blocks of K from its admission
+    (a session is admitted at a chunk boundary), its readout as the warm
+    start, its first LEARN_WASHOUT ticks masked, every other lane masked.
+    Rows past a session's end hold zeros where the engine's frozen lane
+    held its last state: a masked row's gain is exactly 0, so neither
+    reaches the lane's P or W."""
+    s_dim = N + 1
+    if learn == "rls":
+        p, w = krls.rls_init(E, s_dim, 1, LEARN_REG, torch.float32, device="cuda")
+    else:
+        p, w = None, krls.lms_init(E, s_dim, 1, torch.float32, device="cuda")
+    rows = K * max(-(-sess.u_seq.shape[0] // K) for _, sess in group)
+    xb = torch.zeros((rows, E, s_dim))
+    y = torch.zeros((rows, E, 1))
+    lmask = torch.zeros((rows, E), dtype=torch.bool)
+    for slot, sess in group:
+        t = sess.u_seq.shape[0]
+        xb[:t, slot, :N] = torch.from_numpy(results[sess.sid].states)
+        xb[:t, slot, N] = 1.0
+        y[:t, slot] = torch.from_numpy(sess.targets)
+        lmask[LEARN_WASHOUT:t, slot] = True
+        w[slot] = sess.readout.w_out.cuda()
+    xb, y, lmask = xb.cuda(), y.cuda(), lmask.cuda()
+    for c in range(0, rows, K):
+        if learn == "rls":
+            p, w, _ = krls.rls_chunk(p, w, xb[c : c + K], y[c : c + K], lmask[c : c + K], 1.0)
+        else:
+            w, _ = krls.lms_chunk(w, xb[c : c + K], y[c : c + K], lmask[c : c + K], LEARN_MU)
+    w = w.cpu()
+    return {sess.sid: w[slot] for slot, sess in group}
+
+
+def check_learned(results, sessions, learn, label):
+    """Every session's learned W: bit-equal to its replay at the engine's
+    width (sessions that shared a lane replay in turns; one session once
+    more alone), and within ORACLE_RTOL of the E = 1 oracle."""
+    by_slot = {}
+    for sess in sessions:
+        by_slot.setdefault(results[sess.sid].slot, []).append(sess)
+    replayed = {}
+    for r in range(max(map(len, by_slot.values()))):
+        replayed.update(replay([(k, v[r]) for k, v in by_slot.items() if len(v) > r], results, learn))
+    first = sessions[0]
+    replayed_alone = replay([(results[first.sid].slot, first)], results, learn)[first.sid]
+    assert torch.equal(replayed_alone, replayed[first.sid]), f"{label}: lone replay differs"
+    worst = 0.0
+    for sess in sessions:
+        w = results[sess.sid].learned_readout.w_out
+        assert torch.equal(w, replayed[sess.sid]), (
+            f"{label}: session {sess.sid} learned W differs from its engine-width replay by "
+            f"{(w - replayed[sess.sid]).abs().max().item():.3e}"
+        )
+        states = torch.from_numpy(results[sess.sid].states).cuda()
+        w0 = sess.readout.w_out
+        if learn == "rls":
+            one = fit_rls(states, sess.targets, washout=LEARN_WASHOUT, reg=LEARN_REG, block=K, w0=w0)
+        else:
+            one = fit_lms(states, sess.targets, washout=LEARN_WASHOUT, mu=LEARN_MU, w0=w0)
+        one = one.w_out.cpu()
+        worst = max(worst, ((w - one).abs().max() / one.abs().max()).item())
+    assert worst <= ORACLE_RTOL[learn], f"{label}: learned W vs E=1 oracle {worst} > {ORACLE_RTOL[learn]}"
+    print(
+        f"learn {label}: {len(sessions)} learned W bit-equal to their replay at E={E} "
+        f"({len(by_slot)} lanes); worst max|W - W(E=1 oracle)| / max|W| {worst:.3e} "
+        f"(at most {ORACLE_RTOL[learn]})",
+        flush=True,
+    )
+
+
+def tail_times(spec, impl, learn, name_power):
+    """CUDA-event ms of one K-tick chunk at the serving shape, inference
+    only and learning, and of the learn tail alone on that chunk's states,
+    beside the tail's bound: its inputs read once and outputs written once
+    (RLS: P in and P' out; NLMS: the features, W in and W' out) over the
+    card's memory rate."""
+    kw = dict(impl=impl, ensemble=E, chunk_ticks=K)
+    infer = compile_plan(spec, ExecPlan(**kw), device="cuda")
+    learner = compile_plan(
+        spec, ExecPlan(learn=learn, learn_reg=LEARN_REG, learn_mu=LEARN_MU, **kw), device="cuda"
+    )
+    g = torch.Generator(device="cuda").manual_seed(0)
+    m = ops.to_planes(spec.m0.expand(E, N, 3)).contiguous()
+    u = 0.5 * torch.rand((K, E, 1), generator=g, device="cuda")
+    y = torch.rand((K, E, 1), generator=g, device="cuda")
+    mask = torch.ones((K, E), dtype=torch.bool, device="cuda")
+    p, w = learner.init_learn_state()
+    _, states = infer.tick_chunk(m, u, lane_mask=mask)
+    if learn == "rls":
+        tail = lambda: compiled._learn_chunk_tail(states, y, mask, p, w, 1.0)  # noqa: E731
+        nbytes = 2 * p.numel() * p.element_size()
+    else:
+        tail = lambda: compiled._lms_chunk_tail(states, y, mask, w, LEARN_MU)  # noqa: E731
+        nbytes = 4 * (K * E * (N + 1) + 2 * w.numel())
+    infer_ms = time_ms(lambda: infer.tick_chunk(m, u, lane_mask=mask), 3)
+    learn_ms = time_ms(
+        lambda: learner.tick_chunk(m, u, lane_mask=mask, targets=y, learn_state=(p, w)), 3
+    )
+    tail_ms = time_ms(tail, 3)
+    trace(f"learn tail {learn}", tail, name_power, top=6)
+    bound = 1e3 * nbytes / peaks(torch.cuda.get_device_name(0))[2]
+    print(
+        f"learn tail {learn} behind impl={impl} at N={N}, E={E}, K={K}: chunk {infer_ms:.3f} ms "
+        f"inference only, {learn_ms:.3f} ms learning; tail alone {tail_ms:.3f} ms = "
+        f"{100 * tail_ms / learn_ms:.1f} % of the learning chunk (bound {bound:.3f} ms, bytes) "
+        f"({name_power})",
+        flush=True,
+    )
+
+
+def learning_phase(spec, name_power):
+    """Phase 3b: online learning on the card, and the scan oracle."""
+    runs = {}
+    for backend, learn, kern in (("chunk", "rls", "rk4_chunk"), ("tiled", "lms", "field_tiled"),
+                                 ("scan", "rls", None)):
+        results, sessions, launches = serve_learning(spec, backend, learn, name_power)
+        if kern is None:
+            assert not any(launches.values()), f"scan launched STO kernels: {launches}"
+        else:
+            assert launches[kern] > 0, f"{backend}/{learn} never launched {kern}: {launches}"
+        check_learned(results, sessions, learn, f"{backend}/{learn}")
+        runs[backend] = results
+    worst = max(
+        np.abs(runs["scan"][s.sid].states - runs["chunk"][s.sid].states).max() for s in sessions
+    )
+    assert worst <= STATE_ATOL, f"scan vs chunk states {worst} > {STATE_ATOL}"
+    print(f"serve scan vs chunk (learning runs): max |state| diff {worst:.3e} (atol {STATE_ATOL})",
+          flush=True)
+    del runs
+    tail_times(spec, "chunk", "rls", name_power)
+    tail_times(spec, "tiled", "lms", name_power)
+    torch.cuda.empty_cache()
+
+
+def ladder_spec(n, spec, dev):
+    """A solo SimSpec of n oscillators on dev: W from make_coupling_matrix
+    up to N (the smoke's spec at N), above it from a torch.Generator on dev
+    as device_inputs makes it."""
+    if n == N:
+        w = spec.w_cp.to(dev)
+    elif n < N:
+        w = torch.as_tensor(coupling.make_coupling_matrix(n, seed=0)).to(dev)
+    else:
+        g = torch.Generator(device=dev).manual_seed(0)
+        w = (2.0 * torch.rand((n, n), generator=g, device=dev) - 1.0) * math.sqrt(3.0 / n)
+        w.fill_diagonal_(0.0)
+    return SimSpec(
+        params=constants.default_params(device=dev),
+        w_cp=w,
+        w_in=torch.as_tensor(coupling.make_input_matrix(n, 1, seed=1)).to(dev),
+        m0=constants.initial_magnetization(n, device=dev),
+        dt=DT,
+        hold_steps=HOLD,
+    )
+
+
+def ladder(spec, name_power):
+    """Phase 3c: ms per RK4 step of integrate_python_loop, integrate_scan and
+    the fused kernel (CompiledSim.integrate, impl="fused", E = 1; on the host
+    CPU its plain version) over LADDER_N, on the card and on the host CPU."""
+    line = {}
+    for dev in ("cuda", "cpu"):
+        for n in LADDER_N:
+            sp = ladder_spec(n, spec, dev)
+            steps = 40 if dev == "cuda" else (5 if n > N else 20)
+            field = lambda m, _, sp=sp: sto.llg_field(m, sp.params, sp.w_cp)  # noqa: E731
+            sim = compile_plan(sp, ExecPlan(impl="fused"), device=dev)
+            runs = {
+                "python_loop": lambda: integrators.integrate_python_loop(field, sp.m0, DT, steps),
+                "scan": lambda: integrators.integrate_scan(field, sp.m0, DT, steps),
+                "fused": lambda: sim.integrate(steps),
+            }
+            for name, fn in runs.items():
+                fn()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0) / steps
+                m_t = out if name == "python_loop" else out[0]
+                assert torch.isfinite(m_t).all(), (dev, n, name)
+                line[(dev, n, name)] = ms
+            del sp, sim, runs
+    cols = ("python_loop", "scan", "fused")
+    for dev, label in (("cuda", "card"), ("cpu", "host CPU")):
+        print(
+            f"ladder ms per RK4 step, {label} (python loop / scan / fused kernel): "
+            + "; ".join(f"N={n} " + " / ".join(f"{line[(dev, n, c)]:.4f}" for c in cols) for n in LADDER_N)
+            + (f" ({name_power})" if dev == "cuda" else f" ({os.cpu_count()} CPUs)"),
+            flush=True,
+        )
+    print(
+        "ladder card over host CPU (python loop / scan / fused): "
+        + "; ".join(
+            f"N={n} " + " / ".join(f"{line[('cpu', n, c)] / line[('cuda', n, c)]:.2f}x" for c in cols)
+            for n in LADDER_N
+        )
+        + f" ({name_power})",
+        flush=True,
+    )
 
 
 def main():
@@ -1185,6 +1469,10 @@ def main():
         f"(fused_fits_l2: {ops.fused_fits_l2(ops._round_up(N, ops.BLOCK_N), E)})",
         flush=True,
     )
+    t0 = time.perf_counter()
+    learning_phase(spec, name_power)
+    ladder(spec, name_power)
+    print(f"phases 3b-3c: {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)

@@ -13,12 +13,18 @@ Entry points on the returned CompiledSim (the reference's names):
   integrate(n_steps, ...)      free-run (u = 0) ensemble integration
   tick(m, u, lane_mask=None)   ONE hold window for a slot batch
   tick_chunk(m, U, ...)        K hold windows in one call — the chunked
-                               serving hot path (inference only here)
+                               serving hot path; with ExecPlan(learn=...)
+                               it also trains per-lane readouts online
+                               (targets/learn_state/learn_mask)
 
 PyTorch runs eagerly, so there is nothing to compile: `compile_plan` binds
 the spec to a device and resolves the impl, and the workers below are plain
-functions over the planes layout (3, N, E). The CUDA kernels build at their
-first launch (`CompiledSim.warmup` forces it).
+functions. impl="scan" is the exact oracle: the core (E, N, 3) layout, any
+tableau, one torch op after another (on the card too). The planes impls
+("ref"/"fused"/"tiled"/"chunk") run the (3, N, E) layout and classical RK4
+only; their CUDA kernels build at their first launch (`CompiledSim.warmup`
+forces it). The learn tails (kernels/rls.py) are torch code on the same
+device and stream as the integrate.
 """
 
 from __future__ import annotations
@@ -28,17 +34,148 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import integrators, sto
 from repro_torch.core.constants import STOParams
 from repro_torch.core.ensemble import broadcast_params
 from repro_torch.core.reservoir import coerce_input_series
-from repro_torch.device import resolve_device
+from repro_torch.device import require_full_f32_matmul, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import rls as krls
 
 from repro_torch.api.plan import ExecPlan
 from repro_torch.api.spec import SimSpec, validate_topology
 
+PLANES_IMPLS = ("ref", "fused", "tiled", "chunk")
 KERNEL_IMPLS = ("fused", "tiled", "chunk")
+
+
+# ---------------------------------------------------------------------------
+# workers — core (E, N, 3) layout ("scan" impl, the exact oracle)
+# ---------------------------------------------------------------------------
+
+
+def _scan_step(params, w_cp, tableau_name):
+    """The tableau's step over the LLG field with an input x-field arg."""
+
+    def field(m, h_in_x):
+        return sto.llg_field(m, params, w_cp, h_in_x)
+
+    return integrators.make_step(field, integrators.TABLEAUX[tableau_name])
+
+
+def _hold(step, m, dt, h_in, hold_steps):
+    """One hold window: hold_steps steps under a constant input field."""
+    for _ in range(hold_steps):
+        m = step(m, dt, h_in)
+    return m
+
+
+def _scan_input_field(params_e, w_in, u):
+    """h_in = A_in (W^in u) per lane: u (E, N_in) -> (E, N), full f32."""
+    if w_in.is_cuda:
+        require_full_f32_matmul()
+    return params_e.a_in * torch.einsum("ni,ei->en", w_in, u)
+
+
+def _drive_scan(params, w_cp, w_in, m0, u_seq, dt, hold_steps, tableau_name="rk4"):
+    """Solo drive (scalar params): m0 (N, 3), u_seq (T, N_in) ->
+    (mT (N, 3), states (T, N)), the node states being x-components."""
+    step = _scan_step(params, w_cp, tableau_name)
+    dt = integrators.dt_tensor(dt, m0)
+    if w_in.is_cuda:
+        require_full_f32_matmul()
+    m, states = m0, []
+    for u_t in u_seq:
+        # input held piecewise-constant over the hold window
+        m = _hold(step, m, dt, params.a_in * (w_in @ u_t), hold_steps)
+        states.append(m[..., 0])
+    return m, torch.stack(states)
+
+
+def _drive_scan_batch(params_e, w_cp, w_in, m0_e, u_seq_e, dt, hold_steps, tableau_name="rk4"):
+    """Ensemble drive in the core layout (per-lane params and inputs):
+    m0_e (E, N, 3), u_seq_e (T, E, N_in) -> ((E, N, 3), (T, E, N))."""
+    step = _scan_step(params_e, w_cp, tableau_name)
+    dt = integrators.dt_tensor(dt, m0_e)
+    m, states = m0_e, []
+    for u_t in u_seq_e:
+        m = _hold(step, m, dt, _scan_input_field(params_e, w_in, u_t), hold_steps)
+        states.append(m[..., 0])
+    return m, torch.stack(states)
+
+
+def _tick_chunk_scan(params_e, w_cp, w_in, m_planes, u_block, mask_block, dt,
+                     hold_steps, tableau_name="rk4"):
+    """K input ticks for all E slots in the core layout: u_block (K, E, N_in),
+    mask_block (K, E). Takes and returns the slot store's (3, N, E) planes;
+    the layout shuffle is hoisted out of the K loop (pure data movement), so
+    a K-chunk is bit-identical to K one-tick calls (`_tick_scan`). The
+    per-lane math is `_drive_scan_batch`'s; masked (idle) lanes come back
+    bit-identical. Returns ((3, N, E), states (K, N, E))."""
+    m = m_planes.permute(2, 1, 0).contiguous()  # (E, N, 3)
+    step = _scan_step(params_e, w_cp, tableau_name)
+    states = []
+    for u_t, mask_t in zip(u_block, mask_block):
+        m_new = _hold(step, m, dt, _scan_input_field(params_e, w_in, u_t), hold_steps)
+        m = torch.where(mask_t[:, None, None], m_new, m)
+        states.append(m[..., 0].T)
+    return m.permute(2, 1, 0).contiguous(), torch.stack(states)
+
+
+def _tick_scan(params_e, w_cp, w_in, m_planes, u, mask, dt, hold_steps, tableau_name="rk4"):
+    """ONE input tick for all E slots: the one-tick chunk. Returns
+    (m_planes' (3, N, E), states (N, E))."""
+    m, states = _tick_chunk_scan(
+        params_e, w_cp, w_in, m_planes, u[None], mask[None], dt, hold_steps, tableau_name
+    )
+    return m, states[0]
+
+
+# ---------------------------------------------------------------------------
+# learn tails — the chunk's (K, N, E) states block -> readout update
+# ---------------------------------------------------------------------------
+
+
+def _features(states):
+    """(K, N, E) states -> (K, E, S) feature rows: node states + bias."""
+    k, _, e = states.shape
+    ones = torch.ones((k, e, 1), dtype=states.dtype, device=states.device)
+    return torch.cat([states.permute(0, 2, 1), ones], dim=-1)
+
+
+def _learn_chunk_tail(states, y_block, lmask_block, p0, w0, lam):
+    """The chunked RLS update (`kernels.rls.rls_chunk`) over the chunk's
+    features. Returns (P', W', preds (K, E, n_out))."""
+    return krls.rls_chunk(p0, w0, _features(states), y_block, lmask_block, lam)
+
+
+def _lms_chunk_tail(states, y_block, lmask_block, w0, mu):
+    """The chunked NLMS update (`kernels.rls.lms_chunk`); no P block.
+    Returns (W', preds (K, E, n_out))."""
+    return krls.lms_chunk(w0, _features(states), y_block, lmask_block, mu)
+
+
+def _tick_chunk_scan_rls(params_e, w_cp, w_in, m_planes, u_block, mask_block,
+                         y_block, lmask_block, p0, w0, lam, dt, hold_steps,
+                         tableau_name="rk4"):
+    """`_tick_chunk_scan` + the RLS tail. The integration is the
+    inference-only chunk's, bit for bit. lmask_block (K, E) gates which lanes
+    learn which ticks. Returns (m', states, P', W', preds)."""
+    mT, states = _tick_chunk_scan(
+        params_e, w_cp, w_in, m_planes, u_block, mask_block, dt, hold_steps, tableau_name
+    )
+    return (mT, states, *_learn_chunk_tail(states, y_block, lmask_block, p0, w0, lam))
+
+
+def _tick_chunk_scan_lms(params_e, w_cp, w_in, m_planes, u_block, mask_block,
+                         y_block, lmask_block, w0, mu, dt, hold_steps,
+                         tableau_name="rk4"):
+    """`_tick_chunk_scan` + the NLMS tail. Returns (m', states, W', preds)."""
+    mT, states = _tick_chunk_scan(
+        params_e, w_cp, w_in, m_planes, u_block, mask_block, dt, hold_steps, tableau_name
+    )
+    return (mT, states, *_lms_chunk_tail(states, y_block, lmask_block, w0, mu))
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +275,31 @@ def _tick_chunk_planes(
     return m, torch.stack(states)  # (3, N, E), (K, N, E)
 
 
+def _tick_chunk_planes_rls(
+    params_e, w_cp, w_in, m_planes, u_block, mask_block, y_block, lmask_block,
+    p0, w0, *, lam, **planes_kw,
+):
+    """`_tick_chunk_planes` + the RLS tail: the integrate is the impl's
+    kernel, the tail the torch `rls_chunk` on the same device and stream. The
+    learn recursion runs in the state dtype whatever the precision policy.
+    Returns (m', states, P', W', preds)."""
+    mT, states = _tick_chunk_planes(
+        params_e, w_cp, w_in, m_planes, u_block, mask_block, **planes_kw
+    )
+    return (mT, states, *_learn_chunk_tail(states, y_block, lmask_block, p0, w0, lam))
+
+
+def _tick_chunk_planes_lms(
+    params_e, w_cp, w_in, m_planes, u_block, mask_block, y_block, lmask_block,
+    w0, *, mu, **planes_kw,
+):
+    """`_tick_chunk_planes` + the NLMS tail. Returns (m', states, W', preds)."""
+    mT, states = _tick_chunk_planes(
+        params_e, w_cp, w_in, m_planes, u_block, mask_block, **planes_kw
+    )
+    return (mT, states, *_lms_chunk_tail(states, y_block, lmask_block, w0, mu))
+
+
 def _integrate_planes(
     params_e, w_cp, m0_planes,
     *, dt, n_steps, save_every, impl, n_inner, block_n, block_e, interpret,
@@ -176,15 +338,36 @@ class CompiledSim:
     def __init__(self, spec: SimSpec, plan: ExecPlan, impl: str):
         self.spec = spec
         self.plan = plan
-        self.impl = impl  # resolved: ref | fused | tiled | chunk
+        self.impl = impl  # resolved: scan | ref | fused | tiled | chunk
         self.e = plan.ensemble
         self.device = spec.device
         self.topology = spec.topology
         self._block_n = plan.block_n or ops.BLOCK_N
         self._block_e = plan.block_e or ops.BLOCK_E
         self._n_inner = plan.n_inner or spec.hold_steps
+        # scan's dt: a 0-d tensor of the state dtype (integrators module note)
+        self._dt_scan = integrators.dt_tensor(spec.dt, spec.m0)
         self.precision = ops.normalize_precision(plan.precision)
+        # the learners' knobs, Python floats (RLS: lam == 1 skips the P
+        # rescale; LMS: mu is the gain's numerator)
+        self._lam = float(plan.learn_lam) if plan.learn else None
+        self._mu = float(plan.learn_mu) if plan.learn == "lms" else None
         self._params_cache: Optional[STOParams] = None
+
+    def init_learn_state(self) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """Fresh learn_state lanes for the plan's learner, S = N + 1 (states
+        + bias), n_out = 1, on the plan's device.
+
+        learn="rls": (P (E, S, S) = I / learn_reg, W (E, S, 1) = 0).
+        learn="lms": (None, W (E, S, 1) = 0); the None keeps the (P, W)
+        contract uniform. For n_out != 1 call kernels.rls.rls_init /
+        lms_init directly."""
+        if self.plan.learn is None:
+            raise ValueError("init_learn_state() requires ExecPlan(learn=...)")
+        s, dt, dev = self.spec.n + 1, self.spec.dtype, self.device
+        if self.plan.learn == "lms":
+            return None, krls.lms_init(self.e, s, 1, dt, device=dev)
+        return krls.rls_init(self.e, s, 1, self.plan.learn_reg, dt, device=dev)
 
     # -- parameter plumbing ------------------------------------------------
 
@@ -272,6 +455,16 @@ class CompiledSim:
             raise ValueError(
                 f"m0 must have shape {tuple(spec.m0.shape)}; got {tuple(m_start.shape)}"
             )
+        if self.impl == "scan":
+            # a (1, 1)-leaved ensemble-of-one spec is legal; the solo scan
+            # math takes 0-d leaves (the same values)
+            params = STOParams(
+                *(x.reshape(()) for x in spec.params.to(self.device, spec.dtype))
+            )
+            return _drive_scan(
+                params, spec.w_cp, spec.w_in, m_start, u_seq, self._dt_scan,
+                spec.hold_steps, spec.tableau,
+            )
         mT, states = _drive_planes(
             self.ensemble_params(), spec.w_cp, spec.w_in,
             ops.to_planes(m_start), u_seq[:, None, :], **self._planes_kw(),
@@ -287,6 +480,11 @@ class CompiledSim:
         m0_e = self._coerce_batch_m0(m0)
         params_e = self.ensemble_params(params)
         u_e = self._coerce_batch_u(u_seq)
+        if self.impl == "scan":
+            return _drive_scan_batch(
+                params_e, spec.w_cp, spec.w_in, m0_e, u_e, self._dt_scan,
+                spec.hold_steps, spec.tableau,
+            )
         mT, states = _drive_planes(
             params_e, spec.w_cp, spec.w_in, ops.to_planes(m0_e), u_e, **self._planes_kw()
         )
@@ -304,6 +502,15 @@ class CompiledSim:
         params_e = self.ensemble_params(params)
         if save_every and n_steps % save_every:
             raise ValueError(f"n_steps ({n_steps}) must be a multiple of save_every ({save_every})")
+        if self.impl == "scan":
+
+            def field(m, _):
+                return sto.llg_field(m, params_e, self.spec.w_cp)
+
+            return integrators.integrate_scan(
+                field, m0_e, self._dt_scan, n_steps, None,
+                integrators.TABLEAUX[self.spec.tableau], save_every=save_every,
+            )
         kw = self._planes_kw()
         del kw["hold_steps"]
         mT, traj = _integrate_planes(
@@ -327,6 +534,11 @@ class CompiledSim:
         bit-identical."""
         spec = self.spec
         mask = self._coerce_tick_mask(lane_mask, 1)[0]
+        if self.impl == "scan":
+            return _tick_scan(
+                self.ensemble_params(params), spec.w_cp, spec.w_in, m_planes,
+                self._tensor(u), mask, self._dt_scan, spec.hold_steps, spec.tableau,
+            )
         return _tick_planes(
             self.ensemble_params(params), spec.w_cp, spec.w_in, m_planes,
             self._tensor(u), mask, **self._planes_kw(),
@@ -338,46 +550,138 @@ class CompiledSim:
         u_block,  # (K, E, N_in) input rows for K ticks
         lane_mask=None,  # (K, E) or (E,) bool
         params: Optional[STOParams] = None,  # per-lane STOParams, (E, 1) leaves
-        targets=None,
-        learn_state=None,
-        learn_mask=None,
+        targets=None,  # (K, E, n_out) learn targets
+        learn_state=None,  # (P, W); P is None for learn="lms"
+        learn_mask=None,  # (K, E) or (E,) bool
     ):
         """K serving ticks (K hold windows) for a slot batch in one call.
 
         Returns (m_planes' (3, N, E), states (K, N, E)). lane_mask may be per
         tick (K, E) — a lane masked False for rows [0, k) and True after
         integrates exactly as if admitted at tick k (frozen lanes are
-        bit-identical) — or a single (E,) row applied to every tick. Online
-        learning (targets / learn_state / learn_mask) is not ported yet.
+        bit-identical) — or a single (E,) row applied to every tick. On the
+        scan impl a K-chunk is bit-identical to K `tick` calls.
+
+        With `ExecPlan(learn="rls" | "lms")` the chunk also LEARNS: pass
+        `learn_state=(P (E, S, S), W (E, S, n_out))` (see
+        `init_learn_state`; P is None for LMS) and `targets` (K, E, n_out).
+        `learn_mask` (default: lane_mask) gates which lanes learn which
+        ticks; masked ticks leave P/W value-frozen. Returns (m', states,
+        (P', W'), preds (K, E, n_out)), preds being the a-priori
+        (pre-update) predictions. The integration is the inference-only
+        chunk's on every impl.
         """
-        if targets is not None or learn_state is not None or learn_mask is not None:
-            raise ValueError(
-                "targets/learn_state/learn_mask require a learning plan; "
-                "this plan is inference-only (online learning is ROADMAP "
-                "queue 1 item 6)"
-            )
         spec = self.spec
+        params_e = self.ensemble_params(params)
         u_block = self._tensor(u_block)
         if u_block.ndim != 3 or tuple(u_block.shape[1:]) != (self.e, spec.n_in):
             raise ValueError(
                 f"u_block must have shape (K, {self.e}, {spec.n_in}); "
                 f"got {tuple(u_block.shape)}"
             )
-        mask_block = self._coerce_tick_mask(lane_mask, u_block.shape[0])
+        k = u_block.shape[0]
+        mask_block = self._coerce_tick_mask(lane_mask, k)
+        if self.plan.learn is None:
+            if targets is not None or learn_state is not None or learn_mask is not None:
+                raise ValueError(
+                    "targets/learn_state/learn_mask require an "
+                    "ExecPlan(learn='rls') plan; this plan is inference-only"
+                )
+            return self._tick_chunk_infer(params_e, m_planes, u_block, mask_block)
+        if learn_state is None or targets is None:
+            raise ValueError(
+                f"ExecPlan(learn={self.plan.learn!r}) tick_chunk needs "
+                "learn_state=(P, W) (P is None for learn='lms') and targets "
+                "(K, E, n_out); for an inference-only chunk compile a plan "
+                "with learn=None"
+            )
+        p0, w0 = learn_state
+        n_out = w0.shape[-1]
+        targets = self._tensor(targets)
+        if tuple(targets.shape) != (k, self.e, n_out):
+            raise ValueError(
+                f"targets must have shape ({k}, {self.e}, {n_out}) to match "
+                f"the u block and learn_state W lanes; got {tuple(targets.shape)}"
+            )
+        if tuple(w0.shape[:2]) != (self.e, spec.n + 1):
+            raise ValueError(
+                f"learn_state W must have shape ({self.e}, {spec.n + 1}, "
+                f"n_out); got {tuple(w0.shape)}"
+            )
+        lmask_block = (
+            mask_block if learn_mask is None else self._coerce_tick_mask(learn_mask, k)
+        )
+        if self.plan.learn == "lms":
+            if p0 is not None:
+                raise ValueError(
+                    "learn='lms' carries no P block; pass learn_state="
+                    "(None, W) (see init_learn_state)"
+                )
+            if self.impl == "scan":
+                mT, states, wT, preds = _tick_chunk_scan_lms(
+                    params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
+                    targets, lmask_block, w0, self._mu, self._dt_scan,
+                    spec.hold_steps, spec.tableau,
+                )
+            else:
+                mT, states, wT, preds = _tick_chunk_planes_lms(
+                    params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
+                    targets, lmask_block, w0, mu=self._mu, **self._planes_kw(),
+                )
+            return mT, states, (None, wT), preds
+        if p0 is None or tuple(p0.shape) != (self.e, spec.n + 1, spec.n + 1):
+            raise ValueError(
+                f"learn_state must be (P ({self.e}, {spec.n + 1}, "
+                f"{spec.n + 1}), W ({self.e}, {spec.n + 1}, n_out)); got "
+                f"P={None if p0 is None else tuple(p0.shape)}"
+            )
+        if self.impl == "scan":
+            mT, states, pT, wT, preds = _tick_chunk_scan_rls(
+                params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
+                targets, lmask_block, p0, w0, self._lam, self._dt_scan,
+                spec.hold_steps, spec.tableau,
+            )
+        else:
+            mT, states, pT, wT, preds = _tick_chunk_planes_rls(
+                params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
+                targets, lmask_block, p0, w0, lam=self._lam, **self._planes_kw(),
+            )
+        return mT, states, (pT, wT), preds
+
+    def _tick_chunk_infer(self, params_e, m_planes, u_block, mask_block):
+        """Inference-only chunk body (plan.learn is None)."""
+        spec = self.spec
+        if self.impl == "scan":
+            return _tick_chunk_scan(
+                params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
+                self._dt_scan, spec.hold_steps, spec.tableau,
+            )
         return _tick_chunk_planes(
-            self.ensemble_params(params), spec.w_cp, spec.w_in, m_planes,
-            u_block, mask_block, **self._planes_kw(),
+            params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
+            **self._planes_kw(),
         )
 
     def warmup(self, n_out: int = 1) -> "CompiledSim":
         """Run ONE all-lanes-masked zero chunk (state-neutral by
-        construction), which builds the CUDA kernels of this plan's impl."""
+        construction), which builds the CUDA kernels of this plan's impl.
+        Learn plans run it with fresh (P, W) lanes of width n_out."""
         spec = self.spec
         k = self.plan.chunk_ticks
         m = ops.to_planes(spec.m0.expand(self.e, spec.n, 3)).contiguous()
         u = torch.zeros((k, self.e, spec.n_in), dtype=spec.dtype, device=self.device)
         mask = torch.zeros((k, self.e), dtype=torch.bool, device=self.device)
-        self.tick_chunk(m, u, lane_mask=mask)
+        if self.plan.learn is None:
+            self.tick_chunk(m, u, lane_mask=mask)
+        else:
+            s, dt, dev = spec.n + 1, spec.dtype, self.device
+            if self.plan.learn == "lms":
+                state = (None, krls.lms_init(self.e, s, n_out, dt, device=dev))
+            else:
+                state = krls.rls_init(self.e, s, n_out, self.plan.learn_reg, dt, device=dev)
+            targets = torch.zeros((k, self.e, n_out), dtype=dt, device=dev)
+            self.tick_chunk(
+                m, u, lane_mask=mask, targets=targets, learn_state=state, learn_mask=mask
+            )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -406,10 +710,9 @@ def compile_plan(
     dev = resolve_device(device)
     if spec.device != dev:
         spec = spec.to(dev)
-    if spec.tableau != "rk4":
-        raise NotImplementedError(
-            f"tableau {spec.tableau!r} is not ported yet (ROADMAP queue 1 item 2, "
-            "core/integrators.py); this slice integrates classical RK4"
+    if spec.tableau not in integrators.TABLEAUX:
+        raise ValueError(
+            f"unknown tableau {spec.tableau!r}; choose from {sorted(integrators.TABLEAUX)}"
         )
     validate_topology(spec)
 
@@ -428,11 +731,6 @@ def compile_plan(
         )
 
     impl = plan.impl
-    if impl == "scan":
-        raise NotImplementedError(
-            "impl='scan' (the core-layout oracle) is not ported yet (ROADMAP "
-            "queue 1 item 5); use impl='ref' for the plain PyTorch version"
-        )
     itemsize = torch.empty((), dtype=spec.dtype).element_size()
     if impl == "auto":
         if plan.measure:
@@ -445,6 +743,16 @@ def compile_plan(
             spec.n, plan.ensemble, itemsize, platform=dev.type,
             precision=plan.effective_precision,
         )
+        if spec.tableau != "rk4":
+            # the table's impls integrate RK4: another tableau runs the oracle
+            impl = "scan"
+    if impl in PLANES_IMPLS and spec.tableau != "rk4":
+        # the reference's "ref" body integrates RK4 whatever the tableau; the
+        # port refuses that instead of answering with RK4
+        raise ValueError(
+            f"the planes impls integrate classical RK4 only; impl={impl!r} "
+            f"cannot run tableau {spec.tableau!r} (use impl='scan')"
+        )
     if (
         impl in KERNEL_IMPLS
         and dev.type == "cuda"
@@ -454,6 +762,6 @@ def compile_plan(
         raise NotImplementedError(
             f"the CUDA kernels take an f32 state; a {spec.dtype} state on CUDA "
             "is not supported yet (ROADMAP queue 1 item 4, f64 kernels) — use "
-            "impl='ref' or an f32 spec"
+            "impl='scan' or 'ref', or an f32 spec"
         )
     return CompiledSim(spec, plan, impl)

@@ -5,9 +5,11 @@ The fields are the reference's (api/plan.py), resolved exactly once, in
 
   impl       "auto" consults the measured-latency dispatch table, then the
              platform gate / L2 heuristic (`kernels.ops.choose_impl`).
-             Explicit values: "ref" (the plain PyTorch version), "fused" /
-             "tiled" / "chunk" (the CUDA kernels; their plain versions for a
-             CPU spec). "scan" (the core-layout oracle) is not ported yet.
+             Explicit values: "scan" (the core (E, N, 3) layout, any
+             tableau: the exact oracle, eager torch ops on any device),
+             "ref" (the plain PyTorch version), "fused" / "tiled" / "chunk"
+             (the CUDA kernels; their plain versions for a CPU spec). The
+             planes impls (ref/fused/tiled/chunk) integrate RK4 only.
   ensemble   E: how many reservoir lanes run per call (1 = solo).
   block_n/e  padding granules; multiples of the kernels' 64-row/64-lane tiles.
   n_inner    fused-kernel inner steps (None = one hold window per launch).
@@ -21,11 +23,14 @@ The fields are the reference's (api/plan.py), resolved exactly once, in
              the Pallas kernels through the interpreter). An explicit request
              for checking, never a default.
   measure    time the impl candidates at compile time and pin the winner.
+  learn      None, "rls" or "lms": `CompiledSim.tick_chunk` also trains
+             per-lane readouts online (kernels/rls.py); learn_lam /
+             learn_reg are RLS's forgetting factor and regularization
+             (P0 = I / learn_reg), learn_mu the NLMS step size.
 
 Not ported yet, and refused with NotImplementedError when set: `mesh` and
-its axes (sharded plans, ROADMAP queue 1 item 12), `learn` (online
-readout learning, queue 1 item 6), `aot` and `compilation_cache_dir` (the
-plan cache, queue 1 item 9).
+its axes (sharded plans, ROADMAP queue 1 item 12), `aot` and
+`compilation_cache_dir` (the plan cache, queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -139,7 +144,6 @@ class ExecPlan:
                 )
         waiting = {
             "mesh": (self.mesh is not None, "queue 1 item 12, sharded plans"),
-            "learn": (self.learn is not None, "queue 1 item 6, online learning tails"),
             "aot": (self.aot, "queue 1 item 9, plan cache"),
             "compilation_cache_dir": (
                 self.compilation_cache_dir is not None, "queue 1 item 9, plan cache"

@@ -1,10 +1,10 @@
 """Carry weights and state across from the reference package.
 
-The reference's SimSpec leaves, readouts and per-tenant parameters, and its
-LM parameter and KV-cache pytrees, reach the port as numpy arrays
-(`np.asarray` of each leaf); these converters rebuild the port's objects from
-them on `device`, so both packages compute the same thing from the same
-numbers. Nothing here imports the reference.
+The reference's SimSpec leaves, readouts, per-tenant parameters and online
+learners' (P, W) lanes, and its LM parameter and KV-cache pytrees, reach the
+port as numpy arrays (`np.asarray` of each leaf); these converters rebuild
+the port's objects from them on `device`, so both packages compute the same
+thing from the same numbers. Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -66,6 +66,14 @@ def spec_from_numpy(params, w_cp, w_in, m0, dt, hold_steps, device="cuda") -> Si
 def readout_from_numpy(w_out, washout: int, device="cuda") -> Readout:
     """A Readout ((N+1, n_out) weights, last row the bias) from numpy."""
     return Readout(w_out=_tensor(w_out, resolve_device(device)), washout=int(washout))
+
+
+def learn_state_from_numpy(P, W, device="cuda"):
+    """The (P, W) learn lanes of `CompiledSim.tick_chunk` from the
+    reference's as numpy: P (E, S, S) or None (learn="lms"), W (E, S,
+    n_out)."""
+    dev = resolve_device(device)
+    return (None if P is None else _tensor(P, dev)), _tensor(W, dev)
 
 
 def _tree_from_numpy(tree, dev):

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import require_full_f32_matmul
+
 # Above this N, exact eigvals (O(N^3)) get replaced by the circular-law
 # estimate with a power-iteration refinement.
 _EXACT_EIG_MAX_N = 2048
@@ -83,6 +85,9 @@ def make_input_matrix(
 def coupling_field_x(w_cp: torch.Tensor, mx: torch.Tensor, a_cp) -> torch.Tensor:
     """H^cp x-component: a_cp * (W^cp @ m^x)  — the paper's O(N^2) term.
 
-    mx: (..., N) -> returns (..., N), one matmul over the trailing axis.
+    mx: (..., N) -> returns (..., N), one matmul over the trailing axis, in
+    full f32 on the card (TF32 off, as for the kernels' plain versions).
     """
+    if w_cp.is_cuda:
+        require_full_f32_matmul()
     return a_cp * torch.einsum("ki,...i->...k", w_cp, mx)

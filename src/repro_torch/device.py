@@ -22,3 +22,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be a cuda or cpu device; got {dev}")
     return dev
+
+
+def require_full_f32_matmul() -> None:
+    """Switch TF32 off for products on the card, and check that it is off:
+    precision None/"highest" means full-f32 products."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 products are on; the plain versions need full f32")

@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.constants import STOParams
+from repro_torch.device import require_full_f32_matmul
 
 PARAM_LAYOUT: Tuple[str, ...] = (
     "pref",  # gamma / (1 + alpha^2)
@@ -62,15 +63,6 @@ def pack_params(params: STOParams, e: int, dtype=torch.float32) -> torch.Tensor:
 def _unpack(pvec: torch.Tensor):
     """(NP, E) -> dict of (E,) rows."""
     return {name: pvec[i] for i, name in enumerate(PARAM_LAYOUT)}
-
-
-def require_full_f32_matmul() -> None:
-    """Switch TF32 off for products on the card, and check that it is off:
-    precision None/"highest" means full-f32 products."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("TF32 products are on; the plain versions need full f32")
 
 
 def coupling_dot(w_cp: torch.Tensor, x: torch.Tensor, acc_dtype) -> torch.Tensor:

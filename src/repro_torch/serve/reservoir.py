@@ -19,9 +19,14 @@ harvest waits on that event only, so it never waits for the chunk launched
 after it. (A plain `.cpu()` on the same stream would wait for that chunk
 too and serialise the double buffer.)
 
+Online learning: an engine built with learn="rls" | "lms" trains the
+readout of every session that submits `targets` inside `tick_chunk`, after
+the chunk's integrate (kernels/rls.py). The learn columns (P, W) stay on the
+device; a-priori predictions come back with the chunk's other blocks, and a
+retiring lane's learned W with its final state.
+
 Not ported yet (ROADMAP queue 1 item 7 and later): the per-tick `step()`,
-autoscale, online learning, mixed-spec sub-engines, push streams,
-checkpoints and autotune.
+autoscale, mixed-spec sub-engines, push streams, checkpoints and autotune.
 """
 
 from __future__ import annotations
@@ -38,9 +43,9 @@ from repro_torch.api import CompiledSim, ExecPlan, SimSpec, compile_plan
 from repro_torch.core.constants import STOParams
 from repro_torch.core.reservoir import Readout, coerce_input_series
 from repro_torch.serve.scheduler import SlotScheduler
-from repro_torch.serve.state_store import SlotStore
+from repro_torch.serve.state_store import SlotStore, _host
 
-BACKENDS = ("auto", "ref", "fused", "tiled", "chunk")
+BACKENDS = ("auto", "scan", "ref", "fused", "tiled", "chunk")
 
 # ReservoirEngine options of the reference that are not ported yet
 _WAITING_OPTIONS = {
@@ -48,10 +53,6 @@ _WAITING_OPTIONS = {
     "min_slots": "queue 1 item 7, autoscale",
     "max_slots": "queue 1 item 7, autoscale",
     "prewarm": "queue 1 item 9, plan cache",
-    "learn": "queue 1 item 6, online learning tails",
-    "learn_lam": "queue 1 item 6, online learning tails",
-    "learn_reg": "queue 1 item 6, online learning tails",
-    "learn_mu": "queue 1 item 6, online learning tails",
     "compilation_cache_dir": "queue 1 item 9, plan cache",
 }
 
@@ -64,7 +65,16 @@ class StreamSession:
     params overrides the engine template's physical parameters for this
     tenant's lane; readout is the tenant's trained linear readout (None =
     state collection only); m0 resumes from a previous session's final
-    state. `targets`, `open` and `spec` (online learning, push streams,
+    state.
+
+    `targets` (T, n_out) (or (T,)) makes the session a LEARNER on a learning
+    engine: its lane's readout trains online, one update per tick inside the
+    chunk. `learn_washout` skips the update for the first ticks (the
+    a-priori predictions are still recorded). A `readout` warm-starts the
+    learned weights (and still drives `outputs`); `learn_w0` / `learn_P0`
+    resume a recursion mid-stream (weights, and RLS's inverse-Gram) and take
+    priority. The trained readout, the per-tick predictions and the online
+    NMSE come back on the SessionResult. `open` and `spec` (push streams,
     mixed-spec tenancy) are not ported yet and raise at submit.
     """
 
@@ -74,8 +84,11 @@ class StreamSession:
     readout: Optional[Readout] = None
     m0: Optional[object] = None
     collect_states: bool = True
-    targets: Optional[np.ndarray] = None
+    targets: Optional[np.ndarray] = None  # (T, n_out) online-learning targets
+    learn_washout: int = 0  # ticks before the first update
     open: bool = False
+    learn_w0: Optional[np.ndarray] = None  # (N+1, n_out) learned-weight resume
+    learn_P0: Optional[np.ndarray] = None  # (N+1, N+1) inverse-Gram resume
     spec: Optional[SimSpec] = None
 
     # engine-internal bookkeeping (set on admit)
@@ -83,6 +96,7 @@ class StreamSession:
     _t: int = dataclasses.field(default=0, repr=False)
     _states: list = dataclasses.field(default_factory=list, repr=False)
     _outs: list = dataclasses.field(default_factory=list, repr=False)
+    _preds: list = dataclasses.field(default_factory=list, repr=False)
     _admitted_tick: int = dataclasses.field(default=-1, repr=False)
     _finished_tick: int = dataclasses.field(default=-1, repr=False)
     _n_out: int = dataclasses.field(default=1, repr=False)
@@ -99,6 +113,10 @@ class SessionResult:
     admitted_tick: int
     finished_tick: int
     slot: int
+    # online learning (sessions submitted with targets on a learning engine)
+    predictions: Optional[np.ndarray] = None  # (T, n_out) a-priori per tick
+    learned_readout: Optional[Readout] = None  # final trained W (washout=0)
+    learn_nmse: Optional[float] = None  # online NMSE after learn_washout
     # set when the nan guard quarantined this tenant's lane; the arrays then
     # hold the clean prefix before the offending chunk
     error: Optional[str] = None
@@ -114,6 +132,7 @@ class EngineStats:
     queued: int
     backend: str
     precision: Optional[str]
+    learn: Optional[str]
     chunk_ticks: int
     ticks: int
     session_ticks: int
@@ -162,7 +181,13 @@ class _ChunkPlan:
     u: np.ndarray  # (K, E, N_in) assembled input block
     mask: np.ndarray  # (K, E) per-tick lane activity
     any_readout: bool
-    copies: Optional[_HostCopy] = None  # (states (K, N, E), outs (K, E, n_out))
+    # learning engines: (K, E, n_out) targets, (K, E) per-tick learn mask,
+    # and whether any learner was served (its predictions come back)
+    targets: Optional[np.ndarray] = None
+    lmask: Optional[np.ndarray] = None
+    any_learn: bool = False
+    # (states (K, N, E), outs (K, E, n_out), preds (K, E, n_out))
+    copies: Optional[_HostCopy] = None
 
 
 def _apply_readouts_chunk(states_block, w_out):
@@ -184,10 +209,14 @@ class ReservoirEngine:
     the plan's ensemble width).
 
     Serving knobs:
-      backend       auto | ref | fused | tiled | chunk (ExecPlan.impl)
+      backend       auto | scan | ref | fused | tiled | chunk (ExecPlan.impl)
       chunk_ticks   K ticks per call — `run()` pipelines K-tick chunks
       interpret     run the plain PyTorch versions of the kernels (checking)
       precision     None/"highest" full f32, "bf16_coupling"/"mixed" reduced
+      learn         "rls" | "lms": train the readouts of sessions that submit
+                    targets; learn_lam / learn_reg are RLS's forgetting
+                    factor and regularization, learn_mu the NLMS step size
+                    (repro_torch.api.plan.ExecPlan)
       max_retained  cap on finished SessionResults kept in `results`
       nan_guard     quarantine a tenant whose harvested rows went non-finite
     """
@@ -205,6 +234,10 @@ class ReservoirEngine:
         precision: Optional[str] = None,
         nan_guard: bool = True,
         device="cuda",
+        learn: Optional[str] = None,
+        learn_lam: Optional[float] = None,
+        learn_reg: Optional[float] = None,
+        learn_mu: Optional[float] = None,
         **waiting,
     ):
         for name, value in waiting.items():
@@ -228,9 +261,13 @@ class ReservoirEngine:
                 or interpret
                 or chunk_ticks is not None
                 or precision is not None
+                or learn is not None
+                or learn_lam is not None
+                or learn_reg is not None
+                or learn_mu is not None
             ):
                 raise ValueError(
-                    "backend/measure/interpret/chunk_ticks/precision are "
+                    "backend/measure/interpret/chunk_ticks/precision/learn* are "
                     "ExecPlan decisions; when constructing from a CompiledSim, "
                     "set them on the plan passed to compile_plan instead"
                 )
@@ -249,6 +286,10 @@ class ReservoirEngine:
                     measure=measure,
                     chunk_ticks=1 if chunk_ticks is None else chunk_ticks,
                     precision=precision,
+                    learn=learn,
+                    learn_lam=1.0 if learn_lam is None else learn_lam,
+                    learn_reg=1e-6 if learn_reg is None else learn_reg,
+                    learn_mu=0.5 if learn_mu is None else learn_mu,
                 ),
                 device=device,
             )
@@ -256,7 +297,10 @@ class ReservoirEngine:
         self.res = sim.spec
         self.device = sim.device
         self.chunk_ticks = sim.plan.chunk_ticks
-        self.store = SlotStore(sim.spec, num_slots, n_out=n_out)
+        self.learn = sim.plan.learn
+        self.store = SlotStore(
+            sim.spec, num_slots, n_out=n_out, learn=self.learn, learn_reg=sim.plan.learn_reg
+        )
         self.scheduler = SlotScheduler(num_slots)
         self.tick_count = 0
         self.results: Dict[int, SessionResult] = {}
@@ -274,6 +318,10 @@ class ReservoirEngine:
         # chunks repeat the same mask, so skip the re-upload
         self._mask_np: Optional[np.ndarray] = None
         self._mask_dev: Optional[torch.Tensor] = None
+        # the same for the learn mask, constant once every learner is past
+        # its washout
+        self._lmask_np: Optional[np.ndarray] = None
+        self._lmask_dev: Optional[torch.Tensor] = None
         self._quarantine: List[Tuple[int, StreamSession]] = []
         # the launched-but-unharvested chunk (the pipeline's second buffer)
         self._pending: Optional[_ChunkPlan] = None
@@ -286,45 +334,117 @@ class ReservoirEngine:
     # -- session lifecycle -------------------------------------------------
 
     def submit(self, session: StreamSession) -> None:
-        for field, item in (
-            ("targets", "queue 1 item 6, online learning"),
-            ("spec", "queue 1 item 8, mixed-spec tenancy"),
-        ):
-            if getattr(session, field) is not None:
-                raise NotImplementedError(
-                    f"session {session.sid}: StreamSession.{field} is not ported yet (ROADMAP {item})"
-                )
+        if session.spec is not None:
+            raise NotImplementedError(
+                f"session {session.sid}: StreamSession.spec is not ported yet "
+                "(ROADMAP queue 1 item 8, mixed-spec tenancy)"
+            )
         if session.open:
             raise NotImplementedError(
                 f"session {session.sid}: push streams (open=True) are not ported "
                 "yet (ROADMAP queue 1 item 7)"
             )
         # the engine assembles u blocks host-side, so the series stays numpy
-        u = coerce_input_series(session.u_seq, self.store.n_in, self.store.np_dtype, xp=np)
+        store = self.store
+        u = coerce_input_series(session.u_seq, store.n_in, store.np_dtype, xp=np)
         if u.shape[0] == 0:
             raise ValueError(f"session {session.sid}: empty input stream")
         session.u_seq = u
-        session._n_out = self.store.n_out
+        n_out = None  # the session's own width, inferred below
         if session.readout is not None:
             w = session.readout.w_out
-            if w.ndim != 2 or w.shape[0] != self.store.n + 1 or not (
-                1 <= w.shape[1] <= self.store.n_out
-            ):
+            if w.ndim != 2 or w.shape[0] != store.n + 1 or not (1 <= w.shape[1] <= store.n_out):
                 raise ValueError(
                     f"session {session.sid}: readout w_out shape "
-                    f"{tuple(w.shape)} must be ({self.store.n + 1}, q) with "
-                    f"1 <= q <= {self.store.n_out} (the engine's n_out)"
+                    f"{tuple(w.shape)} must be ({store.n + 1}, q) with "
+                    f"1 <= q <= {store.n_out} (the engine's n_out)"
                 )
-            session._n_out = w.shape[1]
+            n_out = w.shape[1]
+        if session.targets is not None:
+            if self.learn is None:
+                raise ValueError(
+                    f"session {session.sid}: targets require a learning "
+                    f"engine — compile the plan with ExecPlan(learn='rls') "
+                    f"or learn='lms' (or pass learn=... to ReservoirEngine)"
+                )
+            t = _host(session.targets).astype(store.np_dtype)
+            if t.ndim == 1:
+                t = t[:, None]
+            if t.ndim != 2 or t.shape[0] != u.shape[0] or not (1 <= t.shape[1] <= store.n_out):
+                raise ValueError(
+                    f"session {session.sid}: targets must have shape "
+                    f"({u.shape[0]}, q) — one row per input row, "
+                    f"1 <= q <= {store.n_out} — or ({u.shape[0]},) for "
+                    f"q == 1; got {tuple(np.shape(session.targets))}"
+                )
+            if n_out is not None and t.shape[1] != n_out:
+                raise ValueError(
+                    f"session {session.sid}: targets carry {t.shape[1]} "
+                    f"output columns but the readout carries {n_out}; a "
+                    f"session has ONE output width"
+                )
+            n_out = t.shape[1]
+            # store-width targets: chunk assembly copies rows straight into
+            # the (K, E, n_out) block; results slice back to q columns
+            session.targets = self._pad_cols(t, "targets", session.sid)
+            if (
+                isinstance(session.learn_washout, bool)
+                or not isinstance(session.learn_washout, int)
+                or session.learn_washout < 0
+            ):
+                raise ValueError(
+                    f"session {session.sid}: learn_washout must be an int "
+                    f">= 0; got {session.learn_washout!r}"
+                )
+        session._n_out = store.n_out if n_out is None else n_out
+        if session.learn_w0 is not None or session.learn_P0 is not None:
+            if self.learn is None or session.targets is None:
+                raise ValueError(
+                    f"session {session.sid}: learn_w0/learn_P0 resume a "
+                    f"learn recursion — they require a learning engine and "
+                    f"targets"
+                )
+            if session.learn_P0 is not None and self.learn == "lms":
+                raise ValueError(
+                    f"session {session.sid}: learn_P0 resumes an RLS "
+                    f"inverse-Gram — learn='lms' carries no P; resume LMS "
+                    f"sessions with learn_w0 alone"
+                )
+            s = store.n + 1
+            if session.learn_w0 is not None:
+                w0 = _host(session.learn_w0).astype(store.np_dtype)
+                if w0.shape != (s, session._n_out):
+                    raise ValueError(
+                        f"session {session.sid}: learn_w0 shape "
+                        f"{tuple(w0.shape)} != ({s}, {session._n_out})"
+                    )
+                session.learn_w0 = w0
+            if session.learn_P0 is not None:
+                p0 = _host(session.learn_P0).astype(store.np_dtype)
+                if p0.shape != (s, s):
+                    raise ValueError(
+                        f"session {session.sid}: learn_P0 shape "
+                        f"{tuple(p0.shape)} != ({s}, {s})"
+                    )
+                session.learn_P0 = p0
         self.scheduler.submit(session)
 
-    def _pad_cols(self, w) -> np.ndarray:
-        """A session's (N+1, q) readout widened to the store's n_out with zero
-        columns (results slice back to q)."""
-        w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
-        w = w.astype(self.store.np_dtype)
-        pad = self.store.n_out - w.shape[1]
-        return w if pad == 0 else np.concatenate([w, np.zeros((w.shape[0], pad), w.dtype)], 1)
+    def _pad_cols(self, a, what: str, sid: int) -> np.ndarray:
+        """Zero-pad a session's (..., q) columns to the store's n_out width.
+        Columns of a learned W update independently given the shared gain,
+        so padding columns never perturb the session's own; results slice
+        back to q."""
+        a = _host(a).astype(self.store.np_dtype)
+        q = a.shape[-1]
+        if q > self.store.n_out:
+            raise ValueError(
+                f"session {sid}: {what} has {q} output columns but the engine "
+                f"was built with n_out={self.store.n_out}; construct "
+                f"ReservoirEngine(..., n_out={q}) (or wider) to serve it"
+            )
+        if q == self.store.n_out:
+            return a
+        return np.concatenate([a, np.zeros(a.shape[:-1] + (self.store.n_out - q,), a.dtype)], -1)
 
     def _admit_pending(self) -> None:
         placed = self.scheduler.admissions(self.store.free_slots())
@@ -332,17 +452,36 @@ class ReservoirEngine:
             return
         items = []
         for slot, sess in placed:
-            w_out = None if sess.readout is None else self._pad_cols(sess.readout.w_out)
-            items.append((slot, sess.m0, sess.params, w_out))
+            w_out = None
+            if sess.readout is not None:
+                w_out = self._pad_cols(sess.readout.w_out, "readout", sess.sid)
+            # a learner's lane starts from (in priority order) its resume
+            # weights, else its readout, else zeros; learn_P0 resumes P
+            w_learn = p_learn = None
+            if sess.targets is not None:
+                w_learn = (
+                    w_out if sess.learn_w0 is None
+                    else self._pad_cols(sess.learn_w0, "learn_w0", sess.sid)
+                )
+                p_learn = sess.learn_P0
+            items.append((slot, sess.m0, sess.params, w_out, w_learn, p_learn))
             sess._slot = slot
             sess._t = 0
             sess._states = []
             sess._outs = []
+            sess._preds = []
             sess._admitted_tick = self.tick_count
         self.store.admit_many(items)  # one write per array, not per session
 
-    def _record_result(self, sess: StreamSession, slot: int, final_m: np.ndarray) -> None:
-        """Assemble a SessionResult from the session's harvested host blocks."""
+    def _record_result(
+        self,
+        sess: StreamSession,
+        slot: int,
+        final_m: np.ndarray,
+        learned_w: Optional[np.ndarray] = None,
+    ) -> None:
+        """Assemble a SessionResult from the session's harvested host blocks
+        (and, for a learner, its lane's learned (S, n_out) weights)."""
         states = None
         if sess.collect_states:
             states = (
@@ -358,6 +497,22 @@ class ReservoirEngine:
                 else np.zeros((0, sess._n_out), self.store.np_dtype)
             )
             outputs = outs[sess.readout.washout :]
+        predictions = learned_readout = learn_nmse = None
+        if sess.targets is not None:
+            q = sess._n_out
+            predictions = (
+                np.concatenate(sess._preds)
+                if sess._preds
+                else np.zeros((0, q), self.store.np_dtype)
+            )
+            if learned_w is not None:
+                # washout=0: the trained readout applies to any states; the
+                # store's padding columns slice off
+                learned_readout = Readout(w_out=torch.from_numpy(learned_w[:, :q]), washout=0)
+            wo = sess.learn_washout
+            if predictions.shape[0] > wo:
+                p, y = predictions[wo:], sess.targets[wo:, :q]
+                learn_nmse = float(np.mean((p - y) ** 2) / (np.var(y) + 1e-30))
         self.results[sess.sid] = SessionResult(
             sid=sess.sid,
             states=states,
@@ -366,10 +521,14 @@ class ReservoirEngine:
             admitted_tick=sess._admitted_tick,
             finished_tick=sess._finished_tick,
             slot=slot,
+            predictions=predictions,
+            learned_readout=learned_readout,
+            learn_nmse=learn_nmse,
             error=sess._error,
         )
         sess._states = []
         sess._outs = []
+        sess._preds = []
         if self.max_retained is not None:
             while len(self.results) > self.max_retained:
                 self.results.pop(next(iter(self.results)))
@@ -391,7 +550,14 @@ class ReservoirEngine:
         if not self._finishing:
             return
         slots = [slot for slot, _ in self._finishing]
-        finals = _HostCopy([self.store.state_columns(slots)])  # (k, N, 3)
+        # the final states and, on learning engines, the learned W columns
+        # (k, S, n_out); P stays on the card
+        finals = _HostCopy(
+            [
+                self.store.state_columns(slots),  # (k, N, 3)
+                self.store.learn_w_columns(slots) if self.learn is not None else None,
+            ]
+        )
         for slot, _ in self._finishing:
             self.scheduler.retire(slot)
         self._awaiting = (self._finishing, finals)
@@ -399,14 +565,18 @@ class ReservoirEngine:
         self._finishing = []
 
     def _scan_for_nonfinite(
-        self, plan: _ChunkPlan, states_np: Optional[np.ndarray], outs_np: Optional[np.ndarray]
+        self,
+        plan: _ChunkPlan,
+        states_np: Optional[np.ndarray],
+        outs_np: Optional[np.ndarray],
+        preds_np: Optional[np.ndarray],
     ) -> None:
         """Per-chunk nan guard over the harvested blocks: one aggregate
         isfinite per block, per-lane isolation only when that trips. An
         offending tenant is marked for quarantine — its lane retires at the
         next boundary with a structured error, its harvested prefix intact;
         lanes are independent columns, so co-tenants are untouched."""
-        blocks = [b for b in (states_np, outs_np) if b is not None]
+        blocks = [b for b in (states_np, outs_np, preds_np) if b is not None]
         if not blocks or all(np.isfinite(b).all() for b in blocks):
             return
         for sess, slot, n in plan.entries:
@@ -425,6 +595,12 @@ class ReservoirEngine:
                 and not np.isfinite(outs_np[:n, slot, : sess._n_out]).all()
             ):
                 bad.append("outputs")
+            if (
+                preds_np is not None
+                and sess.targets is not None
+                and not np.isfinite(preds_np[:n, slot, : sess._n_out]).all()
+            ):
+                bad.append("predictions")
             if bad:
                 sess._error = (
                     f"non_finite_state: session {sess.sid} (lane {slot}) "
@@ -443,8 +619,16 @@ class ReservoirEngine:
                 continue  # finished since it was flagged
             self.scheduler.retire(slot)
             sess._finished_tick = self.tick_count
-            (final_m,) = _HostCopy([self.store.state_columns([slot])]).numpy()
-            self._record_result(sess, slot, final_m[0].copy())
+            learning = self.learn is not None and sess.targets is not None
+            final_m, w = _HostCopy(
+                [
+                    self.store.state_columns([slot]),
+                    self.store.learn_w_columns([slot]) if learning else None,
+                ]
+            ).numpy()
+            self._record_result(
+                sess, slot, final_m[0].copy(), learned_w=None if w is None else w[0].copy()
+            )
             self.store.retire_many([slot])
         self._quarantine = []
 
@@ -462,18 +646,29 @@ class ReservoirEngine:
 
         # K-tick input block + per-tick lane masks (mid-chunk retires mask a
         # lane's trailing rows off; the slot refills next boundary)
+        # plus, on learning engines, the target block and learn mask (False
+        # rows: washout ticks, inference-only tenants, idle lanes)
         k = self.chunk_ticks
         e, n_in = self.store.num_slots, self.store.n_in
         u = np.zeros((k, e, n_in), self.store.np_dtype)
         mask = np.zeros((k, e), dtype=bool)
+        learning = self.learn is not None
+        y = np.zeros((k, e, self.store.n_out), self.store.np_dtype) if learning else None
+        lmask = np.zeros((k, e), dtype=bool) if learning else None
         entries = []
-        any_readout = False
+        any_readout = any_learn = False
         session_ticks = 0
         for slot, sess in running.items():
             t0 = sess._t
             n = min(k, sess.u_seq.shape[0] - t0)
             u[:n, slot] = sess.u_seq[t0 : t0 + n]
             mask[:n, slot] = True
+            if learning and sess.targets is not None:
+                y[:n, slot] = sess.targets[t0 : t0 + n]
+                # update only from the session's learn_washout tick onward;
+                # predictions are recorded from its first tick
+                lmask[max(0, sess.learn_washout - t0) : n, slot] = True
+                any_learn = True
             sess._t = t0 + n
             entries.append((sess, slot, n))
             session_ticks += n
@@ -483,7 +678,10 @@ class ReservoirEngine:
                 self._finishing.append((slot, sess))
         self.scheduler.on_ticks(k, session_ticks)
         self.tick_count += k
-        return _ChunkPlan(entries=entries, u=u, mask=mask, any_readout=any_readout)
+        return _ChunkPlan(
+            entries=entries, u=u, mask=mask, any_readout=any_readout,
+            targets=y, lmask=lmask, any_learn=any_learn,
+        )
 
     def _launch_chunk(self, plan: _ChunkPlan) -> None:
         """Enqueue the chunk and the host copies of its blocks; returns
@@ -492,23 +690,39 @@ class ReservoirEngine:
         if self._mask_np is None or not np.array_equal(self._mask_np, plan.mask):
             self._mask_np = plan.mask
             self._mask_dev = torch.from_numpy(plan.mask).to(self.device, non_blocking=True)
-        store.m, states_block = self.sim.tick_chunk(
-            store.m,
-            torch.from_numpy(plan.u).to(self.device, non_blocking=True),
-            lane_mask=self._mask_dev,
-            params=store.params_ensemble,
-        )
+        u = torch.from_numpy(plan.u).to(self.device, non_blocking=True)
+        preds = None
+        if self.learn is not None:
+            if self._lmask_np is None or not np.array_equal(self._lmask_np, plan.lmask):
+                self._lmask_np = plan.lmask
+                self._lmask_dev = torch.from_numpy(plan.lmask).to(self.device, non_blocking=True)
+            # one call advances physics AND learning; P/Wl stay on the card
+            store.m, states_block, (store.P, store.Wl), preds = self.sim.tick_chunk(
+                store.m,
+                u,
+                lane_mask=self._mask_dev,
+                params=store.params_ensemble,
+                targets=torch.from_numpy(plan.targets).to(self.device, non_blocking=True),
+                learn_state=(store.P, store.Wl),
+                learn_mask=self._lmask_dev,
+            )
+        else:
+            store.m, states_block = self.sim.tick_chunk(
+                store.m, u, lane_mask=self._mask_dev, params=store.params_ensemble
+            )
         collect = any(sess.collect_states for sess, _, _ in plan.entries)
         outs_block = (
             _apply_readouts_chunk(states_block, store.w_out) if plan.any_readout else None
         )
-        plan.copies = _HostCopy([states_block if collect else None, outs_block])
+        plan.copies = _HostCopy(
+            [states_block if collect else None, outs_block, preds if plan.any_learn else None]
+        )
 
     def _harvest_chunk(self, plan: _ChunkPlan) -> None:
         """Wait for the chunk's host copies, then per-session slicing."""
-        states_np, outs_np = plan.copies.numpy()
+        states_np, outs_np, preds_np = plan.copies.numpy()
         if self.nan_guard:
-            self._scan_for_nonfinite(plan, states_np, outs_np)
+            self._scan_for_nonfinite(plan, states_np, outs_np, preds_np)
         # .copy(): a bare slice would pin the whole chunk block per session
         for sess, slot, n in plan.entries:
             if n == 0 or sess._error is not None:
@@ -517,6 +731,8 @@ class ReservoirEngine:
                 sess._states.append(states_np[:n, :, slot].copy())  # (n, N)
             if sess.readout is not None:
                 sess._outs.append(outs_np[:n, slot, : sess._n_out].copy())
+            if preds_np is not None and sess.targets is not None:
+                sess._preds.append(preds_np[:n, slot, : sess._n_out].copy())
         # sessions retired at the last boundary: their final chunk is now
         # harvested, so their results are complete
         self._finalize_awaiting()
@@ -526,9 +742,10 @@ class ReservoirEngine:
         if self._awaiting is None:
             return
         finishers, finals = self._awaiting
-        (finals_np,) = finals.numpy()  # (k, N, 3)
+        finals_np, w_np = finals.numpy()  # (k, N, 3), (k, S, n_out) or None
         for i, (slot, sess) in enumerate(finishers):
-            self._record_result(sess, slot, finals_np[i].copy())
+            learned_w = w_np[i].copy() if w_np is not None and sess.targets is not None else None
+            self._record_result(sess, slot, finals_np[i].copy(), learned_w=learned_w)
         self._awaiting = None
 
     def step_chunk(self) -> bool:
@@ -580,6 +797,7 @@ class ReservoirEngine:
             queued=len(sched.queue),
             backend=self.backend,
             precision=self.precision,
+            learn=self.learn,
             chunk_ticks=self.chunk_ticks,
             ticks=sched.stats.ticks,
             session_ticks=sched.stats.session_ticks,

@@ -5,6 +5,8 @@ kernels want it (kernels/ref.py):
 
     m      : (3, N, E)       magnetization planes — lane e is serving slot e
     w_out  : (E, N+1, n_out) per-session trained readouts (last row = bias)
+    Wl     : (E, S, n_out)   learned readouts (learning stores, S = N + 1)
+    P      : (E, S, S)       RLS inverse-Gram blocks (learn="rls" only)
 
 Per-tenant parameter scalars live in a host-side (14, E) numpy matrix and
 only materialize as device (E, 1) leaves when the cache rebuilds.
@@ -19,8 +21,9 @@ Uploads are non-blocking so a boundary never waits for the chunk in flight.
 
 W^cp / W^in topology is shared across tenants: every lane contracts against
 the same coupling matrix, so per-tenant physics lives in the params and
-readout columns. Online-learning columns and autoscale resizing are not
-ported yet (ROADMAP queue 1 items 6 and 7).
+readout columns. The learn columns live on the device and never come to the
+host on the serving path (P is 6.4 GB at E = 256, N = 2500). Autoscale
+resizing is not ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.core.constants import STOParams
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import rls as krls
 
 _NF = len(STOParams._fields)
 
@@ -43,8 +47,11 @@ def _host(x) -> np.ndarray:
 
 
 class SlotStore:
-    def __init__(self, spec, num_slots: int, n_out: int = 1):
-        # spec: the engine's physics template (a repro_torch.api.SimSpec)
+    def __init__(self, spec, num_slots: int, n_out: int = 1, learn=None, learn_reg: float = 1e-6):
+        # spec: the engine's physics template (a repro_torch.api.SimSpec);
+        # learn: None | "rls" | "lms", the engine plan's learner
+        if learn not in (None, "rls", "lms"):
+            raise ValueError(f"learn must be None, 'rls' or 'lms'; got {learn!r}")
         self.spec = spec
         self.num_slots = num_slots
         self.n = spec.n
@@ -67,6 +74,19 @@ class SlotStore:
         )
         self._active = [False] * num_slots
 
+        self.learn = learn
+        self.learn_reg = float(learn_reg)
+        self.n_state = self.n + 1
+        self.P: Optional[torch.Tensor] = None
+        self.Wl: Optional[torch.Tensor] = None
+        if learn == "rls":
+            self.P, self.Wl = krls.rls_init(
+                num_slots, self.n_state, n_out, self.learn_reg, self.dtype, device=self.device
+            )
+            self._p0 = self.P[0].clone()  # I / learn_reg, the fresh column
+        elif learn == "lms":
+            self.Wl = krls.lms_init(num_slots, self.n_state, n_out, self.dtype, device=self.device)
+
         # caches derived from _params_np, rebuilt lazily after admit/retire
         # (chunk boundaries)
         self._pv: Optional[torch.Tensor] = None
@@ -83,16 +103,21 @@ class SlotStore:
     def admit_many(self, items: Sequence[Tuple]) -> None:
         """Splice several sessions in ONE index write per batched array.
 
-        items: (slot, m0, params, w_out) per admission — m0 (N, 3) or None
-        for the template, params an STOParams of scalars or None, w_out an
-        (N+1, n_out) readout or None."""
+        items: (slot, m0, params, w_out, learn_w0, learn_P0) per admission —
+        m0 (N, 3) or None for the template, params an STOParams of scalars or
+        None, w_out an (N+1, n_out) readout or None. On learning stores
+        learn_w0 (S, n_out) starts the slot's learned weights (zeros when
+        None) and learn_P0 (S, S) resumes its inverse-Gram (I / learn_reg
+        when None)."""
         if not items:
             return
         idx = np.empty(len(items), dtype=np.int64)
         cols = np.empty((3, self.n, len(items)), self.np_dtype)
         w_idx: List[int] = []
         w_rows: List[np.ndarray] = []
-        for i, (slot, m0, params, w_out) in enumerate(items):
+        lw_cols: List[Optional[np.ndarray]] = []
+        lp_cols: List[Optional[np.ndarray]] = []
+        for i, (slot, m0, params, w_out, learn_w0, learn_P0) in enumerate(items):
             if self._active[slot]:
                 raise ValueError(f"slot {slot} already occupied")
             self._active[slot] = True
@@ -109,10 +134,43 @@ class SlotStore:
                 w_rows.append(
                     _host(w_out).astype(self.np_dtype).reshape(self.n + 1, self.n_out)
                 )
-        self.m[:, :, self._upload(idx)] = self._upload(cols)
+            lw_cols.append(
+                None if learn_w0 is None
+                else _host(learn_w0).astype(self.np_dtype).reshape(self.n_state, self.n_out)
+            )
+            lp_cols.append(
+                None if learn_P0 is None
+                else _host(learn_P0).astype(self.np_dtype).reshape(self.n_state, self.n_state)
+            )
+        idx_dev = self._upload(idx)
+        self.m[:, :, idx_dev] = self._upload(cols)
         if w_idx:
             self.w_out[self._upload(np.asarray(w_idx))] = self._upload(np.stack(w_rows))
+        if self.learn:
+            self._reset_learn_columns(idx, idx_dev, lw_cols, lp_cols)
         self._invalidate()
+
+    def _reset_learn_columns(self, idx, idx_dev, w_cols=None, p_cols=None) -> None:
+        """Restart the learn state of several slots, one write per array:
+        Wl <- w_cols entries (zeros for None), P <- p_cols entries (the fresh
+        I / learn_reg for None). LMS stores have no P."""
+        w_cols = w_cols or [None] * len(idx)
+        p_cols = p_cols or [None] * len(idx)
+        if self.P is None:
+            if any(p is not None for p in p_cols):
+                raise ValueError(
+                    "learn_P0 was passed to a learn='lms' store — LMS carries no "
+                    "inverse-Gram block to resume"
+                )
+        else:
+            self.P[idx_dev] = self._p0.expand(len(idx), self.n_state, self.n_state)
+            given = [i for i, p in enumerate(p_cols) if p is not None]
+            if given:
+                self.P[self._upload(idx[given])] = self._upload(np.stack([p_cols[i] for i in given]))
+        self.Wl[idx_dev] = 0.0
+        given = [i for i, w in enumerate(w_cols) if w is not None]
+        if given:
+            self.Wl[self._upload(idx[given])] = self._upload(np.stack([w_cols[i] for i in given]))
 
     def retire_many(self, slots: Sequence[int]) -> None:
         """Reset several columns to the template in one write each."""
@@ -123,9 +181,12 @@ class SlotStore:
                 raise ValueError(f"slot {slot} not occupied")
             self._params_np[:, slot] = self._template_params_col
             self._active[slot] = False
-        idx = self._upload(np.asarray(slots, dtype=np.int64))
+        idx_np = np.asarray(slots, dtype=np.int64)
+        idx = self._upload(idx_np)
         self.m[:, :, idx] = self._m0_col[:, :, None].expand(3, self.n, len(slots))
         self.w_out[idx] = 0.0
+        if self.learn:
+            self._reset_learn_columns(idx_np, idx)
         self._invalidate()
 
     def _invalidate(self):
@@ -156,3 +217,19 @@ class SlotStore:
         engine snapshots a whole boundary's finishers at once."""
         idx = self._upload(np.asarray(slots, dtype=np.int64))
         return self.m[:, :, idx].permute(2, 1, 0)
+
+    def learn_w_columns(self, slots: Sequence[int]) -> torch.Tensor:
+        """(k, S, n_out) learned readout weights of several slots in one
+        gather (the finishers' trained readouts, ordered on the stream after
+        the chunk that produced them)."""
+        return self.Wl[self._upload(np.asarray(slots, dtype=np.int64))]
+
+    def learn_P_columns(self, slots: Sequence[int]) -> torch.Tensor:
+        """(k, S, S) inverse-Gram blocks of several slots in one gather, for
+        checkpoints (ROADMAP queue 1 item 7). RLS stores only."""
+        if self.P is None:
+            raise ValueError(
+                "learn_P_columns() on a learn='lms' store — LMS has no "
+                "inverse-Gram block; checkpoint the Wl lanes only"
+            )
+        return self.P[self._upload(np.asarray(slots, dtype=np.int64))]

@@ -85,7 +85,7 @@ def test_exec_plan_rejects(kwargs):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=object()), dict(learn="rls"), dict(aot=True), dict(compilation_cache_dir="/x")],
+    [dict(mesh=object()), dict(aot=True), dict(compilation_cache_dir="/x")],
 )
 def test_exec_plan_waiting_fields_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -111,11 +111,12 @@ def test_no_silent_cpu_without_cuda():
 
 
 def test_unported_paths_raise_not_implemented():
-    _, st = _specs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_plan(st, ExecPlan(impl="scan"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    sj, st = _specs()
+    # an unknown tableau is the reference's ValueError
+    with pytest.raises(ValueError, match="unknown tableau"):
         compile_plan(st._replace(tableau="rk2"), device="cpu")
+    with pytest.raises(ValueError, match="unknown tableau"):
+        jcompile(sj._replace(tableau="rk2"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_spec(8, topology="time_multiplexed", device="cpu")
     sim = compile_plan(st, ExecPlan(impl="ref", ensemble=2), device="cpu")

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (coupled-STO RK4 and flash attention) against
-their plain PyTorch versions, on a card.
+their plain PyTorch versions on a card, and the online learners and the scan
+oracle there.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -24,6 +25,7 @@ from repro_torch.core import constants, coupling
 from repro_torch.core.ensemble import broadcast_params
 from repro_torch.kernels import ops, sto_step
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import rls as krls
 
 STATE_ATOL = 5e-5
 SLOPE_RTOL = 1e-5
@@ -485,3 +487,164 @@ def test_grouped_attend_on_cuda_launches_flash(cuda):
     pos = torch.tensor([39, 20], device=cuda)
     attention.grouped_attend(q[:, -1:], k, v, causal=True, q_offset=pos, kv_len=pos + 1)
     assert LAUNCHES["flash_attention"] == 1
+
+
+# -- online learning and the scan oracle on the card --------------------------
+
+
+def _learn_block(dev, e, s, k, seed=0):
+    """(P, W, features, targets, mask) for E lanes that all repeat lane 0's
+    numbers: P = I / 1e-2 plus a small symmetric part, W, x and y drawn once;
+    tick 3 masked."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((1, s, s), generator=g)
+    p = torch.eye(s)[None] * 100.0 + 1e-3 * (a + a.transpose(1, 2))
+    w = 0.1 * torch.randn((1, s, 1), generator=g)
+    x = 0.3 * torch.randn((k, 1, s), generator=g)
+    y = torch.randn((k, 1, 1), generator=g)
+    mask = torch.ones((k, 1), dtype=torch.bool)
+    mask[min(3, k - 1)] = False
+    wide = lambda t, dim: t.repeat_interleave(e, dim=dim).to(dev).contiguous()  # noqa: E731
+    return wide(p, 0), wide(w, 0), wide(x, 1), wide(y, 1), wide(mask, 1)
+
+
+# Lane 0 of rls_chunk / lms_chunk at E = 256 against E = 1 on the card, at
+# the smoke's S = 2501, relative to the largest magnitude. Not bit-equal: on
+# an H100 80GB HBM3 (700 W) tools/rls_tail_probe.py read, at K = 8, P
+# 7.6e-8, W 1.7e-7 (rls_chunk) and W 4.3e-8 (lms_chunk) apart; of the
+# pieces, cuBLAS's bmm (B = P X) 2.8e-6 and a trailing-axis sum 3.5e-7,
+# while baddbmm (the P' update) and the axis-1 sum were bit-equal. So the
+# engine's lanes are held bit-equal to a replay at the engine's width, and
+# to the E = 1 oracle within LANE_RTOL (60x the largest reading).
+LANE_RTOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+def test_rls_chunk_lane0_at_e256_against_e1(cuda, k):
+    one = _learn_block(cuda, 1, 2501, k)
+    wide = _learn_block(cuda, 256, 2501, k)
+    rel = lambda a, b: ((a - b).abs().max() / a.abs().max()).item()  # noqa: E731
+    a, b = krls.rls_chunk(*one, 1.0), krls.rls_chunk(*wide, 1.0)
+    c, d = krls.lms_chunk(*one[1:], 0.5), krls.lms_chunk(*wide[1:], 0.5)
+    diffs = [rel(a[0][0], b[0][0]), rel(a[1][0], b[1][0]), rel(c[0][0], d[0][0])]
+    print(f"rls_chunk P, W and lms_chunk W, lane 0 at E=256 vs E=1, K={k}: {diffs}")
+    assert max(diffs) <= LANE_RTOL
+
+
+def _learn_sessions(n, count=7, seed=0):
+    rng = np.random.default_rng(seed)
+    sessions = []
+    for sid in range(count):
+        t = int(rng.integers(5, 14))
+        sessions.append(dict(
+            sid=sid, u_seq=rng.uniform(0, 0.5, (t, 1)).astype(np.float32),
+            targets=rng.normal(size=(t, 1)).astype(np.float32), learn_washout=2,
+        ))
+    return sessions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,learn", [("scan", "rls"), ("chunk", "rls"), ("tiled", "lms")])
+def test_served_lane_equals_its_engine_width_replay(cuda, backend, learn):
+    """Each session's learned W == its harvested states replayed through
+    rls_chunk / lms_chunk at the engine's width (its own lane, blocks from
+    its admission, the other lanes masked), bit for bit."""
+    from repro_torch.api import make_spec
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    n, e, k = 64, 4, 4
+    spec = make_spec(n, n_in=1, seed=0, hold_steps=3, device=cuda)
+    eng = ReservoirEngine(
+        spec, num_slots=e, backend=backend, chunk_ticks=k, learn=learn,
+        learn_reg=1e-2, learn_mu=0.7, device=cuda,
+    )
+    rows = _learn_sessions(n)
+    results = eng.run([StreamSession(**r) for r in rows])
+    for r in rows:
+        res, t = results[r["sid"]], len(r["u_seq"])
+        blocks = -(-t // k) * k
+        xb = torch.zeros((blocks, e, n + 1))
+        xb[:t, res.slot, :n] = torch.from_numpy(res.states)
+        xb[:t, res.slot, n] = 1.0
+        y = torch.zeros((blocks, e, 1))
+        y[:t, res.slot] = torch.from_numpy(r["targets"])
+        lmask = torch.zeros((blocks, e), dtype=torch.bool)
+        lmask[2:t, res.slot] = True
+        xb, y, lmask = xb.to(cuda), y.to(cuda), lmask.to(cuda)
+        if learn == "rls":
+            p, w = krls.rls_init(e, n + 1, 1, 1e-2, torch.float32, device=cuda)
+        else:
+            w = krls.lms_init(e, n + 1, 1, torch.float32, device=cuda)
+        for c in range(0, blocks, k):
+            if learn == "rls":
+                p, w, _ = krls.rls_chunk(p, w, xb[c : c + k], y[c : c + k], lmask[c : c + k], 1.0)
+            else:
+                w, _ = krls.lms_chunk(w, xb[c : c + k], y[c : c + k], lmask[c : c + k], 0.7)
+        assert torch.equal(res.learned_readout.w_out, w[res.slot].cpu()), r["sid"]
+        assert np.isfinite(res.learn_nmse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tableau", ["euler", "heun", "rk4", "bs32"])
+def test_scan_on_the_card_matches_the_cpu(cuda, tableau):
+    """impl="scan" runs eagerly on the card (full-f32 products) and agrees
+    with the same plan on the CPU within STATE_ATOL."""
+    from repro_torch.api import ExecPlan, compile_plan, make_spec
+
+    spec = make_spec(96, n_in=2, seed=1, hold_steps=3, tableau=tableau, device="cpu")
+    rng = np.random.default_rng(2)
+    u = rng.uniform(0, 0.5, (4, 3, 2)).astype(np.float32)
+    mask = np.ones((4, 3), bool)
+    mask[2:, 1] = False
+    m0 = ops.to_planes(spec.m0.expand(3, 96, 3)).contiguous()
+    outs = []
+    for dev in ("cpu", cuda):
+        sim = compile_plan(spec, ExecPlan(impl="scan", ensemble=3, chunk_ticks=4), device=dev)
+        outs.append([t.cpu() for t in (*sim.drive_batch(u), *sim.tick_chunk(m0.to(dev), u, lane_mask=mask))])
+        assert sim.impl == "scan"
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= STATE_ATOL
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.cuda
+def test_learning_resume_on_the_card(cuda):
+    """learn_w0 / learn_P0 (RLS) and learn_w0 (NLMS) start a lane mid-stream
+    on the card: serving the second half of a stream from the first half's
+    learner (replayed at E = 1) lands where the whole stream lands, within
+    f32 roundoff; fit_rls / fit_lms run on card tensors."""
+    from repro_torch.api import make_spec
+    from repro_torch.core import fit_lms, fit_rls
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    spec = make_spec(32, n_in=1, seed=0, hold_steps=3, device=cuda)
+    rng = np.random.default_rng(9)
+    u = rng.uniform(0, 0.5, (12, 1)).astype(np.float32)
+    y = rng.normal(size=(12, 1)).astype(np.float32)
+    for learn in ("rls", "lms"):
+        eng = ReservoirEngine(
+            spec, num_slots=2, backend="chunk", chunk_ticks=4, learn=learn,
+            learn_reg=1e-2, learn_mu=0.5, device=cuda,
+        )
+        whole = eng.run([StreamSession(sid=0, u_seq=u, targets=y)])[0]
+        half = eng.run([StreamSession(sid=1, u_seq=u[:8], targets=y[:8])])[1]
+        states = torch.from_numpy(half.states).to(cuda)
+        if learn == "rls":
+            xb = torch.cat([states, torch.ones((8, 1), device=cuda)], 1)
+            p, w = krls.rls_init(1, 33, 1, 1e-2, torch.float32, device=cuda)
+            for s0 in (0, 4):
+                p, w, _ = krls.rls_chunk(
+                    p, w, xb[s0 : s0 + 4, None], torch.from_numpy(y[s0 : s0 + 4, None]).to(cuda),
+                    torch.ones((4, 1), dtype=torch.bool, device=cuda), 1.0,
+                )
+            oracle = fit_rls(states, y[:8], reg=1e-2, block=4).w_out.cpu()
+            resume = dict(learn_w0=w[0].cpu().numpy(), learn_P0=p[0].cpu().numpy())
+        else:
+            oracle = fit_lms(states, y[:8], mu=0.5).w_out.cpu()
+            resume = dict(learn_w0=oracle.numpy())
+        assert (half.learned_readout.w_out - oracle).abs().max().item() <= 1e-5 * oracle.abs().max().item()
+        rest = eng.run([StreamSession(sid=2, u_seq=u[8:], targets=y[8:], m0=half.final_m, **resume)])[2]
+        np.testing.assert_allclose(
+            rest.learned_readout.w_out.numpy(), whole.learned_readout.w_out.numpy(), atol=1e-4
+        )

@@ -150,9 +150,11 @@ def test_submit_contract_and_waiting_features(spec_pair):
         eng.submit(
             StreamSession(sid=0, u_seq=np.zeros(3), readout=convert.readout_from_numpy(np.zeros((5, 1)), 0, "cpu"))
         )
-    for field in (dict(targets=np.zeros(3)), dict(open=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), **field))
+    # targets need a learning engine (the reference's ValueError)
+    with pytest.raises(ValueError, match="learning"):
+        eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), targets=np.zeros(3)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), open=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ReservoirEngine(st, num_slots=SLOTS, autoscale=True, device="cpu")
     with pytest.raises(TypeError):
