@@ -57,10 +57,34 @@ on failure:
    Prints each run's sessions/s and peak device memory, and the learn
    tail's time per chunk (CUDA events) beside the chunk's, with a profiler
    table of the tail's device kernels.
+   Then the host trace of one chunk and one tiled engine run (a second
+   call after the timed one): spans wrapped around the engine's boundary
+   methods, its CompiledSim's tick_chunk, the readout and the host copies,
+   in this script only. It prints each span's exclusive ms a chunk without
+   the profiler, then, under torch.profiler, the device's busy share and the
+   top host operations of each span by self CPU time.
 3c. The paper's ladder: ms per RK4 step of integrate_python_loop,
    integrate_scan and the fused kernel (CompiledSim.integrate, impl="fused",
    E = 1) at N = 1, 100, 1000, 2500 and 10^4 (W from a torch.Generator), on
    the card and on the host CPU (device="cpu", the kernel's plain version).
+3d. The engine's lifecycle at N = 2500, E = 256, K = 8, each check with
+   its max difference, the contract that held (bit-equal or within
+   tolerance), its time and its kernel launches: (1) a step() loop against
+   run(chunk_ticks=1) on chunk and tiled, 64 sessions, step() launching its
+   kernel; (2) 32 push streams (open=True) fed their second half through
+   append_ticks at a later boundary, then close_session, against each
+   served in one piece, an all-idle boundary launching nothing; (3) 4 of 16
+   RLS learners behind chunk checkpointed after two chunks and restored into
+   a second engine of the same width, and snapshot_sessions after every
+   chunk of a live engine (bit-equal required), against an uninterrupted
+   run (states within STATE_ATOL, W and predictions within ORACLE_RTOL of
+   their max); (4) autoscale=True between 64 and 256 slots (backend auto)
+   under a burst of 512 sessions and a lull of 8 more one chunk apart: grows
+   and shrinks, the impl at each width, cold rescales and their stall, peak
+   memory, every session within STATE_ATOL of a fixed E = 256 run; again
+   with learn="rls" (8 learned W within ORACLE_RTOL of fit_rls at E = 1);
+   (5) the launcher, `repro_torch.launch.serve --mode reservoir` at N = 2500,
+   256 slots, 512 sessions of 40 ticks, with and without --learn rls.
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -1401,6 +1425,449 @@ def ladder(spec, name_power):
     )
 
 
+# -- phase 3: where the engine's host time goes --------------------------------
+# engine method -> span label; the script wraps these on one engine instance
+# (and tick_chunk on its CompiledSim, the readout and host-copy helpers in the
+# engine's module) for the traced runs only: the engine carries no spans
+ENGINE_SPANS = {
+    "_assemble_chunk": "assemble",
+    "_retire_finishers": "retire",
+    "_admit_pending": "admit",
+    "_launch_chunk": "launch (upload, masks)",
+    "_harvest_chunk": "harvest (slicing)",
+    "_scan_for_nonfinite": "nan guard",
+    "_finalize_awaiting": "finalize",
+}
+# the STO kernels' symbols, as the profiler names their launches
+STO_KERNEL_SYMBOLS = ("rk4_coop_kernel", "field_stage_kernel", "round_bf16_kernel")
+SPAN_ORDER = ("assemble", "retire", "admit", "launch (upload, masks)", "tick_chunk", "readout",
+              "host copy", "host copy wait", "harvest (slicing)", "nan guard", "finalize")
+
+
+class Spans:
+    """Inclusive and exclusive perf_counter seconds per label, each wrapped
+    call also a torch.profiler.record_function span."""
+
+    def __init__(self):
+        self.incl, self.excl, self.calls, self.stack = {}, {}, {}, []
+
+    def wrap(self, label, fn):
+        from torch.profiler import record_function
+
+        def inner(*args, **kwargs):
+            self.stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                with record_function(label):
+                    return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                child = self.stack.pop()
+                self.incl[label] = self.incl.get(label, 0.0) + dt
+                self.excl[label] = self.excl.get(label, 0.0) + dt - child
+                self.calls[label] = self.calls.get(label, 0) + 1
+                if self.stack:
+                    self.stack[-1] += dt
+
+        return inner
+
+
+def instrument(eng, spans):
+    """Wrap one engine's boundary methods, its CompiledSim's tick_chunk and
+    the engine module's readout and host-copy helpers in `spans`. Returns a
+    function that restores the module's helpers."""
+    from repro_torch.serve import reservoir as mod
+
+    for meth, label in ENGINE_SPANS.items():
+        setattr(eng, meth, spans.wrap(label, getattr(eng, meth)))
+    eng.sim.tick_chunk = spans.wrap("tick_chunk", eng.sim.tick_chunk)
+    readout, base = mod._apply_readouts_chunk, mod._HostCopy
+
+    class TracedHostCopy(base):
+        def __init__(self, tensors):
+            spans.wrap("host copy", base.__init__)(self, tensors)
+
+        def numpy(self):
+            return spans.wrap("host copy wait", base.numpy)(self)
+
+    mod._apply_readouts_chunk = spans.wrap("readout", readout)
+    mod._HostCopy = TracedHostCopy
+
+    def restore():
+        mod._apply_readouts_chunk, mod._HostCopy = readout, base
+
+    return restore
+
+
+def traced_run(spec, backend, sessions, profiled):
+    """One engine run of `sessions` with the spans on, under torch.profiler
+    when `profiled`. Returns (spans, wall seconds, chunks, profiler or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, backend=backend, device="cuda")
+    spans = Spans()
+    restore = instrument(eng, spans)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+    try:
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        eng.run(sessions)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        restore()
+    return spans, wall, spans.calls.get("tick_chunk", 0), prof
+
+
+def host_ops_by_span(prof, top=3):
+    """The profiler's host operations by self CPU time (us), each charged to
+    the innermost span label above it ("outside" when none is)."""
+    labels = set(SPAN_ORDER)
+    by = {}
+    for ev in prof.events():
+        if ev.name in labels or getattr(ev, "device_type", None) is None:
+            continue
+        if str(ev.device_type).endswith("CUDA"):
+            continue
+        up, label = getattr(ev, "cpu_parent", None), "outside"
+        while up is not None:
+            if up.name in labels:
+                label = up.name
+                break
+            up = getattr(up, "cpu_parent", None)
+        key = (label, ev.name)
+        by[key] = by.get(key, 0.0) + ev.self_cpu_time_total
+    out = {}
+    for (label, name), us in sorted(by.items(), key=lambda kv: -kv[1]):
+        out.setdefault(label, [])
+        if len(out[label]) < top:
+            out[label].append((name, us))
+    return out
+
+
+def trace_engine(spec, backend, name_power):
+    """Phase 3's host trace of one engine run: first with the spans alone
+    (perf_counter, exclusive ms per chunk of each span; the rest of the wall
+    is the run loop outside every span), then again under torch.profiler:
+    the device's busy share and the top host operations of each span by
+    self CPU time. Returns the exclusive seconds per span of the first run."""
+    make = lambda: make_sessions(np.random.default_rng(0))  # noqa: E731
+    spans, wall, chunks, _ = traced_run(spec, backend, make(), False)
+    spans.excl["outside every span"] = wall - sum(spans.excl.values())
+    print(
+        f"trace engine {backend}: {chunks} chunks in {1e3 * wall:.3f} ms = "
+        f"{1e3 * wall / chunks:.3f} ms a chunk (no profiler); exclusive ms a chunk: "
+        + "; ".join(f"{k} {1e3 * spans.excl[k] / chunks:.3f}" for k in (*SPAN_ORDER, "outside every span")
+                    if k in spans.excl)
+        + f" ({name_power})",
+        flush=True,
+    )
+    _, pwall, _, prof = traced_run(spec, backend, make(), True)
+    from torch.autograd import DeviceType
+
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0.0
+    )
+    # the spans' record_function labels also appear on the device timeline,
+    # spanning the device work they enqueued: left out, or it counts twice
+    device = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                     and dev_us(e) > 0 and e.key not in SPAN_ORDER), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in device)
+    kernel = sum(dev_us(e) for e in device if any(k in e.key for k in STO_KERNEL_SYMBOLS))
+    print(
+        f"trace engine {backend} (profiler): wall {1e3 * pwall:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / (1e6 * pwall):.1f} %), of which the STO kernel "
+        f"{kernel / 1e3:.3f} ms; top device ops: "
+        + "; ".join(f"{e.key[:48]} x{e.count} {dev_us(e) / 1e3:.3f} ms" for e in device[:6])
+        + "; top host ops by self CPU time per span: "
+        + " | ".join(
+            f"{label}: " + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in ops)
+            for label, ops in host_ops_by_span(prof).items()
+        )
+        + f" ({name_power})",
+        flush=True,
+    )
+    return spans.excl, chunks
+
+
+# -- phase 3d: the engine's lifecycle at full width ---------------------------------
+
+
+class Check:
+    """Time one lifecycle check on the card and count its kernel launches."""
+
+    def __init__(self, label):
+        self.label = label
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        sto_step.reset_launches()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        self.launches = {k: v for k, v in sto_step.LAUNCHES.items() if v}
+        return False
+
+
+def same_results(got, want, sids, w_outs=None, learn=False):
+    """(max |diff| of states and final_m, of outputs, of learned W and of
+    predictions relative to their max magnitude, bit-equal?) over `sids`;
+    each held within STATE_ATOL, STATE_ATOL x ||w_out||_1 and, for learners,
+    ORACLE_RTOL["rls"]."""
+    ds = do = dw = dp = 0.0
+    exact = True
+    for sid in sids:
+        a, b = got[sid], want[sid]
+        assert a.error is None and b.error is None, (a.error, b.error)
+        pairs = [(a.states, b.states), (a.final_m, b.final_m)]
+        for x, y in pairs:
+            ds = max(ds, float(np.abs(x - y).max()))
+            exact = exact and np.array_equal(x, y)
+        if w_outs is not None:
+            do_s = float(np.abs(a.outputs - b.outputs).max())
+            assert do_s <= STATE_ATOL * np.abs(w_outs[sid]).sum(), (sid, do_s)
+            do, exact = max(do, do_s), exact and np.array_equal(a.outputs, b.outputs)
+        if learn:
+            wa, wb = a.learned_readout.w_out, b.learned_readout.w_out
+            dw = max(dw, ((wa - wb).abs().max() / wb.abs().max()).item())
+            dp = max(dp, float(np.abs(a.predictions - b.predictions).max() / np.abs(b.predictions).max()))
+            exact = exact and torch.equal(wa, wb) and np.array_equal(a.predictions, b.predictions)
+    assert ds <= STATE_ATOL, f"states/final_m differ by {ds} > {STATE_ATOL}"
+    assert max(dw, dp) <= ORACLE_RTOL["rls"], f"learned W / predictions differ by {dw} / {dp}"
+    return ds, do, max(dw, dp), exact
+
+
+def held(exact):
+    return "bit-equal" if exact else "within tolerance"
+
+
+def w_outs_of(sessions):
+    return {s.sid: s.readout.w_out.numpy() for s in sessions}
+
+
+def step_check(spec, backend, kernel, name_power):
+    """3d.1: a step() loop against run(chunk_ticks=1), 64 sessions at E."""
+    rng_sessions = lambda: make_sessions(np.random.default_rng(0))[:64]  # noqa: E731
+    ran = ReservoirEngine(spec, num_slots=E, chunk_ticks=1, backend=backend, device="cuda").run(
+        rng_sessions()
+    )
+    eng = ReservoirEngine(spec, num_slots=E, backend=backend, device="cuda")
+    sessions = rng_sessions()
+    for s in sessions:
+        eng.submit(s)
+    ticks = 0
+    with Check("step") as c:
+        while eng.scheduler.has_work():
+            eng.step()
+            ticks += 1
+    assert c.launches.get(kernel, 0) > 0, f"step() on {backend} never launched {kernel}: {c.launches}"
+    ds, do, _, exact = same_results(eng.results, ran, [s.sid for s in sessions], w_outs_of(sessions))
+    print(
+        f"3d.1 step() vs run(chunk_ticks=1), backend={backend}: 64 sessions, {ticks} ticks in "
+        f"{c.seconds:.3f} s, max |state| diff {ds:.3e}, max |output| diff {do:.3e}: {held(exact)}; "
+        f"launches {c.launches} ({name_power})",
+        flush=True,
+    )
+
+
+def push_check(spec, name_power):
+    """3d.2: 32 push streams, their first half at submit, the rest through
+    append_ticks at a later boundary, against each served in one piece."""
+    kw = dict(num_slots=E, chunk_ticks=K, backend="chunk", device="cuda")
+    whole = make_sessions(np.random.default_rng(0))[:32]
+    w_outs = w_outs_of(whole)
+    want = ReservoirEngine(spec, **kw).run(whole)
+    eng = ReservoirEngine(spec, **kw)
+    parts = make_sessions(np.random.default_rng(0))[:32]
+    rests = {}
+    with Check("push") as c:
+        for s in parts:
+            half = s.u_seq.shape[0] // 2
+            rests[s.sid] = s.u_seq[half:]
+            s.u_seq, s.open = s.u_seq[:half], True
+            eng.submit(s)
+        eng.run()  # every stream idle and resident
+        ticks = eng.tick_count
+        assert not eng.step_chunk() and eng.tick_count == ticks, "an all-idle boundary advanced"
+        assert not eng.results and len(eng.scheduler.running) == 32
+        for s in parts:
+            eng.append_ticks(s.sid, rests[s.sid])
+            eng.close_session(s.sid)
+        got = eng.run()
+    ds, do, _, exact = same_results(got, want, [s.sid for s in whole], w_outs)
+    print(
+        f"3d.2 push streams: 32 sessions in two pushes vs one piece (chunk, E={E}, K={K}): "
+        f"{c.seconds:.3f} s, max |state| diff {ds:.3e}, max |output| diff {do:.3e}: "
+        f"{held(exact)}; launches {c.launches} ({name_power})",
+        flush=True,
+    )
+
+
+def checkpoint_check(spec, name_power):
+    """3d.3: RLS learners behind chunk checkpointed after two chunks and
+    restored into a second engine of the same width; and snapshots after
+    every chunk of a live engine. Both against an uninterrupted run."""
+    kw = dict(num_slots=E, chunk_ticks=K, backend="chunk", learn="rls", learn_reg=LEARN_REG,
+              device="cuda")
+    make = lambda: make_sessions(np.random.default_rng(0), learn=True)[:16]  # noqa: E731
+    want = ReservoirEngine(spec, **kw).run(make())
+    with Check("checkpoint") as c:
+        src = ReservoirEngine(spec, **kw)
+        sessions = make()
+        for s in sessions:
+            src.submit(s)
+        src.step_chunk()
+        src.step_chunk()
+        moved = [s.sid for s in sessions if s.u_seq.shape[0] > 2 * K][-4:]
+        ckpts = [src.checkpoint_session(sid) for sid in moved]
+        dst = ReservoirEngine(spec, **kw)
+        for ck in ckpts:
+            assert ck.t == 2 * K and ck.P.shape == (N + 1, N + 1)
+            dst.restore_session(ck)
+        got = {**src.run(), **dst.run()}
+        del src, dst
+    assert sorted(got) == sorted(want)
+    slots = [(want[sid].slot, got[sid].slot) for sid in moved]
+    ds, _, dw, exact = same_results(got, want, sorted(want), learn=True)
+    print(
+        f"3d.3 checkpoint/restore: 4 of 16 RLS learners after {2 * K} ticks, lanes "
+        f"{slots} (before, after): {c.seconds:.3f} s, max |state| diff {ds:.3e}, learned W and "
+        f"predictions {dw:.3e} of their max: {held(exact)}; launches {c.launches} ({name_power})",
+        flush=True,
+    )
+    with Check("snapshot") as c:
+        eng = ReservoirEngine(spec, **kw)
+        for s in make():
+            eng.submit(s)
+        snaps = 0
+        while eng.step_chunk():
+            snaps += len(eng.snapshot_sessions())
+        got = eng.results
+        del eng
+    ds, _, dw, exact = same_results(got, want, sorted(want), learn=True)
+    assert exact, f"a snapshot perturbed the streams: states {ds}, W {dw}"
+    print(
+        f"3d.3 snapshot_sessions after every chunk ({snaps} checkpoints): {c.seconds:.3f} s, "
+        f"every stream bit-equal to the unsnapshotted run; launches {c.launches} ({name_power})",
+        flush=True,
+    )
+    torch.cuda.empty_cache()
+
+
+def autoscale_run(spec, learn, name_power):
+    """One autoscaling engine (E / 4 ... E slots, backend auto) under a burst
+    of 512 sessions, then a lull in which 8 more arrive one chunk apart.
+    Returns (results, sessions, stats, widths seen, peak GiB, Check)."""
+    kw = dict(learn=learn, learn_reg=LEARN_REG) if learn else {}
+    eng = ReservoirEngine(spec, num_slots=E // 4, chunk_ticks=K, autoscale=True,
+                          min_slots=E // 4, max_slots=E, device="cuda", **kw)
+    sessions = make_sessions(np.random.default_rng(0), learn=bool(learn))
+    late = make_sessions(np.random.default_rng(0), learn=bool(learn))[:8]
+    for i, s in enumerate(late):
+        s.sid = SESSIONS + i
+    widths = [(eng.num_slots, eng.backend)]
+
+    def seen():
+        if widths[-1] != (eng.num_slots, eng.backend):
+            widths.append((eng.num_slots, eng.backend))
+
+    torch.cuda.reset_peak_memory_stats()
+    with Check(f"autoscale {learn}") as c:
+        for s in sessions:
+            eng.submit(s)
+        while eng.step_chunk():
+            seen()
+        for s in late:
+            eng.submit(s)
+            eng.step_chunk()
+            seen()
+        while eng.step_chunk():
+            seen()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    results, stats = eng.results, eng.stats()
+    del eng
+    torch.cuda.empty_cache()
+    assert len(results) == SESSIONS + 8, len(results)
+    assert stats.grows >= 1 and stats.shrinks >= 1, (stats.grows, stats.shrinks)
+    return results, sessions + late, stats, widths, peak, c
+
+
+def autoscale_check(spec, name_power):
+    """3d.4: autoscale under a burst and a lull, against one fixed-width
+    E = 256 run; then once more with learn="rls"."""
+    fixed_sessions = make_sessions(np.random.default_rng(0))
+    late = make_sessions(np.random.default_rng(0))[:8]
+    for i, s in enumerate(late):
+        s.sid = SESSIONS + i
+    fixed = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, device="cuda").run(fixed_sessions + late)
+    for learn in (None, "rls"):
+        results, sessions, stats, widths, peak, c = autoscale_run(spec, learn, name_power)
+        ds, do, _, exact = same_results(
+            results, fixed, [s.sid for s in sessions], None if learn else w_outs_of(sessions)
+        )
+        outs = "states and final_m only" if learn else f"max |output| diff {do:.3e}"
+        extra = ""
+        if learn:
+            worst = 0.0
+            for s in sessions[:8]:
+                r = results[s.sid]
+                one = fit_rls(torch.from_numpy(r.states).cuda(), s.targets, washout=LEARN_WASHOUT,
+                              reg=LEARN_REG, block=K, w0=s.readout.w_out).w_out.cpu()
+                w = r.learned_readout.w_out
+                assert np.isfinite(w.numpy()).all()
+                worst = max(worst, ((w - one).abs().max() / one.abs().max()).item())
+            assert worst <= ORACLE_RTOL["rls"], worst
+            extra = f", learned W vs the E=1 oracle (8 sessions) {worst:.3e} of max|W|"
+        print(
+            f"3d.4 autoscale learn={learn}: {len(results)} sessions in {c.seconds:.3f} s, widths "
+            + " -> ".join(f"{e} ({impl})" for e, impl in widths)
+            + f", grows {stats.grows}, shrinks {stats.shrinks}, cold rescales "
+            f"{stats.cold_rescales}, warm {stats.warm_rescales}, stall {stats.rescale_stall_s:.4f} s, "
+            f"peak memory {peak:.3f} GiB; vs fixed E={E}: max |state| diff {ds:.3e}, {outs}: "
+            f"{held(exact)}{extra}; launches {c.launches} ({name_power})",
+            flush=True,
+        )
+
+
+def launcher_check(name_power):
+    """3d.5: the port's launcher in reservoir mode at the full width."""
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--mode", "reservoir", "--n", str(N), "--slots", str(E), "--sessions", str(SESSIONS),
+            "--ticks", "40", "--hold-steps", str(HOLD), "--chunk-ticks", str(K)]
+    for extra in ([], ["--learn", "rls"]):
+        with Check("launcher") as c:
+            results = launch_serve.main(argv + extra)
+        assert len(results) == SESSIONS, len(results)
+        for r in results.values():
+            assert r.error is None and np.isfinite(r.final_m).all()
+            if extra:
+                assert np.isfinite(r.learn_nmse) and r.predictions.shape == (40, 1)
+            else:
+                assert r.outputs.shape == (30, 1) and np.isfinite(r.outputs).all()
+        print(f"3d.5 launcher {' '.join(argv + extra)}: {c.seconds:.3f} s, launches {c.launches} "
+              f"({name_power})", flush=True)
+
+
+def lifecycle_phase(spec, name_power):
+    """Phase 3d: the engine's lifecycle at N = 2500, E = 256, K = 8."""
+    t0 = time.perf_counter()
+    step_check(spec, "chunk", "rk4_chunk", name_power)
+    step_check(spec, "tiled", "field_tiled", name_power)
+    push_check(spec, name_power)
+    checkpoint_check(spec, name_power)
+    autoscale_check(spec, name_power)
+    launcher_check(name_power)
+    print(f"phase 3d: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1440,6 +1907,12 @@ def main():
         flush=True,
     )
 
+    # phase 3's host trace: where a chunk's time outside the kernel goes
+    t0 = time.perf_counter()
+    for backend in ("chunk", "tiled"):
+        trace_engine(spec, backend, name_power)
+    print(f"phase 3 host trace: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # the chunk and tiled runs against the plain versions of the same engine
     for backend in ("chunk", "tiled"):
         ref, seconds, launches, sessions = serve(spec, backend, interpret=True)
@@ -1473,6 +1946,7 @@ def main():
     learning_phase(spec, name_power)
     ladder(spec, name_power)
     print(f"phases 3b-3c: {time.perf_counter() - t0:.1f} s", flush=True)
+    lifecycle_phase(spec, name_power)
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)

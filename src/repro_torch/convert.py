@@ -1,8 +1,8 @@
 """Carry weights and state across from the reference package.
 
-The reference's SimSpec leaves, readouts, per-tenant parameters and online
-learners' (P, W) lanes, and its LM parameter and KV-cache pytrees, reach the
-port as numpy arrays (`np.asarray` of each leaf); these converters rebuild
+The reference's SimSpec leaves, readouts, per-tenant parameters, online
+learners' (P, W) lanes and session checkpoints, and its LM parameter and
+KV-cache pytrees, reach the port as numpy arrays (`np.asarray` of each leaf); these converters rebuild
 the port's objects from them on `device`, so both packages compute the same
 thing from the same numbers. Nothing here imports the reference.
 """
@@ -20,6 +20,7 @@ from repro_torch.core.constants import STOParams
 from repro_torch.core.reservoir import Readout
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.serve.reservoir import SessionCheckpoint
 
 
 def _tensor(x, dev, dtype=None) -> torch.Tensor:
@@ -74,6 +75,42 @@ def learn_state_from_numpy(P, W, device="cuda"):
     n_out)."""
     dev = resolve_device(device)
     return (None if P is None else _tensor(P, dev)), _tensor(W, dev)
+
+
+def checkpoint_from_numpy(ckpt) -> SessionCheckpoint:
+    """The port's SessionCheckpoint from any object with the reference
+    SessionCheckpoint's fields (its arrays are already host numpy): a
+    session checkpointed on the reference engine then restores on the
+    port's through `ReservoirEngine.restore_session`. Arrays are copied;
+    params become 0-d CPU tensors (`params_from_numpy`)."""
+    if getattr(ckpt, "spec", None) is not None:
+        raise NotImplementedError(
+            f"session {ckpt.sid}: a checkpoint carrying its own SimSpec is a "
+            "mixed-spec tenant, not ported yet (ROADMAP queue 1 item 8)"
+        )
+
+    def arr(x):
+        return None if x is None else np.array(x)
+
+    return SessionCheckpoint(
+        sid=int(ckpt.sid),
+        u_seq=np.array(ckpt.u_seq),
+        t=int(ckpt.t),
+        m=arr(ckpt.m),
+        params=None if ckpt.params is None else params_from_numpy(ckpt.params, device="cpu"),
+        readout_w=arr(ckpt.readout_w),
+        readout_washout=int(ckpt.readout_washout),
+        collect_states=bool(ckpt.collect_states),
+        targets=arr(ckpt.targets),
+        learn_washout=int(ckpt.learn_washout),
+        open=bool(ckpt.open),
+        n_out=int(ckpt.n_out),
+        states=arr(ckpt.states),
+        outs=arr(ckpt.outs),
+        preds=arr(ckpt.preds),
+        P=arr(ckpt.P),
+        Wl=arr(ckpt.Wl),
+    )
 
 
 def _tree_from_numpy(tree, dev):

@@ -19,14 +19,29 @@ harvest waits on that event only, so it never waits for the chunk launched
 after it. (A plain `.cpu()` on the same stream would wait for that chunk
 too and serialise the double buffer.)
 
+`step()` keeps the synchronous per-tick path (one `CompiledSim.tick` and one
+harvest per input tick) for externally clocked callers and as the pipelined
+path's baseline; on the scan impl both give the same bits.
+
 Online learning: an engine built with learn="rls" | "lms" trains the
 readout of every session that submits `targets` inside `tick_chunk`, after
 the chunk's integrate (kernels/rls.py). The learn columns (P, W) stay on the
 device; a-priori predictions come back with the chunk's other blocks, and a
 retiring lane's learned W with its final state.
 
-Not ported yet (ROADMAP queue 1 item 7 and later): the per-tick `step()`,
-autoscale, mixed-spec sub-engines, push streams, checkpoints and autotune.
+Lifecycle: `open=True` makes a push stream that idles (lane frozen) when its
+input runs dry until `append_ticks` feeds it or `close_session` lets it
+finish. `checkpoint_session` / `snapshot_sessions` freeze live sessions into
+host-side `SessionCheckpoint`s (with a learner's P and W) that
+`restore_session` resumes on any engine of the same spec. Under
+`autoscale=` the engine grows and shrinks its slot count at chunk
+boundaries between power-of-two buckets, moving the occupied columns
+(serve/state_store.py `SlotStore.resized`) onto a CompiledSim compiled per
+bucket.
+
+Not ported yet: mixed-spec sub-engines (ROADMAP queue 1 item 8), the plan
+cache's `prewarm` and `compilation_cache_dir` (item 9) and autotune (item
+10).
 """
 
 from __future__ import annotations
@@ -42,16 +57,13 @@ import torch
 from repro_torch.api import CompiledSim, ExecPlan, SimSpec, compile_plan
 from repro_torch.core.constants import STOParams
 from repro_torch.core.reservoir import Readout, coerce_input_series
-from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve.scheduler import AutoscalePolicy, QueueDepthPolicy, SlotScheduler
 from repro_torch.serve.state_store import SlotStore, _host
 
 BACKENDS = ("auto", "scan", "ref", "fused", "tiled", "chunk")
 
 # ReservoirEngine options of the reference that are not ported yet
 _WAITING_OPTIONS = {
-    "autoscale": "queue 1 item 7, autoscale",
-    "min_slots": "queue 1 item 7, autoscale",
-    "max_slots": "queue 1 item 7, autoscale",
     "prewarm": "queue 1 item 9, plan cache",
     "compilation_cache_dir": "queue 1 item 9, plan cache",
 }
@@ -74,8 +86,13 @@ class StreamSession:
     learned weights (and still drives `outputs`); `learn_w0` / `learn_P0`
     resume a recursion mid-stream (weights, and RLS's inverse-Gram) and take
     priority. The trained readout, the per-tick predictions and the online
-    NMSE come back on the SessionResult. `open` and `spec` (push streams,
-    mixed-spec tenancy) are not ported yet and raise at submit.
+    NMSE come back on the SessionResult.
+
+    `open=True` marks a PUSH stream: the session stays resident after its
+    input is exhausted (its lane idles, state frozen) until
+    `engine.append_ticks(sid, ...)` supplies more rows or
+    `engine.close_session(sid)` lets it finish. `spec` (mixed-spec tenancy)
+    is not ported yet and raises at submit.
     """
 
     sid: int
@@ -100,6 +117,8 @@ class StreamSession:
     _admitted_tick: int = dataclasses.field(default=-1, repr=False)
     _finished_tick: int = dataclasses.field(default=-1, repr=False)
     _n_out: int = dataclasses.field(default=1, repr=False)
+    # set by restore_session: admission keeps the seeded _t and prefix
+    _restored: bool = dataclasses.field(default=False, repr=False)
     # set by the nan guard when this tenant's lane went non-finite
     _error: Optional[str] = dataclasses.field(default=None, repr=False)
 
@@ -123,6 +142,43 @@ class SessionResult:
 
 
 @dataclasses.dataclass
+class SessionCheckpoint:
+    """A mid-stream session frozen for migration between engines.
+
+    Every field is a host numpy array or a plain scalar (params: 0-d CPU
+    tensors), so a checkpoint pickles unchanged. `u_seq` / `targets` carry
+    the FULL stream (targets at the session's own width q, not the store's
+    padded width); `t` marks how far the source engine got; `states` /
+    `outs` / `preds` are the prefix already harvested. `m` is the
+    magnetization at tick t, and `P` / `Wl` the learner in flight (P None
+    for LMS; both None for inference sessions). `restore_session` injects
+    them into the destination's slot columns, so the resumed stream is
+    bit-identical to one that never moved wherever the destination computes
+    the session's lane with the same arithmetic."""
+
+    sid: int
+    u_seq: np.ndarray  # (T, N_in) full input stream
+    t: int  # ticks already served by the source engine
+    m: Optional[np.ndarray]  # (N, 3) at tick t (None: queued, never ran)
+    params: Optional[STOParams]
+    readout_w: Optional[np.ndarray]  # (N+1, q) static readout, unpadded
+    readout_washout: int
+    collect_states: bool
+    targets: Optional[np.ndarray]  # (T, q) full targets, unpadded
+    learn_washout: int
+    open: bool
+    n_out: int  # the session's own output width q
+    states: Optional[np.ndarray]  # (t, N) harvested prefix
+    outs: Optional[np.ndarray]  # (t, q) harvested prefix
+    preds: Optional[np.ndarray]  # (t, q) harvested prefix
+    P: Optional[np.ndarray]  # (S, S) in-flight RLS inverse-Gram
+    Wl: Optional[np.ndarray]  # (S, q) in-flight learned weights, unpadded
+    # the session's own SimSpec (mixed-spec tenancy, ROADMAP queue 1 item 8):
+    # always None on this engine
+    spec: Optional[SimSpec] = None
+
+
+@dataclasses.dataclass
 class EngineStats:
     """One engine's load/latency snapshot — plain scalars only."""
 
@@ -139,6 +195,14 @@ class EngineStats:
     occupancy: float
     queue_depth: int
     mean_queue_wait: float
+    grows: int
+    shrinks: int
+    detached: int
+    # rescale compiles (SchedulerStats): cold = the bucket compiled at the
+    # boundary, stalling rescale_stall_s seconds in total
+    cold_rescales: int
+    warm_rescales: int
+    rescale_stall_s: float
     chunk_median_s: Optional[float]  # median wall time of recent chunks
     chunks_timed: int
     ticks_per_sec: Optional[float]  # E * K / chunk_median_s
@@ -190,14 +254,52 @@ class _ChunkPlan:
     copies: Optional[_HostCopy] = None
 
 
-def _apply_readouts_chunk(states_block, w_out):
-    """Slot-batched readout: (K, N, E) x (E, N+1, n_out) -> (K, E, n_out)."""
-    k, _, e = states_block.shape
-    xb = torch.cat(
-        [states_block, torch.ones((k, 1, e), dtype=states_block.dtype, device=states_block.device)],
-        dim=1,
+def _with_bias(states):
+    """(..., N, E) states -> (..., N+1, E), the last row ones."""
+    ones = torch.ones(
+        (*states.shape[:-2], 1, states.shape[-1]), dtype=states.dtype, device=states.device
     )
-    return torch.einsum("kne,eno->keo", xb, w_out)
+    return torch.cat([states, ones], dim=-2)
+
+
+def _apply_readouts(xb, w_out):
+    """Slot-batched readout of one tick: (N+1, E) states with their bias row
+    x (E, N+1, n_out) -> (E, n_out)."""
+    return torch.einsum("ne,eno->eo", xb, w_out)
+
+
+def _apply_readouts_chunk(states_block, w_out):
+    """Chunked readout: (K, N, E) x (E, N+1, n_out) -> (K, E, n_out).
+
+    K calls of the per-tick `_apply_readouts`, stacked: one batched einsum
+    over K ("kne,eno->keo") hands the GEMM another shape, which may sum in
+    another order, and the chunked path must give the per-tick path's bits
+    (`step()`)."""
+    xb = _with_bias(states_block)
+    return torch.stack([_apply_readouts(xb[t], w_out) for t in range(xb.shape[0])])
+
+
+def _bucket_slots(demand: int, min_slots: int, max_slots: int) -> int:
+    """Smallest bucket covering demand: min_slots * 2^k, clamped to
+    max_slots. Power-of-two widths keep the engine's compiled buckets few
+    (log2 of the range)."""
+    b = min_slots
+    while b < demand and b < max_slots:
+        b *= 2
+    return min(b, max_slots)
+
+
+def _bucket_ladder(min_slots: int, max_slots: int) -> List[int]:
+    """Every width `_bucket_slots` can return: min_slots * 2^k while below
+    max_slots, plus the clamp bucket max_slots itself (which need not be a
+    power-of-two multiple)."""
+    ladder = []
+    b = min_slots
+    while b < max_slots:
+        ladder.append(b)
+        b *= 2
+    ladder.append(max_slots)
+    return ladder
 
 
 class ReservoirEngine:
@@ -219,6 +321,10 @@ class ReservoirEngine:
                     (repro_torch.api.plan.ExecPlan)
       max_retained  cap on finished SessionResults kept in `results`
       nan_guard     quarantine a tenant whose harvested rows went non-finite
+      autoscale     an AutoscalePolicy (or True for QueueDepthPolicy()): grow
+                    or shrink the slot count between min_slots and max_slots
+                    at chunk boundaries, over power-of-two buckets from
+                    min_slots, each compiled once (`compile_plan`) and kept
     """
 
     def __init__(
@@ -238,6 +344,9 @@ class ReservoirEngine:
         learn_lam: Optional[float] = None,
         learn_reg: Optional[float] = None,
         learn_mu: Optional[float] = None,
+        autoscale: Union[AutoscalePolicy, bool, None] = None,
+        min_slots: Optional[int] = None,
+        max_slots: Optional[int] = None,
         **waiting,
     ):
         for name, value in waiting.items():
@@ -293,6 +402,25 @@ class ReservoirEngine:
                 ),
                 device=device,
             )
+        # -- autoscale: one CompiledSim per bucket width (checked before the
+        # slot store, which needs scalar-leaved spec params) -----------------
+        if autoscale is True:
+            autoscale = QueueDepthPolicy()
+        self.autoscale: Optional[AutoscalePolicy] = autoscale or None
+        self.min_slots = num_slots if min_slots is None else min_slots
+        self.max_slots = num_slots if max_slots is None else max_slots
+        if self.autoscale is not None:
+            if not (1 <= self.min_slots <= num_slots <= self.max_slots):
+                raise ValueError(
+                    f"autoscale bounds must satisfy 1 <= min_slots <= "
+                    f"num_slots <= max_slots; got min={self.min_slots} "
+                    f"num={num_slots} max={self.max_slots}"
+                )
+            if sim.spec.params.gamma.ndim != 0:
+                raise ValueError(
+                    "autoscale requires scalar-leaved spec params (per-tenant "
+                    "params ride in session lanes, not the spec)"
+                )
         self.sim = sim
         self.res = sim.spec
         self.device = sim.device
@@ -308,6 +436,8 @@ class ReservoirEngine:
         self.backend = sim.impl
         self.precision = sim.precision
         self.nan_guard = bool(nan_guard)
+        # the compiled bucket widths; a rescale to a width found here is warm
+        self._sims: Dict[int, CompiledSim] = {num_slots: sim}
 
         # sessions whose final tick was served by the most recently LAUNCHED
         # chunk (slot still holds their state until the next boundary)
@@ -339,15 +469,10 @@ class ReservoirEngine:
                 f"session {session.sid}: StreamSession.spec is not ported yet "
                 "(ROADMAP queue 1 item 8, mixed-spec tenancy)"
             )
-        if session.open:
-            raise NotImplementedError(
-                f"session {session.sid}: push streams (open=True) are not ported "
-                "yet (ROADMAP queue 1 item 7)"
-            )
         # the engine assembles u blocks host-side, so the series stays numpy
         store = self.store
         u = coerce_input_series(session.u_seq, store.n_in, store.np_dtype, xp=np)
-        if u.shape[0] == 0:
+        if u.shape[0] == 0 and not session.open:
             raise ValueError(f"session {session.sid}: empty input stream")
         session.u_seq = u
         n_out = None  # the session's own width, inferred below
@@ -466,10 +591,15 @@ class ReservoirEngine:
                 p_learn = sess.learn_P0
             items.append((slot, sess.m0, sess.params, w_out, w_learn, p_learn))
             sess._slot = slot
-            sess._t = 0
-            sess._states = []
-            sess._outs = []
-            sess._preds = []
+            if sess._restored:
+                # a restored session resumes mid-stream: restore_session
+                # seeded _t and the harvested prefix
+                sess._restored = False
+            else:
+                sess._t = 0
+                sess._states = []
+                sess._outs = []
+                sess._preds = []
             sess._admitted_tick = self.tick_count
         self.store.admit_many(items)  # one write per array, not per session
 
@@ -539,6 +669,115 @@ class ReservoirEngine:
         out = self.results
         self.results = {}
         return out
+
+    def _retire(self, slot: int) -> None:
+        """Per-tick path: retire at once (the state column is current)."""
+        sess = self.scheduler.retire(slot)
+        sess._finished_tick = self.tick_count
+        (final_m,) = _HostCopy([self.store.state_columns([slot])]).numpy()
+        self._record_result(sess, slot, final_m[0].copy())
+        self.store.retire(slot)
+
+    # -- autoscale -------------------------------------------------------------
+
+    def _maybe_autoscale(self) -> None:
+        sched = self.scheduler
+        active = len(sched.running)
+        target = self.autoscale.target_slots(
+            active=active,
+            queued=len(sched.queue),
+            num_slots=self.num_slots,
+            min_slots=self.min_slots,
+            max_slots=self.max_slots,
+        )
+        target = max(target, active, 1)
+        bucket = _bucket_slots(target, self.min_slots, self.max_slots)
+        if bucket != self.num_slots:
+            self._rescale(bucket)
+
+    def _rescale(self, new_e: int) -> None:
+        """Move serving onto the CompiledSim of width new_e.
+
+        Occupied slots compact into the low lanes of the new store (one
+        gather-scatter per array, learn columns included); running sessions
+        keep streaming across the boundary. A bucket compiled before is a
+        warm rescale; otherwise `compile_plan` runs here, at the boundary,
+        and its time is the stall (cold_rescales / rescale_stall_s)."""
+        stats = self.scheduler.stats
+        sim = self._sims.get(new_e)
+        if sim is not None:
+            stats.warm_rescales += 1
+        else:
+            t0 = time.perf_counter()
+            sim = compile_plan(
+                self.sim.spec, dataclasses.replace(self.sim.plan, ensemble=new_e),
+                device=self.device,
+            )
+            stats.cold_rescales += 1
+            stats.rescale_stall_s += time.perf_counter() - t0
+            self._sims[new_e] = sim
+        slot_map = {old: new for new, old in enumerate(sorted(self.scheduler.running))}
+        self.store = self.store.resized(new_e, slot_map)
+        self.scheduler.remap(slot_map, new_e)
+        for slot, sess in self.scheduler.running.items():
+            sess._slot = slot
+        self.sim = sim
+        self.backend = sim.impl
+        self.precision = sim.precision
+
+    # -- the synchronous per-tick path -------------------------------------------
+
+    def _advance(self, u: torch.Tensor) -> torch.Tensor:
+        """One input tick for every slot; returns the (N, E) states plane."""
+        store = self.store
+        store.m, states_plane = self.sim.tick(
+            store.m, u, lane_mask=store.active_mask, params=store.params_ensemble
+        )
+        return states_plane
+
+    def step(self) -> bool:
+        """Admit, advance one tick, harvest. Returns False when drained.
+
+        The synchronous baseline: one `CompiledSim.tick` and one harvest per
+        input tick. `run()` is the pipelined chunked path; both give the same
+        per-session results, bit for bit on the scan impl and within the
+        kernels' tolerance elsewhere. Do not interleave with `step_chunk()`
+        while a chunk is in flight."""
+        if self.learn is not None:
+            raise RuntimeError(
+                "online learning (ExecPlan.learn) runs on the chunked serving "
+                "path only — drive the engine with run() or step_chunk() "
+                "(chunk_ticks=1 keeps per-tick semantics)"
+            )
+        self._admit_pending()
+        running = self.scheduler.running
+        if not running:
+            return self.scheduler.has_work()
+        store = self.store
+        u = np.zeros((store.num_slots, store.n_in), store.np_dtype)
+        any_readout = False
+        for slot, sess in running.items():
+            if sess.open:
+                raise RuntimeError(
+                    "open (push) streams are served on the chunked path only "
+                    "— drive the engine with run() or step_chunk()"
+                )
+            u[slot] = sess.u_seq[sess._t]
+            any_readout = any_readout or sess.readout is not None
+        states_plane = self._advance(torch.from_numpy(u).to(self.device, non_blocking=True))
+        outs = _apply_readouts(_with_bias(states_plane), store.w_out) if any_readout else None
+        states_np, outs_np = _HostCopy([states_plane, outs]).numpy()  # (N, E), (E, n_out)
+        self.scheduler.on_tick()
+        self.tick_count += 1
+        for slot, sess in list(running.items()):
+            if sess.collect_states:
+                sess._states.append(states_np[None, :, slot].copy())  # (1, N)
+            if sess.readout is not None:
+                sess._outs.append(outs_np[slot : slot + 1, : sess._n_out].copy())
+            sess._t += 1
+            if sess._t >= sess.u_seq.shape[0]:
+                self._retire(slot)
+        return True
 
     # -- the pipelined chunked path -----------------------------------------
 
@@ -614,9 +853,11 @@ class ReservoirEngine:
     def _retire_quarantined(self) -> None:
         """Force-retire lanes the nan guard flagged (error-bearing result,
         clean harvested prefix) and free their slots."""
-        for slot, sess in self._quarantine:
+        for _, sess in self._quarantine:
+            # the session's current slot: a rescale since the flag moves it
+            slot = sess._slot
             if self.scheduler.running.get(slot) is not sess:
-                continue  # finished since it was flagged
+                continue  # finished or detached since it was flagged
             self.scheduler.retire(slot)
             sess._finished_tick = self.tick_count
             learning = self.learn is not None and sess.targets is not None
@@ -634,11 +875,15 @@ class ReservoirEngine:
 
     def _assemble_chunk(self) -> Optional[_ChunkPlan]:
         """Host-side boundary work: retire the previous chunk's finishers,
-        admit, and build the next K-tick u/mask block. Returns None when
-        nothing is left to serve. Runs while the card executes the
-        previously launched chunk."""
+        autoscale, admit, and build the next K-tick u/mask block. Returns
+        None when nothing is left to serve, or when every resident session
+        is an idle push stream. Runs while the card executes the previously
+        launched chunk."""
         self._retire_finishers()
         self._retire_quarantined()
+        # resize at the boundary (the slots now reflect retirements)
+        if self.autoscale is not None:
+            self._maybe_autoscale()
         self._admit_pending()
         running = self.scheduler.running
         if not running:
@@ -660,6 +905,9 @@ class ReservoirEngine:
         session_ticks = 0
         for slot, sess in running.items():
             t0 = sess._t
+            # an idle push stream (input exhausted, not closed) serves n = 0
+            # ticks: its mask stays False all chunk, so its state is frozen
+            # until append_ticks refills it
             n = min(k, sess.u_seq.shape[0] - t0)
             u[:n, slot] = sess.u_seq[t0 : t0 + n]
             mask[:n, slot] = True
@@ -668,14 +916,20 @@ class ReservoirEngine:
                 # update only from the session's learn_washout tick onward;
                 # predictions are recorded from its first tick
                 lmask[max(0, sess.learn_washout - t0) : n, slot] = True
-                any_learn = True
+                any_learn = any_learn or n > 0
             sess._t = t0 + n
             entries.append((sess, slot, n))
             session_ticks += n
-            any_readout = any_readout or sess.readout is not None
-            if sess._t >= sess.u_seq.shape[0]:
+            any_readout = any_readout or (sess.readout is not None and n > 0)
+            if sess._t >= sess.u_seq.shape[0] and not sess.open:
                 sess._finished_tick = self.tick_count + n
                 self._finishing.append((slot, sess))
+        if session_ticks == 0:
+            # every resident is an idle push stream: launch nothing and keep
+            # the clock still; quiesce so a just-closed, exhausted stream
+            # retires with every harvested row
+            self.quiesce()
+            return None
         self.scheduler.on_ticks(k, session_ticks)
         self.tick_count += k
         return _ChunkPlan(
@@ -687,13 +941,19 @@ class ReservoirEngine:
         """Enqueue the chunk and the host copies of its blocks; returns
         without waiting for the card."""
         store = self.store
-        if self._mask_np is None or not np.array_equal(self._mask_np, plan.mask):
+        # a cached mask of another width (before a rescale) never matches
+        if self._mask_np is None or not (
+            self._mask_np.shape == plan.mask.shape and np.array_equal(self._mask_np, plan.mask)
+        ):
             self._mask_np = plan.mask
             self._mask_dev = torch.from_numpy(plan.mask).to(self.device, non_blocking=True)
         u = torch.from_numpy(plan.u).to(self.device, non_blocking=True)
         preds = None
         if self.learn is not None:
-            if self._lmask_np is None or not np.array_equal(self._lmask_np, plan.lmask):
+            if self._lmask_np is None or not (
+                self._lmask_np.shape == plan.lmask.shape
+                and np.array_equal(self._lmask_np, plan.lmask)
+            ):
                 self._lmask_np = plan.lmask
                 self._lmask_dev = torch.from_numpy(plan.lmask).to(self.device, non_blocking=True)
             # one call advances physics AND learning; P/Wl stay on the card
@@ -770,7 +1030,10 @@ class ReservoirEngine:
 
     def quiesce(self) -> None:
         """Drain the pipeline without launching new work: harvest the
-        in-flight chunk and record any finishers' results."""
+        in-flight chunk and record any finishers' results. Afterwards the
+        slot store's columns are current for every resident session, the
+        precondition of `checkpoint_session`. Serving resumes with the next
+        `step_chunk()` / `run()`."""
         if self._pending is not None:
             self._harvest_chunk(self._pending)
             self._pending = None
@@ -784,6 +1047,201 @@ class ReservoirEngine:
         while self.step_chunk():
             pass
         return self.results
+
+    # -- push streams, checkpoints ---------------------------------------------
+
+    def _find_session(self, sid: int) -> Tuple[Optional[int], StreamSession]:
+        """Locate a live session by sid: (slot, session) if resident, (None,
+        session) if still queued. Raises KeyError when unknown (finished
+        sessions live in `results`)."""
+        for slot, sess in self.scheduler.running.items():
+            if sess.sid == sid:
+                return slot, sess
+        for sess in self.scheduler.queue:
+            if sess.sid == sid:
+                return None, sess
+        raise KeyError(f"no live session with sid {sid}")
+
+    def _owner(self, sid: int) -> "ReservoirEngine":
+        """The engine holding sid: this one, until mixed-spec sub-engines
+        (ROADMAP queue 1 item 8) exist. Raises KeyError when unknown."""
+        self._find_session(sid)
+        return self
+
+    def append_ticks(self, sid: int, u, targets=None) -> None:
+        """Feed more input rows to an OPEN (push) stream.
+
+        The rows join the session's stream at its tail; an idle lane picks
+        them up at the next chunk boundary. Learning sessions must push
+        matching target rows (and inference sessions must not)."""
+        _, sess = self._owner(sid)._find_session(sid)
+        if not sess.open:
+            raise ValueError(
+                f"session {sid} is not an open stream — submit it with "
+                f"open=True to push ticks"
+            )
+        store = self.store
+        u = coerce_input_series(u, store.n_in, store.np_dtype, xp=np)
+        if sess.targets is not None:
+            if targets is None:
+                raise ValueError(
+                    f"session {sid} is a learning stream — push target rows "
+                    f"alongside the inputs"
+                )
+            t = _host(targets).astype(store.np_dtype)
+            if t.ndim == 1:
+                t = t[:, None]
+            if t.shape != (u.shape[0], sess._n_out):
+                raise ValueError(
+                    f"session {sid}: pushed targets shape "
+                    f"{tuple(np.shape(targets))} != ({u.shape[0]}, {sess._n_out})"
+                )
+            # reassigned, never written in place: a snapshot may hold the
+            # old array
+            sess.targets = np.concatenate([sess.targets, self._pad_cols(t, "targets", sid)])
+        elif targets is not None:
+            raise ValueError(f"session {sid} is inference-only; it cannot take targets")
+        sess.u_seq = np.concatenate([sess.u_seq, u])
+
+    def close_session(self, sid: int) -> None:
+        """End an open stream: once its pushed input is exhausted the session
+        finishes like any closed-stream session (result in `results`)."""
+        _, sess = self._owner(sid)._find_session(sid)
+        sess.open = False
+
+    def _freeze_sessions(
+        self, live: List[Tuple[Optional[int], StreamSession]], detach: bool
+    ) -> List[SessionCheckpoint]:
+        """Host-side SessionCheckpoints of live (slot, session) pairs, slot
+        None for a queued session. The pipeline must be quiesced (columns
+        current, nothing in flight). The resident sessions' m, P and Wl
+        columns come to the host in one gather each. detach=True removes
+        the sessions from this engine (migration); detach=False leaves them
+        serving untouched: every array a checkpoint holds is a copy, or one
+        the engine only ever replaces (u_seq / targets grow by
+        reassignment)."""
+        store = self.store
+        resident = [(slot, sess) for slot, sess in live if slot is not None]
+        slots = [slot for slot, _ in resident]
+        learners = [
+            slot for slot, sess in resident if self.learn is not None and sess.targets is not None
+        ]
+        m_np = p_np = w_np = None
+        if resident:
+            m_np, p_np, w_np = _HostCopy(
+                [
+                    store.state_columns(slots),  # (k, N, 3)
+                    store.learn_P_columns(learners) if learners and self.learn == "rls" else None,
+                    store.learn_w_columns(learners) if learners else None,
+                ]
+            ).numpy()
+        col = {slot: i for i, slot in enumerate(slots)}
+        lcol = {slot: i for i, slot in enumerate(learners)}
+
+        def cat(blocks):
+            return np.concatenate(blocks) if blocks else None
+
+        out = []
+        for slot, sess in live:
+            q = sess._n_out
+            learning = self.learn is not None and sess.targets is not None
+            m = P = Wl = None
+            if slot is None:
+                if sess.m0 is not None:
+                    m = _host(sess.m0).astype(store.np_dtype).copy()
+            else:
+                m = m_np[col[slot]].copy()
+                if learning:
+                    # LMS learners carry no inverse-Gram: Wl is their whole
+                    # learn state. Padding columns stay zero for a session's
+                    # life (zero targets, zero start), so slicing is exact.
+                    P = None if p_np is None else p_np[lcol[slot]].copy()
+                    Wl = w_np[lcol[slot]][:, :q].copy()
+            params = None
+            if sess.params is not None:
+                params = STOParams(*(torch.as_tensor(x).detach().cpu().clone() for x in sess.params))
+            out.append(
+                SessionCheckpoint(
+                    sid=sess.sid,
+                    u_seq=sess.u_seq,
+                    t=sess._t,
+                    m=m,
+                    params=params,
+                    readout_w=None if sess.readout is None else _host(sess.readout.w_out).copy(),
+                    readout_washout=0 if sess.readout is None else sess.readout.washout,
+                    collect_states=sess.collect_states,
+                    targets=None if sess.targets is None else sess.targets[:, :q].copy(),
+                    learn_washout=sess.learn_washout,
+                    open=sess.open,
+                    n_out=q,
+                    states=cat(sess._states) if sess.collect_states else None,
+                    outs=cat(sess._outs) if sess.readout is not None else None,
+                    preds=cat(sess._preds) if learning else None,
+                    P=P,
+                    Wl=Wl,
+                )
+            )
+        if detach:
+            for slot, sess in live:
+                if slot is None:
+                    self.scheduler.remove_queued(sess)
+                else:
+                    self.scheduler.detach(slot)
+                sess._states, sess._outs, sess._preds = [], [], []
+            if slots:
+                store.retire_many(slots)
+        return out
+
+    def checkpoint_session(self, sid: int) -> SessionCheckpoint:
+        """Freeze a live session into a host-side SessionCheckpoint and
+        remove it from this engine (a detach, not a retirement: no
+        SessionResult is recorded). It restores into any engine of the same
+        spec through `restore_session`. Quiesces the pipeline first."""
+        self.quiesce()
+        slot, sess = self._owner(sid)._find_session(sid)
+        return self._freeze_sessions([(slot, sess)], detach=True)[0]
+
+    def snapshot_sessions(self) -> List[SessionCheckpoint]:
+        """Non-destructive checkpoints of EVERY live session, running and
+        queued. Quiesces the pipeline first; every session keeps serving,
+        and its stream is bit-identical to one that was never snapshotted.
+        Sessions the nan guard flagged are left out, so a restore never
+        resurrects a poisoned stream."""
+        self.quiesce()
+        live = [(slot, s) for slot, s in self.scheduler.running.items() if s._error is None]
+        live += [(None, s) for s in self.scheduler.queue if s._error is None]
+        return self._freeze_sessions(live, detach=False)
+
+    def restore_session(self, ckpt: SessionCheckpoint) -> StreamSession:
+        """Resume a checkpointed session on THIS engine: submit it with the
+        frozen magnetization as m0 and the learner in flight as its learn
+        resume (P, Wl), then seed the served prefix so the final
+        SessionResult covers the whole stream."""
+        readout = None
+        if ckpt.readout_w is not None:
+            readout = Readout(w_out=torch.from_numpy(np.array(ckpt.readout_w)), washout=ckpt.readout_washout)
+        sess = StreamSession(
+            sid=ckpt.sid,
+            u_seq=ckpt.u_seq,
+            params=ckpt.params,
+            readout=readout,
+            m0=ckpt.m,
+            collect_states=ckpt.collect_states,
+            targets=ckpt.targets,
+            learn_washout=ckpt.learn_washout,
+            open=ckpt.open,
+            learn_w0=ckpt.Wl,
+            learn_P0=ckpt.P,
+            spec=ckpt.spec,
+        )
+        self.submit(sess)
+        if ckpt.t:
+            sess._t = ckpt.t
+            sess._states = [] if ckpt.states is None else [ckpt.states]
+            sess._outs = [] if ckpt.outs is None else [ckpt.outs]
+            sess._preds = [] if ckpt.preds is None else [ckpt.preds]
+            sess._restored = True  # _admit_pending keeps the seeded prefix
+        return sess
 
     def stats(self) -> EngineStats:
         """Load/latency snapshot — plain scalars only."""
@@ -804,6 +1262,12 @@ class ReservoirEngine:
             occupancy=sched.occupancy(),
             queue_depth=sched.queue_depth(),
             mean_queue_wait=sched.mean_queue_wait(),
+            grows=sched.stats.grows,
+            shrinks=sched.stats.shrinks,
+            detached=sched.stats.detached,
+            cold_rescales=sched.stats.cold_rescales,
+            warm_rescales=sched.stats.warm_rescales,
+            rescale_stall_s=sched.stats.rescale_stall_s,
             chunk_median_s=median,
             chunks_timed=len(timed),
             ticks_per_sec=None if not median else self.num_slots * self.chunk_ticks / median,

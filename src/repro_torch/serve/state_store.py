@@ -21,14 +21,18 @@ Uploads are non-blocking so a boundary never waits for the chunk in flight.
 
 W^cp / W^in topology is shared across tenants: every lane contracts against
 the same coupling matrix, so per-tenant physics lives in the params and
-readout columns. The learn columns live on the device and never come to the
-host on the serving path (P is 6.4 GB at E = 256, N = 2500). Autoscale
-resizing is not ported yet (ROADMAP queue 1 item 7).
+readout columns. The learn columns live on the device and come to the host
+only for a checkpoint (P is 6.4 GB at E = 256, N = 2500).
+
+`resized` is the autoscale migration: a store of another width with every
+occupied column (magnetization, params, readout, and the learn columns P /
+Wl) moved by one gather-scatter per array. Column moves are pure data
+movement, so a moved session's lane keeps its exact bits.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,10 +91,11 @@ class SlotStore:
         elif learn == "lms":
             self.Wl = krls.lms_init(num_slots, self.n_state, n_out, self.dtype, device=self.device)
 
-        # caches derived from _params_np, rebuilt lazily after admit/retire
-        # (chunk boundaries)
+        # caches derived from _params_np / _active, rebuilt lazily after
+        # admit/retire (chunk boundaries)
         self._pv: Optional[torch.Tensor] = None
         self._params_e: Optional[STOParams] = None
+        self._mask: Optional[torch.Tensor] = None
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=True)
@@ -99,6 +104,12 @@ class SlotStore:
 
     def free_slots(self) -> List[int]:
         return [i for i, a in enumerate(self._active) if not a]
+
+    def admit(
+        self, slot: int, m0=None, params=None, w_out=None, learn_w0=None, learn_P0=None
+    ) -> None:
+        """Splice one session into a free slot (see `admit_many`)."""
+        self.admit_many([(slot, m0, params, w_out, learn_w0, learn_P0)])
 
     def admit_many(self, items: Sequence[Tuple]) -> None:
         """Splice several sessions in ONE index write per batched array.
@@ -172,6 +183,9 @@ class SlotStore:
         if given:
             self.Wl[self._upload(idx[given])] = self._upload(np.stack([w_cols[i] for i in given]))
 
+    def retire(self, slot: int) -> None:
+        self.retire_many([slot])
+
     def retire_many(self, slots: Sequence[int]) -> None:
         """Reset several columns to the template in one write each."""
         if not len(slots):
@@ -192,8 +206,53 @@ class SlotStore:
     def _invalidate(self):
         self._pv = None
         self._params_e = None
+        self._mask = None
+
+    def resized(self, new_num_slots: int, slot_map: Dict[int, int]) -> "SlotStore":
+        """A new store of width `new_num_slots` with the occupied columns
+        moved per slot_map (old slot -> new slot): the autoscale migration.
+
+        One gather-scatter per array moves every mapped magnetization
+        column, params column, readout row and, on learning stores, the P
+        and Wl columns; unmapped new slots hold the template, like freshly
+        retired lanes. Both stores are live until the caller drops the old
+        one: an RLS store holds its old and new P at once."""
+        new = SlotStore(
+            self.spec, new_num_slots, n_out=self.n_out, learn=self.learn,
+            learn_reg=self.learn_reg,
+        )
+        if slot_map:
+            old_np = np.asarray(list(slot_map.keys()), dtype=np.int64)
+            new_np = np.asarray(list(slot_map.values()), dtype=np.int64)
+            if new_np.max() >= new_num_slots:
+                raise ValueError(
+                    f"slot_map targets slot {new_np.max()} but the resized "
+                    f"store has only {new_num_slots} slots"
+                )
+            old_idx, new_idx = self._upload(old_np), self._upload(new_np)
+            new.m[:, :, new_idx] = self.m[:, :, old_idx]
+            new.w_out[new_idx] = self.w_out[old_idx]
+            new._params_np[:, new_np] = self._params_np[:, old_np]
+            if self.P is not None:
+                new.P[new_idx] = self.P[old_idx]
+            if self.Wl is not None:
+                new.Wl[new_idx] = self.Wl[old_idx]
+            for old, tgt in slot_map.items():
+                new._active[tgt] = self._active[old]
+        return new
 
     # -- derived batched views --------------------------------------------
+
+    @property
+    def active_mask(self) -> torch.Tensor:
+        """(E,) bool occupancy on the device: the per-tick path's lane mask."""
+        if self._mask is None:
+            self._mask = self._upload(np.asarray(self._active, dtype=bool))
+        return self._mask
+
+    @property
+    def num_active(self) -> int:
+        return sum(self._active)
 
     @property
     def params_vec(self) -> torch.Tensor:
@@ -212,6 +271,14 @@ class SlotStore:
             )
         return self._params_e
 
+    def a_in_row(self) -> torch.Tensor:
+        """(E,) per-slot input gains (A_in is per tenant, like the rest)."""
+        return self.params_ensemble.a_in.reshape(self.num_slots)
+
+    def state_column(self, slot: int) -> torch.Tensor:
+        """(N, 3) magnetization of one slot, a copy (user layout)."""
+        return self.m[:, :, slot].t().clone()
+
     def state_columns(self, slots: Sequence[int]) -> torch.Tensor:
         """(k, N, 3) magnetization of several slots in one gather — the
         engine snapshots a whole boundary's finishers at once."""
@@ -226,7 +293,7 @@ class SlotStore:
 
     def learn_P_columns(self, slots: Sequence[int]) -> torch.Tensor:
         """(k, S, S) inverse-Gram blocks of several slots in one gather, for
-        checkpoints (ROADMAP queue 1 item 7). RLS stores only."""
+        checkpoints. RLS stores only."""
         if self.P is None:
             raise ValueError(
                 "learn_P_columns() on a learn='lms' store — LMS has no "

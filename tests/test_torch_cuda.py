@@ -8,8 +8,8 @@ installed:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: state STATE_ATOL = 5e-5 over one short chunk, for an f32 and a
-bf16 W (FP32 sums in another order than cuBLAS); the coupling's share of the
+Tolerances: state STATE_ATOL = 5e-5 over one short chunk (and over a short
+engine run), for an f32 and a bf16 W (FP32 sums in another order than cuBLAS); the coupling's share of the
 state or of field_tiled's slopes, f(W) - f(0), COUPLING_RTOL = 2e-3 relative
 to its largest magnitude; slopes (~1e10 Oe/s) SLOPE_RTOL = 1e-5 relative to
 their largest magnitude; frozen lanes exact.
@@ -517,6 +517,10 @@ def _learn_block(dev, e, s, k, seed=0):
 # engine's lanes are held bit-equal to a replay at the engine's width, and
 # to the E = 1 oracle within LANE_RTOL (60x the largest reading).
 LANE_RTOL = 1e-5
+# a served learner's W against fit_rls at E = 1 over its own harvested
+# states, relative to max |W| (chip_smoke.py's ORACLE_RTOL["rls"]: an H100
+# read 1.45e-4 over 512 sessions at N = 2500)
+ORACLE_RTOL = 5e-4
 
 
 @pytest.mark.cuda
@@ -648,3 +652,138 @@ def test_learning_resume_on_the_card(cuda):
         np.testing.assert_allclose(
             rest.learned_readout.w_out.numpy(), whole.learned_readout.w_out.numpy(), atol=1e-4
         )
+
+
+# -- the engine's lifecycle on the card ------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _spec_cpu(n):
+    from repro_torch.api import make_spec
+
+    return make_spec(n, n_in=1, seed=0, hold_steps=3, device="cpu")
+
+
+def _infer_rows(n, count=6, seed=0):
+    rng = np.random.default_rng(seed)
+    return [
+        (sid, rng.uniform(0, 0.5, (int(rng.integers(3, 9)), 1)).astype(np.float32),
+         rng.normal(0, 1.0 / np.sqrt(n), (n + 1, 1)).astype(np.float32))
+        for sid in range(count)
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 2560])
+@pytest.mark.parametrize("backend,kernel", [("chunk", "rk4_chunk"), ("fused", "rk4_fused"),
+                                            ("tiled", "field_tiled")])
+def test_step_matches_run_chunk_ticks_one(cuda, n, backend, kernel):
+    """A step() loop against run(chunk_ticks=1) on the card: within
+    STATE_ATOL (bit-equal where one kernel at one width serves both, which
+    the test prints), and step() launches the backend's kernel."""
+    from repro_torch.core.reservoir import Readout
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    spec = _spec_cpu(n).to(cuda)
+    rows = _infer_rows(n)
+    make = lambda: [  # noqa: E731
+        StreamSession(sid=sid, u_seq=u.copy(), readout=Readout(torch.from_numpy(w), 0)) for sid, u, w in rows
+    ]
+    ran = ReservoirEngine(spec, num_slots=4, backend=backend, chunk_ticks=1, device=cuda).run(make())
+    eng = ReservoirEngine(spec, num_slots=4, backend=backend, device=cuda)
+    for s in make():
+        eng.submit(s)
+    sto_step.reset_launches()
+    while eng.scheduler.has_work():
+        eng.step()
+    assert sto_step.LAUNCHES[kernel] > 0, dict(sto_step.LAUNCHES)
+    worst, exact = 0.0, True
+    for sid, _, w in rows:
+        a, b = eng.results[sid], ran[sid]
+        for x, y in ((a.states, b.states), (a.final_m, b.final_m)):
+            worst = max(worst, float(np.abs(x - y).max()))
+            exact = exact and np.array_equal(x, y)
+        out_tol = STATE_ATOL * np.abs(w).sum()
+        assert np.abs(a.outputs - b.outputs).max() <= out_tol
+    print(f"step() vs run(chunk_ticks=1), {backend}, N={n}: max diff {worst:.3e}, "
+          f"{'bit-equal' if exact else 'within STATE_ATOL'}")
+    assert worst <= STATE_ATOL
+
+
+@pytest.mark.cuda
+def test_rls_checkpoint_restore_on_the_card(cuda):
+    """An RLS learner checkpointed after two chunks and restored, in another
+    lane, into an engine of the same width finishes like the uninterrupted
+    run: bit-equal where the kernel and the learn tail compute a lane alike
+    at any position (printed), else within STATE_ATOL on states and
+    LANE_RTOL of max |W|."""
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    spec = _spec_cpu(64).to(cuda)
+    rows = _learn_sessions(64, count=3, seed=4)
+    rows[2]["u_seq"] = np.tile(rows[2]["u_seq"], (3, 1))
+    rows[2]["targets"] = np.tile(rows[2]["targets"], (3, 1))
+    kw = dict(num_slots=4, backend="chunk", chunk_ticks=4, learn="rls", learn_reg=1e-2, device=cuda)
+    control = ReservoirEngine(spec, **kw).run([StreamSession(**r) for r in rows])
+    src = ReservoirEngine(spec, **kw)
+    for r in rows:
+        src.submit(StreamSession(**r))
+    src.step_chunk()
+    src.step_chunk()
+    ck = src.checkpoint_session(2)
+    assert ck.t == 8 and ck.P.shape == (65, 65)
+    dst = ReservoirEngine(spec, **kw)
+    dst.restore_session(ck)
+    got = dst.run()[2]
+    want = control[2]
+    assert got.slot != want.slot
+    w_a, w_b = got.learned_readout.w_out, want.learned_readout.w_out
+    exact = np.array_equal(got.states, want.states) and torch.equal(w_a, w_b)
+    rel = ((w_a - w_b).abs().max() / w_b.abs().max()).item()
+    print(f"RLS checkpoint/restore on the card: states {np.abs(got.states - want.states).max():.3e}, "
+          f"W {rel:.3e} of max|W|, {'bit-equal' if exact else 'within tolerance'}")
+    assert np.abs(got.states - want.states).max() <= STATE_ATOL and rel <= LANE_RTOL
+    assert sorted(src.run()) == [0, 1]
+
+
+@pytest.mark.cuda
+def test_grow_and_shrink_with_learn_columns_on_the_card(cuda):
+    """At N = 320, an RLS engine grows under a burst and shrinks in the lull:
+    every moved column bit-equal across a grow and a shrink, every session's
+    states within STATE_ATOL of a fixed-width run, and its learned W within
+    ORACLE_RTOL of fit_rls over its own harvested states at E = 1."""
+    from repro_torch.core import fit_rls
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    n = 320
+    spec = _spec_cpu(n).to(cuda)
+    rows = _learn_sessions(n, count=10, seed=5)
+    kw = dict(backend="chunk", chunk_ticks=4, learn="rls", learn_reg=1e-2, device=cuda)
+    fixed = ReservoirEngine(spec, num_slots=16, **kw).run([StreamSession(**r) for r in rows])
+
+    probe = ReservoirEngine(spec, num_slots=4, autoscale=True, min_slots=2, max_slots=16, **kw)
+    for r in rows[:3]:
+        probe.submit(StreamSession(**r))
+    probe.step_chunk()
+    probe.quiesce()
+    cols = lambda: {s.sid: [probe.store.m[:, :, k].clone(), probe.store.P[k].clone(),  # noqa: E731
+                            probe.store.Wl[k].clone()] for k, s in probe.scheduler.running.items()}
+    before = cols()
+    for width in (16, 2 if len(before) <= 2 else 4):
+        probe._rescale(width)
+        after = cols()
+        assert all(all(torch.equal(a, b) for a, b in zip(before[s], after[s])) for s in before)
+
+    eng = ReservoirEngine(spec, num_slots=2, autoscale=True, min_slots=2, max_slots=16, **kw)
+    results = eng.run([StreamSession(**r) for r in rows])
+    stats = eng.stats()
+    assert stats.grows >= 1 and stats.shrinks >= 1
+    for r in rows:
+        res = results[r["sid"]]
+        assert np.abs(res.states - fixed[r["sid"]].states).max() <= STATE_ATOL
+        oracle = fit_rls(torch.from_numpy(res.states).to(cuda), r["targets"], washout=2, reg=1e-2,
+                         block=4).w_out.cpu()
+        w = res.learned_readout.w_out
+        assert ((w - oracle).abs().max() / oracle.abs().max()).item() <= ORACLE_RTOL
+    print(f"autoscale N={n}: grows {stats.grows}, shrinks {stats.shrinks}, cold rescales "
+          f"{stats.cold_rescales}, stall {stats.rescale_stall_s:.4f} s")

@@ -198,5 +198,7 @@ def test_launcher_serves_reduced_on_cpu(capsys):
 
 
 def test_launcher_reservoir_mode_is_refused():
+    # reservoir mode is served (tests/test_torch_launch.py); what it still
+    # refuses are the reference's fleet, tune and plan-cache options
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_serve.main(["--mode", "reservoir"])
+        launch_serve.main(["--mode", "reservoir", "--fleet", "--device", "cpu"])

@@ -153,10 +153,18 @@ def test_submit_contract_and_waiting_features(spec_pair):
     # targets need a learning engine (the reference's ValueError)
     with pytest.raises(ValueError, match="learning"):
         eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), targets=np.zeros(3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), open=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReservoirEngine(st, num_slots=SLOTS, autoscale=True, device="cpu")
+    # mixed-spec tenancy and the plan cache's options still wait
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), spec=st))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        ReservoirEngine(st, num_slots=SLOTS, prewarm=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        ReservoirEngine(st, num_slots=SLOTS, compilation_cache_dir="x", device="cpu")
+    # push streams and autoscale are served: an empty stream is refused
+    # unless it is open
+    eng.submit(StreamSession(sid=2, u_seq=np.zeros((0, 1)), open=True))
+    assert eng._find_session(2)[1].open
+    assert ReservoirEngine(st, num_slots=SLOTS, autoscale=True, device="cpu").autoscale is not None
     with pytest.raises(TypeError):
         ReservoirEngine(st, num_slots=SLOTS, bogus=1, device="cpu")
     with pytest.raises(TypeError):
