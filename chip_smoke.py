@@ -84,7 +84,33 @@ on failure:
    memory, every session within STATE_ATOL of a fixed E = 256 run; again
    with learn="rls" (8 learned W within ORACLE_RTOL of fit_rls at E = 1);
    (5) the launcher, `repro_torch.launch.serve --mode reservoir` at N = 2500,
-   256 slots, 512 sessions of 40 ticks, with and without --learn rls.
+   256 slots, 512 sessions of 40 ticks, with and without --learn rls. The
+   autoscaling engines run with the plan cache's prewarm thread (the
+   default), and a cold rescale's stall now includes the new width's warmup
+   chunk.
+3e. The plan cache and the persisted dispatch table at the same shapes:
+   (a) compile_plan(aot=True) for chunk, fused and tiled (f32) and tiled
+   (bf16_coupling): its time, and no launch; (b) two child processes
+   (`chip_smoke.py --cache-child DIR`) with compilation_cache_dir set to one
+   fresh directory: the first builds the kernel library there with nvcc,
+   the second only loads it (BUILD_LOG None); each prints its build/load
+   time and, on a fresh process, the first three warmup chunks of tiled
+   (after aot) and of fused (without); (c) two engines over one spec and
+   plan share one CompiledSim, PLAN_CACHE's CacheStats, and the structural
+   hash's time on the card's spec, first and memoized; (d) 3d.4's
+   autoscale run from an empty cache with prewarm=True and with
+   prewarm=False (bit-equal to each other; against the fixed E = 256 run as
+   3d.4 holds it), then warm-started from 128 slots after prewarm(block=
+   True) (both rescales warm): per run the cold and warm rescales, their
+   stall (with the allocator segments and gc pauses of the call that
+   rescaled), the warmup chunks' time, per rescale the first chunk's launch
+   (host ms) and device ms (CUDA events) at the new width beside the
+   medians of the later chunks there, peak memory, prewarm_errors empty;
+   (e) PLAN_CACHE.measure at N = 2500, E = 256, f32 and bf16_coupling
+   (per-impl ms; a second call hits the memo), save_table to a temporary
+   file, clear the table, load_table: choose_impl returns each measured
+   winner and an auto engine launches the winner's kernel; the table is
+   cleared again for the later phases.
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -127,6 +153,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -143,7 +170,13 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.api import ExecPlan, SimSpec, compile_plan, make_spec  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    ExecPlan,
+    SimSpec,
+    compile_plan,
+    enable_persistent_cache,
+    make_spec,
+)
 from repro_torch.api import compiled  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import constants, coupling, integrators, sto, tasks  # noqa: E402
@@ -1357,9 +1390,9 @@ def learning_phase(spec, name_power):
 
 def ladder_spec(n, spec, dev):
     """A solo SimSpec of n oscillators on dev: W from make_coupling_matrix
-    up to N (the smoke's spec at N), above it from a torch.Generator on dev
-    as device_inputs makes it."""
-    if n == N:
+    below N, the smoke's spec's at N, and from a torch.Generator on dev as
+    device_inputs makes it above N or at N without a spec."""
+    if n == N and spec is not None:
         w = spec.w_cp.to(dev)
     elif n < N:
         w = torch.as_tensor(coupling.make_coupling_matrix(n, seed=0)).to(dev)
@@ -1475,7 +1508,8 @@ class Spans:
 def instrument(eng, spans):
     """Wrap one engine's boundary methods, its CompiledSim's tick_chunk and
     the engine module's readout and host-copy helpers in `spans`. Returns a
-    function that restores the module's helpers."""
+    function that restores the module's helpers and the CompiledSim (which
+    PLAN_CACHE shares with every engine of the same spec and plan)."""
     from repro_torch.serve import reservoir as mod
 
     for meth, label in ENGINE_SPANS.items():
@@ -1495,6 +1529,7 @@ def instrument(eng, spans):
 
     def restore():
         mod._apply_readouts_chunk, mod._HostCopy = readout, base
+        del eng.sim.tick_chunk
 
     return restore
 
@@ -1761,54 +1796,103 @@ def checkpoint_check(spec, name_power):
     torch.cuda.empty_cache()
 
 
-def autoscale_run(spec, learn, name_power):
-    """One autoscaling engine (E / 4 ... E slots, backend auto) under a burst
-    of 512 sessions, then a lull in which 8 more arrive one chunk apart.
-    Returns (results, sessions, stats, widths seen, peak GiB, Check)."""
+def autoscale_run(spec, learn, name_power, prewarm=True, start=E // 4, warm_start=False):
+    """One autoscaling engine (E / 4 ... E slots from `start`, backend auto)
+    under a burst of 512 sessions, then a lull in which 8 more arrive one
+    chunk apart; warm_start: `prewarm(block=True)` before serving. Returns
+    (results, sessions, stats, widths seen, peak GiB, Check, calls, prewarm
+    errors); calls holds, for each step_chunk call that launched a chunk,
+    (width, rescaled, cold, stall s, the launch's host s, the launched
+    chunk's device ms from CUDA events around it, the caching allocator's
+    new segments (cudaMalloc calls) and the garbage collector's pause s
+    during the call)."""
     kw = dict(learn=learn, learn_reg=LEARN_REG) if learn else {}
-    eng = ReservoirEngine(spec, num_slots=E // 4, chunk_ticks=K, autoscale=True,
-                          min_slots=E // 4, max_slots=E, device="cuda", **kw)
+    eng = ReservoirEngine(spec, num_slots=start, chunk_ticks=K, autoscale=True,
+                          min_slots=E // 4, max_slots=E, device="cuda", prewarm=prewarm, **kw)
+    if warm_start:
+        eng.prewarm(block=True)
     sessions = make_sessions(np.random.default_rng(0), learn=bool(learn))
     late = make_sessions(np.random.default_rng(0), learn=bool(learn))[:8]
     for i, s in enumerate(late):
         s.sid = SESSIONS + i
     widths = [(eng.num_slots, eng.backend)]
+    calls, launched = [], []
+    launch = eng._launch_chunk
 
-    def seen():
+    def timed_launch(plan):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        launch(plan)
+        ev[1].record()
+        launched.append((time.perf_counter() - t0, ev))
+
+    eng._launch_chunk = timed_launch
+
+    gc_pause = [0.0, 0.0]  # seconds so far, start of the running collection
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_pause[1] = time.perf_counter()
+        else:
+            gc_pause[0] += time.perf_counter() - gc_pause[1]
+
+    def segments():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    def step():
+        w0, st = eng.num_slots, eng.scheduler.stats
+        cold0, stall0, seg0, gc0 = st.cold_rescales, st.rescale_stall_s, segments(), gc_pause[0]
+        launched.clear()
+        more = eng.step_chunk()
+        if launched:
+            calls.append((eng.num_slots, eng.num_slots != w0, st.cold_rescales != cold0,
+                          st.rescale_stall_s - stall0, *launched[0], segments() - seg0,
+                          gc_pause[0] - gc0))
         if widths[-1] != (eng.num_slots, eng.backend):
             widths.append((eng.num_slots, eng.backend))
+        return more
 
     torch.cuda.reset_peak_memory_stats()
-    with Check(f"autoscale {learn}") as c:
-        for s in sessions:
-            eng.submit(s)
-        while eng.step_chunk():
-            seen()
-        for s in late:
-            eng.submit(s)
-            eng.step_chunk()
-            seen()
-        while eng.step_chunk():
-            seen()
+    gc.callbacks.append(on_gc)
+    try:
+        with Check(f"autoscale {learn}") as c:
+            for s in sessions:
+                eng.submit(s)
+            while step():
+                pass
+            for s in late:
+                eng.submit(s)
+                step()
+            while step():
+                pass
+            if eng._prewarm_thread is not None:
+                eng._prewarm_thread.join()
+    finally:
+        gc.callbacks.remove(on_gc)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    results, stats = eng.results, eng.stats()
+    calls = [(*c[:5], c[5][0].elapsed_time(c[5][1]), *c[6:]) for c in calls]
+    results, stats, errors = eng.results, eng.stats(), list(eng.prewarm_errors)
+    del eng._launch_chunk  # the wrapper holds the engine: no cycle keeps its planes alive
     del eng
     torch.cuda.empty_cache()
     assert len(results) == SESSIONS + 8, len(results)
     assert stats.grows >= 1 and stats.shrinks >= 1, (stats.grows, stats.shrinks)
-    return results, sessions + late, stats, widths, peak, c
+    return results, sessions + late, stats, widths, peak, c, calls, errors
 
 
 def autoscale_check(spec, name_power):
     """3d.4: autoscale under a burst and a lull, against one fixed-width
-    E = 256 run; then once more with learn="rls"."""
+    E = 256 run; then once more with learn="rls". Returns the fixed run's
+    results."""
     fixed_sessions = make_sessions(np.random.default_rng(0))
     late = make_sessions(np.random.default_rng(0))[:8]
     for i, s in enumerate(late):
         s.sid = SESSIONS + i
     fixed = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, device="cuda").run(fixed_sessions + late)
     for learn in (None, "rls"):
-        results, sessions, stats, widths, peak, c = autoscale_run(spec, learn, name_power)
+        results, sessions, stats, widths, peak, c, _, errors = autoscale_run(spec, learn, name_power)
+        assert not errors, errors
         ds, do, _, exact = same_results(
             results, fixed, [s.sid for s in sessions], None if learn else w_outs_of(sessions)
         )
@@ -1834,6 +1918,7 @@ def autoscale_check(spec, name_power):
             f"{held(exact)}{extra}; launches {c.launches} ({name_power})",
             flush=True,
         )
+    return fixed
 
 
 def launcher_check(name_power):
@@ -1863,9 +1948,247 @@ def lifecycle_phase(spec, name_power):
     step_check(spec, "tiled", "field_tiled", name_power)
     push_check(spec, name_power)
     checkpoint_check(spec, name_power)
-    autoscale_check(spec, name_power)
+    fixed = autoscale_check(spec, name_power)
     launcher_check(name_power)
     print(f"phase 3d: {time.perf_counter() - t0:.1f} s", flush=True)
+    return fixed
+
+# -- phase 3e: the plan cache and the persisted dispatch table ----------------------
+
+# impl -> the kernel its engine launches (the winner of a measurement)
+IMPL_KERNEL = {"chunk": "rk4_chunk", "fused": "rk4_fused", "tiled": "field_tiled"}
+
+
+def cache_child(directory):
+    """Phase 3e(b)'s child process: pin the kernel build directory to
+    `directory`, build or load the library there, then pay the first
+    dispatch of tiled (after aot) and of fused (without) at the smoke's
+    shapes (N = 2500, E = 256, K = 8), three warmup chunks each. Prints one
+    JSON object."""
+    out = {}
+    t0 = time.perf_counter()
+    assert enable_persistent_cache(directory), directory
+    _build.load()
+    out["load_s"] = time.perf_counter() - t0
+    out["nvcc"] = _build.BUILD_LOG is not None
+    # the smoke's shapes; W from a generator on the card (make_coupling_matrix
+    # takes seconds of host time at N = 2500, and the values change nothing
+    # measured here)
+    spec = ladder_spec(N, None, "cuda")
+    torch.cuda.synchronize()
+    for impl, aot in (("tiled", True), ("fused", False)):
+        t0 = time.perf_counter()
+        sim = compile_plan(
+            spec, ExecPlan(impl=impl, ensemble=E, chunk_ticks=K, aot=aot,
+                           compilation_cache_dir=directory), device="cuda",
+        )
+        compile_s = time.perf_counter() - t0
+        warmups = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sim.warmup()
+            warmups.append(time.perf_counter() - t0)
+        out[impl] = dict(aot=aot, compile_s=compile_s, warmups_s=warmups)
+    out["launches"] = {k: v for k, v in sto_step.LAUNCHES.items() if v}
+    print(json.dumps(out), flush=True)
+
+
+def cache_children(name_power):
+    """3e(b): two processes pointed at one fresh directory: the first builds
+    the library there with nvcc, the second only loads it."""
+    import shutil
+    import tempfile
+
+    where = tempfile.mkdtemp(prefix="kernel-cache-", dir=str(_build.BUILD_DIR.parent))
+    try:
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--cache-child", where],
+                capture_output=True, text=True, timeout=600,
+            )
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"cache child failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            runs.append((wall, json.loads(proc.stdout.strip().splitlines()[-1])))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    (wall_a, a), (wall_b, b) = runs
+    assert a["nvcc"] and not b["nvcc"], (a["nvcc"], b["nvcc"])
+    for label, wall, r in (("first process (nvcc into the fresh directory)", wall_a, a),
+                           ("second process (loads the library built there)", wall_b, b)):
+        print(
+            f"3e(b) {label}: process {wall:.3f} s, build/load {r['load_s']:.3f} s; "
+            + "; ".join(
+                f"{impl}{' after aot' if r[impl]['aot'] else ''}: compile_plan "
+                f"{1e3 * r[impl]['compile_s']:.3f} ms, warmup chunks "
+                + " / ".join(f"{1e3 * x:.3f}" for x in r[impl]["warmups_s"]) + " ms"
+                for impl in ("tiled", "fused")
+            )
+            + f"; launches {r['launches']} ({name_power})",
+            flush=True,
+        )
+
+
+def rescale_costs(calls):
+    """Per rescale: (width, cold?, stall ms, the first chunk's launch host ms
+    and device ms at the new width, the medians of the later chunks at that
+    width (host, device), how many, the rescaling call's new allocator
+    segments and gc pause ms)."""
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")  # noqa: E731
+    out = []
+    for i, (width, rescaled, cold, stall, host, dev_ms, segs, gc_s) in enumerate(calls):
+        if not rescaled:
+            continue
+        later = [c for j, c in enumerate(calls) if c[0] == width and not c[1] and j > i]
+        out.append((width, cold, 1e3 * stall, 1e3 * host, dev_ms,
+                    med([1e3 * c[4] for c in later]), med([c[5] for c in later]), len(later),
+                    segs, 1e3 * gc_s))
+    return out
+
+
+def plan_cache_phase(spec, fixed, name_power):
+    """Phase 3e: the plan cache and the persisted dispatch table at N = 2500,
+    E = 256, K = 8."""
+    from repro_torch.api import PLAN_CACHE
+    from repro_torch.api import cache as plan_cache
+    from repro_torch.kernels import dispatch_table
+
+    t_phase = time.perf_counter()
+    # (a) aot: the library, launch configuration and shared-memory attribute
+    # without a launch
+    for impl, precision in (("chunk", None), ("fused", None), ("tiled", None),
+                            ("tiled", "bf16_coupling")):
+        sto_step.reset_launches()
+        t0 = time.perf_counter()
+        compile_plan(spec, ExecPlan(impl=impl, ensemble=E, chunk_ticks=K, precision=precision,
+                                    aot=True), device="cuda")
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in sto_step.LAUNCHES.items() if v}
+        assert not launched, f"aot launched {launched}"
+        print(f"3e(a) compile_plan(impl={impl}, precision={precision}, aot=True): "
+              f"{1e3 * seconds:.3f} ms, launches 0 ({name_power})", flush=True)
+
+    # (b) a cold nvcc build into a fresh directory against a load from it
+    cache_children(name_power)
+
+    # (c) two engines over one spec and plan share one CompiledSim; the
+    # structural hash of the card's spec, and a lookup given that digest
+    # (an engine hashes its template once and passes it to every rescale's
+    # and prewarm's lookups)
+    t0 = time.perf_counter()
+    digest = plan_cache.spec_structural_hash(spec)
+    hash_s = time.perf_counter() - t0
+    probe = ExecPlan(impl="chunk", ensemble=E, chunk_ticks=K)
+    t0 = time.perf_counter()
+    PLAN_CACHE.is_warm(spec, probe, device="cuda", spec_hash=digest)
+    lookup_s = time.perf_counter() - t0
+    print(f"3e(c) spec_structural_hash of the N={N} spec on the card: {1e3 * hash_s:.3f} ms "
+          f"(W copied off the card and hashed); a PLAN_CACHE lookup given the digest "
+          f"{1e6 * lookup_s:.1f} us ({name_power})", flush=True)
+    before = PLAN_CACHE.stats.snapshot()
+    a = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, backend="chunk", device="cuda")
+    b = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, backend="chunk", device="cuda")
+    assert a.sim is b.sim
+    print(f"3e(c) two engines, one CompiledSim; PLAN_CACHE after phases 3-3d: {before}; "
+          f"entries {len(PLAN_CACHE)}; after the two engines: hits "
+          f"{PLAN_CACHE.stats.hits - before['hits']} more", flush=True)
+    del a, b
+
+    # (d) 3d.4's autoscale run with and without the prewarm thread, each from
+    # an empty cache; then from E / 2 slots after prewarm(block=True), so that
+    # both rescales land on prewarmed buckets
+    got = {}
+    for prewarm, start in ((True, E // 4), (False, E // 4), ("warm start", E // 2)):
+        PLAN_CACHE.clear()
+        w0 = PLAN_CACHE.stats.warmup_seconds
+        results, sessions, stats, widths, peak, c, calls, errors = autoscale_run(
+            spec, None, name_power, prewarm=bool(prewarm), start=start,
+            warm_start=prewarm == "warm start",
+        )
+        assert not errors, f"prewarm errors: {errors}"
+        got[prewarm] = results
+        ds, do, _, exact = same_results(results, fixed, [s.sid for s in sessions],
+                                        w_outs_of(sessions))
+        costs = "; ".join(
+            f"-> {w} ({'cold' if cold else 'warm'}): stall {stall:.3f} ms (the call made "
+            f"{segs} new allocator segments, gc paused {gc_ms:.3f} ms), first chunk's launch "
+            f"{host:.3f} ms host / {dev:.3f} ms device vs the later {k} at {w}: {h_med:.3f} / "
+            f"{d_med:.3f} ms (medians)"
+            for w, cold, stall, host, dev, h_med, d_med, k, segs, gc_ms in rescale_costs(calls)
+        )
+        print(
+            f"3e(d) autoscale prewarm={prewarm}, from {start} slots: {c.seconds:.3f} s, widths "
+            + " -> ".join(f"{e} ({impl})" for e, impl in widths)
+            + f", cold rescales {stats.cold_rescales}, warm {stats.warm_rescales}, stall "
+            f"{1e3 * stats.rescale_stall_s:.3f} ms, warmup chunks "
+            f"{1e3 * (PLAN_CACHE.stats.warmup_seconds - w0):.3f} ms, prewarm_errors []; "
+            f"per rescale: {costs}; peak memory {peak:.3f} GiB; vs fixed "
+            f"E={E}: max |state| diff "
+            f"{ds:.3e}, max |output| diff {do:.3e}: {held(exact)}; launches {c.launches} "
+            f"({name_power})",
+            flush=True,
+        )
+    sids = sorted(got[True])
+    for sid in sids:
+        x, y = got[True][sid], got[False][sid]
+        assert all(np.array_equal(p, q) for p, q in ((x.states, y.states), (x.final_m, y.final_m),
+                                                    (x.outputs, y.outputs))), sid
+    print(f"3e(d) prewarm=True vs prewarm=False: {len(sids)} sessions bit-equal", flush=True)
+    warm = [c[1] for c in rescale_costs(calls)]
+    assert warm and not any(warm), "a rescale of the warm-started engine was cold"
+
+    # (e) the measured dispatch table: per-impl ms, the memo, save / load
+    import tempfile
+
+    winners = {}
+    for precision in (None, "bf16_coupling"):
+        h0 = PLAN_CACHE.stats.measure_hits
+        t0 = time.perf_counter()
+        timings = PLAN_CACHE.measure(N, E, dt=DT, chunk_ticks=K, precision=precision,
+                                     device="cuda")
+        seconds = time.perf_counter() - t0
+        assert "failed" not in timings, timings
+        again = PLAN_CACHE.measure(N, E, dt=DT, chunk_ticks=K, precision=precision,
+                                   device="cuda")
+        assert again is timings and PLAN_CACHE.stats.measure_hits == h0 + 1
+        winners[precision] = min(timings, key=timings.get)
+        print(f"3e(e) PLAN_CACHE.measure N={N} E={E} K={K} precision={precision}: "
+              + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in timings.items())
+              + f" a chunk of 8-step holds -> {winners[precision]} ({seconds:.3f} s; the "
+              f"second call hit the memo) ({name_power})", flush=True)
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as tmp:
+        path = dispatch_table.save_table(os.path.join(tmp, "dispatch_table.cuda.json"), "cuda")
+        ops.clear_latency_table()
+        assert ops.choose_impl(N, E, platform="cuda") == ("fused" if ops.fused_fits_l2(
+            ops._round_up(N, ops.BLOCK_N), E) else "tiled")
+        loaded = dispatch_table.load_table(path, platform="cuda")
+    for precision, winner in winners.items():
+        assert ops.choose_impl(N, E, platform="cuda", precision=precision) == winner
+        sto_step.reset_launches()
+        eng = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, precision=precision,
+                              device="cuda")
+        assert eng.backend == winner, (eng.backend, winner)
+        eng.run(make_sessions(np.random.default_rng(0))[:32])
+        torch.cuda.synchronize()
+        assert sto_step.LAUNCHES[IMPL_KERNEL[winner]] > 0, dict(sto_step.LAUNCHES)
+        print(f"3e(e) after save_table / clear / load_table ({loaded} entries): choose_impl "
+              f"precision={precision} -> {winner}; an auto engine launched "
+              f"{IMPL_KERNEL[winner]} x{sto_step.LAUNCHES[IMPL_KERNEL[winner]]}", flush=True)
+        del eng
+    # a memo hit after the table was cleared registers the measured winner again
+    ops.clear_latency_table()
+    h0 = PLAN_CACHE.stats.measure_hits
+    for precision, winner in winners.items():
+        PLAN_CACHE.measure(N, E, dt=DT, chunk_ticks=K, precision=precision, device="cuda")
+        assert ops.choose_impl(N, E, platform="cuda", precision=precision) == winner
+    assert PLAN_CACHE.stats.measure_hits == h0 + len(winners)
+    print(f"3e(e) after clear_latency_table, a PLAN_CACHE.measure memo hit registered "
+          f"{winners} again", flush=True)
+    ops.clear_latency_table()  # the later phases keep the L2 rule
+    print(f"3e(c) PLAN_CACHE at the end of phase 3e: {PLAN_CACHE.stats.snapshot()}", flush=True)
+    print(f"phase 3e: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main():
@@ -1946,7 +2269,8 @@ def main():
     learning_phase(spec, name_power)
     ladder(spec, name_power)
     print(f"phases 3b-3c: {time.perf_counter() - t0:.1f} s", flush=True)
-    lifecycle_phase(spec, name_power)
+    fixed = lifecycle_phase(spec, name_power)
+    plan_cache_phase(spec, fixed, name_power)
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
@@ -1962,4 +2286,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cache-child"]:
+        cache_child(sys.argv[2])
+    else:
+        main()

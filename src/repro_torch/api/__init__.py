@@ -5,12 +5,21 @@
     mT, states = sim.drive_batch(U)
 
 Every impl-dispatch / padding / ensemble decision is made inside
-`compile_plan`; `serve.reservoir.ReservoirEngine` serves from a CompiledSim.
+`compile_plan`; `serve.reservoir.ReservoirEngine` serves from a CompiledSim,
+drawn from the process-wide `PLAN_CACHE` (api/cache.py).
 """
 
 from repro_torch.api.spec import SimSpec, TOPOLOGIES, make_spec, validate_topology
 from repro_torch.api.plan import ExecPlan, PLAN_IMPLS, PLAN_PRECISIONS
 from repro_torch.api.compiled import CompiledSim, compile_plan
+from repro_torch.api.cache import (
+    PLAN_CACHE,
+    CacheStats,
+    PlanCache,
+    enable_persistent_cache,
+    plan_cache_key,
+    spec_structural_hash,
+)
 
 __all__ = [
     "SimSpec",
@@ -22,4 +31,10 @@ __all__ = [
     "PLAN_PRECISIONS",
     "CompiledSim",
     "compile_plan",
+    "PLAN_CACHE",
+    "CacheStats",
+    "PlanCache",
+    "enable_persistent_cache",
+    "plan_cache_key",
+    "spec_structural_hash",
 ]

@@ -23,8 +23,9 @@ functions. impl="scan" is the exact oracle: the core (E, N, 3) layout, any
 tableau, one torch op after another (on the card too). The planes impls
 ("ref"/"fused"/"tiled"/"chunk") run the (3, N, E) layout and classical RK4
 only; their CUDA kernels build at their first launch (`CompiledSim.warmup`
-forces it). The learn tails (kernels/rls.py) are torch code on the same
-device and stream as the integrate.
+forces it, `CompiledSim.aot_compile` does it without a launch). The learn
+tails (kernels/rls.py) are torch code on the same device and stream as the
+integrate.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from repro_torch.core.constants import STOParams
 from repro_torch.core.ensemble import broadcast_params
 from repro_torch.core.reservoir import coerce_input_series
 from repro_torch.device import require_full_f32_matmul, resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops, sto_step
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rls as krls
 
@@ -663,8 +664,13 @@ class CompiledSim:
 
     def warmup(self, n_out: int = 1) -> "CompiledSim":
         """Run ONE all-lanes-masked zero chunk (state-neutral by
-        construction), which builds the CUDA kernels of this plan's impl.
-        Learn plans run it with fresh (P, W) lanes of width n_out."""
+        construction) on the current stream and wait for it: it pays every
+        first-dispatch cost of this plan at its width (the library's build
+        or load, the kernel's module load and shared-memory attribute, the
+        caching allocator's growth, cuBLAS's handles). The CUDA kernels
+        compute every lane before the mask, so on the card this costs about
+        one chunk. Learn plans run it with fresh (P, W) lanes of width
+        n_out."""
         spec = self.spec
         k = self.plan.chunk_ticks
         m = ops.to_planes(spec.m0.expand(self.e, spec.n, 3)).contiguous()
@@ -686,6 +692,31 @@ class CompiledSim:
             torch.cuda.synchronize(self.device)
         return self
 
+    def aot_compile(self, n_out: int = 1) -> "CompiledSim":
+        """Do now, without launching anything, what the first dispatch of
+        this plan's kernels does before its launch: build or load the CUDA
+        kernel library (`_build.load`), resolve the launch configuration of
+        the padded (N, E) and the coupling's dtype (its occupancy query,
+        cached per process), and with it set the kernel's shared-memory
+        attribute, which also loads the kernel's module. Launches nothing
+        (`_build.LAUNCHES` unchanged). What only a launch pays (the caching
+        allocator's growth, cuBLAS's handles for the readout and learn
+        GEMMs, the module of round_bf16_kernel, which takes no attribute)
+        stays with the first chunk; `warmup` pays it all. scan / ref /
+        interpret plans and CPU plans have nothing to build. n_out is
+        accepted for `warmup`'s signature: the learn tails are torch code."""
+        if self.impl not in KERNEL_IMPLS or self.device.type != "cuda" or self.plan.interpret:
+            return self
+        _build.load()
+        n_p = ops._round_up(self.spec.n, self._block_n)
+        e_p = ops._round_up(self.e, self._block_e)
+        w_dtype = torch.bfloat16 if self.precision in ops.REDUCED_COUPLING else self.spec.dtype
+        config = (
+            sto_step.field_launch_config if self.impl == "tiled" else sto_step.coop_launch_config
+        )
+        config(n_p, e_p, w_dtype, self.device)
+        return self
+
 
 # ---------------------------------------------------------------------------
 # compile_plan
@@ -701,12 +732,20 @@ def compile_plan(
     Keyword overrides build/amend the plan: `compile_plan(spec, ensemble=64)`
     == `compile_plan(spec, ExecPlan(ensemble=64))`. The spec's tensors move
     to `device` ("cuda" by default; raises without a card unless the caller
-    passes device="cpu").
+    passes device="cpu"). "auto" impls resolve against the dispatch table
+    (the platform's persisted JSON included); `measure=True` first times
+    the candidates at this (N, E) through the process-wide PLAN_CACHE's
+    memo and pins the winner; `aot=True` then runs `aot_compile`; a
+    `compilation_cache_dir` pins the kernel library's build directory.
     """
     if plan is None:
         plan = ExecPlan(**overrides)
     elif overrides:
         plan = dataclasses.replace(plan, **overrides)
+    if plan.compilation_cache_dir:
+        from repro_torch.api import cache as _cache  # deferred: cache imports us
+
+        _cache.enable_persistent_cache(plan.compilation_cache_dir)
     dev = resolve_device(device)
     if spec.device != dev:
         spec = spec.to(dev)
@@ -734,10 +773,12 @@ def compile_plan(
     itemsize = torch.empty((), dtype=spec.dtype).element_size()
     if impl == "auto":
         if plan.measure:
-            ops.measure_impl_latency(
+            # memoized: one (device, N, E, dtype, precision, K) key is timed once
+            from repro_torch.api import cache as _cache
+
+            _cache.PLAN_CACHE.measure(
                 spec.n, plan.ensemble, dt=float(spec.dt), dtype=spec.dtype,
-                precision=plan.effective_precision,
-                chunk_ticks=plan.chunk_ticks, device=dev,
+                precision=plan.effective_precision, chunk_ticks=plan.chunk_ticks, device=dev,
             )
         impl = ops.choose_impl(
             spec.n, plan.ensemble, itemsize, platform=dev.type,
@@ -764,4 +805,7 @@ def compile_plan(
             "is not supported yet (ROADMAP queue 1 item 4, f64 kernels) — use "
             "impl='scan' or 'ref', or an f32 spec"
         )
-    return CompiledSim(spec, plan, impl)
+    sim = CompiledSim(spec, plan, impl)
+    if plan.aot:
+        sim.aot_compile()
+    return sim

@@ -27,10 +27,21 @@ The fields are the reference's (api/plan.py), resolved exactly once, in
              per-lane readouts online (kernels/rls.py); learn_lam /
              learn_reg are RLS's forgetting factor and regularization
              (P0 = I / learn_reg), learn_mu the NLMS step size.
+  aot        compile_plan also does, without launching, what the plan's
+             first dispatch would do before its launch
+             (`CompiledSim.aot_compile`: build or load the CUDA kernel
+             library, resolve the launch configuration, set the kernels'
+             shared-memory attributes). Nothing to do for scan / ref /
+             interpret plans or on the CPU.
+  compilation_cache_dir  build the CUDA kernel library into this directory
+             and load it from there (`api.cache.enable_persistent_cache`),
+             so a restarted process skips nvcc; the first directory wins
+             for the process.
 
-Not ported yet, and refused with NotImplementedError when set: `mesh` and
-its axes (sharded plans, ROADMAP queue 1 item 12), `aot` and
-`compilation_cache_dir` (the plan cache, queue 1 item 9).
+`aot` and `compilation_cache_dir` change when work happens, never what
+runs: the plan cache's key leaves them out (api/cache.py). Not ported yet,
+and refused with NotImplementedError when set: `mesh` and its axes
+(sharded plans, ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -142,18 +153,10 @@ class ExecPlan:
                 raise ValueError(
                     f"{granule} must be a multiple of the kernels' 64-wide tile; got {v!r}"
                 )
-        waiting = {
-            "mesh": (self.mesh is not None, "queue 1 item 12, sharded plans"),
-            "aot": (self.aot, "queue 1 item 9, plan cache"),
-            "compilation_cache_dir": (
-                self.compilation_cache_dir is not None, "queue 1 item 9, plan cache"
-            ),
-        }
-        for field, (is_set, item) in waiting.items():
-            if is_set:
-                raise NotImplementedError(
-                    f"ExecPlan.{field} is not ported yet (ROADMAP {item})"
-                )
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "ExecPlan.mesh is not ported yet (ROADMAP queue 1 item 12, sharded plans)"
+            )
 
     @property
     def sharded(self) -> bool:
@@ -167,3 +170,12 @@ class ExecPlan:
     @property
     def reduced_precision(self) -> bool:
         return self.effective_precision is not None
+
+    @property
+    def effective_gather_dtype(self):
+        """The sharded coupling path's wire dtype after precision resolution
+        (the reference's): an explicit gather_dtype wins, else reduced
+        precision gathers in bf16. The plan cache keys on it."""
+        if self.gather_dtype is not None:
+            return self.gather_dtype
+        return torch.bfloat16 if self.reduced_precision else None

@@ -7,7 +7,10 @@ C interface, `build/repro_torch/librepro_torch_<hash>.so` at the root of the
 checkout (a cache: delete it freely). The hash covers the sources and flags,
 so an edited source rebuilds at first use and an unchanged one loads the
 cached build. Nothing is built at import time: `load()` builds on the first
-kernel launch.
+kernel launch. `set_build_dir` points the build at another directory (the
+plan cache's `enable_persistent_cache`): a fresh process then loads the
+library built there without running nvcc. A stale library can never load,
+since its name carries the hash.
 
 A build that fails raises with nvcc's output; there is no fallback.
 """
@@ -20,6 +23,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sto_rk4.cu", "flash_attention.cu")
@@ -28,6 +32,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
+# the directory set_build_dir pinned (None: BUILD_DIR's default); the first
+# directory wins for the process
+_PINNED_DIR = None
+# load() and set_build_dir(): a prewarm thread and the serving thread may
+# both reach the first build
+_LOCK = threading.Lock()
 # Launches of each kernel in this process (plain-version calls not counted):
 # each wrapper adds one to its entry where it launches its kernel.
 LAUNCHES = {
@@ -69,9 +79,21 @@ _SIGNATURES = {
 }
 
 
+# the prewarm thread and the serving thread may both launch kernels
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to a kernel's launch count (its wrapper calls this right
+    after the launch)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -139,14 +161,36 @@ def build() -> pathlib.Path:
     return out
 
 
+def set_build_dir(path) -> bool:
+    """Build into and load from `path` (created) instead of BUILD_DIR's
+    default.
+
+    The first directory wins for the process: returns True when the build
+    directory is (now) `path`, False when another directory was pinned
+    before or the library was already loaded from another directory."""
+    global BUILD_DIR, _PINNED_DIR
+    path = pathlib.Path(path).resolve()
+    with _LOCK:
+        if _PINNED_DIR is not None:
+            return _PINNED_DIR == path
+        if _LIB is not None and BUILD_DIR.resolve() != path:
+            return False
+        path.mkdir(parents=True, exist_ok=True)
+        BUILD_DIR = _PINNED_DIR = path
+        return True
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (args, res) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = res
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (args, res) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = res
+            _LIB = lib
     return _LIB

@@ -35,7 +35,7 @@ from typing import Iterator
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels._build import LAUNCHES  # noqa: F401 (re-exported)
 
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)  # the kernel's template instantiations
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -201,7 +201,7 @@ def _launch(q, k, v, o, dims, causal, window, scale):
                            f"{err - TMAP_ERROR}; strides {[t.stride() for t in (q, k, v)]})")
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed with cudaError {err}")
-    LAUNCHES["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return o
 
 

@@ -82,12 +82,14 @@ def _platform(device=None) -> str:
 # ---------------------------------------------------------------------------
 
 # (platform, N_padded, E_padded, itemsize, precision) -> impl name, filled by
-# measure_impl_latency() and register_impl_choice(); consulted before the
-# L2 heuristic. A persisted per-platform table is not ported yet.
+# measure_impl_latency(), register_impl_choice() and the persisted
+# per-platform JSON tables (kernels/dispatch_table.py, loaded lazily by
+# choose_impl); consulted before the platform gate / L2 heuristic.
 _LATENCY_TABLE: Dict[Tuple[str, int, int, int, str], str] = {}
 
-# Bumped on every register_impl_choice(), so a cached impl="auto"
-# resolution can tell that a new measurement pinned another winner.
+# Bumped on every change of the table: the api layer's PlanCache keys
+# impl="auto" plans on it, so a cached auto resolution is dropped the moment
+# a new measurement pins another winner.
 _DISPATCH_GEN = 0
 
 
@@ -99,6 +101,8 @@ def dispatch_generation() -> int:
 # The bit-exact default's tag in dispatch keys (ExecPlan.precision None and
 # "highest" collapse to this).
 PRECISION_DEFAULT = "highest"
+# the policies whose coupling GEMM consumes a bf16 W
+REDUCED_COUPLING = ("bf16_coupling", "mixed")
 
 
 def normalize_precision(precision: Optional[str]) -> str:
@@ -118,18 +122,35 @@ def register_impl_choice(
     shape on a platform."""
     global _DISPATCH_GEN
     _DISPATCH_GEN += 1
-    key = (
+    _LATENCY_TABLE[dispatch_key(n, e, platform, itemsize, precision)] = impl
+
+
+def dispatch_key(
+    n: int,
+    e: int,
+    platform: Optional[str] = None,
+    itemsize: int = 4,
+    precision: Optional[str] = None,
+) -> Tuple[str, int, int, int, str]:
+    """The dispatch table's key of an (N, E, itemsize, precision) shape."""
+    return (
         platform or _platform(),
         _round_up(n, BLOCK_N),
         _round_up(e, BLOCK_E),
         itemsize,
         normalize_precision(precision),
     )
-    _LATENCY_TABLE[key] = impl
 
 
 def latency_table() -> Dict[Tuple[str, int, int, int, str], str]:
     return dict(_LATENCY_TABLE)
+
+
+def clear_latency_table() -> None:
+    """Drop every in-process dispatch entry (persisted files untouched)."""
+    global _DISPATCH_GEN
+    _DISPATCH_GEN += 1
+    _LATENCY_TABLE.clear()
 
 
 def choose_impl(
@@ -141,12 +162,17 @@ def choose_impl(
 ) -> str:
     """Resolve impl="auto" for a given (N, E, precision) problem shape.
 
-    Priority: the in-process measured-latency table — first at the exact
-    precision key, then at the bit-exact default key for the same shape —
-    > platform gate (the CUDA kernels run only on "cuda"; the CPU integrates
-    through the plain version) > L2-fit heuristic (fused or tiled).
+    Priority: the measured-latency table (in-process measurements, then
+    the platform's persisted JSON from kernels/dispatch_table.py) — first
+    at the exact precision key, then at the bit-exact default key for the
+    same shape — > platform gate (the CUDA kernels run only on "cuda"; the
+    CPU integrates through the plain version) > L2-fit heuristic (fused or
+    tiled).
     """
+    from repro_torch.kernels import dispatch_table
+
     platform = platform or _platform()
+    dispatch_table.ensure_loaded(platform)
     prec = normalize_precision(precision)
     shape_key = (platform, _round_up(n, BLOCK_N), _round_up(e, BLOCK_E), itemsize)
     if shape_key + (prec,) in _LATENCY_TABLE:
@@ -155,7 +181,7 @@ def choose_impl(
         return _LATENCY_TABLE[shape_key + (PRECISION_DEFAULT,)]
     if platform != "cuda":
         return "ref"
-    w_itemsize = 2 if prec in ("bf16_coupling", "mixed") else 4
+    w_itemsize = 2 if prec in REDUCED_COUPLING else 4
     n_p, e_p = _round_up(n, BLOCK_N), _round_up(e, BLOCK_E)
     return "fused" if fused_fits_l2(n_p, e_p, w_itemsize) else "tiled"
 
@@ -318,7 +344,7 @@ def _coupling_operand(w: torch.Tensor, precision: str) -> torch.Tensor:
     input-field GEMM on top of "bf16_coupling" (api layer), so here both map
     to a bf16 W.
     """
-    if precision in ("bf16_coupling", "mixed"):
+    if precision in REDUCED_COUPLING:
         return w.to(torch.bfloat16)
     return w
 

@@ -375,7 +375,7 @@ def _coop_launch(name, m, w_cp, params, dt, steps, h, h_stride, mask, states):
         dt / 2.0, dt, dt / 6.0, split.cluster, split.clusters, _stream(m.device),
     )
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _build.count_launch(name)
     return m_out
 
 
@@ -424,7 +424,7 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x (f32, contiguous, on the card) rounded to bf16 by round_bf16_kernel."""
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     _raise_on(_lib().sto_round_bf16(_ptr(x), _ptr(out), x.numel(), _stream(x.device)), "round_bf16")
-    LAUNCHES["round_bf16"] += 1
+    _build.count_launch("round_bf16")
     return out
 
 
@@ -443,7 +443,7 @@ def _field_launch(
         float(c), float(c_next), float(c_out), n, e, split.cluster, _stream(m.device),
     )
     _raise_on(err, "field_tiled")
-    LAUNCHES["field_tiled"] += 1
+    _build.count_launch("field_tiled")
 
 
 def _check_field(name, m, w_cp, params, h_in, block_n, block_e, **planes):

@@ -16,7 +16,9 @@ Reservoir mode: the multi-tenant streaming reservoir engine
 so one batched RK4 integrate advances every session per tick; `--chunk-ticks
 K` serves K ticks per launch through the pipelined chunked path, and
 `--autoscale` grows and shrinks the slot count under load between
-`--min-slots` and `--max-slots`. Without `--learn` every session carries one
+`--min-slots` and `--max-slots`; `--compilation-cache-dir DIR` builds the
+CUDA kernel library into DIR and loads it from there, so a restarted server
+skips nvcc. Without `--learn` every session carries one
 NARMA-2 readout trained by ridge regression on the scan oracle's states;
 `--learn rls|lms` makes every session an online learner of its own NARMA-2
 targets instead.
@@ -24,8 +26,8 @@ targets instead.
     PYTHONPATH=src python -m repro_torch.launch.serve --mode reservoir \\
         --n 16 --slots 4 --sessions 8 --ticks 20 --hold-steps 5 --device cpu
 
-Not ported yet: --fleet (ROADMAP queue 1 item 11), --autotune-budget (item
-10) and --compilation-cache-dir (item 9) raise.
+Not ported yet: --fleet (ROADMAP queue 1 item 11) and --autotune-budget
+(item 10) raise.
 """
 
 import argparse
@@ -127,6 +129,7 @@ def main_reservoir(args):
                 chunk_ticks=args.chunk_ticks,
                 precision=args.precision,
                 learn=args.learn,
+                compilation_cache_dir=args.compilation_cache_dir,
             ),
             device=args.device,
         ),
@@ -168,7 +171,6 @@ def main_reservoir(args):
 _WAITING_FLAGS = {
     "fleet": "--fleet (ROADMAP queue 1 item 11, the fleet)",
     "autotune_budget": "--autotune-budget (ROADMAP queue 1 item 10, tune)",
-    "compilation_cache_dir": "--compilation-cache-dir (ROADMAP queue 1 item 9, plan cache)",
 }
 
 
@@ -204,10 +206,12 @@ def main(argv=None):
                     help="grow/shrink the slot count under load (QueueDepthPolicy)")
     ap.add_argument("--min-slots", type=int, default=None, help="autoscale floor (default: --slots)")
     ap.add_argument("--max-slots", type=int, default=None, help="autoscale ceiling (default: --slots)")
+    ap.add_argument("--compilation-cache-dir", default=None,
+                    help="directory to build the CUDA kernel library into and load it from: "
+                         "a restarted server skips nvcc")
     # reference options that wait for later slices
     ap.add_argument("--fleet", action="store_true", help="not ported yet")
     ap.add_argument("--autotune-budget", type=int, default=0, help="not ported yet")
-    ap.add_argument("--compilation-cache-dir", default=None, help="not ported yet")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     for name, what in _WAITING_FLAGS.items():

@@ -36,17 +36,24 @@ host-side `SessionCheckpoint`s (with a learner's P and W) that
 `restore_session` resumes on any engine of the same spec. Under
 `autoscale=` the engine grows and shrinks its slot count at chunk
 boundaries between power-of-two buckets, moving the occupied columns
-(serve/state_store.py `SlotStore.resized`) onto a CompiledSim compiled per
-bucket.
+(serve/state_store.py `SlotStore.resized`) onto a CompiledSim per bucket.
 
-Not ported yet: mixed-spec sub-engines (ROADMAP queue 1 item 8), the plan
-cache's `prewarm` and `compilation_cache_dir` (item 9) and autotune (item
-10).
+Compiles are shared: the template route and every bucket draw from the
+process-wide `repro_torch.api.PLAN_CACHE`, so engines over the same spec
+and plan use one CompiledSim. With `prewarm=True` (the default) an
+autoscaling engine warms the buckets adjacent to its width in a daemon
+thread (`prewarm_buckets`), so a rescale at a chunk boundary finds its
+bucket's first dispatch already paid.
+
+Not ported yet: mixed-spec sub-engines (ROADMAP queue 1 item 8) and
+autotune (item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple, Union
@@ -54,19 +61,13 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.api import CompiledSim, ExecPlan, SimSpec, compile_plan
+from repro_torch.api import PLAN_CACHE, CompiledSim, ExecPlan, SimSpec, spec_structural_hash
 from repro_torch.core.constants import STOParams
 from repro_torch.core.reservoir import Readout, coerce_input_series
 from repro_torch.serve.scheduler import AutoscalePolicy, QueueDepthPolicy, SlotScheduler
 from repro_torch.serve.state_store import SlotStore, _host
 
 BACKENDS = ("auto", "scan", "ref", "fused", "tiled", "chunk")
-
-# ReservoirEngine options of the reference that are not ported yet
-_WAITING_OPTIONS = {
-    "prewarm": "queue 1 item 9, plan cache",
-    "compilation_cache_dir": "queue 1 item 9, plan cache",
-}
 
 
 @dataclasses.dataclass
@@ -324,7 +325,23 @@ class ReservoirEngine:
       autoscale     an AutoscalePolicy (or True for QueueDepthPolicy()): grow
                     or shrink the slot count between min_slots and max_slots
                     at chunk boundaries, over power-of-two buckets from
-                    min_slots, each compiled once (`compile_plan`) and kept
+                    min_slots, each drawn once from PLAN_CACHE and kept
+      compilation_cache_dir  (template route) build the CUDA kernel
+                    library into this directory and load it from there, so
+                    a restarted server skips nvcc (ExecPlan field of the
+                    same name)
+      prewarm       autoscaling engines warm the buckets adjacent to their
+                    width in a daemon thread, at construction and after
+                    every rescale (`prewarm_buckets`), on the stream the
+                    engine serves on (one masked chunk each); prewarm=False
+                    leaves each bucket's compile and launch-free warm
+                    (aot) to its rescale. A failed prewarm
+                    is not fatal (the rescale compiles on demand) and is
+                    recorded in `prewarm_errors`.
+
+    The template route draws its CompiledSim from the process-wide
+    PLAN_CACHE, so engines built from the same spec, plan and device share
+    one.
     """
 
     def __init__(
@@ -347,16 +364,9 @@ class ReservoirEngine:
         autoscale: Union[AutoscalePolicy, bool, None] = None,
         min_slots: Optional[int] = None,
         max_slots: Optional[int] = None,
-        **waiting,
+        compilation_cache_dir: Optional[str] = None,
+        prewarm: bool = True,
     ):
-        for name, value in waiting.items():
-            if name not in _WAITING_OPTIONS:
-                raise TypeError(f"ReservoirEngine got an unexpected keyword {name!r}")
-            if value is not None:
-                raise NotImplementedError(
-                    f"ReservoirEngine({name}=...) is not ported yet "
-                    f"(ROADMAP {_WAITING_OPTIONS[name]})"
-                )
         if isinstance(res, CompiledSim):
             sim = res
             if num_slots is not None and num_slots != sim.plan.ensemble:
@@ -374,19 +384,23 @@ class ReservoirEngine:
                 or learn_lam is not None
                 or learn_reg is not None
                 or learn_mu is not None
+                or compilation_cache_dir is not None
             ):
                 raise ValueError(
-                    "backend/measure/interpret/chunk_ticks/precision/learn* are "
-                    "ExecPlan decisions; when constructing from a CompiledSim, "
-                    "set them on the plan passed to compile_plan instead"
+                    "backend/measure/interpret/chunk_ticks/precision/learn*/"
+                    "compilation_cache_dir are ExecPlan decisions; when "
+                    "constructing from a CompiledSim, set them on the plan "
+                    "passed to compile_plan instead"
                 )
             num_slots = sim.plan.ensemble
+            spec_hash = spec_structural_hash(sim.spec)
         else:
             if num_slots is None:
                 raise TypeError("num_slots is required when constructing from a SimSpec")
             if backend not in BACKENDS:
                 raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
-            sim = compile_plan(
+            spec_hash = spec_structural_hash(res)
+            sim = PLAN_CACHE.get_or_compile(
                 res,
                 ExecPlan(
                     impl=backend,
@@ -399,8 +413,10 @@ class ReservoirEngine:
                     learn_lam=1.0 if learn_lam is None else learn_lam,
                     learn_reg=1e-6 if learn_reg is None else learn_reg,
                     learn_mu=0.5 if learn_mu is None else learn_mu,
+                    compilation_cache_dir=compilation_cache_dir,
                 ),
                 device=device,
+                spec_hash=spec_hash,
             )
         # -- autoscale: one CompiledSim per bucket width (checked before the
         # slot store, which needs scalar-leaved spec params) -----------------
@@ -423,6 +439,9 @@ class ReservoirEngine:
                 )
         self.sim = sim
         self.res = sim.spec
+        # the template's structural hash, computed once: every rescale's and
+        # prewarm's PLAN_CACHE lookup passes it (mixed-spec routing keys on it)
+        self._spec_hash = spec_hash
         self.device = sim.device
         self.chunk_ticks = sim.plan.chunk_ticks
         self.learn = sim.plan.learn
@@ -456,6 +475,13 @@ class ReservoirEngine:
         # the launched-but-unharvested chunk (the pipeline's second buffer)
         self._pending: Optional[_ChunkPlan] = None
         self._chunk_times: deque = deque(maxlen=128)
+        # background warm-up of the adjacent autoscale buckets; a failure is
+        # recorded (width, error), never raised: the rescale compiles on demand
+        self._prewarm_enabled = bool(prewarm)
+        self._prewarm_thread: Optional[threading.Thread] = None
+        self.prewarm_errors: List[Tuple[int, str]] = []
+        if self._prewarm_enabled and self.autoscale is not None:
+            self.prewarm_buckets()
 
     @property
     def num_slots(self) -> int:
@@ -700,21 +726,37 @@ class ReservoirEngine:
 
         Occupied slots compact into the low lanes of the new store (one
         gather-scatter per array, learn columns included); running sessions
-        keep streaming across the boundary. A bucket compiled before is a
-        warm rescale; otherwise `compile_plan` runs here, at the boundary,
-        and its time is the stall (cold_rescales / rescale_stall_s)."""
+        keep streaming across the boundary. The bucket comes from
+        PLAN_CACHE. One this engine served before, or one that PLAN_CACHE
+        holds already warmed (the prewarm thread's work), is a warm rescale
+        and costs nothing here. Otherwise the boundary compiles and warms it
+        now, and that time is the stall (cold_rescales / rescale_stall_s).
+        The boundary warms with aot=True (`CompiledSim.aot_compile`: the
+        library, the launch configuration and the shared-memory attribute,
+        no launch): a masked chunk here would stall serving for a whole
+        chunk on the card (and allocate a learn plan's P at the new width),
+        while in a process whose kernels already ran the first real chunk
+        at a new width costs what a later one does."""
         stats = self.scheduler.stats
         sim = self._sims.get(new_e)
         if sim is not None:
             stats.warm_rescales += 1
         else:
-            t0 = time.perf_counter()
-            sim = compile_plan(
-                self.sim.spec, dataclasses.replace(self.sim.plan, ensemble=new_e),
-                device=self.device,
+            spec, spec_hash = self.sim.spec, self._spec_hash
+            plan_b = dataclasses.replace(self.sim.plan, ensemble=new_e)
+            n_out = self.store.n_out
+            lookup = dict(device=self.device, spec_hash=spec_hash)
+            warm = PLAN_CACHE.contains(spec, plan_b, **lookup) and PLAN_CACHE.is_warm(
+                spec, plan_b, n_out=n_out, **lookup
             )
-            stats.cold_rescales += 1
-            stats.rescale_stall_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sim = PLAN_CACHE.get_or_compile(spec, plan_b, **lookup)
+            PLAN_CACHE.warm(sim, n_out=n_out, aot=True, spec_hash=spec_hash)
+            if warm:
+                stats.warm_rescales += 1
+            else:
+                stats.cold_rescales += 1
+                stats.rescale_stall_s += time.perf_counter() - t0
             self._sims[new_e] = sim
         slot_map = {old: new for new, old in enumerate(sorted(self.scheduler.running))}
         self.store = self.store.resized(new_e, slot_map)
@@ -724,6 +766,66 @@ class ReservoirEngine:
         self.sim = sim
         self.backend = sim.impl
         self.precision = sim.precision
+        if self._prewarm_enabled:
+            self.prewarm_buckets()
+
+    def prewarm(self, block: bool = True) -> None:
+        """Warm the current width's plan (one masked chunk through
+        PLAN_CACHE) and the adjacent autoscale buckets: afterwards the first
+        real chunk and the next rescale pay no first-dispatch cost."""
+        PLAN_CACHE.warm(self.sim, n_out=self.store.n_out, spec_hash=self._spec_hash)
+        self.prewarm_buckets(block=block)
+
+    def prewarm_buckets(self, block: bool = False) -> Tuple[int, ...]:
+        """Compile and warm the autoscale buckets adjacent to the current
+        width in a daemon thread, so that a rescale at a chunk boundary finds
+        its bucket warm in PLAN_CACHE.
+
+        The thread launches its masked chunks on the stream this engine
+        serves on (a cooperative kernel needs every cluster co-resident, so a
+        side stream would buy no overlap). A rescale that races it for a
+        bucket waits for that one compile. Not fatal: a failure is recorded
+        in `prewarm_errors` and the rescale compiles on demand; a previous
+        prewarm still running skips this round. Returns the widths
+        scheduled; block=True waits for them."""
+        if self.autoscale is None:
+            return ()
+        if self._prewarm_thread is not None and self._prewarm_thread.is_alive():
+            if not block:
+                return ()
+            self._prewarm_thread.join()
+        ladder = _bucket_ladder(self.min_slots, self.max_slots)
+        below = [b for b in ladder if b < self.num_slots]
+        above = [b for b in ladder if b > self.num_slots]
+        spec, plan, dev = self.sim.spec, self.sim.plan, self.device
+        n_out = self.store.n_out
+        lookup = dict(n_out=n_out, device=dev, spec_hash=self._spec_hash)
+        targets = tuple(
+            b
+            for b in ([below[-1]] if below else []) + ([above[0]] if above else [])
+            if not PLAN_CACHE.is_warm(spec, dataclasses.replace(plan, ensemble=b), **lookup)
+        )
+        if not targets:
+            return ()
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+        def work():
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                for b in targets:
+                    try:
+                        sim = PLAN_CACHE.ensure_warm(
+                            spec, dataclasses.replace(plan, ensemble=b), **lookup
+                        )
+                        self._sims.setdefault(b, sim)
+                    except Exception as exc:  # not fatal: the rescale compiles on demand
+                        self.prewarm_errors.append((b, f"{type(exc).__name__}: {exc}"))
+
+        t = threading.Thread(target=work, daemon=True, name="plan-prewarm")
+        self._prewarm_thread = t
+        t.start()
+        if block:
+            t.join()
+        return targets
 
     # -- the synchronous per-tick path -------------------------------------------
 

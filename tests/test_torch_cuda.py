@@ -787,3 +787,137 @@ def test_grow_and_shrink_with_learn_columns_on_the_card(cuda):
         assert ((w - oracle).abs().max() / oracle.abs().max()).item() <= ORACLE_RTOL
     print(f"autoscale N={n}: grows {stats.grows}, shrinks {stats.shrinks}, cold rescales "
           f"{stats.cold_rescales}, stall {stats.rescale_stall_s:.4f} s")
+
+
+# -- the plan cache on the card -------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,precision", [("chunk", None), ("fused", None), ("tiled", None),
+                                            ("tiled", "bf16_coupling")])
+def test_aot_launches_nothing_and_loads_the_library(cuda, impl, precision):
+    """compile_plan(aot=True) builds or loads the kernel library and resolves
+    the launch configuration without a launch; the first warmup then runs."""
+    from repro_torch.api import ExecPlan, compile_plan
+    from repro_torch.kernels import _build
+
+    spec = _spec_cpu(320).to(cuda)
+    sto_step.reset_launches()
+    sim = compile_plan(spec, ExecPlan(impl=impl, ensemble=64, chunk_ticks=2, precision=precision,
+                                      aot=True), device=cuda)
+    assert _build._LIB is not None
+    assert not any(sto_step.LAUNCHES.values()), dict(sto_step.LAUNCHES)
+    sim.warmup()
+    assert sum(sto_step.LAUNCHES.values()) > 0
+
+
+@pytest.mark.cuda
+def test_plan_cache_hit_and_rebind_on_the_card(cuda):
+    """A hit on the card is the same CompiledSim; a rebind with another a_cp
+    (spec given on the CPU: it moves to the sim's card) is bit-equal to a
+    fresh compile of that spec; the card spec hashes as its CPU twin."""
+    from repro_torch.api import ExecPlan, PlanCache, compile_plan, spec_structural_hash
+
+    pc = PlanCache()
+    spec_cpu = _spec_cpu(320)
+    spec = spec_cpu.to(cuda)
+    assert spec_structural_hash(spec) == spec_structural_hash(spec_cpu)
+    plan = ExecPlan(impl="chunk", ensemble=64, chunk_ticks=2)
+    a = pc.get_or_compile(spec, plan, device=cuda)
+    assert pc.get_or_compile(spec, plan, device="cuda") is a
+    assert not pc.contains(spec_cpu, plan, device="cpu")
+    other = spec_cpu._replace(params=spec_cpu.params._replace(a_cp=torch.tensor(1.7)))
+    rebound = pc.get_or_compile(other, plan, device=cuda)
+    assert pc.stats.rebinds == 1 and pc.stats.compiles == 1
+    assert rebound.device.type == "cuda" and rebound.spec.params.a_cp.device.type == "cuda"
+    u = np.random.default_rng(0).uniform(0, 0.5, (6, 64, 1)).astype(np.float32)
+    _, got = rebound.drive_batch(u)
+    _, want = compile_plan(other, plan, device=cuda).drive_batch(u)
+    _, base = a.drive_batch(u)
+    assert torch.equal(got, want) and not torch.equal(got, base)
+
+
+@pytest.mark.cuda
+def test_prewarmed_rescale_compiles_nothing_on_the_card(cuda):
+    """The reference's prewarmed-rescale case on the card: after prewarm,
+    two rescales compile nothing and stall for nothing."""
+    from repro_torch.api import PLAN_CACHE, ExecPlan
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    spec = _spec_cpu(128).to(cuda)
+    eng = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, ExecPlan(ensemble=64, chunk_ticks=2),
+                                                    device=cuda),
+                          autoscale=True, min_slots=32, max_slots=128)
+    eng.prewarm(block=True)
+    assert not eng.prewarm_errors
+    compiles0 = PLAN_CACHE.stats.compiles
+    eng._rescale(128)
+    eng._rescale(32)
+    assert PLAN_CACHE.stats.compiles == compiles0
+    st = eng.stats()
+    assert st.cold_rescales == 0 and st.warm_rescales == 2 and st.rescale_stall_s == 0.0
+    rows = _infer_rows(128, count=5)
+    results = eng.run([StreamSession(sid=sid, u_seq=u.copy()) for sid, u, _ in rows])
+    assert len(results) == 5 and all(np.isfinite(r.final_m).all() for r in results.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learn", [None, "rls"])
+def test_cold_rescale_launches_nothing_on_the_card(cuda, learn):
+    """prewarm=False: a cold rescale compiles its bucket and warms it with
+    aot at the boundary (the launch configuration and shared-memory
+    attribute, no masked chunk: no launch); the engine then serves at the
+    new width."""
+    from repro_torch.api import PLAN_CACHE
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    spec = _spec_cpu(128).to(cuda)
+    eng = ReservoirEngine(spec, num_slots=32, backend="chunk", chunk_ticks=2, autoscale=True,
+                          min_slots=32, max_slots=128, prewarm=False, learn=learn, device=cuda)
+    torch.cuda.synchronize()
+    sto_step.reset_launches()
+    eng._rescale(128)
+    torch.cuda.synchronize()
+    assert not any(sto_step.LAUNCHES.values()), dict(sto_step.LAUNCHES)
+    st = eng.stats()
+    assert (st.cold_rescales, st.warm_rescales) == (1, 0) and st.rescale_stall_s > 0.0
+    assert PLAN_CACHE.is_warm(spec, eng.sim.plan, n_out=eng.store.n_out, device=cuda)
+    rows = _infer_rows(128, count=3)
+    results = eng.run([StreamSession(sid=sid, u_seq=u.copy(),
+                                     targets=None if learn is None else u[:, :1].copy())
+                       for sid, u, _ in rows])
+    assert sto_step.LAUNCHES["rk4_chunk"] > 0 and len(results) == 3
+    assert all(np.isfinite(r.final_m).all() for r in results.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "chunk"])
+def test_serving_beside_the_prewarm_thread_on_the_card(cuda, backend):
+    """An autoscaling engine whose prewarm thread launches masked chunks on
+    the serving stream while it serves: bit-equal to one without the
+    thread, and the thread ends."""
+    from repro_torch.core.reservoir import Readout
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    n = 320
+    spec = _spec_cpu(n).to(cuda)
+    rows = _infer_rows(n, count=160, seed=3)  # a burst past 64 slots: grows, then shrinks
+    got = {}
+    for prewarm in (True, False):
+        eng = ReservoirEngine(spec, num_slots=64, backend=backend, chunk_ticks=4, autoscale=True,
+                              min_slots=64, max_slots=256, prewarm=prewarm, device=cuda)
+        got[prewarm] = eng.run([StreamSession(sid=sid, u_seq=np.repeat(u, 4, axis=0),
+                                              readout=Readout(torch.from_numpy(w), 0))
+                                for sid, u, w in rows])
+        if eng._prewarm_thread is not None:
+            eng._prewarm_thread.join(timeout=120)
+            assert not eng._prewarm_thread.is_alive(), "the prewarm thread hung"
+        assert not eng.prewarm_errors
+        st = eng.stats()
+        assert st.grows >= 1 and st.shrinks >= 1
+        print(f"prewarm={prewarm}: grows {st.grows}, shrinks {st.shrinks}, cold {st.cold_rescales}, "
+              f"warm {st.warm_rescales}, stall {st.rescale_stall_s:.4f} s")
+    for sid, _, _ in rows:
+        a, b = got[True][sid], got[False][sid]
+        for x, y in ((a.states, b.states), (a.final_m, b.final_m), (a.outputs, b.outputs)):
+            assert np.array_equal(x, y), sid

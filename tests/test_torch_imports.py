@@ -37,7 +37,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import sys, repro_torch, repro_torch.api, repro_torch.convert, "
+        "import sys, repro_torch, repro_torch.api, repro_torch.api.cache, repro_torch.convert, "
+        "repro_torch.kernels.dispatch_table, "
         "repro_torch.serve.reservoir, repro_torch.kernels.ops, "
         "repro_torch.kernels.flash_attention, repro_torch.configs, repro_torch.configs.archs, "
         "repro_torch.models, repro_torch.models.counting, repro_torch.serve.engine, "

@@ -1,6 +1,7 @@
 """The port's serving launcher on the CPU (`python -m repro_torch.launch.serve`):
 --mode reservoir at N = 16 with and without --learn rls and --autoscale, the
-reference options that still wait, and the LM mode's own invocation.
+reference options that still wait, --compilation-cache-dir, and the LM
+mode's own invocation.
 
 A reservoir run must serve every session: each result finite, every session
 tick counted, and online learning's NMSE finite; no tolerance is involved.
@@ -10,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import cache
+from repro_torch.kernels import _build
 from repro_torch.launch import serve as launch_serve
 
 torch.set_num_threads(2)
@@ -49,7 +52,18 @@ def test_reservoir_mode_serves_every_session(capsys, extra):
     (["--autotune-budget", "4"], "item 10"),
     (["--compilation-cache-dir", "cache"], "item 9"),
 ])
-def test_waiting_flags_raise(flag, item):
+def test_waiting_flags_raise(flag, item, tmp_path, monkeypatch):
+    if flag[0] == "--compilation-cache-dir":
+        # served since the plan cache (item 9): the flag reaches the plan,
+        # which pins the kernel library's build directory (process-wide
+        # state, restored afterwards)
+        monkeypatch.setattr(_build, "_PINNED_DIR", None)
+        monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+        where = tmp_path / flag[1]
+        results = launch_serve.main(BASE + [flag[0], str(where)])
+        assert sorted(results) == list(range(6))
+        assert cache.persistent_cache_dir() == str(where) and where.is_dir()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         launch_serve.main(BASE + flag)
 

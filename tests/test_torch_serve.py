@@ -18,7 +18,9 @@ from repro.core.reservoir import Readout as JReadout
 from repro.serve.reservoir import ReservoirEngine as JEngine
 from repro.serve.reservoir import StreamSession as JSession
 from repro_torch import convert
+from repro_torch.api import cache
 from repro_torch.core.constants import STOParams
+from repro_torch.kernels import _build
 from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
 
 torch.set_num_threads(2)
@@ -139,8 +141,11 @@ def test_pop_results_and_max_retained(spec_pair):
     assert eng.backend == "ref"  # auto on the CPU
 
 
-def test_submit_contract_and_waiting_features(spec_pair):
+def test_submit_contract_and_waiting_features(spec_pair, tmp_path, monkeypatch):
     _, st = spec_pair
+    # enable_persistent_cache pins process-wide state: restore it afterwards
+    monkeypatch.setattr(_build, "_PINNED_DIR", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
     eng = ReservoirEngine(st, num_slots=SLOTS, chunk_ticks=K, device="cpu")
     with pytest.raises(ValueError):
         eng.submit(StreamSession(sid=0, u_seq=np.zeros((0, 1))))
@@ -153,13 +158,17 @@ def test_submit_contract_and_waiting_features(spec_pair):
     # targets need a learning engine (the reference's ValueError)
     with pytest.raises(ValueError, match="learning"):
         eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), targets=np.zeros(3)))
-    # mixed-spec tenancy and the plan cache's options still wait
+    # mixed-spec tenancy still waits; the plan cache's options are served:
+    # prewarm without autoscale has no bucket to warm, and
+    # compilation_cache_dir pins the kernel library's build directory
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), spec=st))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        ReservoirEngine(st, num_slots=SLOTS, prewarm=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        ReservoirEngine(st, num_slots=SLOTS, compilation_cache_dir="x", device="cpu")
+    warmed = ReservoirEngine(st, num_slots=SLOTS, prewarm=True, device="cpu")
+    assert warmed._prewarm_thread is None and warmed.prewarm_buckets(block=True) == ()
+    cache_dir = str(tmp_path / "x")
+    pinned = ReservoirEngine(st, num_slots=SLOTS, compilation_cache_dir=cache_dir, device="cpu")
+    assert cache.persistent_cache_dir() == cache_dir and _build.BUILD_DIR == (tmp_path / "x").resolve()
+    assert pinned.sim is warmed.sim  # the key leaves the directory out
     # push streams and autoscale are served: an empty stream is refused
     # unless it is open
     eng.submit(StreamSession(sid=2, u_seq=np.zeros((0, 1)), open=True))
