@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --delay-line   # phase 3f(a) alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -111,6 +112,32 @@ on failure:
    file, clear the table, load_table: choose_impl returns each measured
    winner and an auto engine launches the winner's kernel; the table is
    cleared again for the later phases.
+3f. The physics families at the same shapes (time_multiplexed:
+   make_time_multiplexed_spec(2500, hold_steps=5); array_transient:
+   readout_window 3, the reference smoke's): (a) tm_delay_line against its
+   plain version, bit-equal required: one K = 2 chunk at N = 256 through
+   tm_chunk against tm_chunk_planes on the card (lanes frozen), one tick at
+   N = 2500 against the plain version on the card (every lane) and on the
+   host CPU (lanes 0-7), lanes 0-63 masked; its time per call and on the
+   card, the plain version's, the roofline bound and, on the 3f(a) line
+   only, a dependency-chain estimate (CHAIN_OPS dependent FP32 ops a step x
+   an assumed FP32_LATENCY_CYCLES / the max SM clock; derived, not
+   measured); (b) the 512 sessions through each engine of FAMILY_RUNS
+   (time_multiplexed chunk with an f32 and a bf16 feedback W;
+   array_transient fused, tiled, tiled with a bf16 W, chunk), each
+   launching exactly its impl's kernels: sessions/s, a chunk's CUDA-event
+   ms and the device's busy share, for time_multiplexed the chunk's
+   feedback products and kernel launches apart; array_transient fused and
+   tiled against their interpret=True runs (STATE_ATOL), time_multiplexed
+   chunk against its interpret=True run at N = 256 (bit-equal); (c)
+   readout_window = 1 against phase 3's coupled fused and tiled runs
+   (bit-equal or the difference); (d) a tiled coupled-array RLS engine
+   serving the 512 sessions and, carrying their specs, 32 time_multiplexed
+   and 32 array_transient tenants and one learner of each family: 2
+   sub-engines, every tenant bit-equal to a dedicated engine of its spec
+   at the sub-engine's width, each learner bit-equal to its replay there
+   (check_learned), the coupled sessions against phase 3's tiled run; the
+   spec-carrying submits' host time (each hashes its spec).
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -144,8 +171,8 @@ on failure:
    within LOGIT_MARGIN of the step's maximum. Prints prefill and decode tokens/s, the
    peak device memory, one 4608-token prefill's time (CUDA events) and,
    from a profiler trace of it, the flash kernel's share of its device time.
-6. Print the kernels line, the card line and, last, the contract line
-   {"ok": true, "device": {...}}.
+6. Print the kernels line (the STO kernels, tm_delay_line and flash), the
+   card line and, last, the contract line {"ok": true, "device": {...}}.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -175,11 +202,14 @@ from repro_torch.api import (  # noqa: E402
     SimSpec,
     compile_plan,
     enable_persistent_cache,
+    make_array_transient_spec,
     make_spec,
+    make_time_multiplexed_spec,
 )
 from repro_torch.api import compiled  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import constants, coupling, integrators, sto, tasks  # noqa: E402
+from repro_torch.core.ensemble import broadcast_params  # noqa: E402
 from repro_torch.core.reservoir import Readout, fit_lms, fit_rls  # noqa: E402
 from repro_torch.kernels import _build, ops, sto_step  # noqa: E402
 from repro_torch.kernels import rls as krls  # noqa: E402
@@ -199,6 +229,7 @@ SOURCE = {
     "field_tiled": "src/repro_torch/kernels/csrc/sto_rk4.cu",
     "round_bf16": "src/repro_torch/kernels/csrc/sto_rk4.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "tm_delay_line": "src/repro_torch/kernels/csrc/sto_delay_line.cu",
 }
 # the Pallas kernel each CUDA kernel replaces
 REPLACES = {
@@ -208,6 +239,9 @@ REPLACES = {
     # the bf16 cast of the stage x-plane inside _field_tiled_kernel
     "round_bf16": "src/repro/kernels/sto_step.py:185",
     "flash_attention": "src/repro/kernels/flash_attention.py:35",
+    # plain jnp, no Pallas kernel: the node loop of the time-multiplexed chunk
+    # body, which XLA compiles into one device loop on the TPU
+    "tm_delay_line": "src/repro/kernels/ref.py:233",
 }
 STO_KERNELS = ("rk4_chunk", "rk4_fused", "field_tiled", "round_bf16")
 # tolerances, kernel vs plain version on the same inputs:
@@ -2191,6 +2225,382 @@ def plan_cache_phase(spec, fixed, name_power):
     print(f"phase 3e: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# -- phase 3f: the physics families and mixed-spec tenancy at full width -----------
+
+# 3f(a) and the interpret engine check run the delay line's plain body, eager
+# torch on the card (~N x hold_steps RK4 steps of ~240 launches a tick), at
+# this N; the kernel is held at the full N too
+TM_SMALL_N = 256
+TM_CPU_LANES = 8  # lanes of the full-N tick held against the host CPU
+# array_transient's readout window (the reference smoke's, benchmarks/run.py:91)
+AT_WINDOW = 3
+# The delay line's longest dependency chain per RK4 step, counted in
+# csrc/sto_delay_line.cu: 4 field evaluations of 14 dependent FP32 ops (m . p:
+# mul, add, add; lam *, 1 +, the division; hs *, h +: b_x; c_y: mul, sub;
+# d_x: mul, sub; k_x: mul, sub), the 3 stage updates' 2 (mul, add) and the
+# final combination's 3 (+ k4, * dt/6, m +). The division counts as one op
+# here though it is a reciprocal and Newton steps: a lower bound.
+CHAIN_OPS = 4 * 14 + 3 * 2 + 3
+# an FP32 add / mul / FMA's dependent-issue latency on Hopper, assumed (not
+# measured here): the chain estimate is printed in 3f(a) and kept out of the
+# kernels line
+FP32_LATENCY_CYCLES = 4
+# the ops of one RK4 step of one lane in the kernel (4 x 51 in the field, 18 in
+# the stage updates, 21 in the combination), for the roofline bound
+STEP_OPS = 4 * 51 + 18 + 21
+# the family engines' expected kernels: (topology, impl, precision) -> kernels
+FAMILY_RUNS = (
+    ("time_multiplexed", "chunk", None, ("tm_delay_line",)),
+    ("time_multiplexed", "chunk", "bf16_coupling", ("tm_delay_line",)),
+    ("array_transient", "fused", None, ("rk4_fused",)),
+    ("array_transient", "tiled", None, ("field_tiled",)),
+    ("array_transient", "tiled", "bf16_coupling", ("field_tiled", "round_bf16")),
+    ("array_transient", "chunk", None, ()),
+)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def delay_line_inputs(n, dev, seed=0):
+    """One tick's operands at n virtual nodes x E lanes: snapshots near the
+    initial state, per-lane params (the current varied per lane), node
+    drives in [0, 0.5)."""
+    g = torch.Generator().manual_seed(seed)
+    m = constants.initial_magnetization(n, device="cpu").expand(E, n, 3)
+    m = m + 0.05 * torch.randn((E, n, 3), generator=g)
+    m = ops.to_planes(m / m.norm(dim=-1, keepdim=True)).contiguous()
+    params = broadcast_params(
+        constants.default_params(device="cpu"), E, current=2e-3 + 1e-3 * torch.rand(E, generator=g)
+    )
+    pv = kref.pack_params(params, E)
+    h = 0.5 * torch.rand((n, E), generator=g)
+    return m.to(dev), pv.to(dev).contiguous(), h.to(dev)
+
+
+def event_ms(fn):
+    """(fn's result, ms of one call by CUDA events)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def delay_line_check(name, name_power):
+    """3f(a): tm_delay_line against its plain version. One K = 2 chunk at
+    N = 256 (tm_chunk against tm_chunk_planes on the card, lanes frozen all
+    chunk or for its second tick); one tick at N = 2500 against the plain
+    version on the card (every lane) and on the host CPU (lanes 0-7), and
+    with lanes 0-63 masked. Bit-equal required. Returns the kernel's row."""
+    dev = torch.device("cuda")
+    n, k = TM_SMALL_N, 2
+    spec_s = make_time_multiplexed_spec(n, hold_steps=HOLD, device="cuda")
+    m, pv, _ = delay_line_inputs(n, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    hb = 0.5 * torch.rand((k, n, E), generator=g, device=dev)
+    mask = torch.ones((k, E), dtype=torch.bool, device=dev)
+    mask[:, :32] = False
+    mask[1, 32:64] = False
+    (mk, sk), kern_ms = event_ms(lambda: sto_step.tm_chunk(m, spec_s.w_cp, pv, DT, HOLD, hb, mask))
+    (mp, sp), plain_ms = event_ms(
+        lambda: kref.tm_chunk_planes(m, spec_s.w_cp, pv, DT, HOLD, hb, mask)
+    )
+    err = max((mk - mp).abs().max().item(), (sk - sp).abs().max().item())
+    assert torch.equal(mk, mp) and torch.equal(sk, sp), f"tm_chunk differs from its plain body by {err}"
+    assert torch.equal(mk[:, :, :32], m[:, :, :32]), "tm_chunk: frozen lanes changed"
+    print(
+        f"3f(a) tm_chunk vs tm_chunk_planes on the card, N={n}, E={E}, K={k}, hold {HOLD}: "
+        f"max |diff| {err:.3e}, bit-equal, frozen lanes exact; kernel {kern_ms:.3f} ms, plain "
+        f"{plain_ms / 1e3:.3f} s ({name_power})",
+        flush=True,
+    )
+    del mk, sk, mp, sp
+    m, pv, h = delay_line_inputs(N, dev, seed=2)
+    kern = lambda: sto_step.tm_delay_line(m, h, pv, DT, HOLD)  # noqa: E731
+    out = kern()
+    plain, plain_ms = event_ms(lambda: kref.tm_delay_line_plain(m[:, N - 1], h, pv, DT, HOLD))
+    err = (out - plain).abs().max().item()
+    assert torch.equal(out, plain), f"tm_delay_line differs from its plain version by {err}"
+    lanes = TM_CPU_LANES
+    t0 = time.perf_counter()
+    cpu = kref.tm_delay_line_plain(
+        m[:, N - 1, :lanes].cpu(), h[:, :lanes].cpu(), pv[:, :lanes].cpu(), DT, HOLD
+    )
+    cpu_s = time.perf_counter() - t0
+    cpu_err = (out[:, :, :lanes].cpu() - cpu).abs().max().item()
+    assert torch.equal(out[:, :, :lanes].cpu(), cpu), f"tm_delay_line vs the host CPU: {cpu_err}"
+    frozen = torch.ones(E, device=dev)
+    frozen[:64] = 0.0
+    out_m = sto_step.tm_delay_line(m, h, pv, DT, HOLD, frozen)
+    assert torch.equal(out_m[:, :, :64], m[:, :, :64]), "tm_delay_line: frozen lanes changed"
+    assert torch.equal(out_m[:, :, 64:], out[:, :, 64:]), "tm_delay_line: a mask moved live lanes"
+    ms = time_ms(kern, 5)
+    card_ms = queued_ms(kern, 6)[0]
+    steps = N * HOLD
+    nbytes = 4 * (7 * N * E + 10 * E)  # m in and out, h; params
+    b_ms, b_by = bound_ms(name, 0.0, float(STEP_OPS) * steps * E, nbytes, False)
+    chain_ms = 1e3 * steps * CHAIN_OPS * FP32_LATENCY_CYCLES / max_sm_clock_hz()
+    row = dict(
+        max_abs_err=err, ms=ms, card_ms=card_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, share_of_bound=b_ms / ms, cpu_lanes=lanes, cpu_max_abs_err=cpu_err,
+        cpu_plain_s=cpu_s, bit_equal=True, frozen_lanes="exact",
+        ptxas=ptxas_info(_build.BUILD_LOG, "tm_delay_line_kernel"),
+    )
+    print(
+        f"3f(a) tm_delay_line at N={N}, E={E}, hold {HOLD} (one tick, {steps} RK4 steps a lane): "
+        f"vs plain on the card max |diff| {err:.3e}, bit-equal; lanes 0-{lanes - 1} vs plain on "
+        f"the host CPU {cpu_err:.3e}, bit-equal ({cpu_s:.3f} s); lanes 0-63 masked: exact; "
+        f"kernel {ms:.4f} ms per call, {card_ms:.4f} ms card, plain {plain_ms:.3f} ms on the "
+        f"card; bound {b_ms:.5f} ms ({b_by}); chain estimate, derived and not measured, "
+        f"{chain_ms:.4f} ms ({CHAIN_OPS} dependent FP32 ops a step x an assumed "
+        f"{FP32_LATENCY_CYCLES}-cycle latency at the max SM clock) = {100 * chain_ms / ms:.1f} % "
+        f"of the kernel's time; ptxas {row['ptxas']} ({name_power})",
+        flush=True,
+    )
+    return row
+
+
+def delay_line_only():
+    """`chip_smoke.py --delay-line`: build the kernels and run phase 3f(a)
+    alone; tools/plant_faults.py --kernel delay runs it against each planted
+    fault, which it must catch."""
+    name_power = card_line()
+    _build.load()
+    delay_line_check(torch.cuda.get_device_name(0), name_power)
+    print("3f(a) held", flush=True)
+
+
+def chunk_time(spec, impl, precision, label, name_power, match=None):
+    """CUDA-event ms of one K-tick chunk of `impl` at E lanes, all live, and
+    the device's busy share of one chunk under the profiler."""
+    sim = compile_plan(
+        spec, ExecPlan(impl=impl, ensemble=E, chunk_ticks=K, precision=precision), device="cuda"
+    )
+    g = torch.Generator(device="cuda").manual_seed(0)
+    m = ops.to_planes(spec.m0.expand(E, N, 3)).contiguous()
+    u = 0.5 * torch.rand((K, E, 1), generator=g, device="cuda")
+    mask = torch.ones((K, E), dtype=torch.bool, device="cuda")
+    fn = lambda: sim.tick_chunk(m, u, lane_mask=mask)  # noqa: E731
+    ms = time_ms(fn, 3)
+    busy_us, matched_us = trace(label, fn, name_power, top=4, match=match)
+    return ms, busy_us, matched_us
+
+
+def tm_split(spec, precision):
+    """A time-multiplexed chunk's parts by CUDA events: K feedback products
+    (kref.tm_feedback, torch.matmul) and K tm_delay_line launches."""
+    dev = torch.device("cuda")
+    w = spec.w_cp.to(torch.bfloat16) if precision else spec.w_cp
+    m, pv, h = delay_line_inputs(N, dev, seed=3)
+    hb = h[None].expand(K, N, E).contiguous()
+    gemm_ms = time_ms(lambda: [kref.tm_feedback(hb[t], w, m[0], pv) for t in range(K)], 3)
+    h_t = kref.tm_feedback(hb[0], w, m[0], pv)
+    kern_ms = time_ms(lambda: [sto_step.tm_delay_line(m, h_t, pv, DT, HOLD) for _ in range(K)], 3)
+    return gemm_ms, kern_ms
+
+
+def family_engines(specs, name_power):
+    """3f(b): 512 sessions through each family engine of FAMILY_RUNS, each
+    launching exactly its impl's kernels; its chunk's CUDA-event ms and the
+    device's busy share; the time-multiplexed chunk split into its feedback
+    products and its kernel launches. Returns the tm_delay_line launches of
+    the f32 time-multiplexed run and the results by run."""
+    runs, tm_launches = {}, None
+    for topology, impl, precision, kernels in FAMILY_RUNS:
+        spec = specs[topology]
+        results, seconds, launches, _ = serve(spec, impl, precision=precision)
+        launched = {k for k, v in launches.items() if v}
+        assert launched == set(kernels), f"{topology}/{impl}/{precision}: launched {launches}"
+        if topology == "time_multiplexed" and precision is None:
+            tm_launches = launches["tm_delay_line"]
+        label = f"{topology} {impl}" + (f" {precision}" if precision else "")
+        symbol = {"tm_delay_line": "tm_delay_line_kernel", "rk4_fused": "rk4_coop_kernel",
+                  "field_tiled": "field_stage_kernel"}.get(kernels[0] if kernels else None)
+        ms, busy_us, kern_us = chunk_time(spec, impl, precision, label, name_power, match=symbol)
+        extra = ""
+        if topology == "time_multiplexed":
+            gemm_ms, kern_ms = tm_split(spec, precision)
+            extra = (f"; a chunk's {K} feedback products {gemm_ms:.3f} ms, its {K} kernel "
+                     f"launches {kern_ms:.3f} ms (CUDA events, apart)")
+        print(
+            f"3f(b) {label}: {SESSIONS} sessions in {seconds:.3f} s = {SESSIONS / seconds:.1f} "
+            f"sessions/s; chunk {ms:.3f} ms (CUDA events), device busy {busy_us / 1e3:.3f} ms of "
+            f"it under the profiler, its kernel {kern_us / 1e3:.3f} ms{extra}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } ({name_power})",
+            flush=True,
+        )
+        runs[topology, impl, precision] = results
+    return tm_launches, runs
+
+
+def interpret_checks(specs, runs, name_power):
+    """3f(b): array_transient on fused and tiled against its interpret=True
+    run at full width (STATE_ATOL); time_multiplexed on chunk against its
+    interpret=True run at N = 256, 32 sessions of 1-2 ticks (bit-equal)."""
+    sessions = make_sessions(np.random.default_rng(0))
+    for impl in ("fused", "tiled"):
+        ref, seconds, launches, _ = serve(specs["array_transient"], impl, interpret=True)
+        assert not any(launches.values()), f"interpret run launched kernels: {launches}"
+        ds, do, _, exact = same_results(
+            runs["array_transient", impl, None], ref, [s.sid for s in sessions], w_outs_of(sessions)
+        )
+        print(
+            f"3f(b) array_transient {impl} vs interpret (plain versions), N={N}: max |state| diff "
+            f"{ds:.3e} (atol {STATE_ATOL}), max |output| diff {do:.3e}: {held(exact)}; plain run "
+            f"{SESSIONS / seconds:.1f} sessions/s",
+            flush=True,
+        )
+    n = TM_SMALL_N
+    spec_s = make_time_multiplexed_spec(n, hold_steps=HOLD, device="cuda")
+    rng = np.random.default_rng(4)
+    rows = [(sid, rng.uniform(0.0, 0.5, (1 + sid % 2, 1)).astype(np.float32),
+             rng.normal(0.0, 1.0 / math.sqrt(n), (n + 1, 1)).astype(np.float32)) for sid in range(32)]
+    got = {}
+    for interpret in (False, True):
+        eng = ReservoirEngine(spec_s, num_slots=64, chunk_ticks=2, backend="chunk",
+                              interpret=interpret, device="cuda")
+        sto_step.reset_launches()
+        t0 = time.perf_counter()
+        got[interpret] = eng.run([StreamSession(sid=sid, u_seq=u, readout=Readout(torch.from_numpy(w), 0))
+                                  for sid, u, w in rows])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        assert (sto_step.LAUNCHES["tm_delay_line"] > 0) != interpret, dict(sto_step.LAUNCHES)
+    ds, do, _, exact = same_results(got[False], got[True], [r[0] for r in rows],
+                                    {sid: w for sid, _, w in rows})
+    assert exact, f"time_multiplexed chunk vs interpret at N={n}: {ds}, {do}"
+    print(f"3f(b) time_multiplexed chunk vs interpret (plain body), N={n}, 32 sessions: bit-equal "
+          f"(plain run {seconds:.3f} s) ({name_power})", flush=True)
+
+
+def window_one_check(served, name_power):
+    """3f(c): array_transient with readout_window = 1 against the coupled
+    array (phase 3's runs) at full width under fused and tiled."""
+    spec = make_array_transient_spec(N, readout_window=1, hold_steps=HOLD, seed=0, device="cuda")
+    sessions = make_sessions(np.random.default_rng(0))
+    for impl in ("fused", "tiled"):
+        results, seconds, launches, _ = serve(spec, impl)
+        ds, do, _, exact = same_results(results, served[impl], [s.sid for s in sessions],
+                                        w_outs_of(sessions))
+        print(
+            f"3f(c) array_transient window 1 vs coupled_array, {impl}, N={N}: max |state| diff "
+            f"{ds:.3e}, max |output| diff {do:.3e}: {held(exact)}; {SESSIONS / seconds:.1f} "
+            f"sessions/s, launches { {k: v for k, v in launches.items() if v} } ({name_power})",
+            flush=True,
+        )
+
+
+def tenant_sessions(seed, sid0, spec, count=32):
+    """`count` NARMA-10 inference tenants and one RLS learner of one spec,
+    sids from sid0 (the learner last)."""
+    tenants = make_sessions(np.random.default_rng(seed))[:count]
+    learner = make_sessions(np.random.default_rng(seed + 1), learn=True)[0]
+    for i, sess in enumerate(tenants + [learner]):
+        sess.sid, sess.spec = sid0 + i, spec
+    return tenants + [learner]
+
+
+def mixed_tenancy(spec, specs, served, name_power):
+    """3f(d): a tiled coupled-array learning engine (RLS) serving the 512
+    sessions, 32 time_multiplexed and 32 array_transient tenants and one
+    RLS learner of each family, each carrying its spec: 2 sub-engines; every
+    tenant bit-equal to a dedicated engine of its spec at the sub-engine's
+    width, each learner bit-equal to its replay there; the coupled sessions
+    against phase 3's tiled run."""
+    kw = dict(num_slots=E, chunk_ticks=K, learn="rls", learn_reg=LEARN_REG, device="cuda")
+    eng = ReservoirEngine(spec, backend="tiled", **kw)
+    coupled = make_sessions(np.random.default_rng(0))
+    family = {"time_multiplexed": (5, 10000), "array_transient": (7, 20000)}
+    tenants = [
+        sess for topology, (seed, sid0) in family.items()
+        for sess in tenant_sessions(seed, sid0, specs[topology])
+    ]
+    submitted = coupled + tenants
+    for sess in coupled:
+        eng.submit(sess)
+    # each spec-carrying submit hashes its spec (the structural hash copies
+    # W off the card), as the reference's does; the first of each family
+    # also builds its sub-engine
+    t0 = time.perf_counter()
+    for sess in tenants[:1] + tenants[33:34]:
+        eng.submit(sess)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for sess in tenants[1:33] + tenants[34:]:
+        eng.submit(sess)
+    rest_s = time.perf_counter() - t0
+    print(
+        f"3f(d) submit: the first tenant of each family {first_s:.3f} s (hash + sub-engine), "
+        f"the other {len(tenants) - 2} tenants {rest_s:.3f} s, "
+        f"{1e3 * rest_s / (len(tenants) - 2):.2f} ms a submit (hash) ({name_power})",
+        flush=True,
+    )
+    subs = {sub.res.topology: sub for sub in eng._subengines.values()}
+    assert eng.stats().sub_engines == 2 and sorted(subs) == sorted(family), eng.stats()
+    with Check("mixed") as c:
+        results = eng.run()
+    assert sorted(results) == sorted(s.sid for s in submitted), len(results)
+    ds, do, _, exact = same_results(results, served["tiled"], [s.sid for s in coupled],
+                                    w_outs_of(coupled))
+    print(
+        f"3f(d) mixed tenancy: {SESSIONS} coupled + 2 x 33 family sessions on a tiled RLS engine "
+        f"in {c.seconds:.3f} s, 2 sub-engines ({', '.join(f'{t}: {s.backend} at E={s.num_slots}' for t, s in subs.items())}), "
+        f"launches {c.launches}; the coupled sessions vs phase 3's tiled run: max |state| diff "
+        f"{ds:.3e}: {held(exact)} ({name_power})",
+        flush=True,
+    )
+    for topology, (seed, sid0) in family.items():
+        sub = subs[topology]
+        sessions = tenant_sessions(seed, sid0, None)
+        dedicated = ReservoirEngine(specs[topology], backend=sub.backend, **dict(kw, num_slots=sub.num_slots))
+        with Check(topology) as c:
+            want = dedicated.run(sessions)
+        learner = sessions[-1]
+        ds, do, dw, exact = same_results(results, want, [s.sid for s in sessions[:-1]],
+                                         w_outs_of(sessions[:-1]))
+        dsl, _, dwl, exact_l = same_results(results, want, [learner.sid], w_outs_of([learner]),
+                                            learn=True)
+        assert exact and exact_l, f"{topology} tenants vs a dedicated engine: {ds} {do} {dsl} {dwl}"
+        check_learned(results, [learner], "rls", f"3f(d) {topology} tenant")
+        print(
+            f"3f(d) {topology} tenants (32 + 1 learner) vs a dedicated {sub.backend} engine at "
+            f"E={sub.num_slots}: states, final_m, outputs, predictions and learned W bit-equal; "
+            f"dedicated run {c.seconds:.3f} s, launches {c.launches} ({name_power})",
+            flush=True,
+        )
+
+
+def families_phase(served, name, name_power):
+    """Phase 3f. Returns the tm_delay_line kernel row."""
+    t0 = time.perf_counter()
+    row = delay_line_check(name, name_power)
+    specs = {
+        "time_multiplexed": make_time_multiplexed_spec(N, hold_steps=HOLD, device="cuda"),
+        "array_transient": make_array_transient_spec(
+            N, readout_window=AT_WINDOW, hold_steps=HOLD, seed=0, device="cuda"
+        ),
+    }
+    row["launches"], runs = family_engines(specs, name_power)
+    interpret_checks(specs, runs, name_power)
+    del runs
+    window_one_check(served, name_power)
+    mixed_tenancy(make_spec(N, n_in=1, seed=0, hold_steps=HOLD, device="cuda"), specs, served,
+                  name_power)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 3f: {time.perf_counter() - t0:.1f} s; kernel tm_delay_line: " + json.dumps(row),
+          flush=True)
+    return row
+
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2271,13 +2681,15 @@ def main():
     print(f"phases 3b-3c: {time.perf_counter() - t0:.1f} s", flush=True)
     fixed = lifecycle_phase(spec, name_power)
     plan_cache_phase(spec, fixed, name_power)
+    rows["tm_delay_line"] = families_phase(served, name, name_power)
+    del served
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
 
     kernels = [
         dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k], **rows[k])
-        for k in (*STO_KERNELS, "flash_attention")
+        for k in (*STO_KERNELS, "tm_delay_line", "flash_attention")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(name_power, flush=True)
@@ -2288,5 +2700,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cache-child"]:
         cache_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--delay-line"]:
+        delay_line_only()
     else:
         main()

@@ -9,8 +9,21 @@ Every impl-dispatch / padding / ensemble decision is made inside
 drawn from the process-wide `PLAN_CACHE` (api/cache.py).
 """
 
-from repro_torch.api.spec import SimSpec, TOPOLOGIES, make_spec, validate_topology
-from repro_torch.api.plan import ExecPlan, PLAN_IMPLS, PLAN_PRECISIONS
+from repro_torch.api.spec import (
+    SimSpec,
+    TOPOLOGIES,
+    make_array_transient_spec,
+    make_spec,
+    make_time_multiplexed_spec,
+    validate_topology,
+)
+from repro_torch.api.plan import (
+    ExecPlan,
+    FAMILY_IMPLS,
+    PLAN_IMPLS,
+    PLAN_PRECISIONS,
+    check_plan_supports_topology,
+)
 from repro_torch.api.compiled import CompiledSim, compile_plan
 from repro_torch.api.cache import (
     PLAN_CACHE,
@@ -25,8 +38,12 @@ __all__ = [
     "SimSpec",
     "TOPOLOGIES",
     "make_spec",
+    "make_time_multiplexed_spec",
+    "make_array_transient_spec",
     "validate_topology",
     "ExecPlan",
+    "FAMILY_IMPLS",
+    "check_plan_supports_topology",
     "PLAN_IMPLS",
     "PLAN_PRECISIONS",
     "CompiledSim",

@@ -429,14 +429,18 @@ class PlanCache:
         card it launches the plan's kernels on the current stream and waits
         for them); aot=True does only what needs no launch (`aot_compile`:
         build or load the library, resolve the launch configuration, set
-        the kernels' shared-memory attributes)."""
+        the kernels' shared-memory attributes); a physics-family plan, whose
+        aot_compile refuses, warms by the masked chunk instead."""
         key = (self.key(sim.spec, sim.plan, sim.device, spec_hash), int(n_out))
         with self._lock:
             if key in self._warmed:
                 return 0.0
         t0 = time.perf_counter()
         if aot:
-            sim.aot_compile(n_out=n_out)
+            try:
+                sim.aot_compile(n_out=n_out)
+            except NotImplementedError:  # family plans warm by one masked chunk
+                sim.warmup(n_out=n_out)
         else:
             sim.warmup(n_out=n_out)
         elapsed = time.perf_counter() - t0

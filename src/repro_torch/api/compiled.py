@@ -26,6 +26,18 @@ only; their CUDA kernels build at their first launch (`CompiledSim.warmup`
 forces it, `CompiledSim.aot_compile` does it without a launch). The learn
 tails (kernels/rls.py) are torch code on the same device and stream as the
 integrate.
+
+Physics families (SimSpec.topology != "coupled_array") run through one
+chunk worker per layout (`_tick_chunk_scan_family`,
+`_tick_chunk_planes_family`): every entry point of a family plan is a
+chunk of that worker, so serving's per-tick and chunked paths agree by
+construction.
+time_multiplexed under "chunk" on the card is K x (the feedback product,
+one `sto_step.tm_delay_line` launch); under "ref" (and "chunk" on the CPU or
+with interpret=True) the plain body `kernels.ref.tm_chunk_planes`.
+array_transient under "ref" and "chunk" is one plain body
+(`kernels.ref.rk4_chunk_planes_window`, so ref == chunk bit for bit), and
+under "fused" / "tiled" splits each hold window through their kernels.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ from repro_torch.kernels import _build, ops, sto_step
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rls as krls
 
-from repro_torch.api.plan import ExecPlan
+from repro_torch.api.plan import ExecPlan, check_plan_supports_topology
 from repro_torch.api.spec import SimSpec, validate_topology
 
 PLANES_IMPLS = ("ref", "fused", "tiled", "chunk")
@@ -328,6 +340,143 @@ def _integrate_planes(
 
 
 # ---------------------------------------------------------------------------
+# workers — physics families (SimSpec.topology != "coupled_array")
+# ---------------------------------------------------------------------------
+
+
+def _tick_chunk_scan_family(
+    params_e, w_cp, w_in, m_planes, u_block, mask_block, dt,
+    *, topology, readout_window, hold_steps, tableau_name="rk4",
+):
+    """K-tick family chunk in the core (E, N, 3) layout: the family oracle.
+
+    array_transient: `_tick_chunk_scan`'s coupled dynamics with the hold
+    window split (hold_steps - w) + w, the emitted state the mean of the last
+    w substeps' x-components (readout_window=1 is `_tick_chunk_scan` bit for
+    bit). time_multiplexed: one oscillator per lane (the uncoupled core
+    field); per tick the node drives are the masked input field plus the
+    delayed feedback a_cp * (W^cp @ x_prev), then the loop over the N
+    virtual nodes is the delay line, row j of the state node j's snapshot.
+    Returns ((3, N, E), states (K, N, E))."""
+    m = m_planes.permute(2, 1, 0).contiguous()  # (E, N, 3)
+    tableau = integrators.TABLEAUX[tableau_name]
+    states = []
+    if topology == "time_multiplexed":
+        step = integrators.make_step(lambda mm, h: sto.llg_field(mm, params_e, None, h), tableau)
+        for u_t, mask_t in zip(u_block, mask_block):
+            h = _scan_input_field(params_e, w_in, u_t)  # (E, N); checks full f32
+            h = h + params_e.a_cp * torch.einsum("nj,ej->en", w_cp, m[..., 0])
+            s, snaps = m[:, -1:, :], []  # the carried oscillator (E, 1, 3)
+            for j in range(m.shape[1]):
+                s = _hold(step, s, dt, h[:, j : j + 1], hold_steps)
+                snaps.append(s[:, 0, :])
+            m = torch.where(mask_t[:, None, None], torch.stack(snaps, dim=1), m)
+            states.append(m[..., 0].T)
+        return m.permute(2, 1, 0).contiguous(), torch.stack(states)
+    step = _scan_step(params_e, w_cp, tableau_name)
+    w = int(readout_window)
+    for u_t, mask_t in zip(u_block, mask_block):
+        h_in = _scan_input_field(params_e, w_in, u_t)
+        m_new = _hold(step, m, dt, h_in, hold_steps - w)
+        xs = []
+        for _ in range(w):
+            m_new = step(m_new, dt, h_in)
+            xs.append(m_new[..., 0])
+        state = torch.stack(xs).mean(dim=0) if w > 1 else xs[0]
+        state = torch.where(mask_t[:, None], state, m[..., 0])
+        m = torch.where(mask_t[:, None, None], m_new, m)
+        states.append(state.T)
+    return m.permute(2, 1, 0).contiguous(), torch.stack(states)
+
+
+def _tick_chunk_planes_family(
+    params_e, w_cp, w_in, m_planes, u_block, mask_block,
+    *, topology, readout_window, dt, hold_steps, impl, n_inner, block_n, block_e,
+    interpret, precision="highest",
+):
+    """K-tick family chunk in the kernel (3, N, E) planes layout.
+
+    Every family computes the (K, N, E) input-field block with ONE GEMM a
+    chunk and casts W once under the precision policy; for
+    time_multiplexed that cast lands on the delayed-feedback product, the
+    family's one O(N^2) term. time_multiplexed under "chunk" runs
+    `sto_step.tm_chunk` (the delay-line kernel on the card, the plain body on
+    the CPU), else the plain body. array_transient under "ref" / "chunk" is
+    the plain `rk4_chunk_planes_window`; under "fused" / "tiled" each hold
+    window is (hold - w) steps in one `ops._integrate_planes` call and then w
+    single steps, whose x-planes are averaged."""
+    e = m_planes.shape[-1]
+    pv, a_in = _lane_terms(params_e, e, m_planes)
+    h_block = _input_field(w_in, u_block, a_in, precision)  # (K, N, E)
+    w_c = ops._coupling_operand(w_cp, precision)
+    if topology == "time_multiplexed":
+        if impl == "chunk" and not interpret:
+            return sto_step.tm_chunk(
+                m_planes.contiguous(), w_c, pv, dt, hold_steps, h_block, mask_block
+            )
+        return kref.tm_chunk_planes(m_planes, w_c, pv, dt, hold_steps, h_block, mask_block)
+    if impl in ("ref", "chunk"):
+        return kref.rk4_chunk_planes_window(
+            m_planes, w_c, pv, dt, hold_steps, readout_window, h_block, mask_block
+        )
+    w = int(readout_window)
+    kw = dict(
+        dt=dt, impl=impl, block_n=block_n, block_e=block_e, interpret=interpret,
+        precision=precision,
+    )
+    m, states = m_planes, []
+    for h_t, mask_t in zip(h_block, mask_block):
+        m_new = m
+        if hold_steps > w:
+            m_new = ops._integrate_planes(
+                m, w_cp, pv, h_t, None, n_steps=hold_steps - w,
+                n_inner=min(n_inner, hold_steps - w), **kw,
+            )
+        xs = []
+        for _ in range(w):
+            m_new = ops._integrate_planes(m_new, w_cp, pv, h_t, None, n_steps=1, n_inner=1, **kw)
+            xs.append(m_new[0])
+        state = torch.stack(xs).mean(dim=0) if w > 1 else xs[0]
+        state = torch.where(mask_t[None, :], state, m[0])
+        m = torch.where(mask_t[None, None, :], m_new, m)
+        states.append(state)
+    return m, torch.stack(states)  # (3, N, E), (K, N, E)
+
+
+def _family_learn_tail(mT, states, y_block, lmask_block, p0, w0, learn, knob):
+    """The learn tails are topology-blind: they take the (K, N, E) states
+    block whatever physics made it (learn="rls": knob = lam; "lms": knob =
+    mu, p0 None)."""
+    if learn == "lms":
+        return (mT, states, *_lms_chunk_tail(states, y_block, lmask_block, w0, knob))
+    return (mT, states, *_learn_chunk_tail(states, y_block, lmask_block, p0, w0, knob))
+
+
+def _tick_chunk_scan_family_learn(
+    params_e, w_cp, w_in, m_planes, u_block, mask_block, y_block, lmask_block, p0, w0, dt,
+    *, learn, knob, **family_kw,
+):
+    """`_tick_chunk_scan_family` + the learn tail. Returns (m', states, P',
+    W', preds) for RLS, (m', states, W', preds) for NLMS."""
+    mT, states = _tick_chunk_scan_family(
+        params_e, w_cp, w_in, m_planes, u_block, mask_block, dt, **family_kw
+    )
+    return _family_learn_tail(mT, states, y_block, lmask_block, p0, w0, learn, knob)
+
+
+def _tick_chunk_planes_family_learn(
+    params_e, w_cp, w_in, m_planes, u_block, mask_block, y_block, lmask_block, p0, w0,
+    *, learn, knob, **family_kw,
+):
+    """`_tick_chunk_planes_family` + the learn tail, which runs in the state
+    dtype whatever the precision policy."""
+    mT, states = _tick_chunk_planes_family(
+        params_e, w_cp, w_in, m_planes, u_block, mask_block, **family_kw
+    )
+    return _family_learn_tail(mT, states, y_block, lmask_block, p0, w0, learn, knob)
+
+
+# ---------------------------------------------------------------------------
 # CompiledSim
 # ---------------------------------------------------------------------------
 
@@ -343,6 +492,7 @@ class CompiledSim:
         self.e = plan.ensemble
         self.device = spec.device
         self.topology = spec.topology
+        self._readout_window = int(spec.readout_window)
         self._block_n = plan.block_n or ops.BLOCK_N
         self._block_e = plan.block_e or ops.BLOCK_E
         self._n_inner = plan.n_inner or spec.hold_steps
@@ -456,6 +606,13 @@ class CompiledSim:
             raise ValueError(
                 f"m0 must have shape {tuple(spec.m0.shape)}; got {tuple(m_start.shape)}"
             )
+        if self.topology != "coupled_array":
+            # families drive through their chunk worker: T ticks, one lane
+            mT, states = self._family_chunk_infer(
+                self.ensemble_params(), ops.to_planes(m_start), u_seq[:, None, :],
+                torch.ones((u_seq.shape[0], 1), dtype=torch.bool, device=self.device),
+            )
+            return ops.from_planes(mT, ()), states[:, :, 0]
         if self.impl == "scan":
             # a (1, 1)-leaved ensemble-of-one spec is legal; the solo scan
             # math takes 0-d leaves (the same values)
@@ -481,6 +638,12 @@ class CompiledSim:
         m0_e = self._coerce_batch_m0(m0)
         params_e = self.ensemble_params(params)
         u_e = self._coerce_batch_u(u_seq)
+        if self.topology != "coupled_array":
+            mT, states = self._family_chunk_infer(
+                params_e, ops.to_planes(m0_e), u_e,
+                torch.ones((u_e.shape[0], self.e), dtype=torch.bool, device=self.device),
+            )
+            return ops.from_planes(mT, (self.e,)), states.transpose(1, 2)
         if self.impl == "scan":
             return _drive_scan_batch(
                 params_e, spec.w_cp, spec.w_in, m0_e, u_e, self._dt_scan,
@@ -497,8 +660,16 @@ class CompiledSim:
         """Free-run (u = 0) integration of the E-lane ensemble.
 
         Returns (mT (E, N, 3), traj or None) — traj has shape
-        (n_steps // save_every, E, N, 3) when save_every > 0.
+        (n_steps // save_every, E, N, 3) when save_every > 0. A
+        time_multiplexed plan refuses; array_transient free-runs as the
+        coupled array (its readout window only shapes the emitted states).
         """
+        if self.topology == "time_multiplexed":
+            raise ValueError(
+                "integrate() free-runs the coupled array; a time_multiplexed "
+                "reservoir has no input-free virtual-node evolution — drive "
+                "it with a zero input series instead"
+            )
         m0_e = self._coerce_batch_m0(m0)
         params_e = self.ensemble_params(params)
         if save_every and n_steps % save_every:
@@ -535,6 +706,13 @@ class CompiledSim:
         bit-identical."""
         spec = self.spec
         mask = self._coerce_tick_mask(lane_mask, 1)[0]
+        if self.topology != "coupled_array":
+            # a tick is a one-tick chunk: one body per family keeps serving's
+            # per-tick and chunked paths bit-identical
+            mT, states = self._family_chunk_infer(
+                self.ensemble_params(params), m_planes, self._tensor(u)[None], mask[None]
+            )
+            return mT, states[0]
         if self.impl == "scan":
             return _tick_scan(
                 self.ensemble_params(params), spec.w_cp, spec.w_in, m_planes,
@@ -612,6 +790,10 @@ class CompiledSim:
         lmask_block = (
             mask_block if learn_mask is None else self._coerce_tick_mask(learn_mask, k)
         )
+        if self.topology != "coupled_array":
+            return self._family_chunk_learn(
+                params_e, m_planes, u_block, mask_block, targets, lmask_block, p0, w0
+            )
         if self.plan.learn == "lms":
             if p0 is not None:
                 raise ValueError(
@@ -649,9 +831,65 @@ class CompiledSim:
             )
         return mT, states, (pT, wT), preds
 
+    def _family_kw(self) -> dict:
+        return dict(topology=self.topology, readout_window=self._readout_window)
+
+    def _family_chunk_infer(self, params_e, m_planes, u_block, mask_block):
+        """Inference chunk of a non-coupled family."""
+        spec = self.spec
+        if self.impl == "scan":
+            return _tick_chunk_scan_family(
+                params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block, self._dt_scan,
+                hold_steps=spec.hold_steps, tableau_name=spec.tableau, **self._family_kw(),
+            )
+        return _tick_chunk_planes_family(
+            params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
+            **self._family_kw(), **self._planes_kw(),
+        )
+
+    def _family_chunk_learn(
+        self, params_e, m_planes, u_block, mask_block, targets, lmask_block, p0, w0
+    ):
+        """Learning chunk of a non-coupled family (the (P, W) / preds contract
+        of the coupled learn paths)."""
+        spec, learn = self.spec, self.plan.learn
+        if learn == "lms":
+            if p0 is not None:
+                raise ValueError(
+                    "learn='lms' carries no P block; pass learn_state="
+                    "(None, W) (see init_learn_state)"
+                )
+            knob = self._mu
+        else:
+            if p0 is None or tuple(p0.shape) != (self.e, spec.n + 1, spec.n + 1):
+                raise ValueError(
+                    f"learn_state must be (P ({self.e}, {spec.n + 1}, "
+                    f"{spec.n + 1}), W ({self.e}, {spec.n + 1}, n_out)); got "
+                    f"P={None if p0 is None else tuple(p0.shape)}"
+                )
+            knob = self._lam
+        args = (params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block, targets,
+                lmask_block, p0, w0)
+        if self.impl == "scan":
+            out = _tick_chunk_scan_family_learn(
+                *args, self._dt_scan, learn=learn, knob=knob, hold_steps=spec.hold_steps,
+                tableau_name=spec.tableau, **self._family_kw(),
+            )
+        else:
+            out = _tick_chunk_planes_family_learn(
+                *args, learn=learn, knob=knob, **self._family_kw(), **self._planes_kw()
+            )
+        if learn == "lms":
+            mT, states, wT, preds = out
+            return mT, states, (None, wT), preds
+        mT, states, pT, wT, preds = out
+        return mT, states, (pT, wT), preds
+
     def _tick_chunk_infer(self, params_e, m_planes, u_block, mask_block):
         """Inference-only chunk body (plan.learn is None)."""
         spec = self.spec
+        if self.topology != "coupled_array":
+            return self._family_chunk_infer(params_e, m_planes, u_block, mask_block)
         if self.impl == "scan":
             return _tick_chunk_scan(
                 params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
@@ -704,7 +942,16 @@ class CompiledSim:
         GEMMs, the module of round_bf16_kernel, which takes no attribute)
         stays with the first chunk; `warmup` pays it all. scan / ref /
         interpret plans and CPU plans have nothing to build. n_out is
-        accepted for `warmup`'s signature: the learn tails are torch code."""
+        accepted for `warmup`'s signature: the learn tails are torch code.
+
+        Raises NotImplementedError for a family plan, as the reference's
+        AOT lowering does: a family plan warms by one masked chunk
+        (compile_plan(aot=True) and PLAN_CACHE.warm(aot=True) catch it)."""
+        if self.topology != "coupled_array":
+            raise NotImplementedError(
+                "aot_compile covers coupled_array plans; family plans warm by "
+                "executing one masked chunk (CompiledSim.warmup)"
+            )
         if self.impl not in KERNEL_IMPLS or self.device.type != "cuda" or self.plan.interpret:
             return self
         _build.load()
@@ -721,6 +968,22 @@ class CompiledSim:
 # ---------------------------------------------------------------------------
 # compile_plan
 # ---------------------------------------------------------------------------
+
+
+def family_auto_impl(topology: str, impl: str, device_type: str) -> str:
+    """`auto`'s impl for a physics family, given the dispatch table's choice
+    `impl`. The table ranks the coupled array's impls. The time-multiplexed
+    delay line's kernel is "chunk" on the card, its plain body "ref"
+    elsewhere (the reference picks "ref": on the TPU its ref and chunk are
+    one compiled body, while the port's "ref" is eager torch). For
+    array_transient, "chunk" is the eager plain body
+    (`rk4_chunk_planes_window`), not the chunk kernel, so on the card the
+    table's "chunk" becomes "fused", the same kernel at K = 1."""
+    if topology == "time_multiplexed":
+        return "chunk" if device_type == "cuda" else "ref"
+    if topology == "array_transient" and impl == "chunk" and device_type == "cuda":
+        return "fused"
+    return impl
 
 
 def compile_plan(
@@ -753,7 +1016,11 @@ def compile_plan(
         raise ValueError(
             f"unknown tableau {spec.tableau!r}; choose from {sorted(integrators.TABLEAUX)}"
         )
+    # the spec's family invariants, then the plan/family pairing
+    # (api/plan.FAMILY_IMPLS: the coupled-array kernels cannot express the
+    # time-multiplexed delay line)
     validate_topology(spec)
+    check_plan_supports_topology(plan, spec.topology)
 
     leaf = spec.params.gamma
     if leaf.ndim == 2 and tuple(leaf.shape) != (plan.ensemble, 1):
@@ -784,6 +1051,7 @@ def compile_plan(
             spec.n, plan.ensemble, itemsize, platform=dev.type,
             precision=plan.effective_precision,
         )
+        impl = family_auto_impl(spec.topology, impl, dev.type)
         if spec.tableau != "rk4":
             # the table's impls integrate RK4: another tableau runs the oracle
             impl = "scan"
@@ -807,5 +1075,8 @@ def compile_plan(
         )
     sim = CompiledSim(spec, plan, impl)
     if plan.aot:
-        sim.aot_compile()
+        try:
+            sim.aot_compile()
+        except NotImplementedError:  # family plans warm by one masked chunk
+            sim.warmup()
     return sim

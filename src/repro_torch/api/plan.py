@@ -56,6 +56,38 @@ PLAN_IMPLS = ("auto", "scan", "ref", "fused", "tiled", "chunk")
 PLAN_LEARN = (None, "rls", "lms")
 PLAN_PRECISIONS = (None, "highest", "bf16_coupling", "mixed")
 
+# Which impls can execute which physics family (SimSpec.topology), the
+# reference's table. The coupled-array kernels (fused/tiled) take the N x N
+# coupling product into every RK stage; the time-multiplexed delay line has
+# no such stage product (its feedback is once per tick), so those impls
+# cannot express it and compile_plan refuses the pairing ("auto" resolves
+# around it). Neither family decomposes over a mesh's N axis: families are
+# unsharded.
+FAMILY_IMPLS = {
+    "coupled_array": PLAN_IMPLS,
+    "time_multiplexed": ("auto", "scan", "ref", "chunk"),
+    "array_transient": ("auto", "scan", "ref", "fused", "tiled", "chunk"),
+}
+
+
+def check_plan_supports_topology(plan: "ExecPlan", topology: str) -> None:
+    """Refuse plan/physics-family pairings that have no executable mapping
+    (called by compile_plan after the spec's own validation)."""
+    allowed = FAMILY_IMPLS.get(topology)
+    if allowed is None:
+        raise ValueError(f"unknown topology {topology!r}; expected one of {tuple(FAMILY_IMPLS)}")
+    if topology == "coupled_array":
+        return
+    if plan.mesh is not None:
+        raise ValueError(
+            f"mesh plans shard the coupled array; topology {topology!r} is "
+            "unsharded — scale it across ensemble lanes or engine replicas"
+        )
+    if plan.impl not in allowed:
+        raise ValueError(
+            f"impl {plan.impl!r} cannot execute topology {topology!r}; supported impls: {allowed}"
+        )
+
 
 def _is_dtype(d) -> bool:
     if isinstance(d, torch.dtype):

@@ -47,9 +47,12 @@ def params_from_numpy(params, device="cuda", dtype=None) -> STOParams:
     return STOParams(*(_tensor(v, dev, dtype) for v in leaves))
 
 
-def spec_from_numpy(params, w_cp, w_in, m0, dt, hold_steps, device="cuda") -> SimSpec:
-    """The port's coupled-array SimSpec from the reference SimSpec's leaves
-    as numpy arrays. The state dtype is m0's; params follow it."""
+def spec_from_numpy(
+    params, w_cp, w_in, m0, dt, hold_steps, tableau="rk4", topology="coupled_array",
+    readout_window=0, device="cuda",
+) -> SimSpec:
+    """The port's SimSpec from the reference SimSpec's leaves as numpy arrays
+    (any physics family). The state dtype is m0's; params follow it."""
     dev = resolve_device(device)
     m0_t = _tensor(m0, dev)
     spec = SimSpec(
@@ -59,6 +62,9 @@ def spec_from_numpy(params, w_cp, w_in, m0, dt, hold_steps, device="cuda") -> Si
         m0=m0_t,
         dt=float(dt),
         hold_steps=int(hold_steps),
+        tableau=str(tableau),
+        topology=str(topology),
+        readout_window=int(readout_window),
     )
     validate_topology(spec)
     return spec
@@ -82,12 +88,9 @@ def checkpoint_from_numpy(ckpt) -> SessionCheckpoint:
     SessionCheckpoint's fields (its arrays are already host numpy): a
     session checkpointed on the reference engine then restores on the
     port's through `ReservoirEngine.restore_session`. Arrays are copied;
-    params become 0-d CPU tensors (`params_from_numpy`)."""
-    if getattr(ckpt, "spec", None) is not None:
-        raise NotImplementedError(
-            f"session {ckpt.sid}: a checkpoint carrying its own SimSpec is a "
-            "mixed-spec tenant, not ported yet (ROADMAP queue 1 item 8)"
-        )
+    params become 0-d CPU tensors (`params_from_numpy`), and a mixed-spec
+    tenant's spec a SimSpec on the CPU (`spec_from_numpy`), which routes the
+    restored session as the reference's engine routed it."""
 
     def arr(x):
         return None if x is None else np.array(x)
@@ -110,6 +113,17 @@ def checkpoint_from_numpy(ckpt) -> SessionCheckpoint:
         preds=arr(ckpt.preds),
         P=arr(ckpt.P),
         Wl=arr(ckpt.Wl),
+        spec=None if ckpt.spec is None else _spec_from_leaves(ckpt.spec),
+    )
+
+
+def _spec_from_leaves(spec) -> SimSpec:
+    """A SimSpec on the CPU from an object with the reference SimSpec's
+    fields (numpy or array leaves)."""
+    return spec_from_numpy(
+        spec.params, spec.w_cp, spec.w_in, spec.m0, spec.dt, spec.hold_steps,
+        tableau=spec.tableau, topology=spec.topology,
+        readout_window=spec.readout_window, device="cpu",
     )
 
 

@@ -26,7 +26,7 @@ import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sto_rk4.cu", "flash_attention.cu")
+SOURCES = ("sto_rk4.cu", "flash_attention.cu", "sto_delay_line.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +42,7 @@ _LOCK = threading.Lock()
 # each wrapper adds one to its entry where it launches its kernel.
 LAUNCHES = {
     "rk4_chunk": 0, "rk4_fused": 0, "field_tiled": 0, "round_bf16": 0, "flash_attention": 0,
+    "tm_delay_line": 0,
 }
 # what the last build printed (ptxas registers / shared memory / spills);
 # None when the library came from the cache
@@ -76,6 +77,8 @@ _SIGNATURES = {
         _I,
     ),
     "flash_bf16_config": ((_I, _P), _I),
+    "sto_tm_lanes": ((), _I),
+    "sto_tm_delay_line": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P), _I),
 }
 
 

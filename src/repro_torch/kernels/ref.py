@@ -153,3 +153,106 @@ def rk4_chunk_planes(
         m = torch.where(mask_block[t][None, None, :], m_new, m)
         states.append(m[0])
     return m, torch.stack(states)
+
+
+# ---------------------------------------------------------------------------
+# Physics families (SimSpec.topology): planes-layout chunk bodies
+# ---------------------------------------------------------------------------
+
+
+def rk4_chunk_planes_window(
+    m,  # (3, N, E) state
+    w_cp,  # (N, N) — pre-cast by the caller for reduced-precision coupling
+    pvec,  # (NP, E)
+    dt,
+    hold_steps: int,
+    readout_window: int,
+    h_block,  # (K, N, E) per-tick input-drive x-fields
+    mask_block,  # (K, E) bool; False = lane frozen that tick
+):
+    """topology="array_transient" chunk body (Kanao et al., arXiv:1905.07937).
+
+    The coupled-array dynamics of `rk4_chunk_planes`; only the emitted
+    per-tick state differs: the mean of the m_x plane over the LAST
+    `readout_window` RK substeps of the hold window instead of the endpoint.
+    The hold window is split (hold_steps - w) + w with the same per-step op
+    sequence, so readout_window=1 is bit-identical to `rk4_chunk_planes`.
+    Returns (m' (3, N, E), states (K, N, E)).
+    """
+    dt_c = torch.full((), float(dt), dtype=m.dtype, device=m.device)
+    w = int(readout_window)
+    states = []
+    for t in range(h_block.shape[0]):
+        m_new = m
+        for _ in range(hold_steps - w):
+            m_new = rk4_step_planes(m_new, w_cp, pvec, dt_c, h_block[t])
+        xs = []
+        for _ in range(w):
+            m_new = rk4_step_planes(m_new, w_cp, pvec, dt_c, h_block[t])
+            xs.append(m_new[0])
+        state = torch.stack(xs).mean(dim=0) if w > 1 else xs[0]
+        keep = mask_block[t]
+        state = torch.where(keep[None, :], state, m[0])
+        m = torch.where(keep[None, None, :], m_new, m)
+        states.append(state)
+    return m, torch.stack(states)
+
+
+def tm_feedback(h_ext, w_cp, x_prev, pvec):
+    """A time-multiplexed tick's node drives (N, E): the masked input field
+    plus the delayed feedback a_cp * (W^cp @ x_prev) from the previous
+    tick's snapshots, under the precision policy (a pre-cast w_cp)."""
+    return h_ext + pvec[PARAM_LAYOUT.index("a_cp")] * coupling_dot(w_cp, x_prev, x_prev.dtype)
+
+
+def tm_delay_line_plain(s0, h_t, pvec, dt, hold_steps: int):
+    """One tick's delay line, every lane: the carried oscillator s0 (3, E)
+    runs hold_steps RK4 steps under node j's drive h_t[j] (E,) for j = 0 ..
+    N-1 in turn, and its state after node j is snapshot j. Returns the
+    snapshots (3, N, E). The plain version of `sto_step.tm_delay_line`.
+
+    A single oscillator has no array coupling: its field is
+    `llg_field_planes` with a (1, 1) zero W, whose coupling term a_cp * (0
+    x) = +-0 changes nothing. dt enters as a 0-d f32 tensor on the CPU, so
+    the RK4 coefficients dt / 2 and dt / 6 are rounded on the host whatever
+    device the planes are on (the CUDA kernel takes them from the host too).
+    """
+    dt_c = torch.full((), float(dt), dtype=s0.dtype)
+    w_zero = torch.zeros((1, 1), dtype=s0.dtype, device=s0.device)
+    s = s0.reshape(3, 1, -1)
+    snaps = []
+    for j in range(h_t.shape[0]):
+        h_j = h_t[j : j + 1]
+        for _ in range(hold_steps):
+            s = rk4_step_planes(s, w_zero, pvec, dt_c, h_j)
+        snaps.append(s[:, 0])
+    return torch.stack(snaps, dim=1)
+
+
+def tm_chunk_planes(
+    m,  # (3, N, E) virtual-node snapshots; row N-1 carries the oscillator
+    w_cp,  # (N, N) feedback mixing — pre-cast for reduced-precision coupling
+    pvec,  # (NP, E)
+    dt,
+    hold_steps: int,
+    h_block,  # (K, N, E) per-tick masked-input x-fields A_in (W^in u)
+    mask_block,  # (K, E) bool; False = lane frozen that tick
+):
+    """topology="time_multiplexed" chunk body (Riou et al., arXiv:1904.11236).
+
+    ONE physical oscillator per lane; its N virtual nodes are its snapshots
+    at the ends of consecutive hold windows. Per tick the node drives are
+    the masked input field plus the delayed feedback from the previous
+    tick's snapshots (`tm_feedback`; w_cp = I is the classic delay line),
+    then the delay line itself (`tm_delay_line_plain`): sequential over the
+    N nodes, independent across lanes. A lane masked False comes back
+    bit-identical. Returns (m' (3, N, E), states (K, N, E)).
+    """
+    n = m.shape[1]
+    states = []
+    for t in range(h_block.shape[0]):
+        h_t = tm_feedback(h_block[t], w_cp, m[0], pvec)
+        m_new = tm_delay_line_plain(m[:, n - 1], h_t, pvec, dt, hold_steps)
+        m = torch.where(mask_block[t][None, None, :], m_new, m)
+        states.append(m[0])
+    return m, torch.stack(states)

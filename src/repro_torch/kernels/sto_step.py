@@ -1,4 +1,4 @@
-"""Wrappers around the hand-written CUDA kernels for the coupled-STO RK4 step.
+"""Wrappers around the hand-written CUDA kernels for the STO RK4 step.
 
 Three kernels (kernels/csrc/sto_rk4.cu), one per regime, each replacing
 the Pallas kernel of the same name in the reference's kernels/sto_step.py:
@@ -22,6 +22,13 @@ the Pallas kernel of the same name in the reference's kernels/sto_step.py:
    elementwise torch op runs between them. For a bf16 W, a small kernel
    (`round_bf16_kernel`, counted under LAUNCHES["round_bf16"]) first rounds
    the f32 x-plane the caller gives (field_tiled) or m^x (rk4_tiled_step).
+
+A fourth kernel (kernels/csrc/sto_delay_line.cu) runs the time-multiplexed
+family's delay line: `tm_delay_line` is one tick of it for every lane (one
+thread a lane, the oscillator in registers), and `tm_chunk` K ticks, each
+the feedback product (torch.matmul) and one launch. It replaces the node
+loop of the reference's plain-jnp `tm_chunk_planes`, which XLA compiles
+into one device loop on the TPU, and gives its plain version's bits.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with torch.empty, launches on the current stream,
@@ -531,6 +538,73 @@ def rk4_chunk(
         "rk4_chunk", m, w_cp, params, dt, hold_steps, h_block, n * e, mask_block, states
     )
     return m_out, states
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: the time-multiplexed delay line (csrc/sto_delay_line.cu)
+# ---------------------------------------------------------------------------
+
+
+def tm_coefficients(dt: float) -> Tuple[float, float, float]:
+    """dt, dt / 2 and dt / 6 rounded to f32 as `kref.tm_delay_line_plain`
+    rounds them (on the host, from a 0-d f32 tensor), for the kernel."""
+    dt_c = torch.full((), float(dt), dtype=torch.float32)
+    return float(dt_c), float(0.5 * dt_c), float(dt_c / 6.0)
+
+
+def tm_delay_line(
+    m: torch.Tensor,  # (3, N, E) the previous tick's snapshots; row N-1 carries the oscillator
+    h_t: torch.Tensor,  # (N, E) node drives (kref.tm_feedback)
+    params: torch.Tensor,  # (NP, E)
+    dt: float,
+    hold_steps: int,
+    mask: torch.Tensor = None,  # (E,) f32 0/1; None = every lane live
+) -> torch.Tensor:
+    """One tick's delay line for every lane: the oscillator m[:, N-1, e]
+    runs hold_steps RK4 steps under each node's drive in turn, snapshot j
+    after node j. A lane masked 0 comes back bit-identical. Returns
+    m' (3, N, E)."""
+    _, n, e = m.shape
+    if _on_cpu(m):
+        snaps = kref.tm_delay_line_plain(m[:, n - 1], h_t, params, dt, hold_steps)
+        return snaps if mask is None else torch.where(mask[None, None, :] > 0.5, snaps, m)
+    planes = dict(h_t=h_t, params=params) if mask is None else dict(h_t=h_t, params=params, mask=mask)
+    _check_cuda("tm_delay_line", m=m, **planes)
+    if h_t.shape != (n, e) or params.shape != (NP, e) or (mask is not None and mask.shape != (e,)):
+        raise ValueError("tm_delay_line: h_t (N, E), params (NP, E), mask (E,) expected")
+    out = torch.empty_like(m)
+    dt32, half, sixth = tm_coefficients(dt)
+    err = _lib().sto_tm_delay_line(
+        _ptr(m), _ptr(h_t), _ptr(params), None if mask is None else _ptr(mask), _ptr(out),
+        n, e, int(hold_steps), dt32, half, sixth, _stream(m.device),
+    )
+    _raise_on(err, "tm_delay_line")
+    _build.count_launch("tm_delay_line")
+    return out
+
+
+def tm_chunk(
+    m: torch.Tensor,  # (3, N, E)
+    w_cp: torch.Tensor,  # (N, N) feedback mixing, pre-cast for reduced precision
+    params: torch.Tensor,  # (NP, E)
+    dt: float,
+    hold_steps: int,
+    h_block: torch.Tensor,  # (K, N, E) masked-input fields
+    mask_block: torch.Tensor,  # (K, E) bool
+):
+    """K time-multiplexed ticks: per tick the feedback product
+    (`kref.tm_feedback`, torch.matmul under the precision policy, as the
+    reference leaves it to jnp.dot) and one `tm_delay_line` launch. On the
+    CPU, `kref.tm_chunk_planes`. Returns (m' (3, N, E), states (K, N, E))."""
+    if _on_cpu(m):
+        return kref.tm_chunk_planes(m, w_cp, params, dt, hold_steps, h_block, mask_block)
+    masks = mask_block.to(m.dtype)
+    states = []
+    for t in range(h_block.shape[0]):
+        h_t = kref.tm_feedback(h_block[t], w_cp, m[0], params)
+        m = tm_delay_line(m, h_t, params, dt, hold_steps, masks[t])
+        states.append(m[0])
+    return m, torch.stack(states)
 
 
 # ---------------------------------------------------------------------------

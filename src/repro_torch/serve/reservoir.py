@@ -45,8 +45,14 @@ autoscaling engine warms the buckets adjacent to its width in a daemon
 thread (`prewarm_buckets`), so a rescale at a chunk boundary finds its
 bucket's first dispatch already paid.
 
-Not ported yet: mixed-spec sub-engines (ROADMAP queue 1 item 8) and
-autotune (item 10).
+Mixed-spec tenancy: a session may carry its own SimSpec. The engine routes
+it by structural hash: the template's hash serves it in a primary lane (the
+spec's scalar params become the lane's values); another hash (another
+physics family, other shapes) lands on an internal sub-engine compiled for
+that spec through PLAN_CACHE, one per hash, which `step_chunk` advances in
+lockstep and whose results surface in this engine's `results`.
+
+Not ported yet: autotune (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -61,7 +67,15 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.api import PLAN_CACHE, CompiledSim, ExecPlan, SimSpec, spec_structural_hash
+from repro_torch.api import (
+    FAMILY_IMPLS,
+    PLAN_CACHE,
+    CompiledSim,
+    ExecPlan,
+    SimSpec,
+    spec_structural_hash,
+)
+from repro_torch.api.cache import _params_equal
 from repro_torch.core.constants import STOParams
 from repro_torch.core.reservoir import Readout, coerce_input_series
 from repro_torch.serve.scheduler import AutoscalePolicy, QueueDepthPolicy, SlotScheduler
@@ -92,8 +106,15 @@ class StreamSession:
     `open=True` marks a PUSH stream: the session stays resident after its
     input is exhausted (its lane idles, state frozen) until
     `engine.append_ticks(sid, ...)` supplies more rows or
-    `engine.close_session(sid)` lets it finish. `spec` (mixed-spec tenancy)
-    is not ported yet and raises at submit.
+    `engine.close_session(sid)` lets it finish.
+
+    `spec` (mixed-spec tenancy): a session that carries its own SimSpec is
+    routed by structural hash. The template's hash means the template's
+    physics: the session rides a primary lane, the spec's scalar params
+    becoming its lane values unless `params` is set (explicit wins). Another
+    hash (another topology family, other N / dt / hold_steps / w_cp ...)
+    lands on an internal sub-engine compiled for that spec. None: the
+    engine's template spec.
     """
 
     sid: int
@@ -174,8 +195,8 @@ class SessionCheckpoint:
     preds: Optional[np.ndarray]  # (t, q) harvested prefix
     P: Optional[np.ndarray]  # (S, S) in-flight RLS inverse-Gram
     Wl: Optional[np.ndarray]  # (S, q) in-flight learned weights, unpadded
-    # the session's own SimSpec (mixed-spec tenancy, ROADMAP queue 1 item 8):
-    # always None on this engine
+    # a mixed-spec tenant's own SimSpec, its tensors on the CPU (so the
+    # checkpoint pickles); restore_session re-routes from it
     spec: Optional[SimSpec] = None
 
 
@@ -207,6 +228,10 @@ class EngineStats:
     chunk_median_s: Optional[float]  # median wall time of recent chunks
     chunks_timed: int
     ticks_per_sec: Optional[float]  # E * K / chunk_median_s
+    # mixed-spec tenancy: internal sub-engines serving sessions whose spec
+    # hash differs from the template's
+    sub_engines: int = 0
+    # lanes the nan guard quarantined, sub-engines included
     quarantined_lanes: int = 0
 
 
@@ -278,6 +303,13 @@ def _apply_readouts_chunk(states_block, w_out):
     (`step()`)."""
     xb = _with_bias(states_block)
     return torch.stack([_apply_readouts(xb[t], w_out) for t in range(xb.shape[0])])
+
+
+def _spec_host(spec: Optional[SimSpec]) -> Optional[SimSpec]:
+    """A session's SimSpec with every tensor on the CPU, for a checkpoint
+    (it pickles without a card). It hashes as the original, so a restore
+    routes to the same sub-engine."""
+    return None if spec is None else spec.to("cpu")
 
 
 def _bucket_slots(demand: int, min_slots: int, max_slots: int) -> int:
@@ -482,19 +514,74 @@ class ReservoirEngine:
         self.prewarm_errors: List[Tuple[int, str]] = []
         if self._prewarm_enabled and self.autoscale is not None:
             self.prewarm_buckets()
+        # mixed-spec tenancy: one sub-engine per foreign structural hash
+        self._subengines: Dict[str, "ReservoirEngine"] = {}
 
     @property
     def num_slots(self) -> int:
         return self.store.num_slots
 
+    # -- mixed-spec tenancy ------------------------------------------------------
+
+    def _route_spec(self, session: StreamSession) -> Optional["ReservoirEngine"]:
+        """The engine that serves a spec-carrying session: None for this one
+        (the spec's structural hash is the template's, which leaves scalar
+        param values out: they ride the session's lane), else the sub-engine
+        of its hash, built on first use."""
+        spec = session.spec
+        if spec.params.gamma.ndim != 0:
+            raise ValueError(
+                f"session {session.sid}: a session spec must carry "
+                f"scalar-leaved params (per-lane values are the lane's job; "
+                f"ensemble-leaved sweeps belong on the engine template)"
+            )
+        h = spec_structural_hash(spec)
+        if h == self._spec_hash:
+            # the template's physics in a primary lane: the spec's scalar
+            # params become the lane's unless the session pinned its own
+            if session.params is None and not _params_equal(spec.params, self.res.params):
+                session.params = spec.params
+            return None
+        sub = self._subengines.get(h)
+        if sub is None:
+            sub = self._subengines[h] = self._make_subengine(spec, h)
+        return sub
+
+    def _make_subengine(self, spec: SimSpec, spec_hash: str) -> "ReservoirEngine":
+        """A sub-engine for a structurally different spec: the template's
+        plan at this engine's min_slots width, drawn through PLAN_CACHE (two
+        engines serving the same foreign spec share its CompiledSim). An impl
+        the spec's family cannot run (a fused or tiled template serving a
+        time_multiplexed tenant) becomes "auto", which compile_plan resolves
+        to one it can; so does a chunk template serving an array_transient
+        tenant, whose "chunk" is the eager plain body, not a kernel."""
+        plan = self.sim.plan
+        impl = plan.impl
+        if impl not in FAMILY_IMPLS[spec.topology] or (
+            spec.topology == "array_transient" and impl == "chunk"
+        ):
+            impl = "auto"
+        sim = PLAN_CACHE.get_or_compile(
+            spec, dataclasses.replace(plan, ensemble=self.min_slots, impl=impl),
+            device=self.device, spec_hash=spec_hash,
+        )
+        return ReservoirEngine(
+            sim, n_out=self.store.n_out, max_retained=self.max_retained,
+            nan_guard=self.nan_guard, prewarm=False,
+        )
+
     # -- session lifecycle -------------------------------------------------
 
     def submit(self, session: StreamSession) -> None:
         if session.spec is not None:
-            raise NotImplementedError(
-                f"session {session.sid}: StreamSession.spec is not ported yet "
-                "(ROADMAP queue 1 item 8, mixed-spec tenancy)"
-            )
+            sub = self._route_spec(session)
+            if sub is not None:
+                sub._enqueue(session)
+                return
+        self._enqueue(session)
+
+    def _enqueue(self, session: StreamSession) -> None:
+        """Validate a session routed to this engine and queue it."""
         # the engine assembles u blocks host-side, so the series stays numpy
         store = self.store
         u = coerce_input_series(session.u_seq, store.n_in, store.np_dtype, xp=np)
@@ -851,6 +938,11 @@ class ReservoirEngine:
                 "path only — drive the engine with run() or step_chunk() "
                 "(chunk_ticks=1 keeps per-tick semantics)"
             )
+        if self._subengines:
+            raise RuntimeError(
+                "mixed-spec tenants are served on the chunked path only — "
+                "drive the engine with run() or step_chunk()"
+            )
         self._admit_pending()
         running = self.scheduler.running
         if not running:
@@ -1128,7 +1220,17 @@ class ReservoirEngine:
         self._pending = plan
         if plan is not None:
             self._chunk_times.append(time.perf_counter() - t0)
-        return plan is not None
+        progress = plan is not None
+        # the mixed-spec tenants advance in lockstep; their finished sessions
+        # surface in this engine's results
+        for sub in self._subengines.values():
+            progress = sub.step_chunk() or progress
+            if sub.results:
+                self.results.update(sub.pop_results())
+        if self._subengines and self.max_retained is not None:
+            while len(self.results) > self.max_retained:
+                self.results.pop(next(iter(self.results)))
+        return progress
 
     def quiesce(self) -> None:
         """Drain the pipeline without launching new work: harvest the
@@ -1141,6 +1243,10 @@ class ReservoirEngine:
             self._pending = None
         self._retire_finishers()
         self._finalize_awaiting()
+        for sub in self._subengines.values():
+            sub.quiesce()
+            if sub.results:
+                self.results.update(sub.pop_results())
 
     def run(self, sessions: Optional[List[StreamSession]] = None) -> Dict[int, SessionResult]:
         """Serve sessions to completion; returns sid -> SessionResult."""
@@ -1165,10 +1271,15 @@ class ReservoirEngine:
         raise KeyError(f"no live session with sid {sid}")
 
     def _owner(self, sid: int) -> "ReservoirEngine":
-        """The engine holding sid: this one, until mixed-spec sub-engines
-        (ROADMAP queue 1 item 8) exist. Raises KeyError when unknown."""
-        self._find_session(sid)
-        return self
+        """The engine holding sid: this one, or the sub-engine its spec
+        routed it to. Raises KeyError when no engine knows it."""
+        for eng in (self, *self._subengines.values()):
+            try:
+                eng._find_session(sid)
+                return eng
+            except KeyError:
+                continue
+        raise KeyError(f"no live session with sid {sid}")
 
     def append_ticks(self, sid: int, u, targets=None) -> None:
         """Feed more input rows to an OPEN (push) stream.
@@ -1176,7 +1287,10 @@ class ReservoirEngine:
         The rows join the session's stream at its tail; an idle lane picks
         them up at the next chunk boundary. Learning sessions must push
         matching target rows (and inference sessions must not)."""
-        _, sess = self._owner(sid)._find_session(sid)
+        eng = self._owner(sid)
+        if eng is not self:
+            return eng.append_ticks(sid, u, targets)
+        _, sess = self._find_session(sid)
         if not sess.open:
             raise ValueError(
                 f"session {sid} is not an open stream — submit it with "
@@ -1281,6 +1395,7 @@ class ReservoirEngine:
                     preds=cat(sess._preds) if learning else None,
                     P=P,
                     Wl=Wl,
+                    spec=_spec_host(sess.spec),
                 )
             )
         if detach:
@@ -1300,25 +1415,34 @@ class ReservoirEngine:
         SessionResult is recorded). It restores into any engine of the same
         spec through `restore_session`. Quiesces the pipeline first."""
         self.quiesce()
-        slot, sess = self._owner(sid)._find_session(sid)
+        eng = self._owner(sid)
+        if eng is not self:
+            return eng.checkpoint_session(sid)
+        slot, sess = self._find_session(sid)
         return self._freeze_sessions([(slot, sess)], detach=True)[0]
 
     def snapshot_sessions(self) -> List[SessionCheckpoint]:
         """Non-destructive checkpoints of EVERY live session, running and
-        queued. Quiesces the pipeline first; every session keeps serving,
-        and its stream is bit-identical to one that was never snapshotted.
+        queued, sub-engines included. Quiesces the pipeline first; every
+        session keeps serving, and its stream is bit-identical to one that
+        was never snapshotted.
         Sessions the nan guard flagged are left out, so a restore never
         resurrects a poisoned stream."""
         self.quiesce()
         live = [(slot, s) for slot, s in self.scheduler.running.items() if s._error is None]
         live += [(None, s) for s in self.scheduler.queue if s._error is None]
-        return self._freeze_sessions(live, detach=False)
+        out = self._freeze_sessions(live, detach=False)
+        for sub in self._subengines.values():
+            out.extend(sub.snapshot_sessions())
+        return out
 
     def restore_session(self, ckpt: SessionCheckpoint) -> StreamSession:
         """Resume a checkpointed session on THIS engine: submit it with the
         frozen magnetization as m0 and the learner in flight as its learn
         resume (P, Wl), then seed the served prefix so the final
-        SessionResult covers the whole stream."""
+        SessionResult covers the whole stream. A checkpoint that carries its
+        spec routes as a submitted session does (possibly onto a sub-engine
+        of this engine)."""
         readout = None
         if ckpt.readout_w is not None:
             readout = Readout(w_out=torch.from_numpy(np.array(ckpt.readout_w)), washout=ckpt.readout_washout)
@@ -1373,5 +1497,7 @@ class ReservoirEngine:
             chunk_median_s=median,
             chunks_timed=len(timed),
             ticks_per_sec=None if not median else self.num_slots * self.chunk_ticks / median,
-            quarantined_lanes=sched.stats.quarantined_lanes,
+            sub_engines=len(self._subengines),
+            quarantined_lanes=sched.stats.quarantined_lanes
+            + sum(sub.scheduler.stats.quarantined_lanes for sub in self._subengines.values()),
         )

@@ -126,8 +126,12 @@ def test_unported_paths_raise_not_implemented():
         compile_plan(st._replace(tableau="rk2"), device="cpu")
     with pytest.raises(ValueError, match="unknown tableau"):
         jcompile(sj._replace(tableau="rk2"))
+    # the physics families are served; sharded plans still wait (item 12),
+    # for a family spec as for the coupled array
+    assert make_spec(8, topology="time_multiplexed", device="cpu").topology == "time_multiplexed"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_spec(8, topology="time_multiplexed", device="cpu")
+        compile_plan(make_spec(8, topology="time_multiplexed", device="cpu"),
+                     ExecPlan(mesh=object()), device="cpu")
     sim = compile_plan(st, ExecPlan(impl="ref", ensemble=2), device="cpu")
     with pytest.raises(ValueError):
         sim.tick_chunk(

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (coupled-STO RK4 and flash attention) against
-their plain PyTorch versions on a card, and the online learners and the scan
-oracle there.
+"""The port's CUDA kernels (coupled-STO RK4, the time-multiplexed delay line
+and flash attention) against their plain PyTorch versions on a card, and the
+online learners, the scan oracle and the physics families' engines there.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -12,7 +12,9 @@ Tolerances: state STATE_ATOL = 5e-5 over one short chunk (and over a short
 engine run), for an f32 and a bf16 W (FP32 sums in another order than cuBLAS); the coupling's share of the
 state or of field_tiled's slopes, f(W) - f(0), COUPLING_RTOL = 2e-3 relative
 to its largest magnitude; slopes (~1e10 Oe/s) SLOPE_RTOL = 1e-5 relative to
-their largest magnitude; frozen lanes exact.
+their largest magnitude; frozen lanes exact. The delay-line kernel rounds
+every op as its plain version does: bit-equal to it, on the card and on the
+CPU.
 """
 
 import functools
@@ -921,3 +923,128 @@ def test_serving_beside_the_prewarm_thread_on_the_card(cuda, backend):
         a, b = got[True][sid], got[False][sid]
         for x, y in ((a.states, b.states), (a.final_m, b.final_m), (a.outputs, b.outputs)):
             assert np.array_equal(x, y), sid
+
+
+# ---------------------------------------------------------------------------
+# the time-multiplexed delay line (kernels/csrc/sto_delay_line.cu)
+# ---------------------------------------------------------------------------
+
+
+def _delay_line_inputs(dev, n, e, seed=0):
+    """One tick's operands: snapshots on the unit sphere, node drives,
+    per-lane params, lanes 0 and 5 frozen."""
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(3, n, e))
+    m /= np.linalg.norm(m, axis=0, keepdims=True)
+    params = broadcast_params(
+        constants.default_params(torch.float64, device="cpu"), e,
+        current=rng.uniform(2e-3, 3e-3, e),
+    )
+    pv = kref.pack_params(params, e, torch.float32)
+    h = rng.uniform(-0.5, 0.5, (n, e))
+    mask = np.ones(e)
+    mask[[0, 5]] = 0
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32)  # noqa: E731
+    return [t.to(dev).contiguous() for t in (as_t(m), as_t(h), pv, as_t(mask))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e", [(7, 37), (96, 64)])
+def test_tm_delay_line_is_bit_equal_to_plain(cuda, n, e):
+    """The kernel against tm_delay_line_plain on the card and on the CPU:
+    bit-equal; frozen lanes keep their bits; one launch."""
+    m, h, pv, mask = _delay_line_inputs(cuda, n, e)
+    sto_step.reset_launches()
+    out = sto_step.tm_delay_line(m, h, pv, DT, 3, mask)
+    assert sto_step.LAUNCHES["tm_delay_line"] == 1
+    plain = kref.tm_delay_line_plain(m[:, n - 1], h, pv, DT, 3)
+    live = mask > 0.5
+    assert torch.equal(out[:, :, ~live], m[:, :, ~live])
+    assert torch.equal(out[:, :, live], plain[:, :, live])
+    cpu = kref.tm_delay_line_plain(m[:, n - 1].cpu(), h.cpu(), pv.cpu(), DT, 3)
+    assert torch.equal(out[:, :, live].cpu(), cpu[:, :, live.cpu()])
+    assert torch.equal(sto_step.tm_delay_line(m, h, pv, DT, 3), plain)
+
+
+@pytest.mark.cuda
+def test_tm_chunk_is_bit_equal_to_plain(cuda):
+    """K ticks: the feedback product (torch.matmul) and one launch each,
+    against the plain chunk body, f32 and bf16 feedback W."""
+    n, e, k = 48, 40, 3
+    m, h, pv, _ = _delay_line_inputs(cuda, n, e, seed=1)
+    rng = np.random.default_rng(2)
+    hb = torch.as_tensor(rng.uniform(0, 0.5, (k, n, e)), dtype=torch.float32).to(cuda)
+    mask = torch.as_tensor(rng.uniform(size=(k, e)) > 0.3).to(cuda)
+    w = torch.eye(n, device=cuda) + 0.1 * torch.as_tensor(rng.normal(size=(n, n)),
+                                                           dtype=torch.float32).to(cuda)
+    for w_k in (w, w.to(torch.bfloat16)):
+        sto_step.reset_launches()
+        mk, sk = sto_step.tm_chunk(m, w_k, pv, DT, 2, hb, mask)
+        assert sto_step.LAUNCHES["tm_delay_line"] == k
+        mp, sp = kref.tm_chunk_planes(m, w_k, pv, DT, 2, hb, mask)
+        assert torch.equal(mk, mp) and torch.equal(sk, sp)
+
+
+@pytest.mark.cuda
+def test_tm_delay_line_refuses_f64(cuda):
+    m, h, pv, _ = _delay_line_inputs(cuda, 8, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sto_step.tm_delay_line(m.double(), h, pv, DT, 1)
+
+
+def _family_sessions(n, count=10, seed=0):
+    from repro_torch.core.reservoir import Readout
+    from repro_torch.serve.reservoir import StreamSession
+
+    rows = _infer_rows(n, count, seed)
+    return lambda: [StreamSession(sid=sid, u_seq=u.copy(), readout=Readout(torch.from_numpy(w), 0))
+                    for sid, u, w in rows]
+
+
+@pytest.mark.cuda
+def test_time_multiplexed_engine_launches_the_delay_line(cuda):
+    """A time_multiplexed engine on "chunk" (and "auto", which resolves to
+    it on the card) launches tm_delay_line and equals its interpret=True
+    run (the plain body) bit for bit."""
+    from repro_torch.api import make_time_multiplexed_spec
+    from repro_torch.serve.reservoir import ReservoirEngine
+
+    spec = make_time_multiplexed_spec(24, hold_steps=2, device=cuda)
+    make = _family_sessions(24)
+    got = {}
+    for backend, interpret in (("chunk", False), ("auto", False), ("chunk", True)):
+        eng = ReservoirEngine(spec, num_slots=4, backend=backend, chunk_ticks=3,
+                              interpret=interpret, device=cuda)
+        assert eng.backend == "chunk"
+        sto_step.reset_launches()
+        got[backend, interpret] = eng.run(make())
+        launched = sto_step.LAUNCHES["tm_delay_line"]
+        assert (launched == 0) if interpret else (launched > 0), dict(sto_step.LAUNCHES)
+    for sid in got["chunk", True]:
+        for a in (got["chunk", False][sid], got["auto", False][sid]):
+            b = got["chunk", True][sid]
+            for x, y in ((a.states, b.states), (a.final_m, b.final_m), (a.outputs, b.outputs)):
+                assert np.array_equal(x, y), sid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,kernel", [("fused", "rk4_fused"), ("tiled", "field_tiled")])
+def test_array_transient_engine_through_the_kernels(cuda, backend, kernel):
+    """array_transient on fused / tiled splits each hold window through the
+    coupled kernels: launches them, within STATE_ATOL of interpret=True."""
+    from repro_torch.api import make_array_transient_spec
+    from repro_torch.serve.reservoir import ReservoirEngine
+
+    spec = make_array_transient_spec(96, readout_window=2, hold_steps=3, device=cuda)
+    make = _family_sessions(96, seed=1)
+    got = {}
+    for interpret in (False, True):
+        eng = ReservoirEngine(spec, num_slots=4, backend=backend, chunk_ticks=3,
+                              interpret=interpret, device=cuda)
+        sto_step.reset_launches()
+        got[interpret] = eng.run(make())
+        assert (sto_step.LAUNCHES[kernel] == 0) == interpret, dict(sto_step.LAUNCHES)
+    for sid in got[True]:
+        a, b = got[False][sid], got[True][sid]
+        assert np.abs(a.states - b.states).max() <= STATE_ATOL
+        assert np.abs(a.final_m - b.final_m).max() <= STATE_ATOL

@@ -8,13 +8,10 @@ Restates tests/conformance/test_hash_guard.py's nine cases:
      readout_window, coupling contents) hash apart, while scalar param
      VALUES (per-lane inputs) do not move the hash.
 
-The port serves only the coupled_array family (time_multiplexed and
-array_transient wait for ROADMAP queue 1 item 8), but a SimSpec of another
-family can be built and hashed without running it: the family specs here
-are the reference's makers restated (and each hashes as the reference's
-own), and the end-to-end case checks that the port's cache keeps the
-families apart and refuses to compile the unported one. No tolerance is
-involved.
+The family specs here are the reference's makers restated (each hashes as
+the reference's own), and the end-to-end case checks that the port's cache
+keeps two same-shape families apart: two cache lines, two CompiledSims. No
+tolerance is involved.
 """
 
 import collections
@@ -126,20 +123,19 @@ class TestSeparation:
 
 class TestCacheEndToEnd:
     def test_families_never_share_a_cache_line(self):
-        """Two same-shape, different-family specs under one plan key to two
-        cache lines; the served family compiles once and hits after, the
-        unported one is refused at its compile and leaves no entry."""
+        """get_or_compile on two same-shape, different-family specs under one
+        plan yields two distinct CompiledSims on two cache lines."""
         cache = PlanCache(capacity=8)
         plan = ExecPlan(impl="ref", ensemble=1, chunk_ticks=2)
         ca = _coupled(5, 3)
         tm = _time_multiplexed(5, 3)
         assert cache.key(ca, plan, "cpu") != cache.key(tm, plan, "cpu")
         sim_ca = cache.get_or_compile(ca, plan, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cache.get_or_compile(tm, plan, device="cpu")
-        assert len(cache) == 1
+        sim_tm = cache.get_or_compile(tm, plan, device="cpu")
+        assert sim_ca is not sim_tm and sim_tm.topology == "time_multiplexed"
+        assert len(cache) == 2
         assert cache.stats.misses == 2 and cache.stats.hits == 0
-        assert not cache.contains(tm, plan, device="cpu")
+        assert cache.contains(tm, plan, device="cpu")
         # and the same spec again IS the cached object
         assert cache.get_or_compile(ca, plan, device="cpu") is sim_ca
         assert cache.stats.hits == 1

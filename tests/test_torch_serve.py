@@ -20,6 +20,7 @@ from repro.serve.reservoir import StreamSession as JSession
 from repro_torch import convert
 from repro_torch.api import cache
 from repro_torch.core.constants import STOParams
+from repro_torch.core.ensemble import broadcast_params
 from repro_torch.kernels import _build
 from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
 
@@ -158,11 +159,16 @@ def test_submit_contract_and_waiting_features(spec_pair, tmp_path, monkeypatch):
     # targets need a learning engine (the reference's ValueError)
     with pytest.raises(ValueError, match="learning"):
         eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), targets=np.zeros(3)))
-    # mixed-spec tenancy still waits; the plan cache's options are served:
-    # prewarm without autoscale has no bucket to warm, and
-    # compilation_cache_dir pins the kernel library's build directory
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), spec=st))
+    # mixed-spec tenancy is served (a spec of the template's hash rides a
+    # primary lane; an ensemble-leaved one is refused); the plan cache's
+    # options are served: prewarm without autoscale has no bucket to warm,
+    # and compilation_cache_dir pins the kernel library's build directory
+    eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), spec=st))
+    assert eng.stats().sub_engines == 0 and eng.stats().queued == 1
+    eng.scheduler.remove_queued(eng._find_session(1)[1])
+    with pytest.raises(ValueError, match="scalar-leaved"):
+        eng.submit(StreamSession(sid=1, u_seq=np.zeros(3), spec=st._replace(
+            params=broadcast_params(st.params, 2))))
     warmed = ReservoirEngine(st, num_slots=SLOTS, prewarm=True, device="cpu")
     assert warmed._prewarm_thread is None and warmed.prewarm_buckets(block=True) == ()
     cache_dir = str(tmp_path / "x")

@@ -37,6 +37,7 @@ from repro.serve.reservoir import SessionCheckpoint as JCheckpoint
 from repro.serve.reservoir import StreamSession as JSession
 from repro_torch import convert
 from repro_torch.api import compile_plan
+from repro_torch.core.ensemble import broadcast_params
 from repro_torch.core.reservoir import fit_ridge
 from repro_torch.serve.reservoir import ReservoirEngine, SessionCheckpoint, StreamSession
 from repro_torch.serve.scheduler import SlotScheduler
@@ -412,8 +413,14 @@ def test_restore_rejects_foreign_specs_and_mismatched_learners(specs):
         _engine(st, learn="lms").restore_session(ck)
     with pytest.raises(ValueError, match="learning engine"):
         _engine(st).restore_session(ck)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        _engine(st, learn="rls").restore_session(dataclasses.replace(ck, spec=st))
+    # a checkpoint that carries the template's own spec restores into a
+    # primary lane; one with ensemble-leaved params is refused
+    same = _engine(st, learn="rls")
+    same.restore_session(dataclasses.replace(ck, spec=st))
+    assert same.stats().sub_engines == 0 and same.stats().queued == 1
+    swept = st._replace(params=broadcast_params(st.params, 2))
+    with pytest.raises(ValueError, match="scalar-leaved"):
+        _engine(st, learn="rls").restore_session(dataclasses.replace(ck, spec=swept))
 
 
 # -- against the reference ---------------------------------------------------------------

@@ -7,8 +7,9 @@
 # In order: chip_smoke.py; chip_smoke.py copied alone into an empty
 # directory, which must fail; the card tests (tests/test_torch_cuda.py);
 # faults planted in a copy of the STO kernel, then of the flash kernel,
-# against them (tools/plant_faults.py); field_tiled at every cluster size,
-# as the source stands and as its regs128 variant
+# then of the delay-line kernel, against them (tools/plant_faults.py);
+# field_tiled at every cluster size, as the source stands and as its regs128
+# variant
 # (tools/field_split_sweep.py); the loops' instruction mix, STO and flash
 # (tools/sto_sass_mix.py); and, given PARENT_SRC (the src/ of an older
 # checkout), field_tiled and rk4_tiled_step, then the flash kernel, of that
@@ -49,6 +50,7 @@ step card_tests ok 800 600 env PYTHONPATH=src python3 -m pytest tests/test_torch
     -p no:cacheprovider
 step plant_faults ok 3000 1500 python3 tools/plant_faults.py
 step plant_faults_flash ok 3000 1200 python3 tools/plant_faults.py --kernel flash
+step plant_faults_delay ok 1500 900 python3 tools/plant_faults.py --kernel delay
 step split_sweep ok 6000 600 python3 tools/field_split_sweep.py --variant regs128
 step sass_mix ok 9000 300 python3 tools/sto_sass_mix.py
 if [ -n "$parent" ]; then

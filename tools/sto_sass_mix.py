@@ -1,5 +1,5 @@
-"""The instruction mix of the STO kernels' product loops and of the bf16
-flash kernel's two loops, from their SASS.
+"""The instruction mix of the STO kernels' product loops, of the delay-line
+kernel's step loop and of the bf16 flash kernel's two loops, from their SASS.
 
     python3 tools/sto_sass_mix.py
 
@@ -12,8 +12,11 @@ instructions any loop holds (the outer loops add the epilogue's). For
 that loop it prints the count of each opcode, the share of the math opcode
 in all instructions (an upper bound on the issue share the math can reach),
 the local-memory (spill) loads and stores inside it, and how many
-instructions after each shared-memory load its result is first read. Needs
-the CUDA toolkit (nvcc, cuobjdump), not a card.
+instructions after each shared-memory load its result is first read. For
+tm_delay_line_kernel (sto_delay_line.cu) the same for its innermost loop,
+one RK4 step of one lane (the smallest loop holding 90 % of the most FMUL),
+whose instruction count a warp issues one a cycle at best. Needs the CUDA
+toolkit (nvcc, cuobjdump), not a card.
 
 For flash_bf16<D> (flash_attention.cu) at every head dim it prints the same
 for the consumers' KV-tile loop (the smallest loop holding 90 % of the most
@@ -44,6 +47,8 @@ KERNELS = {
     "field_stage_kernel<float>": ("field_stage_kernelIf", "FFMA"),
     "field_stage_kernel<bf16>": ("field_stage_kernelI13__nv_bfloat16", "HMMA"),
 }
+# label -> (mangled-name fragment, the opcode whose loop is reported)
+STEP_LOOPS = {"tm_delay_line_kernel RK4 step": ("tm_delay_line_kernel", "FMUL")}
 FLASH_DIMS = (32, 64, 80, 96, 128, 256)
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
@@ -152,6 +157,9 @@ def main():
     for label, (fragment, math_op) in KERNELS.items():
         name = next(n for n in funcs if fragment in n)
         report(f"{label} k-tile", funcs[name], math_op)
+    for label, (fragment, math_op) in STEP_LOOPS.items():
+        name = next(n for n in funcs if fragment in n)
+        report(label, funcs[name], math_op)
     if not flash(funcs):
         sys.exit("flash_bf16: a consumer loop without HGMMA, a producer loop without UTMALDG, "
                  "or an HMMA left")
