@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --delay-line   # phase 3f(a) alone
+    python3 chip_smoke.py --tune         # phase 3g alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -138,6 +139,27 @@ on failure:
    at the sub-engine's width, each learner bit-equal to its replay there
    (check_learned), the coupled sessions against phase 3's tiled run; the
    spec-carrying submits' host time (each hashes its spec).
+3g. Tune (repro_torch.tune) at the same shapes, 200-tick NARMA-10
+   candidates (the reference bench's TUNE_TICKS) with online RLS: (a) a
+   random search of 512 over drive_current, spectral_radius and a
+   structural learn_reg choice (1e-4 / 1e-2, one engine each) under chunk
+   and under tiled: candidates/s, the best assignment, PLAN_CACHE's
+   compiles (two per impl; the cache cleared first), launches (the impl's
+   kernel only) and peak memory; (b) the chunk search again with its seed:
+   the trial history bit-identical, no compile; (c) 16 trials of the stable
+   regime (learn_reg 1e-2) each served alone on a fresh engine of the same
+   plan and width in the lane it was evaluated in (learn_nmse bit-equal),
+   and on the E = 1 scan oracle on the card (within NMSE_ORACLE_RTOL); a
+   search on an interpret=True plan launches nothing; (d) seconds a
+   candidate of a search over 256 lanes and of one lane at a time (16
+   candidates), each warmed first, and their ratio (printed only); (e) a
+   256-slot RLS engine with 192 co-tenants where tenant 0 calls
+   submit_autotuned with 64 probes on the spare lanes, under chunk and
+   tiled: no probe sid in pop_results, the winner frozen into the
+   session's params, max_retained restored, every co-tenant's states,
+   final_m, learned W and learn_nmse bit-equal to the same tenants served
+   without it; (f) the launcher with --learn rls --autotune-budget 8, which
+   must print its `washout autotune:` line.
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -180,7 +202,9 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -285,6 +309,30 @@ LEARN_MU = 0.5
 ORACLE_RTOL = {"rls": 5e-4, "lms": 5e-6}
 # phase 3c, the paper's ladder: ms per RK4 step at these N
 LADDER_N = (1, 100, 1000, 2500, 10000)
+# phase 3g, tune: NARMA-10 candidates of the reference bench's TUNE_TICKS
+# (benchmarks/serve_throughput.py:409), each engine one learn_reg of TUNE_REGS
+# (RLS at the default 1e-6 is ill-conditioned at N = 2500)
+TUNE_TICKS = 200
+TUNE_WASHOUT = 50
+TUNE_BUDGET = 512
+TUNE_REGS = (1e-4, 1e-2)
+# the stable regime (the reference bench's grid: drive current 1-3 mA,
+# spectral radius 0.3-0.9), where a lane's fitness is comparable across
+# widths and implementations; replays and the oracle use learn_reg 1e-2
+STABLE_CURRENT = (1e-3, 3e-3)
+STABLE_A_CP = (0.3, 0.9)
+ORACLE_REG = 1e-2
+REPLAYS = 16
+# a replayed trial's learn_nmse against the E = 1 scan oracle on the card,
+# relative: f32 rounding alone moves it by up to 1.39e-3 on the 16 candidates
+# 3g(c) replays (f32 against f64 scan on a CPU, N = 2500, learn_reg 1e-2;
+# 5e-6 at 2.2 mA, 1e-3 near 3 mA, the edge of the stable regime; 3.2x at
+# learn_reg 1e-4, which is why the oracle holds 1e-2 only); ~7x that
+NMSE_ORACLE_RTOL = 1e-2
+SEQ_BUDGET = 16
+AUTOTUNE_TENANTS = 192
+AUTOTUNE_BUDGET = 64
+AUTOTUNE_WASHOUT = 40
 
 # the LM path: h2o-danube-1.8b at full width
 LM_ARCH = "h2o-danube-1.8b"
@@ -1955,15 +2003,18 @@ def autoscale_check(spec, name_power):
     return fixed
 
 
-def launcher_check(name_power):
-    """3d.5: the port's launcher in reservoir mode at the full width."""
+def launcher_check(name_power, extras=([], ["--learn", "rls"]), label="3d.5"):
+    """3d.5: the port's launcher in reservoir mode at the full width (3g(f):
+    with --autotune-budget, whose `washout autotune:` line must print)."""
     from repro_torch.launch import serve as launch_serve
 
     argv = ["--mode", "reservoir", "--n", str(N), "--slots", str(E), "--sessions", str(SESSIONS),
             "--ticks", "40", "--hold-steps", str(HOLD), "--chunk-ticks", str(K)]
-    for extra in ([], ["--learn", "rls"]):
-        with Check("launcher") as c:
+    for extra in extras:
+        out = io.StringIO()
+        with Check("launcher") as c, contextlib.redirect_stdout(out):
             results = launch_serve.main(argv + extra)
+        print(out.getvalue(), end="", flush=True)
         assert len(results) == SESSIONS, len(results)
         for r in results.values():
             assert r.error is None and np.isfinite(r.final_m).all()
@@ -1971,8 +2022,11 @@ def launcher_check(name_power):
                 assert np.isfinite(r.learn_nmse) and r.predictions.shape == (40, 1)
             else:
                 assert r.outputs.shape == (30, 1) and np.isfinite(r.outputs).all()
-        print(f"3d.5 launcher {' '.join(argv + extra)}: {c.seconds:.3f} s, launches {c.launches} "
-              f"({name_power})", flush=True)
+        if "--autotune-budget" in extra:
+            budget = extra[extra.index("--autotune-budget") + 1]
+            assert f"washout autotune: {budget} probes on the live engine" in out.getvalue()
+        print(f"{label} launcher {' '.join(argv + extra)}: {c.seconds:.3f} s, launches "
+              f"{c.launches} ({name_power})", flush=True)
 
 
 def lifecycle_phase(spec, name_power):
@@ -2601,6 +2655,293 @@ def families_phase(served, name, name_power):
 
 
 
+# -- phase 3g: tune at full width ---------------------------------------------------------
+
+
+def tune_space(structural=True):
+    """3g's lane knobs, and with `structural` the learn_reg choice (one engine
+    each)."""
+    from repro_torch.tune import Choice, Float, SearchSpace
+
+    knobs = {"drive_current": Float(0.5e-3, 4.5e-3), "spectral_radius": Float(0.2, 1.2)}
+    if structural:
+        knobs["learn_reg"] = Choice(TUNE_REGS)
+    return SearchSpace(knobs)
+
+
+def tune_plan(impl, ensemble=None, **kw):
+    return ExecPlan(impl=impl, ensemble=ensemble or E, chunk_ticks=K, learn="rls", **kw)
+
+
+def tune_history(result):
+    """(trial id, assignment, engine key, fitness bits) of every trial."""
+    return [(t.trial_id, tuple(sorted(t.assignment.items())), t.engine_key,
+             np.float64(t.fitness).tobytes()) for t in result.trials]
+
+
+def candidate_session(task, assignment, sid=0):
+    """One candidate alone, as tune_spec submits it."""
+    params = constants.default_params(device="cpu")._replace(
+        current=float(assignment["current"]), a_cp=float(assignment["a_cp"])
+    )
+    return StreamSession(sid=sid, u_seq=task.u_seq.copy(), targets=task.targets.copy(),
+                         params=params, learn_washout=task.learn_washout, collect_states=False)
+
+
+class SlotLog:
+    """The lane each finished session was served in, from every
+    ReservoirEngine.pop_results call inside the block (wrapped in this
+    script only)."""
+
+    def __enter__(self):
+        self.slots = {}
+        pop = self._pop = ReservoirEngine.pop_results
+
+        def recording(eng):
+            out = pop(eng)
+            self.slots.update({sid: r.slot for sid, r in out.items()})
+            return out
+
+        ReservoirEngine.pop_results = recording
+        return self
+
+    def __exit__(self, *exc):
+        ReservoirEngine.pop_results = self._pop
+        return False
+
+
+def tune_search(spec, task, impl, kernel, label, name_power):
+    """3g(a) / (b): the random search of TUNE_BUDGET candidates over E lanes,
+    two engines (learn_reg). Returns (result, lane of each trial, compiles)."""
+    from repro_torch.api import PLAN_CACHE
+    from repro_torch.tune import tune_spec
+
+    c0 = PLAN_CACHE.stats.compiles
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with SlotLog() as log, Check(label) as c:
+        result = tune_spec(spec, task, tune_space(), budget=TUNE_BUDGET, plan=tune_plan(impl),
+                           seed=0, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    compiles = PLAN_CACHE.stats.compiles - c0
+    assert len(result.trials) == TUNE_BUDGET, len(result.trials)
+    assert c.launches.get(kernel, 0) > 0, f"{impl} search never launched {kernel}: {c.launches}"
+    assert set(c.launches) == {kernel}, f"{impl} search launched other kernels: {c.launches}"
+    keys = sorted({t.engine_key for t in result.trials})
+    assert keys == sorted(f"learn_reg={r!r}" for r in TUNE_REGS), keys
+    best = result.best
+    assert best.ok, best
+    finite = sum(t.ok for t in result.trials)
+    per_key = {k: min((t.fitness for t in result.trials if t.engine_key == k and t.ok),
+                      default=float("nan")) for k in keys}
+    print(
+        f"3g(a) {label}: {TUNE_BUDGET} candidates ({finite} finite) of {TUNE_TICKS} ticks in "
+        f"{c.seconds:.3f} s = {TUNE_BUDGET / c.seconds:.1f} candidates/s; engines {keys}, best "
+        f"fitness per engine {per_key}; best trial {best.trial_id} {best.assignment} fitness "
+        f"{best.fitness!r}; PLAN_CACHE compiles {compiles}, stats {PLAN_CACHE.stats.snapshot()}; "
+        f"launches {c.launches}; peak memory {peak:.3f} GiB ({name_power})",
+        flush=True,
+    )
+    return result, log.slots, compiles
+
+
+def replay_check(spec, task, result, slots, impl, oracle_nmse, name_power):
+    """3g(c): REPLAYS trials of the stable regime (learn_reg 1e-2), each
+    served alone on a fresh engine of the search's plan and width in the lane
+    it was evaluated in: learn_nmse bit-equal to the trial's; then against
+    the E = 1 scan oracle on the card, within NMSE_ORACLE_RTOL. The oracle's
+    NMSE per assignment is kept in `oracle_nmse` (both impls replay the same
+    candidates)."""
+    from repro_torch.api import PLAN_CACHE
+
+    picks = [
+        t for t in result.trials
+        if t.ok and t.assignment["learn_reg"] == ORACLE_REG
+        and STABLE_CURRENT[0] <= t.assignment["current"] <= STABLE_CURRENT[1]
+        and STABLE_A_CP[0] <= t.assignment["a_cp"] <= STABLE_A_CP[1]
+    ][:REPLAYS]
+    assert len(picks) == REPLAYS, len(picks)
+    plan = tune_plan(impl, learn_reg=ORACLE_REG)
+    with Check("replay") as c:
+        for t in picks:
+            eng = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, plan, device="cuda"))
+            slot = slots[t.trial_id]
+            eng.store.free_slots = lambda slot=slot: [slot]  # the trial's lane
+            eng.submit(candidate_session(task, t.assignment))
+            got = eng.run()[0]
+            assert got.slot == slot, (got.slot, slot)
+            assert got.learn_nmse == t.fitness, (t.trial_id, got.learn_nmse, t.fitness)
+            del eng
+            gc.collect()
+    oracle = ExecPlan(impl="scan", ensemble=1, chunk_ticks=K, learn="rls", learn_reg=ORACLE_REG)
+    gaps = []
+    with Check("oracle") as co:
+        for t in picks:
+            key = (t.assignment["current"], t.assignment["a_cp"])
+            if key not in oracle_nmse:
+                eng = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, oracle, device="cuda"))
+                eng.submit(candidate_session(task, t.assignment))
+                oracle_nmse[key] = eng.run()[0].learn_nmse
+            want = oracle_nmse[key]
+            gaps.append((abs(t.fitness - want) / abs(want), t.assignment["current"], t.assignment["a_cp"]))
+    worst = max(gaps)
+    assert not co.launches, co.launches
+    print(
+        f"3g(c) replay {impl}: {REPLAYS} stable trials (learn_reg {ORACLE_REG}) served alone in "
+        f"their lanes at E={E}: learn_nmse bit-equal ({c.seconds:.3f} s, launches {c.launches}); "
+        f"vs the E=1 scan oracle on the card: |nmse diff| / nmse max {worst[0]:.3e} (at current "
+        f"{worst[1]:.4g} A, a_cp {worst[2]:.4g}), median {np.median([g[0] for g in gaps]):.3e} "
+        f"(rtol {NMSE_ORACLE_RTOL}; {co.seconds:.3f} s) ({name_power})",
+        flush=True,
+    )
+    assert worst[0] <= NMSE_ORACLE_RTOL, f"{impl}: learn_nmse {worst} of the scan oracle's"
+
+
+def interpret_search(spec, task, name_power):
+    """3g: a search on an interpret=True plan (the kernels' plain versions)
+    launches no kernel."""
+    from repro_torch.tune import tune_spec
+
+    with Check("interpret") as c:
+        result = tune_spec(spec, task, tune_space(False), budget=16,
+                           plan=tune_plan("chunk", interpret=True, learn_reg=ORACLE_REG),
+                           seed=3, device="cuda")
+    assert len(result.trials) == 16 and all(t.ok for t in result.trials)
+    assert not c.launches, f"an interpret search launched kernels: {c.launches}"
+    print(f"3g interpret=True search: 16 candidates in {c.seconds:.3f} s, launches {c.launches} "
+          f"({name_power})", flush=True)
+
+
+def vectorized_vs_sequential(spec, task, name_power):
+    """3g(d): seconds per candidate of a search over E lanes (budget E) and
+    of one lane at a time (budget SEQ_BUDGET), each warmed first; printed,
+    not held to anything."""
+    from repro_torch.tune import tune_spec
+
+    per = {}
+    for label, width, budget in (("vectorized", E, E), ("sequential", 1, SEQ_BUDGET)):
+        plan = tune_plan("chunk", ensemble=width, learn_reg=ORACLE_REG)
+        tune_spec(spec, task, tune_space(False), budget=1, plan=plan, seed=9, device="cuda")
+        with Check(label) as c:
+            result = tune_spec(spec, task, tune_space(False), budget=budget, plan=plan, seed=1,
+                               device="cuda")
+        assert len(result.trials) == budget and result.sequential == (width == 1)
+        per[label] = c.seconds / budget
+        print(f"3g(d) {label} (ensemble={width}): {budget} candidates in {c.seconds:.3f} s, "
+              f"{per[label]:.4f} s a candidate, launches {c.launches} ({name_power})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"3g(d) sequential / vectorized seconds a candidate: "
+          f"{per['sequential'] / per['vectorized']:.2f} ({name_power})", flush=True)
+
+
+def autotune_tenants(count):
+    """`count` NARMA-10 learners of TUNE_TICKS ticks, sids 1..count."""
+    out = []
+    for sid in range(1, count + 1):
+        u, y = tasks.narma_series(TUNE_TICKS, order=10, seed=sid)
+        out.append(StreamSession(sid=sid, u_seq=u.astype(np.float32), targets=y.astype(np.float32),
+                                 learn_washout=TUNE_WASHOUT, collect_states=True))
+    return out
+
+
+def autotune_live(spec, impl, kernel, name_power):
+    """3g(e): tenant 0 tuned on a live E-slot RLS engine whose spare lanes
+    its AUTOTUNE_BUDGET probes fill, beside AUTOTUNE_TENANTS co-tenants;
+    every co-tenant bit-equal to the same tenants served without it."""
+    from repro_torch.api import PLAN_CACHE
+
+    plan = tune_plan(impl, learn_reg=ORACLE_REG)
+    alone = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, plan, device="cuda"))
+    want = alone.run(autotune_tenants(AUTOTUNE_TENANTS))
+    del alone
+    eng = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, plan, device="cuda"), max_retained=1000)
+    for s in autotune_tenants(AUTOTUNE_TENANTS):
+        eng.submit(s)
+    u, y = tasks.narma_series(TUNE_TICKS, order=10, seed=0)
+    tuned = StreamSession(sid=0, u_seq=u.astype(np.float32), targets=y.astype(np.float32),
+                          learn_washout=AUTOTUNE_WASHOUT, collect_states=False)
+    with Check("autotune") as c:
+        probe = eng.submit_autotuned(tuned, tune_space(False), budget=AUTOTUNE_BUDGET, seed=0)
+        t_probe = time.perf_counter() - c.t0
+        while eng.step_chunk():
+            pass
+        got = eng.pop_results()
+    del eng
+    assert c.launches.get(kernel, 0) > 0, c.launches
+    assert len(probe.trials) == AUTOTUNE_BUDGET and all(t.engine_key == "live" for t in probe.trials)
+    assert sorted(got) == list(range(AUTOTUNE_TENANTS + 1)), "a probe sid reached pop_results"
+    win = probe.best.assignment
+    assert (float(tuned.params.current), float(tuned.params.a_cp)) == (win["current"], win["a_cp"])
+    worst, exact = 0.0, True
+    for sid, b in want.items():
+        a = got[sid]
+        assert a.error is None and b.error is None, (a.error, b.error)
+        worst = max(worst, float(np.abs(a.states - b.states).max()),
+                    float(np.abs(a.final_m - b.final_m).max()),
+                    (a.learned_readout.w_out - b.learned_readout.w_out).abs().max().item(),
+                    abs(a.learn_nmse - b.learn_nmse))
+        exact = exact and np.array_equal(a.states, b.states) and np.array_equal(a.final_m, b.final_m) \
+            and torch.equal(a.learned_readout.w_out, b.learned_readout.w_out) \
+            and a.learn_nmse == b.learn_nmse
+    print(
+        f"3g(e) washout autotune {impl}: {AUTOTUNE_BUDGET} probes beside {AUTOTUNE_TENANTS} "
+        f"co-tenants at E={E} in {t_probe:.3f} s, then served in {c.seconds - t_probe:.3f} s; "
+        f"winner {win} probe nmse {probe.best.fitness!r}, tenant 0 full-stream nmse "
+        f"{got[0].learn_nmse!r}; no probe sid in pop_results; max_retained restored (1000); "
+        f"co-tenants vs served without the tuned tenant: max diff {worst:.3e} "
+        f"({'bit-equal' if exact else 'NOT bit-equal'}); launches {c.launches} ({name_power})",
+        flush=True,
+    )
+    assert exact, f"{impl}: probe lanes perturbed a co-tenant by {worst}"
+
+
+def tune_phase(spec, name_power):
+    """Phase 3g: tune at N = 2500, E = 256 under chunk and tiled."""
+    from repro_torch.api import PLAN_CACHE
+    from repro_torch.tune import narma_task
+
+    t0 = time.perf_counter()
+    PLAN_CACHE.clear()
+    task = narma_task(t=TUNE_TICKS, order=10, seed=0, learn_washout=TUNE_WASHOUT)
+    runs = {}
+    for impl, kernel in (("chunk", "rk4_chunk"), ("tiled", "field_tiled")):
+        runs[impl] = tune_search(spec, task, impl, kernel, f"random search {impl}", name_power)
+        assert runs[impl][2] == len(TUNE_REGS), f"{impl}: {runs[impl][2]} compiles"
+    alike = tune_history(runs["chunk"][0]) == tune_history(runs["tiled"][0])
+    print(f"3g(a) chunk vs tiled trial histories: {'bit-identical' if alike else 'differ'} "
+          "(printed, not held)", flush=True)
+    again, _, compiles = tune_search(spec, task, "chunk", "rk4_chunk", "rerun chunk", name_power)
+    assert compiles == 0, f"the rerun compiled {compiles} plans"
+    same = tune_history(again) == tune_history(runs["chunk"][0])
+    print(f"3g(b) rerun with seed 0: trial ids, assignments, engine keys and fitness "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    assert same, "the rerun's trial history differs"
+    del again
+    oracle_nmse = {}
+    for impl in ("chunk", "tiled"):
+        result, slots, _ = runs.pop(impl)
+        replay_check(spec, task, result, slots, impl, oracle_nmse, name_power)
+    interpret_search(spec, task, name_power)
+    vectorized_vs_sequential(spec, task, name_power)
+    for impl, kernel in (("chunk", "rk4_chunk"), ("tiled", "field_tiled")):
+        autotune_live(spec, impl, kernel, name_power)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launcher_check(name_power, extras=(["--learn", "rls", "--autotune-budget", "8"],), label="3g(f)")
+    print(f"3g PLAN_CACHE: {PLAN_CACHE.stats.snapshot()}", flush=True)
+    print(f"phase 3g: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def tune_only():
+    """`chip_smoke.py --tune`: build the kernels and run phase 3g alone."""
+    name_power = card_line()
+    _build.load()
+    tune_phase(make_spec(N, n_in=1, seed=0, hold_steps=HOLD, device="cuda"), name_power)
+    print("3g held", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2683,6 +3024,7 @@ def main():
     plan_cache_phase(spec, fixed, name_power)
     rows["tm_delay_line"] = families_phase(served, name, name_power)
     del served
+    tune_phase(spec, name_power)
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
@@ -2702,5 +3044,7 @@ if __name__ == "__main__":
         cache_child(sys.argv[2])
     elif sys.argv[1:2] == ["--delay-line"]:
         delay_line_only()
+    elif sys.argv[1:2] == ["--tune"]:
+        tune_only()
     else:
         main()

@@ -12,6 +12,8 @@ drawn from the process-wide `PLAN_CACHE` (api/cache.py).
 from repro_torch.api.spec import (
     SimSpec,
     TOPOLOGIES,
+    LANE_TUNABLE,
+    STRUCT_TUNABLE,
     make_array_transient_spec,
     make_spec,
     make_time_multiplexed_spec,
@@ -22,6 +24,7 @@ from repro_torch.api.plan import (
     FAMILY_IMPLS,
     PLAN_IMPLS,
     PLAN_PRECISIONS,
+    PLAN_TUNABLE,
     check_plan_supports_topology,
 )
 from repro_torch.api.compiled import CompiledSim, compile_plan
@@ -46,6 +49,9 @@ __all__ = [
     "check_plan_supports_topology",
     "PLAN_IMPLS",
     "PLAN_PRECISIONS",
+    "LANE_TUNABLE",
+    "STRUCT_TUNABLE",
+    "PLAN_TUNABLE",
     "CompiledSim",
     "compile_plan",
     "PLAN_CACHE",

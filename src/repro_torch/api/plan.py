@@ -89,6 +89,13 @@ def check_plan_supports_topology(plan: "ExecPlan", topology: str) -> None:
         )
 
 
+# ExecPlan knobs `repro_torch.tune` may search over. All are structural:
+# learn_lam / learn_mu enter the learn tails and learn_reg the fresh P0 at
+# admit, so candidates with different values group into separate compiled
+# engines, like SimSpec's STRUCT_TUNABLE.
+PLAN_TUNABLE = ("learn_lam", "learn_reg", "learn_mu")
+
+
 def _is_dtype(d) -> bool:
     if isinstance(d, torch.dtype):
         return True
@@ -189,6 +196,17 @@ class ExecPlan:
             raise NotImplementedError(
                 "ExecPlan.mesh is not ported yet (ROADMAP queue 1 item 12, sharded plans)"
             )
+
+    def with_knobs(self, **knobs) -> "ExecPlan":
+        """A new plan with named PLAN_TUNABLE knobs applied, through
+        dataclasses.replace so that __post_init__ validates the values.
+        Unknown names raise with the valid list."""
+        for name in knobs:
+            if name not in PLAN_TUNABLE:
+                raise ValueError(
+                    f"unknown plan knob {name!r}; tunable plan knobs: {PLAN_TUNABLE}"
+                )
+        return dataclasses.replace(self, **knobs)
 
     @property
     def sharded(self) -> bool:

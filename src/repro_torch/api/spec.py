@@ -34,6 +34,17 @@ from repro_torch.core import constants, coupling
 from repro_torch.core.constants import STOParams
 from repro_torch.device import resolve_device
 
+# Knob classification for `repro_torch.tune` (the reference's registry).
+# LANE_TUNABLE fields vary per ensemble lane of one CompiledSim: they are the
+# STOParams leaves, which every impl reads as (E, 1) columns, so E candidates
+# with different values ride one launch (a_cp is the effective spectral
+# radius: make_coupling_matrix normalizes W^cp to rho = 1). STRUCT_TUNABLE
+# fields are structural: dt scales every RK stage and hold_steps is a loop
+# length, so each value is another compiled simulator and a search groups
+# its candidates per value.
+LANE_TUNABLE = STOParams._fields
+STRUCT_TUNABLE = ("dt", "hold_steps")
+
 TOPOLOGIES = ("coupled_array", "time_multiplexed", "array_transient")
 
 
@@ -70,6 +81,54 @@ class SimSpec(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.m0.device
+
+    def with_knobs(self, **knobs) -> "SimSpec":
+        """A new SimSpec with named knobs applied: the validated write path
+        for parameter search (`repro_torch.tune`).
+
+        Any LANE_TUNABLE name (an STOParams field) overrides `params` with a
+        0-d tensor of the spec's dtype on its device; any STRUCT_TUNABLE
+        name (dt, hold_steps) replaces the field. Unknown names raise with
+        the valid lists. Lane overrides need scalar-leaved params: per-lane
+        values ride sessions, not the spec.
+        """
+        lane_kw = {}
+        struct_kw = {}
+        for name, value in knobs.items():
+            if name in LANE_TUNABLE:
+                lane_kw[name] = value
+            elif name in STRUCT_TUNABLE:
+                struct_kw[name] = value
+            else:
+                raise ValueError(
+                    f"unknown spec knob {name!r}; lane-tunable: "
+                    f"{LANE_TUNABLE}, structural: {STRUCT_TUNABLE}"
+                )
+        spec = self
+        if lane_kw:
+            if self.params.gamma.ndim != 0:
+                raise ValueError(
+                    "with_knobs lane overrides require scalar-leaved params; "
+                    "this spec carries ensemble leaves — apply per-lane "
+                    "values via broadcast_params / session params instead"
+                )
+            spec = spec._replace(
+                params=self.params._replace(
+                    **{
+                        k: torch.as_tensor(v, dtype=self.dtype).to(self.device)
+                        for k, v in lane_kw.items()
+                    }
+                )
+            )
+        if struct_kw:
+            if "hold_steps" in struct_kw:
+                hs = struct_kw["hold_steps"]
+                if isinstance(hs, bool) or not isinstance(hs, int) or hs < 1:
+                    raise ValueError(f"hold_steps must be an int >= 1; got {hs!r}")
+            if "dt" in struct_kw and not float(struct_kw["dt"]) > 0.0:
+                raise ValueError(f"dt must be > 0; got {struct_kw['dt']!r}")
+            spec = spec._replace(**struct_kw)
+        return spec
 
     def to(self, device) -> "SimSpec":
         """This spec with every tensor on `device`."""

@@ -21,13 +21,14 @@ CUDA kernel library into DIR and loads it from there, so a restarted server
 skips nvcc. Without `--learn` every session carries one
 NARMA-2 readout trained by ridge regression on the scan oracle's states;
 `--learn rls|lms` makes every session an online learner of its own NARMA-2
-targets instead.
+targets instead, and `--autotune-budget B` (with `--learn`) tunes the first
+tenant's `--autotune-knobs` on the live engine with B washout probes before
+it streams (repro_torch.tune).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode reservoir \\
         --n 16 --slots 4 --sessions 8 --ticks 20 --hold-steps 5 --device cpu
 
-Not ported yet: --fleet (ROADMAP queue 1 item 11) and --autotune-budget
-(item 10) raise.
+Not ported yet: --fleet (ROADMAP queue 1 item 11) raises.
 """
 
 import argparse
@@ -65,6 +66,15 @@ def main_lm(args):
         f"served {len(results)} requests / {total_toks} tokens in {dt:.2f}s "
         f"({total_toks / dt:.1f} tok/s) with {args.slots} slots on {eng.device}"
     )
+
+
+#: default search ranges for --autotune-budget knobs (lane knobs only: a live
+#: engine cannot recompile; see repro_torch.tune.washout_autotune)
+AUTOTUNE_RANGES = {
+    "drive_current": (0.5e-3, 4.5e-3),
+    "spectral_radius": (0.2, 1.2),
+    "input_gain": (0.1, 2.0),
+}
 
 
 def main_reservoir(args):
@@ -135,6 +145,24 @@ def main_reservoir(args):
         ),
         **autoscale_kw,
     )
+
+    probe = None
+    if args.autotune_budget:
+        # washout autotune of the FIRST tenant on the live engine: probes
+        # stream its washout prefix on spare lanes, the winner's knobs are
+        # frozen into the session, and it queues tuned
+        from repro_torch.tune import Float, SearchSpace
+
+        knobs = [k.strip() for k in args.autotune_knobs.split(",") if k.strip()]
+        bad = [k for k in knobs if k not in AUTOTUNE_RANGES]
+        if bad:
+            raise SystemExit(
+                f"--autotune-knobs: unknown {bad}; choose from {sorted(AUTOTUNE_RANGES)}"
+            )
+        space = SearchSpace({k: Float(*AUTOTUNE_RANGES[k]) for k in knobs})
+        tuned, sessions = sessions[0], sessions[1:]
+        probe = eng.submit_autotuned(tuned, space, budget=args.autotune_budget, seed=0)
+
     t0 = time.time()
     results = eng.run(sessions)
     if eng.device.type == "cuda":
@@ -164,13 +192,20 @@ def main_reservoir(args):
         print(
             f"online learning: mean nmse {float(np.mean(nmses)):.4f} over {len(nmses)} tenants"
         )
+    if probe is not None:
+        best = probe.best
+        print(
+            f"washout autotune: {len(probe.trials)} probes on the live engine; tenant 0 "
+            "served with "
+            + ", ".join(f"{k}={v:.4g}" for k, v in best.assignment.items())
+            + f" (probe nmse {best.fitness:.4f}, full-stream nmse {results[0].learn_nmse:.4f})"
+        )
     return results
 
 
 # reference launcher options that are not ported yet
 _WAITING_FLAGS = {
     "fleet": "--fleet (ROADMAP queue 1 item 11, the fleet)",
-    "autotune_budget": "--autotune-budget (ROADMAP queue 1 item 10, tune)",
 }
 
 
@@ -202,6 +237,11 @@ def main(argv=None):
                     help="online per-tenant readout learning on NARMA-2 targets (ExecPlan.learn)")
     ap.add_argument("--learn-washout", type=int, default=20,
                     help="ticks before a learner's first update")
+    ap.add_argument("--autotune-budget", type=int, default=0,
+                    help="washout autotune of the first tenant on the live engine with this "
+                         "many probe candidates (requires --learn; repro_torch.tune)")
+    ap.add_argument("--autotune-knobs", default="drive_current,spectral_radius",
+                    help=f"comma-separated lane knobs to search (from {sorted(AUTOTUNE_RANGES)})")
     ap.add_argument("--autoscale", action="store_true",
                     help="grow/shrink the slot count under load (QueueDepthPolicy)")
     ap.add_argument("--min-slots", type=int, default=None, help="autoscale floor (default: --slots)")
@@ -211,9 +251,10 @@ def main(argv=None):
                          "a restarted server skips nvcc")
     # reference options that wait for later slices
     ap.add_argument("--fleet", action="store_true", help="not ported yet")
-    ap.add_argument("--autotune-budget", type=int, default=0, help="not ported yet")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.autotune_budget and not args.learn:
+        ap.error("--autotune-budget requires --learn (probe fitness is the learner's nmse)")
     for name, what in _WAITING_FLAGS.items():
         if getattr(args, name):
             raise NotImplementedError(f"{what} is not ported yet")

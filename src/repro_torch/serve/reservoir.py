@@ -52,7 +52,9 @@ physics family, other shapes) lands on an internal sub-engine compiled for
 that spec through PLAN_CACHE, one per hash, which `step_chunk` advances in
 lockstep and whose results surface in this engine's `results`.
 
-Not ported yet: autotune (ROADMAP queue 1 item 10).
+Autotune: `submit_autotuned` tunes a learning tenant's lane knobs on the
+live engine during its washout window (`repro_torch.tune.washout_autotune`)
+before it submits.
 """
 
 from __future__ import annotations
@@ -775,6 +777,35 @@ class ReservoirEngine:
         if self.max_retained is not None:
             while len(self.results) > self.max_retained:
                 self.results.pop(next(iter(self.results)))
+
+    def submit_autotuned(
+        self,
+        session: StreamSession,
+        space,
+        budget: int = 8,
+        strategy="random",
+        seed: int = 0,
+        **kwargs,
+    ):
+        """Auto-tune this session's lane knobs during its washout window,
+        then submit it with the winning parameters.
+
+        `space` is a `repro_torch.tune.SearchSpace` over LANE knobs
+        (STOParams fields; structural knobs would need a recompile, which a
+        live engine cannot do). Probe sessions stream the tenant's washout
+        prefix on spare lanes with negative sids, scored by the online
+        learner; the best assignment is frozen into `session.params` and the
+        session submits normally. Returns the probe `TuneResult`. Requires a
+        learning engine and a learning session with learn_washout >= 2.
+
+        Delegates to `repro_torch.tune.washout_autotune`, imported here:
+        serve does not import tune at import time (tune drives serve).
+        """
+        from repro_torch.tune.driver import washout_autotune
+
+        return washout_autotune(
+            self, session, space, budget=budget, strategy=strategy, seed=seed, **kwargs
+        )
 
     def pop_results(self) -> Dict[int, SessionResult]:
         """Drain finished-session results: returns sid -> SessionResult and

@@ -1048,3 +1048,114 @@ def test_array_transient_engine_through_the_kernels(cuda, backend, kernel):
         a, b = got[False][sid], got[True][sid]
         assert np.abs(a.states - b.states).max() <= STATE_ATOL
         assert np.abs(a.final_m - b.final_m).max() <= STATE_ATOL
+
+
+# -- tune on the card ---------------------------------------------------------------------
+
+TUNE_IMPLS = [("chunk", "rk4_chunk"), ("tiled", "field_tiled")]
+
+
+def _tune_setup(cuda, impl):
+    from repro_torch.api import ExecPlan
+    from repro_torch.tune import Float, SearchSpace, narma_task
+
+    space = SearchSpace({"drive_current": Float(1e-3, 3e-3), "spectral_radius": Float(0.3, 0.9)})
+    plan = ExecPlan(impl=impl, ensemble=8, chunk_ticks=4, learn="rls", learn_reg=1e-2)
+    return _spec_cpu(64).to(cuda), narma_task(t=24, seed=0, learn_washout=6), space, plan
+
+
+def _history(result):
+    return [(t.trial_id, tuple(sorted(t.assignment.items())), t.engine_key, t.fitness)
+            for t in result.trials]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,kernel", TUNE_IMPLS)
+def test_tune_rerun_is_bit_identical_on_the_card(cuda, impl, kernel):
+    """A random search of 20 candidates over 8 lanes, twice with one seed:
+    the trial histories (ids, assignments, engine keys, fitness) are
+    identical bit for bit, and the impl's kernel launched."""
+    from repro_torch.tune import tune_spec
+
+    spec, task, space, plan = _tune_setup(cuda, impl)
+    sto_step.reset_launches()
+    runs = [_history(tune_spec(spec, task, space, budget=20, plan=plan, seed=5, device=cuda))
+            for _ in range(2)]
+    assert sto_step.LAUNCHES[kernel] > 0, dict(sto_step.LAUNCHES)
+    assert len(runs[0]) == 20 and runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,kernel", TUNE_IMPLS)
+def test_tune_trial_replays_bit_equal_on_the_card(cuda, impl, kernel, monkeypatch):
+    """Each trial of a search served again alone, on a fresh engine of the
+    same plan and width, in the lane it was evaluated in: the same
+    learn_nmse bit for bit (a lane's arithmetic does not depend on what the
+    other lanes hold)."""
+    from repro_torch.api import PLAN_CACHE
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+    from repro_torch.tune import tune_spec
+
+    spec, task, space, plan = _tune_setup(cuda, impl)
+    slots = {}
+    pop = ReservoirEngine.pop_results
+
+    def recording_pop(self):
+        out = pop(self)
+        slots.update({sid: r.slot for sid, r in out.items()})
+        return out
+
+    monkeypatch.setattr(ReservoirEngine, "pop_results", recording_pop)
+    result = tune_spec(spec, task, space, budget=12, plan=plan, seed=2, device=cuda)
+    for trial in result.trials:
+        eng = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, plan, device=cuda))
+        slot = slots[trial.trial_id]
+        eng.store.free_slots = lambda slot=slot: [slot]  # the trial's lane
+        params = spec.params._replace(current=float(trial.assignment["current"]),
+                                      a_cp=float(trial.assignment["a_cp"]))
+        eng.submit(StreamSession(sid=0, u_seq=task.u_seq.copy(), targets=task.targets.copy(),
+                                 params=params, learn_washout=task.learn_washout,
+                                 collect_states=False))
+        got = eng.run()[0]
+        assert got.slot == slot
+        assert got.learn_nmse == trial.fitness, (trial.trial_id, got.learn_nmse, trial.fitness)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,kernel", TUNE_IMPLS)
+def test_washout_autotune_cotenants_bit_equal_on_the_card(cuda, impl, kernel):
+    """Six learning tenants beside a washout autotune whose probes fill the
+    two spare lanes, against the same six served alone: every co-tenant's
+    states, final_m, learned W and learn_nmse bit-equal; no probe sid in the
+    results; max_retained restored."""
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+    from repro_torch.api import PLAN_CACHE
+    from repro_torch.core.tasks import narma_series
+
+    spec, _, space, plan = _tune_setup(cuda, impl)
+
+    def tenants():
+        out = []
+        for sid in range(1, 7):
+            u, y = narma_series(20 + 2 * sid, order=10, seed=sid)
+            out.append(StreamSession(sid=sid, u_seq=u, targets=y, learn_washout=4))
+        return out
+
+    alone = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, plan, device=cuda)).run(tenants())
+    eng = ReservoirEngine(PLAN_CACHE.get_or_compile(spec, plan, device=cuda), max_retained=50)
+    for s in tenants():
+        eng.submit(s)
+    u, y = narma_series(30, order=10, seed=9)
+    tuned = StreamSession(sid=0, u_seq=u, targets=y, learn_washout=12)
+    sto_step.reset_launches()
+    probe = eng.submit_autotuned(tuned, space, budget=4, seed=1)
+    assert len(probe.trials) == 4 and eng.max_retained == 50
+    got = eng.run()
+    assert sto_step.LAUNCHES[kernel] > 0, dict(sto_step.LAUNCHES)
+    assert sorted(got) == list(range(7))
+    assert float(tuned.params.current) == probe.best.assignment["current"]
+    for sid, want in alone.items():
+        a = got[sid]
+        assert np.array_equal(a.states, want.states) and np.array_equal(a.final_m, want.final_m)
+        assert torch.equal(a.learned_readout.w_out, want.learned_readout.w_out)
+        assert a.learn_nmse == want.learn_nmse

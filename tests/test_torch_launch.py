@@ -1,7 +1,8 @@
 """The port's serving launcher on the CPU (`python -m repro_torch.launch.serve`):
 --mode reservoir at N = 16 with and without --learn rls and --autoscale, the
-reference options that still wait, --compilation-cache-dir, and the LM
-mode's own invocation.
+reference option that still waits (--fleet), the options served since
+(--compilation-cache-dir, --autotune-budget), and the LM mode's own
+invocation.
 
 A reservoir run must serve every session: each result finite, every session
 tick counted, and online learning's NMSE finite; no tolerance is involved.
@@ -52,7 +53,16 @@ def test_reservoir_mode_serves_every_session(capsys, extra):
     (["--autotune-budget", "4"], "item 10"),
     (["--compilation-cache-dir", "cache"], "item 9"),
 ])
-def test_waiting_flags_raise(flag, item, tmp_path, monkeypatch):
+def test_waiting_flags_raise(flag, item, tmp_path, monkeypatch, capsys):
+    if flag[0] == "--autotune-budget":
+        # served since tune (item 10): the first tenant is tuned by four
+        # washout probes on the live engine, then served with the winner
+        results = launch_serve.main(BASE + ["--learn", "rls", "--learn-washout", "3"] + flag)
+        out = capsys.readouterr().out
+        assert sorted(results) == list(range(6))
+        assert all(r.error is None and np.isfinite(r.learn_nmse) for r in results.values())
+        assert "washout autotune: 4 probes on the live engine; tenant 0 served with a_cp=" in out
+        return
     if flag[0] == "--compilation-cache-dir":
         # served since the plan cache (item 9): the flag reaches the plan,
         # which pins the kernel library's build directory (process-wide
@@ -72,3 +82,13 @@ def test_lm_mode_keeps_its_invocation(capsys):
     launch_serve.main(["--arch", "h2o-danube-1.8b", "--reduced", "--requests", "2",
                        "--slots", "2", "--gen", "3", "--prompt-len", "12", "--device", "cpu"])
     assert "served 2 requests / 6 tokens" in capsys.readouterr().out
+
+
+def test_autotune_flags_are_validated():
+    """The reference's checks: --autotune-budget needs --learn, and an
+    unknown --autotune-knobs name stops the launcher."""
+    with pytest.raises(SystemExit):
+        launch_serve.main(BASE + ["--autotune-budget", "4"])
+    with pytest.raises(SystemExit, match="unknown"):
+        launch_serve.main(BASE + ["--learn", "rls", "--learn-washout", "3", "--autotune-budget", "4",
+                                  "--autotune-knobs", "drive_current,warp"])

@@ -1,8 +1,8 @@
 """The port's process-wide plan cache (repro_torch.api.cache) on the CPU.
 
-Restates tests/test_plan_cache.py's cases that are neither sharded nor tune
-(the sharded autoscale cases wait for ROADMAP queue 1 item 12, the tune case
-for item 10), with the port's device argument, and adds:
+Restates tests/test_plan_cache.py's cases that are not sharded (the sharded
+autoscale cases wait for ROADMAP queue 1 item 12), the tune case among them,
+with the port's device argument, and adds:
 
 - the cross-package hash: the port's spec_structural_hash returns the JAX
   reference's hex digest for seed-made specs (N = 8 and 64, f32 and f64,
@@ -55,6 +55,7 @@ from repro_torch.core.ensemble import broadcast_params
 from repro_torch.kernels import _build, dispatch_table, ops, sto_step
 from repro_torch.serve import reservoir
 from repro_torch.serve.reservoir import ReservoirEngine, StreamSession, _bucket_ladder
+from repro_torch.tune import driver as tune_driver
 
 torch.set_num_threads(2)
 
@@ -71,7 +72,7 @@ def plan_cache(monkeypatch):
     """A fresh PlanCache as the process-wide one, empty dispatch tables."""
     _join_prewarm_threads()
     fresh = PlanCache()
-    for mod in (cache, api, reservoir):
+    for mod in (cache, api, reservoir, tune_driver):
         monkeypatch.setattr(mod, "PLAN_CACHE", fresh)
     monkeypatch.setattr(ops, "_LATENCY_TABLE", {})
     monkeypatch.setattr(ops, "_DISPATCH_GEN", ops._DISPATCH_GEN)
@@ -626,6 +627,42 @@ def test_bucket_ladder_helper():
     assert _bucket_ladder(4, 4) == [4]
     for lo, hi in ((2, 8), (2, 12), (4, 4), (64, 256), (3, 20)):
         assert _bucket_ladder(lo, hi) == j_bucket_ladder(lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# tune integration: one compile per structural combo, across calls
+# ---------------------------------------------------------------------------
+
+
+def test_tune_compiles_each_structural_combo_once(plan_cache):
+    from repro_torch.tune import Choice, Float, SearchSpace, narma_task, tune_spec
+
+    task = narma_task(32, order=10, seed=9, learn_washout=8)
+    space = SearchSpace({
+        "drive_current": Float(0.5e-3, 4.5e-3),
+        "hold_steps": Choice((3, 5)),
+    })
+    plan = ExecPlan(impl="scan", ensemble=4, chunk_ticks=2, learn="rls")
+    spec = make_spec(n=12, n_in=1, hold_steps=4, seed=900_060, dtype=torch.float32, device="cpu")
+
+    def run_once():
+        return tune_spec(
+            spec, task, space, budget=8, plan=plan, strategy="cmaes", seed=2, device="cpu"
+        )
+
+    c0 = plan_cache.stats.compiles
+    first = run_once()
+    combos = {t.assignment["hold_steps"] for t in first.trials}
+    assert plan_cache.stats.compiles - c0 == len(combos), (
+        "a 2-generation CMA-ES run must compile each structural combo exactly once"
+    )
+    second = run_once()
+    assert plan_cache.stats.compiles - c0 == len(combos), (
+        "revisiting the same structural combos recompiled them"
+    )
+    assert [t.fitness for t in first.trials] == [
+        t.fitness for t in second.trials
+    ], "cached engines changed the search's numerics"
 
 
 # ---------------------------------------------------------------------------
