@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --delay-line   # phase 3f(a) alone
     python3 chip_smoke.py --tune         # phase 3g alone
+    python3 chip_smoke.py --fleet        # phase 3h alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -146,7 +147,7 @@ on failure:
    and under tiled: candidates/s, the best assignment, PLAN_CACHE's
    compiles (two per impl; the cache cleared first), launches (the impl's
    kernel only) and peak memory; (b) the chunk search again with its seed:
-   the trial history bit-identical, no compile; (c) 16 trials of the stable
+   the trial history bit-identical, no compile; (c) 8 trials of the stable
    regime (learn_reg 1e-2) each served alone on a fresh engine of the same
    plan and width in the lane it was evaluated in (learn_nmse bit-equal),
    and on the E = 1 scan oracle on the card (within NMSE_ORACLE_RTOL); a
@@ -160,6 +161,30 @@ on failure:
    final_m, learned W and learn_nmse bit-equal to the same tenants served
    without it; (f) the launcher with --learn rls --autotune-budget 8, which
    must print its `washout autotune:` line.
+3h. The fleet (repro_torch.serve.fleet) at the same shapes, replicas built
+   by make_engine (backend chunk) through fleet_engine, which loads the
+   kernel library and, in a replica child, fails if that ran nvcc: (a) two
+   LocalReplicas behind FleetFrontend serve the 512 sessions through
+   submit_stream / drain_results (stepped from the front end's executor
+   thread), each session bit-equal to phase 3's one engine of the same width
+   (a session that is not is printed with its gap and lanes and held
+   bit-equal to its replay alone in its fleet lane); (b) two ProcessReplicas
+   that share the build directory the parent built: each child's spawn to
+   ready, its first three chunks (RPC round trips) beside its engine's median
+   chunk, the card's free memory before the spawn and with both ready, the
+   512 sessions held to (a)'s results, each child's backend and kernel
+   launches (through the stats RPC); (c) failover with checkpoint_every=2:
+   one child hangs at its chunk 2 (rpc_timeout_s trips), the other crashes
+   at chunk 3, both respawn: the respawn times, the time from the hung
+   chunk's send to the replacement's first chunk, fault_stats(), every
+   session held to (b)'s results; (d) one RLS learner checkpointed after two
+   chunks out of one process replica into the other (P and W through the
+   pipe), bit-equal to the learners served unmoved on one engine; (e)
+   sessions/s of one engine, two local and two process replicas by the host
+   clock (no claim); (f) the launcher's --fleet with two process replicas
+   on the card, which must say that admission control is off (the
+   committed BENCH_serve.json is a CPU grid). `python3 chip_smoke.py
+   --fleet` runs it alone.
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -322,10 +347,12 @@ TUNE_REGS = (1e-4, 1e-2)
 STABLE_CURRENT = (1e-3, 3e-3)
 STABLE_A_CP = (0.3, 0.9)
 ORACLE_REG = 1e-2
-REPLAYS = 16
+# the first REPLAYS of them (16 until phase 3h joined the script; 8 keep the
+# whole run near half its time limit: the E = 1 oracle costs ~4.3 s each)
+REPLAYS = 8
 # a replayed trial's learn_nmse against the E = 1 scan oracle on the card,
-# relative: f32 rounding alone moves it by up to 1.39e-3 on the 16 candidates
-# 3g(c) replays (f32 against f64 scan on a CPU, N = 2500, learn_reg 1e-2;
+# relative: f32 rounding alone moves it by up to 1.39e-3 on the first 16
+# candidates 3g(c) replays (f32 against f64 scan on a CPU, N = 2500, learn_reg 1e-2;
 # 5e-6 at 2.2 mA, 1e-3 near 3 mA, the edge of the stable regime; 3.2x at
 # learn_reg 1e-4, which is why the oracle holds 1e-2 only); ~7x that
 NMSE_ORACLE_RTOL = 1e-2
@@ -2942,6 +2969,347 @@ def tune_only():
     print("3g held", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the fleet
+# ---------------------------------------------------------------------------
+
+# the replicas' engine, at the reservoir cell's shapes (make_engine's seeds
+# give phase 3's spec: make_spec(N, n_in=1, seed=0, hold_steps=HOLD))
+FLEET_KW = dict(n=N, num_slots=E, hold_steps=HOLD, seed=0, backend="chunk", chunk_ticks=K,
+                device="cuda")
+FLEET_REPLICAS = 2
+# a process replica's reply deadline: far above a chunk (~0.03-0.25 s) and a
+# snapshot of 256 sessions (~100 MB of host data); the hung child trips it
+FLEET_RPC_TIMEOUT_S = 10.0
+
+
+class LaunchCountingEngine(ReservoirEngine):
+    """A replica's engine whose stats also carry this process's kernel
+    launches (an attribute beside EngineStats' fields, so a process
+    replica's child reports its own counts through the stats RPC)."""
+
+    def stats(self):
+        st = super().stats()
+        st.launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        return st
+
+
+def fleet_engine(**kw):
+    """Phase 3h's replica factory (module level: spawn pickles it):
+    `make_engine`, then the kernel library loaded. In a replica child it
+    raises (the ready handshake answers with the error) if loading ran
+    nvcc: the fleet's parent built the library for its children."""
+    import multiprocessing
+
+    from repro_torch.serve.fleet import make_engine
+
+    eng = make_engine(**kw)
+    eng.__class__ = LaunchCountingEngine  # the same engine, stats with launches
+    _build.load()
+    if multiprocessing.parent_process() is not None and _build.BUILD_LOG is not None:
+        raise RuntimeError(f"a replica child ran nvcc in {_build.BUILD_DIR}")
+    return eng
+
+
+def fleet_sessions(learn=False):
+    return make_sessions(np.random.default_rng(0), learn=learn)
+
+
+def replay_in_lane(spec, sess, slot, learn=None):
+    """One session served alone on a fresh engine of the replicas' width,
+    admitted into `slot` (the lane it had in the fleet)."""
+    eng = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, backend="chunk", learn=learn,
+                          device="cuda")
+    eng.store.free_slots = lambda slot=slot: [slot]
+    return eng.run([sess])[sess.sid]
+
+
+def hold_fleet(label, got, want, spec, learn=False):
+    """Every session of `got` bit-equal to `want` (states, final_m, outputs;
+    a learner's W and predictions too). A session that is not is printed
+    with its gap and both lanes, and then held bit-equal to its replay alone
+    in its fleet lane at the engine's width: a lane's bits then depend on
+    its lane, not on the fleet. Returns the sessions held by replay."""
+    assert sorted(got) == sorted(want), f"{label}: {len(got)} vs {len(want)} sessions"
+    sessions = {s.sid: s for s in fleet_sessions(learn)}
+    off = []
+    for sid in sorted(want):
+        a, b = got[sid], want[sid]
+        assert a.error is None, (sid, a.error)
+        same = all(np.array_equal(x, y) for x, y in (
+            (a.states, b.states), (a.final_m, b.final_m), (a.outputs, b.outputs)))
+        if learn:
+            same = same and torch.equal(a.learned_readout.w_out, b.learned_readout.w_out)
+            same = same and np.array_equal(a.predictions, b.predictions)
+        if not same:
+            off.append(sid)
+    for sid in off:
+        a, b = got[sid], want[sid]
+        gap = max(float(np.abs(a.states - b.states).max()), float(np.abs(a.final_m - b.final_m).max()))
+        print(f"{label}: session {sid} differs by {gap:.3e} (lane {a.slot} in the fleet, "
+              f"{b.slot} in the reference run): held to its replay in lane {a.slot}", flush=True)
+        assert gap <= STATE_ATOL, (sid, gap)
+        r = replay_in_lane(spec, sessions[sid], a.slot, learn="rls" if learn else None)
+        assert np.array_equal(a.states, r.states) and np.array_equal(a.final_m, r.final_m), (
+            f"{label}: session {sid} differs from its replay in lane {a.slot}")
+    return off
+
+
+def fleet_local(spec, want, name_power):
+    """3h(a): two LocalReplicas behind FleetFrontend, the 512 sessions
+    through submit_stream / drain_results (local replicas stepped from the
+    front end's executor thread)."""
+    import asyncio
+
+    from repro_torch.serve.fleet import FleetFrontend, FleetRouter, start_fleet
+
+    router = FleetRouter()
+    reps = start_fleet(FLEET_REPLICAS, "local", factory=fleet_engine, **FLEET_KW)
+    for r in reps:
+        router.add_replica(r)
+
+    async def serve_all():
+        async with FleetFrontend(router) as fleet:
+            for s in fleet_sessions():
+                await fleet.submit_stream(N, s.u_seq, readout=s.readout, params=s.params,
+                                          sid=s.sid)
+            got = await fleet.drain_results()
+            stats = fleet.stats()[N]
+            return got, stats
+
+    with Check("fleet local") as c:
+        got, stats = asyncio.run(serve_all())
+    assert all(st.backend == "chunk" for st in stats), [st.backend for st in stats]
+    assert c.launches.get("rk4_chunk", 0) > 0 and set(c.launches) == {"rk4_chunk"}, c.launches
+    off = hold_fleet("3h(a)", got, want, spec)
+    print(f"3h(a) {FLEET_REPLICAS} local replicas behind FleetFrontend (N={N}, E={E}, K={K}, "
+          f"chunk): {SESSIONS} sessions in {c.seconds:.3f} s = {SESSIONS / c.seconds:.1f} "
+          f"sessions/s, {SESSIONS - len(off)} bit-equal to one engine, {len(off)} held to their "
+          f"replay; per replica {[st.session_ticks for st in stats]} session-ticks, backends "
+          f"{[st.backend for st in stats]}; launches {c.launches} ({name_power})", flush=True)
+    return got, SESSIONS / c.seconds
+
+
+def spawn_replicas(kw, faults=(None, None)):
+    """Process replicas (the factory fleet_engine), spawned together after the
+    parent built the kernel library for them; returns (replicas, each one's
+    seconds from the spawn to its ready handshake, the kw they were given)."""
+    from repro_torch.serve.fleet import ProcessReplica
+    from repro_torch.serve.fleet import replica as replica_mod
+
+    kw = replica_mod._share_kernel_library(kw)
+    t0 = time.perf_counter()
+    reps = [ProcessReplica(fleet_engine, _defer_ready=True, rpc_timeout_s=FLEET_RPC_TIMEOUT_S,
+                           faults=f, **kw) for f in faults]
+    ready = []
+    for r in reps:
+        r.wait_ready()
+        ready.append(time.perf_counter() - t0)
+    return reps, ready, kw
+
+
+def fleet_process(spec, want, name_power):
+    """3h(b): two ProcessReplicas sharing the build directory the parent
+    built; each child's spawn-to-ready time, its first chunks against later
+    ones, the card's free memory before and after; the 512 sessions held to
+    3h(a)'s results."""
+    from repro_torch.serve.fleet import FleetRouter
+
+    free0, total = torch.cuda.mem_get_info()
+    reps, ready, kw = spawn_replicas(dict(FLEET_KW))
+    free1, _ = torch.cuda.mem_get_info()
+    router = FleetRouter()
+    for r in reps:
+        router.add_replica(r)
+    t0 = time.perf_counter()
+    for s in fleet_sessions():
+        router.submit(N, s)
+    # each child's first chunks, one replica at a time, then the overlapped pump
+    chunk_s = [[] for _ in reps]
+    for _ in range(3):
+        for i, r in enumerate(reps):
+            t1 = time.perf_counter()
+            r.run_for(1)
+            chunk_s[i].append(time.perf_counter() - t1)
+    got = router.drain()
+    seconds = time.perf_counter() - t0
+    stats = [r.stats() for r in reps]
+    router.close()
+    assert all(st.backend == "chunk" for st in stats), [st.backend for st in stats]
+    for st in stats:
+        assert st.launches.get("rk4_chunk", 0) > 0 and set(st.launches) == {"rk4_chunk"}, st.launches
+    off = hold_fleet("3h(b)", got, want, spec)
+    print(f"3h(b) {FLEET_REPLICAS} process replicas sharing {kw['compilation_cache_dir']} (no "
+          f"child ran nvcc): spawn to ready {', '.join(f'{x:.3f}' for x in ready)} s; first "
+          f"chunks (RPC round trip, ms) "
+          + "; ".join(" / ".join(f"{1e3 * x:.3f}" for x in c) for c in chunk_s)
+          + f"; later chunks median {[round(1e3 * st.chunk_median_s, 3) for st in stats]} ms "
+          f"(the child's engine clock); card memory free {free0 / 2**30:.2f} GiB before the "
+          f"spawn, {free1 / 2**30:.2f} GiB with both children ready (of {total / 2**30:.2f}; "
+          f"{(free0 - free1) / 2**30:.2f} GiB for the two); {SESSIONS} sessions in {seconds:.3f} s "
+          f"= {SESSIONS / seconds:.1f} sessions/s, {SESSIONS - len(off)} bit-equal to 3h(a), "
+          f"{len(off)} held to their replay; backends {[st.backend for st in stats]}, each "
+          f"child's launches {[st.launches for st in stats]} ({name_power})", flush=True)
+    return got, SESSIONS / seconds
+
+
+def fleet_failover(spec, want, name_power):
+    """3h(c): checkpoint_every=2; replica 1's child hangs at its chunk 2 (its
+    rpc deadline trips), replica 0's crashes at chunk 3; both respawn. Every
+    session held to 3h(b)'s results."""
+    from repro_torch.serve.fleet import Fault, FaultPlan, FleetRouter, start_fleet
+
+    plans = (FaultPlan((Fault("crash", at_chunk=3),)), FaultPlan((Fault("hang", at_chunk=2),)))
+    reps, ready, kw = spawn_replicas(dict(FLEET_KW), faults=plans)
+    sent, first_reply, respawn_s = {}, {}, []
+
+    def instrument(rep):
+        """Record when `rep` was last sent a chunk and its first reply."""
+        launch, wait = rep.run_for_async, rep.run_for_wait
+
+        def run_for_async(n=1):
+            sent[id(rep)] = time.perf_counter()
+            return launch(n)
+
+        def run_for_wait():
+            out = wait()
+            first_reply.setdefault(id(rep), time.perf_counter())
+            return out
+
+        rep.run_for_async, rep.run_for_wait = run_for_async, run_for_wait
+        return rep
+
+    respawned = []
+
+    def respawn():
+        t0 = time.perf_counter()
+        (r,) = start_fleet(1, "process", factory=fleet_engine,
+                           rpc_timeout_s=FLEET_RPC_TIMEOUT_S, **kw)
+        respawn_s.append(time.perf_counter() - t0)
+        respawned.append(r)
+        return instrument(r)
+
+    router = FleetRouter(checkpoint_every=2)
+    for r in reps:
+        router.add_replica(instrument(r), respawn=respawn)
+    hung = reps[1]
+    for s in fleet_sessions():
+        router.submit(N, s)
+    t0 = time.perf_counter()
+    got = router.drain()
+    seconds = time.perf_counter() - t0
+    faults = router.fault_stats()
+    backends = [st.backend for col in router.stats().values() for st in col]
+    router.close()
+    assert faults["replica_deaths"] == 2 and faults["failovers"] == 2, faults
+    assert faults["sessions_lost"] == 0 and faults["sessions_recovered"] > 0, faults
+    assert backends == ["chunk", "chunk"], backends
+    # the hung child's replacement is the first respawn (chunk 2 precedes chunk 3)
+    hang_to_first = first_reply[id(respawned[0])] - sent[id(hung)]
+    off = hold_fleet("3h(c)", got, want, spec)
+    print(f"3h(c) failover, checkpoint_every=2: replica 1 hung at chunk 2 (rpc_timeout_s "
+          f"{FLEET_RPC_TIMEOUT_S}), replica 0 crashed at chunk 3; respawns "
+          f"{', '.join(f'{x:.3f}' for x in respawn_s)} s; from the hung chunk's send to the "
+          f"respawned replica's first chunk {hang_to_first:.3f} s; fault_stats {faults}; "
+          f"{SESSIONS} sessions in {seconds:.3f} s, {SESSIONS - len(off)} bit-equal to the run "
+          f"without faults, {len(off)} held to their replay ({name_power})", flush=True)
+
+
+def fleet_migration(spec, name_power):
+    """3h(d): one RLS learner checkpointed mid-stream out of one process
+    replica into the other (P and W through the pipe), against the 16
+    learners served unmoved on one engine in this process."""
+    from repro_torch.serve.fleet import FleetRouter
+
+    kw = dict(FLEET_KW, learn="rls")
+    make = lambda: fleet_sessions(learn=True)[:16]  # noqa: E731
+    want = ReservoirEngine(spec, num_slots=E, chunk_ticks=K, backend="chunk", learn="rls",
+                           device="cuda").run(make())
+    gc.collect()
+    torch.cuda.empty_cache()  # the children allocate their own P
+    reps, _, _ = spawn_replicas(kw)
+    router = FleetRouter()
+    for r in reps:
+        router.add_replica(r)
+    sessions = make()
+    for s in sessions:
+        reps[0].submit(s)
+        router._affinity[s.sid] = reps[0]  # every learner starts on replica 0
+    router.run_for(2)
+    moved = max(sessions, key=lambda s: s.u_seq.shape[0]).sid
+    t0 = time.perf_counter()
+    dst = router.migrate(moved, dst=reps[1])
+    migrate_s = time.perf_counter() - t0
+    got = router.drain()
+    stats = [r.stats() for r in reps]
+    router.close()
+    assert dst is reps[1] and all(st.backend == "chunk" and st.learn == "rls" for st in stats)
+    a, b = got[moved], want[moved]
+    gaps = (float(np.abs(a.states - b.states).max()),
+            float((a.learned_readout.w_out - b.learned_readout.w_out).abs().max()),
+            float(np.abs(a.predictions - b.predictions).max()))
+    exact = (np.array_equal(a.states, b.states) and np.array_equal(a.final_m, b.final_m)
+             and torch.equal(a.learned_readout.w_out, b.learned_readout.w_out)
+             and np.array_equal(a.predictions, b.predictions))
+    print(f"3h(d) RLS learner {moved} ({b.states.shape[0]} ticks) migrated after {2 * K} ticks "
+          f"from replica 0 (lane {b.slot} unmoved) to replica 1 (lane {a.slot}), P "
+          f"({N + 1} x {N + 1}) and W through the pipe: migrate {migrate_s:.3f} s; states / W / "
+          f"predictions differ by {gaps[0]:.3e} / {gaps[1]:.3e} / {gaps[2]:.3e}: "
+          f"{'bit-equal' if exact else 'DIFFER'}; the other 15 learners "
+          f"{'bit-equal' if all(np.array_equal(got[s].states, want[s].states) for s in want) else 'differ'}"
+          f" ({name_power})", flush=True)
+    assert exact, f"the migrated learner differs from the unmoved one: {gaps}"
+
+
+def fleet_launcher(name_power):
+    """3h(f): the launcher's --fleet with two process replicas on the card
+    (its default device): it serves every session and says that admission
+    control is off, BENCH_serve.json being a CPU grid."""
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--mode", "reservoir", "--fleet", "--replicas", "2", "--transport", "process",
+            "--checkpoint-every", "2", "--n", str(N), "--slots", str(E), "--sessions", str(SESSIONS),
+            "--ticks", "40", "--hold-steps", str(HOLD), "--chunk-ticks", str(K), "--backend", "chunk"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = launch_serve.main(argv)
+    seconds = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    assert len(results) == SESSIONS and all(r.error is None for r in results.values())
+    assert ("planner: BENCH_serve.json was measured on cpu, not cuda — admission control "
+            "disabled") in out.getvalue(), out.getvalue()
+    assert "planner-predicted capacity" not in out.getvalue()
+    print(f"3h(f) launcher {' '.join(argv)}: {seconds:.3f} s ({name_power})", flush=True)
+
+
+def fleet_phase(spec, name_power):
+    """Phase 3h: the fleet at the reservoir cell's shapes."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    want, seconds, launches, _ = serve(spec, "chunk")
+    engine_rate = SESSIONS / seconds
+    local, local_rate = fleet_local(spec, want, name_power)
+    proc, proc_rate = fleet_process(spec, local, name_power)
+    fleet_failover(spec, proc, name_power)
+    fleet_migration(spec, name_power)
+    fleet_launcher(name_power)
+    print(f"3h(e) sessions/s by the host clock, {SESSIONS} sessions, N={N}, E={E}, K={K}, chunk: "
+          f"1 engine {engine_rate:.1f} (launches {launches['rk4_chunk']} rk4_chunk), "
+          f"{FLEET_REPLICAS} local replicas {local_rate:.1f}, {FLEET_REPLICAS} process replicas "
+          f"{proc_rate:.1f} (no claim; {name_power})", flush=True)
+    print(f"phase 3h: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def fleet_only():
+    """`chip_smoke.py --fleet`: build the kernels and run phase 3h alone."""
+    name_power = card_line()
+    _build.load()
+    fleet_phase(make_spec(N, n_in=1, seed=0, hold_steps=HOLD, device="cuda"), name_power)
+    print("3h held", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3025,6 +3393,7 @@ def main():
     rows["tm_delay_line"] = families_phase(served, name, name_power)
     del served
     tune_phase(spec, name_power)
+    fleet_phase(spec, name_power)
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
@@ -3046,5 +3415,7 @@ if __name__ == "__main__":
         delay_line_only()
     elif sys.argv[1:2] == ["--tune"]:
         tune_only()
+    elif sys.argv[1:2] == ["--fleet"]:
+        fleet_only()
     else:
         main()

@@ -986,6 +986,33 @@ def family_auto_impl(topology: str, impl: str, device_type: str) -> str:
     return impl
 
 
+def auto_impl(
+    topology: str,
+    tableau: str,
+    dtype: torch.dtype,
+    n: int,
+    e: int,
+    precision: Optional[str],
+    device_type: str,
+) -> str:
+    """What impl="auto" resolves to for a spec's topology, tableau and state
+    dtype at (N, E, precision) on a device type.
+
+    A tableau other than RK4 runs the scan oracle: the table's impls
+    integrate classical RK4. On the card, a state that is not f32 runs
+    "ref", the reference's rule off its kernel platform: the CUDA kernels
+    take an f32 state, and "ref" runs any dtype. Otherwise the dispatch
+    table's choice (`ops.choose_impl`), mapped to the family's impl
+    (`family_auto_impl`)."""
+    if tableau != "rk4":
+        return "scan"
+    if device_type == "cuda" and dtype != torch.float32:
+        return "ref"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    impl = ops.choose_impl(n, e, itemsize, platform=device_type, precision=precision)
+    return family_auto_impl(topology, impl, device_type)
+
+
 def compile_plan(
     spec: SimSpec, plan: Optional[ExecPlan] = None, device="cuda", **overrides
 ) -> CompiledSim:
@@ -1037,24 +1064,20 @@ def compile_plan(
         )
 
     impl = plan.impl
-    itemsize = torch.empty((), dtype=spec.dtype).element_size()
     if impl == "auto":
-        if plan.measure:
-            # memoized: one (device, N, E, dtype, precision, K) key is timed once
+        if plan.measure and (dev.type != "cuda" or spec.dtype == torch.float32):
+            # memoized: one (device, N, E, dtype, precision, K) key is timed
+            # once; the card's candidates are kernels, which take f32 only
             from repro_torch.api import cache as _cache
 
             _cache.PLAN_CACHE.measure(
                 spec.n, plan.ensemble, dt=float(spec.dt), dtype=spec.dtype,
                 precision=plan.effective_precision, chunk_ticks=plan.chunk_ticks, device=dev,
             )
-        impl = ops.choose_impl(
-            spec.n, plan.ensemble, itemsize, platform=dev.type,
-            precision=plan.effective_precision,
+        impl = auto_impl(
+            spec.topology, spec.tableau, spec.dtype, spec.n, plan.ensemble,
+            plan.effective_precision, dev.type,
         )
-        impl = family_auto_impl(spec.topology, impl, dev.type)
-        if spec.tableau != "rk4":
-            # the table's impls integrate RK4: another tableau runs the oracle
-            impl = "scan"
     if impl in PLANES_IMPLS and spec.tableau != "rk4":
         # the reference's "ref" body integrates RK4 whatever the tableau; the
         # port refuses that instead of answering with RK4

@@ -4,7 +4,10 @@ The reference's SimSpec leaves, readouts, per-tenant parameters, online
 learners' (P, W) lanes and session checkpoints, and its LM parameter and
 KV-cache pytrees, reach the port as numpy arrays (`np.asarray` of each leaf); these converters rebuild
 the port's objects from them on `device`, so both packages compute the same
-thing from the same numbers. Nothing here imports the reference.
+thing from the same numbers. A session checkpoint also goes the other way
+(`checkpoint_to_numpy`), so a session moves between the two packages'
+engines and fleet replicas in either direction. Nothing here imports the
+reference.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from repro_torch.core.reservoir import Readout
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.serve.reservoir import SessionCheckpoint
+from repro_torch.serve.state_store import _host
 
 
 def _tensor(x, dev, dtype=None) -> torch.Tensor:
@@ -114,6 +118,51 @@ def checkpoint_from_numpy(ckpt) -> SessionCheckpoint:
         P=arr(ckpt.P),
         Wl=arr(ckpt.Wl),
         spec=None if ckpt.spec is None else _spec_from_leaves(ckpt.spec),
+    )
+
+
+def checkpoint_to_numpy(ckpt: SessionCheckpoint) -> dict:
+    """The port's SessionCheckpoint as plain fields for the reference: a dict
+    keyed by the SessionCheckpoint's field names, every array a numpy copy
+    and every scalar a Python value. params become a dict of numpy leaves by
+    STOParams field, and a spec a dict of numpy leaves and scalars by
+    SimSpec field (its params such a dict too), from which the reference
+    rebuilds its own STOParams and SimSpec. The reverse of
+    `checkpoint_from_numpy`: a session checkpointed on the port's engine (or
+    a fleet replica) restores on the reference's."""
+
+    def arr(x):
+        return None if x is None else np.array(_host(x))
+
+    def leaves(params):
+        return {f: np.array(_host(v)) for f, v in zip(STOParams._fields, params)}
+
+    spec = None
+    if ckpt.spec is not None:
+        spec = dict(
+            ckpt.spec._asdict(),
+            params=leaves(ckpt.spec.params),
+            w_cp=arr(ckpt.spec.w_cp), w_in=arr(ckpt.spec.w_in), m0=arr(ckpt.spec.m0),
+        )
+    return dict(
+        sid=int(ckpt.sid),
+        u_seq=arr(ckpt.u_seq),
+        t=int(ckpt.t),
+        m=arr(ckpt.m),
+        params=None if ckpt.params is None else leaves(ckpt.params),
+        readout_w=arr(ckpt.readout_w),
+        readout_washout=int(ckpt.readout_washout),
+        collect_states=bool(ckpt.collect_states),
+        targets=arr(ckpt.targets),
+        learn_washout=int(ckpt.learn_washout),
+        open=bool(ckpt.open),
+        n_out=int(ckpt.n_out),
+        states=arr(ckpt.states),
+        outs=arr(ckpt.outs),
+        preds=arr(ckpt.preds),
+        P=arr(ckpt.P),
+        Wl=arr(ckpt.Wl),
+        spec=spec,
     )
 
 

@@ -121,16 +121,20 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the sources if no library with their hash exists; return its path."""
+def build(build_dir=None) -> pathlib.Path:
+    """Compile the sources into `build_dir` (BUILD_DIR when None) if no
+    library with their hash exists there; return its path. A parent process
+    builds into the directory its worker processes will load from this way
+    (`serve.fleet.start_fleet`), whatever directory it loads from itself."""
     global BUILD_LOG
+    build_dir = BUILD_DIR if build_dir is None else pathlib.Path(build_dir)
     digest = _source_hash()
-    out = BUILD_DIR / f"librepro_torch_{digest}.so"
+    out = build_dir / f"librepro_torch_{digest}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{digest}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{pathlib.Path(s).stem}.{tag}.o" for s in SOURCES]
+    objs = [build_dir / f"{pathlib.Path(s).stem}.{tag}.o" for s in SOURCES]
     nvcc = _nvcc()
     cmds = [
         [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]

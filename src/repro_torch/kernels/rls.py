@@ -30,8 +30,15 @@ oracle. On CUDA, cuBLAS's bmm and the reduce kernels pick another
 algorithm for another batch count (at E = 256 against E = 1 they differ
 at rounding level, tools/rls_tail_probe.py); a lane at width E is still
 bit-equal to the same lane replayed at width E, whatever the other lanes
-hold (tests/test_torch_cuda.py and chip_smoke.py hold both, and the E = 1
-oracle within a tolerance).
+hold and whichever lane it is (tests/test_torch_cuda.py and chip_smoke.py
+hold both, and the E = 1 oracle within a tolerance). The lane's position
+matters to CUDA's reduce kernel, which begins its vectorized loads at each
+row's first 16-byte boundary: with S = N + 1 odd, lane e's rows start at
+another alignment than lane 0's and sum in another order. So the serving
+path's trailing sums go through `_dot`, which on CUDA pads the summed axis
+to a multiple of four (every row then starts aligned), and `rls_chunk`'s
+K == 1 product through bmm there (tools/rls_lane_probe.py; a session
+migrated into another lane keeps its bits).
 
 Numerical note: the recursion runs in P's dtype (f32 for serving). With
 lam == 1, P shrinks monotonically and f32 is stable for any stream length;
@@ -67,6 +74,19 @@ def rls_init(
     p0 = eye[None].expand(e, n_state, n_state).contiguous()
     w0 = torch.zeros((e, n_state, n_out), dtype=dtype, device=device)
     return p0, w0
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """sum(a * b) over `dim`, the feature axis, in an order that does not
+    depend on where a lane's row lies in memory. On CUDA the product is
+    padded with zeros along that axis to a multiple of four elements, so
+    every row of the reduction starts 16-byte aligned (the zeros add exactly
+    nothing); the CPU sums the product as it is (module docstring)."""
+    prod = (a * b).movedim(dim, -1)
+    pad = -prod.shape[-1] % 4
+    if prod.device.type == "cuda" and pad:
+        prod = torch.nn.functional.pad(prod, (0, pad))
+    return torch.sum(prod, dim=-1)
 
 
 def _masked(mask: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
@@ -142,7 +162,10 @@ def rls_chunk(
     xb = xb.to(p.dtype)
     y = y.to(p.dtype)
     dev, dt = p.device, p.dtype
-    if k_ticks == 1:
+    if k_ticks == 1 and p.device.type == "cuda":
+        # a mat-vec per lane; padding (E, S, S) for _dot would copy all of P
+        b = torch.bmm(p, xb[0][:, :, None])  # (E, S, 1)
+    elif k_ticks == 1:
         # the degenerate GEMM is a mat-vec: the multiply + trailing sum
         # spelling of rls_update, so chunk_ticks=1 runs its op sequence
         b = torch.sum(p * xb[0][:, None, :], dim=-1)[:, :, None]  # (E, S, 1)
@@ -164,13 +187,13 @@ def rls_chunk(
         x_t = xb[t]  # (E, S)
         px_t = b[:, :, t] if lam == 1.0 else cum[:, None] * b[:, :, t]
         if t:
-            c = torch.sum(pxst * x_t[:, None, :], dim=-1)  # (E, t) px_j . x_t
+            c = _dot(pxst, x_t[:, None, :])  # (E, t) px_j . x_t
             if lam != 1.0:
                 c = coefs * c
             px_t = px_t - torch.sum(c[:, :, None] * gst, dim=1)
-        denom = lam + torch.sum(x_t * px_t, dim=-1)  # (E,)
+        denom = lam + _dot(x_t, px_t)  # (E,)
         k_t = _masked(mask[t], px_t / denom[:, None])
-        pred_t = torch.sum(w_t * x_t[:, :, None], dim=1)  # (E, n_out)
+        pred_t = _dot(w_t, x_t[:, :, None], dim=1)  # (E, n_out)
         w_t = w_t + k_t[:, :, None] * (y[t] - pred_t)[:, None, :]
         preds.append(pred_t)
         if gst is None:
@@ -238,9 +261,9 @@ def lms_update(
     """One masked batched NLMS step -> (W', a-priori predictions (E, n_out))."""
     x = x.to(w.dtype)
     y = y.to(w.dtype)
-    pred = torch.sum(w * x[:, :, None], dim=1)  # (E, n_out)
+    pred = _dot(w, x[:, :, None], dim=1)  # (E, n_out)
     err = y - pred
-    norm = torch.sum(x * x, dim=-1) + torch.tensor(_LMS_EPS, dtype=w.dtype, device=w.device)
+    norm = _dot(x, x) + torch.tensor(_LMS_EPS, dtype=w.dtype, device=w.device)
     # a tensor numerator: a Python number over a tensor is a reciprocal
     # and a multiply in torch, two roundings where the reference has one
     g = _masked(mask, torch.tensor(mu, dtype=w.dtype, device=w.device) / norm)

@@ -28,7 +28,20 @@ it streams (repro_torch.tune).
     PYTHONPATH=src python -m repro_torch.launch.serve --mode reservoir \\
         --n 16 --slots 4 --sessions 8 --ticks 20 --hold-steps 5 --device cpu
 
-Not ported yet: --fleet (ROADMAP queue 1 item 11) raises.
+Fleet mode: `--fleet` lifts reservoir serving onto the fleet tier
+(serve/fleet/): `--replicas R` engine replicas in the N-pool behind the
+asyncio front end, sessions placed least-loaded, `--transport process`
+putting each replica in its own OS process (on a card each child loads the
+kernel library the parent built), and `--checkpoint-every K` snapshotting
+live sessions every K pump rounds so a crashed replica's sessions restore
+bit-identically onto a respawned one. The capacity planner calibrates from
+`--bench` (BENCH_serve.json by default) only when that grid was measured on
+the run's device type; otherwise admission control is off and the launcher
+says so.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode reservoir --fleet \\
+        --replicas 2 --n 10 --slots 4 --sessions 8 --ticks 23 \\
+        --transport process --checkpoint-every 2 --device cpu
 """
 
 import argparse
@@ -203,10 +216,100 @@ def main_reservoir(args):
     return results
 
 
-# reference launcher options that are not ported yet
-_WAITING_FLAGS = {
-    "fleet": "--fleet (ROADMAP queue 1 item 11, the fleet)",
-}
+def main_fleet(args):
+    import asyncio
+    import os
+
+    from repro_torch.device import resolve_device
+    from repro_torch.serve.fleet import (
+        CapacityModel,
+        FleetFrontend,
+        FleetRouter,
+        start_fleet,
+        usable_cores,
+    )
+
+    device = resolve_device(args.device)
+    planner = None
+    bench = args.bench or "BENCH_serve.json"
+    if not os.path.exists(bench):
+        print(f"planner: {bench} not found — admission control disabled")
+    else:
+        model = CapacityModel.from_bench(bench)
+        if model.platform != device.type:
+            # a grid timed on another platform says nothing about this one
+            print(
+                f"planner: {bench} was measured on {model.platform}, not "
+                f"{device.type} — admission control disabled"
+            )
+        else:
+            planner = model
+            err = planner.prediction_error()
+            print(
+                f"planner: calibrated from {bench} "
+                f"(fit err median {err['median']:.0%} max {err['max']:.0%})"
+            )
+
+    router = FleetRouter(planner=planner, checkpoint_every=args.checkpoint_every or None)
+    fleet_kw = dict(
+        transport=args.transport,
+        rpc_timeout_s=args.rpc_timeout,
+        rpc_retries=args.rpc_retries,
+        n=args.n,
+        num_slots=args.slots,
+        hold_steps=args.hold_steps,
+        backend=args.backend,
+        chunk_ticks=args.chunk_ticks,
+        precision=args.precision,
+        compilation_cache_dir=args.compilation_cache_dir,
+        device=args.device,
+    )
+    replicas = start_fleet(args.replicas, **fleet_kw)
+
+    def respawn():
+        # failover replacement: same config, drawn warm through the
+        # process-wide plan cache (a process replica loads the kernel
+        # library the fleet built)
+        (r,) = start_fleet(1, **fleet_kw)
+        return r
+
+    for r in replicas:
+        router.add_replica(r, respawn=respawn if args.checkpoint_every else None)
+
+    rng = np.random.default_rng(1)
+    streams = [
+        rng.uniform(0.0, 0.5, size=(args.ticks, 1)).astype(np.float32)
+        for _ in range(args.sessions)
+    ]
+
+    async def serve():
+        async with FleetFrontend(router) as fleet:
+            t0 = time.time()
+            for u in streams:
+                await fleet.submit_stream(args.n, u, collect_states=False)
+            results = await fleet.drain_results()
+            dt = time.time() - t0
+            stats = fleet.stats()[args.n]
+            return results, dt, stats, fleet.fault_stats()
+
+    results, dt, stats, faults = asyncio.run(serve())
+    ticks = sum(s.session_ticks for s in stats)
+    print(
+        f"fleet: {args.replicas}x(N={args.n}, E={args.slots}) "
+        f"transport={args.transport} cores={usable_cores()} on {device} "
+        f"backend={stats[0].backend if stats else args.backend}"
+    )
+    if planner is not None:
+        pred = planner.fleet_sessions_per_sec(args.n, args.slots, replicas=args.replicas)
+        print(f"planner-predicted capacity: {pred:.1f} ref-sessions/s")
+    print(
+        f"served {len(results)} sessions / {ticks} session-ticks in "
+        f"{dt:.2f}s ({ticks / dt:.1f} ticks/s incl. compile; per-replica "
+        f"occupancy {[round(s.occupancy, 2) for s in stats]})"
+    )
+    if args.checkpoint_every or any(faults.values()):
+        print("fault tolerance: " + ", ".join(f"{k}={v}" for k, v in sorted(faults.items())))
+    return results
 
 
 def main(argv=None):
@@ -249,17 +352,37 @@ def main(argv=None):
     ap.add_argument("--compilation-cache-dir", default=None,
                     help="directory to build the CUDA kernel library into and load it from: "
                          "a restarted server skips nvcc")
-    # reference options that wait for later slices
-    ap.add_argument("--fleet", action="store_true", help="not ported yet")
+    # fleet tier (reservoir mode only)
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve through the fleet tier (replicated engines behind the asyncio "
+                         "front end)")
+    ap.add_argument("--replicas", type=int, default=2, help="engine replicas in the N-pool (fleet mode)")
+    ap.add_argument("--transport", choices=["local", "process"], default="local",
+                    help="replica transport: in-process, or one OS process per replica (pipe, "
+                         "chunk batches)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="snapshot live fleet sessions every K router rounds (0: failover off); "
+                         "a crashed replica's sessions then restore bit-identically onto a "
+                         "respawned replacement")
+    ap.add_argument("--rpc-timeout", type=float, default=120.0,
+                    help="per-RPC reply deadline for process replicas; a hung child trips it "
+                         "and is treated as dead")
+    ap.add_argument("--rpc-retries", type=int, default=3,
+                    help="send-side RPC retries (exponential backoff) before a process replica "
+                         "is declared dead")
+    ap.add_argument("--bench", default=None,
+                    help="BENCH_serve.json to calibrate the capacity planner from (default: "
+                         "./BENCH_serve.json if present; used only if measured on --device's type)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.autotune_budget and not args.learn:
         ap.error("--autotune-budget requires --learn (probe fitness is the learner's nmse)")
-    for name, what in _WAITING_FLAGS.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"{what} is not ported yet")
     if args.mode == "reservoir":
+        if args.fleet:
+            return main_fleet(args)
         return main_reservoir(args)
+    if args.fleet:
+        ap.error("--fleet requires --mode reservoir")
     main_lm(args)
 
 

@@ -10,11 +10,13 @@ Layouts: activations (B, S, D); q/k/v (B, S, H, head_dim); caches
 (B, S, KVH, head_dim).
 
 On a CUDA tensor, `grouped_attend` sends every call inside the flash
-kernel's contract (no kv_len, no softcap, scalar q_offset == Sk - Sq: every
-`attn_forward` call) to the hand-written kernel
-(kernels/flash_attention.py). Decode calls (per-row q_offset and kv_len)
-run `_grouped_attend_dense`, the port of the reference's einsum path, which
-the reference also computes outside any Pallas kernel. On the CPU every call
+kernel's contract (a head dim in HEAD_DIMS, bf16 or f32, no kv_len, no
+softcap, scalar q_offset == Sk - Sq: every `attn_forward` call of a model
+whose head dim the kernel was built for) to the hand-written kernel
+(kernels/flash_attention.py). Every other call (decode's per-row q_offset
+and kv_len; another head dim, such as a reduced config's 16) runs
+`_grouped_attend_dense`, the port of the reference's einsum path, which the
+reference computes for every call outside its Pallas kernel. On the CPU every call
 runs the einsum path. A row with no unmasked key gets zeros from the kernel
 and the mean of V from the einsum path (its -1e30 fill); no prefill or
 decode row is fully masked. The reference's q-chunked einsum path for long
@@ -31,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.kernels.flash_attention import _DTYPES, HEAD_DIMS, flash_attention_bshd
 from repro_torch.models.layers import apply_rope, dense, make_dense, rope_freqs
 
 NEG_INF = -1e30
@@ -56,8 +58,13 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(b, s, n_heads, head_dim)
 
 
-def _in_kernel_contract(q, k, q_offset, kv_len, softcap) -> bool:
-    if q.device.type != "cuda" or kv_len is not None or softcap != 0:
+def _kernel_takes(q, k, v, q_offset, kv_len, softcap) -> bool:
+    """The flash kernel's contract, device aside: a head dim it was
+    instantiated for (HEAD_DIMS), a dtype it takes (bf16 or f32, the same
+    for q, k and v), no kv_len, no softcap, and q_offset Sk - Sq."""
+    if q.shape[-1] not in HEAD_DIMS or q.dtype not in _DTYPES:
+        return False
+    if k.dtype != q.dtype or v.dtype != q.dtype or kv_len is not None or softcap != 0:
         return False
     sq, sk = q.shape[1], k.shape[1]
     return q_offset is None or (isinstance(q_offset, int) and q_offset == sk - sq)
@@ -75,7 +82,7 @@ def grouped_attend(
     softcap: float = 0.0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    if _in_kernel_contract(q, k, q_offset, kv_len, softcap):
+    if q.device.type == "cuda" and _kernel_takes(q, k, v, q_offset, kv_len, softcap):
         return flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
     return _grouped_attend_dense(
         q, k, v, causal=causal, window=window, q_offset=q_offset,

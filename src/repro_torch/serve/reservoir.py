@@ -204,7 +204,9 @@ class SessionCheckpoint:
 
 @dataclasses.dataclass
 class EngineStats:
-    """One engine's load/latency snapshot — plain scalars only."""
+    """One engine's load/latency snapshot — plain scalars only, so it
+    pickles across the fleet's replica transport. The fleet router compares
+    these live measurements against the capacity planner's predictions."""
 
     n: int
     num_slots: int
@@ -235,6 +237,12 @@ class EngineStats:
     sub_engines: int = 0
     # lanes the nan guard quarantined, sub-engines included
     quarantined_lanes: int = 0
+    # the owning fleet replica's health (healthy | degraded | dead), stamped
+    # by the replica transport; "healthy" for a bare engine
+    health: str = "healthy"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 class _HostCopy:

@@ -1159,3 +1159,278 @@ def test_washout_autotune_cotenants_bit_equal_on_the_card(cuda, impl, kernel):
         assert np.array_equal(a.states, want.states) and np.array_equal(a.final_m, want.final_m)
         assert torch.equal(a.learned_readout.w_out, want.learned_readout.w_out)
         assert a.learn_nmse == want.learn_nmse
+
+
+# ---------------------------------------------------------------------------
+# LM attention routing by head dim, and auto on a state the kernels cannot take
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_reduced_lm_serves_on_cuda(cuda, capsys):
+    """A reduced h2o-danube (head dim 16, outside the flash kernel's
+    HEAD_DIMS) prefills through the einsum path on the card and generates,
+    in the engine's geometry, the same tokens as the same weights on the
+    CPU; the launcher serves it with its default device."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model, transformer
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = reduce_config(get_config("h2o-danube-1.8b"))
+    assert cfg.head_dim == 16
+    params = build_model(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 19, 24, 17)]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = transformer.tree_map(lambda t: t.to(dev), params)
+        reqs = [Request(i, torch.from_numpy(x), 6) for i, x in enumerate(prompts)]
+        sto_step.reset_launches()
+        out[str(dev)] = Engine(cfg, p, num_slots=2, capacity=32, device=dev).run(reqs)
+        assert sto_step.LAUNCHES["flash_attention"] == 0
+    assert out["cpu"] == out["cuda"]
+    launch_serve.main(["--arch", "h2o-danube-1.8b", "--reduced", "--requests", "3",
+                       "--slots", "2", "--gen", "4", "--prompt-len", "20"])
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["coupled_array", "time_multiplexed", "array_transient"])
+def test_f64_engine_under_auto(cuda, topology):
+    """impl="auto" on an f64 spec resolves to "ref" on the card (the kernels
+    take f32): ReservoirEngine builds, serves a few ticks, and matches the
+    same engine on the CPU within F64_ATOL = 1e-10. A kernel impl the caller
+    names still raises."""
+    from repro_torch.api import make_array_transient_spec, make_spec, make_time_multiplexed_spec
+    from repro_torch.serve.reservoir import ReservoirEngine, StreamSession
+
+    build = {"coupled_array": make_spec, "time_multiplexed": make_time_multiplexed_spec,
+             "array_transient": lambda n, **kw: make_array_transient_spec(n, 2, **kw)}[topology]
+    rng = np.random.default_rng(3)
+    streams = [rng.uniform(0.0, 0.5, (6 + i, 1)) for i in range(3)]
+    got = {}
+    for dev in ("cpu", cuda):
+        spec = build(16, hold_steps=4, seed=0, dtype=torch.float64, device=dev)
+        eng = ReservoirEngine(spec, num_slots=4, chunk_ticks=3, device=dev)
+        assert eng.backend == "ref"
+        got[str(dev)] = eng.run([StreamSession(sid=i, u_seq=u) for i, u in enumerate(streams)])
+    for sid in range(3):
+        a, b = got["cuda"][sid], got["cpu"][sid]
+        assert a.states.dtype == np.float64
+        assert np.abs(a.states - b.states).max() <= 1e-10
+        assert np.abs(a.final_m - b.final_m).max() <= 1e-10
+    with pytest.raises(NotImplementedError, match="f32 state"):
+        ReservoirEngine(build(16, hold_steps=4, seed=0, dtype=torch.float64, device=cuda),
+                        num_slots=4, backend="chunk", device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# the fleet on the card
+# ---------------------------------------------------------------------------
+
+FLEET_KW = dict(n=64, num_slots=8, hold_steps=5, seed=0, backend="chunk", chunk_ticks=4)
+
+
+def _fleet_streams(count=20, seed=5):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0.0, 0.5, (int(rng.integers(5, 19)), 1)).astype(np.float32)
+            for _ in range(count)]
+
+
+@pytest.mark.cuda
+def test_local_replicas_from_the_executor_thread(cuda):
+    """FleetFrontend steps its local replicas from its one-worker executor,
+    not the thread that built them: each session's states and final_m are
+    bit-equal to the same replicas stepped on the main thread, and an
+    autoscaling replica's prewarm thread, started from the executor, warms
+    its buckets without error."""
+    import asyncio
+    import dataclasses
+    import threading
+
+    from repro_torch.api import PLAN_CACHE
+    from repro_torch.serve.fleet import FleetFrontend, FleetRouter, start_fleet
+    from repro_torch.serve.reservoir import StreamSession, _bucket_ladder
+
+    kw = dict(FLEET_KW, device="cuda")
+    streams = _fleet_streams()
+    router = FleetRouter()
+    for r in start_fleet(2, "local", **kw):
+        router.add_replica(r)
+    for sid, u in enumerate(streams):
+        router.submit(64, StreamSession(sid=sid, u_seq=u.copy()))
+    main_thread = router.drain()
+    router.close()
+
+    threads, scaled = set(), {}
+
+    async def serve():
+        router = FleetRouter()
+        for r in start_fleet(2, "local", **kw):
+            router.add_replica(r)
+        async with FleetFrontend(router) as fleet:
+            # an autoscaling replica built on the executor's thread (its
+            # prewarm thread starts there) serves a pool of its own
+            (scaler,) = await fleet._call(
+                lambda: start_fleet(1, "local", **dict(kw, n=48, autoscale=True, min_slots=4,
+                                                      max_slots=16))
+            )
+            router.add_replica(scaler)
+            for sid, u in enumerate(streams):
+                await fleet.submit_stream(64, u.copy(), sid=sid)
+            for sid, u in enumerate(streams[:12]):
+                await fleet.submit_stream(48, u.copy(), sid=100 + sid)
+            got = await fleet.drain_results()
+            await fleet._call(lambda: threads.add(threading.get_ident()))
+            await fleet._call(scaler.engine.prewarm_buckets, True)
+            scaled["engine"] = scaler.engine
+        return got
+
+    sto_step.reset_launches()
+    got = asyncio.run(serve())
+    assert sto_step.LAUNCHES["rk4_chunk"] > 0
+    assert threads and threading.get_ident() not in threads
+    assert sorted(got) == list(range(len(streams))) + list(range(100, 112))
+    for sid, want in main_thread.items():
+        assert np.array_equal(got[sid].states, want.states)
+        assert np.array_equal(got[sid].final_m, want.final_m)
+    for sid in range(100, 112):
+        assert got[sid].error is None and np.isfinite(got[sid].states).all()
+    eng = scaled["engine"]
+    assert eng.prewarm_errors == []
+    ladder = _bucket_ladder(eng.min_slots, eng.max_slots)
+    adjacent = [max((b for b in ladder if b < eng.num_slots), default=None),
+                min((b for b in ladder if b > eng.num_slots), default=None)]
+    for width in (b for b in adjacent if b is not None):
+        assert PLAN_CACHE.is_warm(
+                eng.sim.spec, dataclasses.replace(eng.sim.plan, ensemble=width),
+                n_out=eng.store.n_out, device=eng.device, spec_hash=eng._spec_hash,
+            ), width
+
+
+class _TensorDevices:
+    """The devices of every tensor inside a message, found by pickling it."""
+
+    def __init__(self, msg):
+        import io
+        import pickle
+
+        devices = self.devices = set()
+
+        class Recorder(pickle.Pickler):
+            def persistent_id(self, obj):
+                if isinstance(obj, torch.Tensor):
+                    devices.add(obj.device.type)
+                return None
+
+        Recorder(io.BytesIO(), protocol=pickle.HIGHEST_PROTOCOL).dump(msg)
+
+
+@pytest.mark.cuda
+def test_process_replica_on_cuda_moves_only_host_data(cuda):
+    """A process replica on the card is sent a session whose params, readout
+    and m0 live on the card, and answers with results, stats, a snapshot and
+    a checkpoint: nothing that crossed the pipe holds CUDA storage, and the
+    child served with the chunk kernel."""
+    from repro_torch.core.reservoir import Readout
+    from repro_torch.serve.fleet import LocalReplica, start_fleet
+    from repro_torch.serve.fleet.replica import _host_session
+    from repro_torch.serve.reservoir import StreamSession
+
+    kw = dict(FLEET_KW, device="cuda")
+    (rep,) = start_fleet(1, "process", rpc_timeout_s=120.0, **kw)
+    try:
+        spec = LocalReplica(**kw).engine.res
+        rng = np.random.default_rng(6)
+        w = torch.from_numpy(rng.normal(0, 0.1, (65, 1)).astype(np.float32)).to(cuda)
+        sessions = [
+            StreamSession(sid=i, u_seq=u, readout=Readout(w, 0),
+                          params=spec.params._replace(current=torch.tensor(2.5e-3, device=cuda)),
+                          m0=spec.m0.clone())
+            for i, u in enumerate(_fleet_streams(6))
+        ]
+        for s in sessions:
+            msg = ("submit", _host_session(s))
+            assert _TensorDevices(msg).devices <= {"cpu"}
+            assert s.readout.w_out.device.type == "cuda"  # the caller's session is untouched
+            rep.submit(s)
+        rep.run_for(1)
+        replies = {"snapshot": rep.snapshot(), "checkpoint": rep.checkpoint_session(0)}
+        rep.restore_session(replies["checkpoint"])
+        while rep.run_for(1):
+            pass
+        replies["results"] = rep.results()
+        replies["stats"] = rep.stats()
+        assert len(replies["results"]) == 6 and replies["stats"].backend == "chunk"
+        assert replies["stats"].ticks > 0
+        for op, reply in replies.items():
+            assert _TensorDevices(reply).devices <= {"cpu"}, op
+    finally:
+        rep.close()
+    assert not rep._proc.is_alive()
+
+
+def _engine_without_nvcc(**kw):
+    """A replica factory that loads the kernel library after building the
+    engine and refuses to come up if that load ran nvcc."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.fleet import make_engine
+
+    eng = make_engine(**kw)
+    _build.load()
+    if _build.BUILD_LOG is not None:
+        raise RuntimeError(f"the replica child ran nvcc in {_build.BUILD_DIR}")
+    return eng
+
+
+@pytest.mark.cuda
+def test_process_fleet_children_run_no_nvcc(cuda, tmp_path):
+    """start_fleet(transport="process") builds the kernel library once in the
+    parent, into the children's compilation_cache_dir, before any child
+    spawns: each child only loads it (its factory raises if it ran nvcc),
+    and the directory holds that one library and no object file."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.fleet import start_fleet
+    from repro_torch.serve.reservoir import StreamSession
+
+    where = tmp_path / "kernels"
+    reps = start_fleet(2, "process", factory=_engine_without_nvcc, rpc_timeout_s=120.0,
+                       compilation_cache_dir=str(where), device="cuda", **FLEET_KW)
+    try:
+        built = sorted(p.name for p in where.iterdir())
+        assert built == [f"librepro_torch_{_build._source_hash()}.so"], built
+        for i, (r, u) in enumerate(zip(reps, _fleet_streams(2))):
+            r.submit(StreamSession(sid=i, u_seq=u))
+            while r.run_for(1):
+                pass
+            assert len(r.results()) == 1 and r.stats().backend == "chunk"
+        assert sorted(p.name for p in where.iterdir()) == built
+    finally:
+        for r in reps:
+            r.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 1])
+def test_learners_keep_their_bits_in_any_lane(cuda, k):
+    """Every lane of a width-8 batch holds one lane's numbers (S = 2501
+    features: lane e's rows start at four alignments): rls_chunk's P, W and
+    predictions and lms_chunk's W and predictions are bit-equal in every
+    lane, so a learner migrated into another lane keeps its bits."""
+    e, s = 8, 2501
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((s, s), generator=g, device=cuda)
+    lane = (
+        torch.eye(s, device=cuda) / 1e-2 + 1e-3 * (a + a.T),
+        0.1 * torch.randn((s, 1), generator=g, device=cuda),
+        torch.randn((k, s), generator=g, device=cuda),
+        torch.randn((k, 1), generator=g, device=cuda),
+    )
+    p, w = (t[None].expand(e, *t.shape).contiguous() for t in lane[:2])
+    x, y = (t[:, None].expand(k, e, *t.shape[1:]).contiguous() for t in lane[2:])
+    mask = torch.ones((k, e), dtype=torch.bool, device=cuda)
+    p2, w2, preds = krls.rls_chunk(p, w, x, y, mask, 1.0)
+    w3, preds3 = krls.lms_chunk(w, x, y, mask, 0.5)
+    for out in (p2, w2, preds.transpose(0, 1), w3, preds3.transpose(0, 1)):
+        assert all(torch.equal(out[i], out[0]) for i in range(1, e))

@@ -49,7 +49,8 @@ from repro_torch.api import (
     make_time_multiplexed_spec,
     spec_structural_hash,
 )
-from repro_torch.api.compiled import family_auto_impl
+from repro_torch.api import FAMILY_IMPLS
+from repro_torch.api.compiled import auto_impl, family_auto_impl
 from repro_torch.core import fit_lms, fit_rls
 from repro_torch.kernels import dispatch_table, ops, sto_step
 from repro_torch.kernels import ref as kref
@@ -408,6 +409,31 @@ class TestGuards:
         assert family_auto_impl("array_transient", "tiled", "cuda") == "tiled"
         assert family_auto_impl("array_transient", "chunk", "cpu") == "chunk"
         assert family_auto_impl("time_multiplexed", "tiled", "cpu") == "ref"
+
+    @pytest.mark.parametrize("topology", ["coupled_array", "time_multiplexed", "array_transient"])
+    def test_auto_resolves_a_state_the_kernels_cannot_take(self, topology, monkeypatch):
+        """On the card, `auto` resolves a state that is not f32 to "ref" (the
+        reference's rule off its kernel platform), whatever the dispatch
+        table ranks first; an f32 state keeps the table's kernel impl, a
+        tableau other than RK4 the scan oracle; off the card nothing
+        changes. A kernel impl the caller names still raises on the card."""
+        monkeypatch.setattr(ops, "_LATENCY_TABLE", {})
+        monkeypatch.setattr(dispatch_table, "_LOADED", {"cuda", "cpu"})
+        kernel = {"coupled_array": "tiled", "time_multiplexed": "chunk",
+                  "array_transient": "tiled"}[topology]
+        args = (2500, 256, None)
+        for dtype in (torch.float64, torch.bfloat16, torch.float16):
+            assert auto_impl(topology, "rk4", dtype, *args, "cuda") == "ref"
+            assert auto_impl(topology, "rk4", dtype, *args, "cpu") == "ref"
+            assert auto_impl(topology, "heun", dtype, *args, "cuda") == "scan"
+        assert auto_impl(topology, "rk4", torch.float32, *args, "cuda") == kernel
+        assert auto_impl(topology, "heun", torch.float32, *args, "cuda") == "scan"
+        assert "ref" in FAMILY_IMPLS[topology]
+        # the pipeline: compile_plan on the CPU resolves f64 as it did
+        build = {"coupled_array": make_spec, "time_multiplexed": make_time_multiplexed_spec,
+                 "array_transient": lambda n, **kw: make_array_transient_spec(n, 2, **kw)}[topology]
+        spec = build(6, hold_steps=3, seed=0, dtype=torch.float64, device="cpu")
+        assert compile_plan(spec, ExecPlan(ensemble=4), device="cpu").impl == "ref"
 
     @pytest.mark.parametrize("topology", FAMILIES)
     def test_families_refuse_mesh(self, topology):

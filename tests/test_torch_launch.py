@@ -1,12 +1,14 @@
 """The port's serving launcher on the CPU (`python -m repro_torch.launch.serve`):
 --mode reservoir at N = 16 with and without --learn rls and --autoscale, the
-reference option that still waits (--fleet), the options served since
-(--compilation-cache-dir, --autotune-budget), and the LM mode's own
+reference options that once waited and are served since (--fleet,
+--compilation-cache-dir, --autotune-budget), and the LM mode's own
 invocation.
 
 A reservoir run must serve every session: each result finite, every session
 tick counted, and online learning's NMSE finite; no tolerance is involved.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -54,6 +56,31 @@ def test_reservoir_mode_serves_every_session(capsys, extra):
     (["--compilation-cache-dir", "cache"], "item 9"),
 ])
 def test_waiting_flags_raise(flag, item, tmp_path, monkeypatch, capsys):
+    if flag[0] == "--fleet":
+        # served since the fleet (item 11): two local replicas behind the
+        # front end, failover on; the planner calibrates from the committed
+        # CPU grid on --device cpu, and from a grid measured on another
+        # platform not at all
+        fleet = flag + ["--replicas", "2", "--checkpoint-every", "2"]
+        results = launch_serve.main(BASE + fleet)
+        out = capsys.readouterr().out
+        assert sorted(results) == list(range(1, 7))  # the router's sids
+        assert all(r.error is None and np.isfinite(r.final_m).all() for r in results.values())
+        assert "planner: calibrated from BENCH_serve.json" in out
+        assert "planner-predicted capacity" in out
+        assert "served 6 sessions / 72 session-ticks" in out and "on cpu" in out
+        assert "replica_deaths=0" in out and "sessions_lost=0" in out
+        bench = json.loads(open("BENCH_serve.json").read())
+        bench["backend_platform"] = "cuda"
+        other = tmp_path / "bench_cuda.json"
+        other.write_text(json.dumps(bench))
+        launch_serve.main(BASE + fleet + ["--bench", str(other)])
+        out = capsys.readouterr().out
+        assert (f"planner: {other} was measured on cuda, not cpu — admission control "
+                "disabled") in out
+        assert "planner-predicted capacity" not in out
+        assert "served 6 sessions" in out
+        return
     if flag[0] == "--autotune-budget":
         # served since tune (item 10): the first tenant is tuned by four
         # washout probes on the live engine, then served with the winner
@@ -74,8 +101,7 @@ def test_waiting_flags_raise(flag, item, tmp_path, monkeypatch, capsys):
         assert sorted(results) == list(range(6))
         assert cache.persistent_cache_dir() == str(where) and where.is_dir()
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        launch_serve.main(BASE + flag)
+    raise AssertionError(f"unexpected flag {flag}")
 
 
 def test_lm_mode_keeps_its_invocation(capsys):

@@ -345,3 +345,29 @@ def test_bf16_leaves_carry_across_bit_for_bit():
     t = out["stack"][0]["self"]["k"]
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy(), leaf.view(np.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 80, 256])
+def test_flash_routing_by_head_dim_and_dtype(d, dtype, monkeypatch):
+    """grouped_attend sends a call to the flash kernel only when its head dim
+    is one the kernel was built for (16, the reduced configs', is not) and
+    its dtype one the kernel takes; the predicate is the contract with the
+    device aside, and on the CPU no call reaches the kernel."""
+    q = torch.zeros(1, 5, 4, d, dtype=dtype)
+    k = v = torch.zeros(1, 5, 2, d, dtype=dtype)
+    takes = attention._kernel_takes(q, k, v, None, None, 0.0)
+    assert takes == (d in (80, 256))
+    assert not attention._kernel_takes(q.half(), k.half(), v.half(), None, None, 0.0)
+    assert not attention._kernel_takes(q, k.float() if dtype != torch.float32 else k.bfloat16(),
+                                       v, None, None, 0.0)
+    assert not attention._kernel_takes(q, k, v, None, 5, 0.0)  # kv_len: decode
+    assert not attention._kernel_takes(q, k, v, None, None, 30.0)  # softcap
+    assert attention._kernel_takes(q, k, v, 0, None, 0.0) == takes  # q_offset Sk - Sq
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU call reached the flash kernel")
+
+    monkeypatch.setattr(attention, "flash_attention_bshd", refuse)
+    out = attention.grouped_attend(q.float(), k.float(), v.float(), causal=True)
+    assert out.shape == q.shape
