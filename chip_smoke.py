@@ -4,6 +4,7 @@
     python3 chip_smoke.py --delay-line   # phase 3f(a) alone
     python3 chip_smoke.py --tune         # phase 3g alone
     python3 chip_smoke.py --fleet        # phase 3h alone
+    python3 chip_smoke.py --sharded      # phase 3i alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -147,12 +148,12 @@ on failure:
    and under tiled: candidates/s, the best assignment, PLAN_CACHE's
    compiles (two per impl; the cache cleared first), launches (the impl's
    kernel only) and peak memory; (b) the chunk search again with its seed:
-   the trial history bit-identical, no compile; (c) 8 trials of the stable
+   the trial history bit-identical, no compile; (c) REPLAYS trials of the stable
    regime (learn_reg 1e-2) each served alone on a fresh engine of the same
    plan and width in the lane it was evaluated in (learn_nmse bit-equal),
    and on the E = 1 scan oracle on the card (within NMSE_ORACLE_RTOL); a
    search on an interpret=True plan launches nothing; (d) seconds a
-   candidate of a search over 256 lanes and of one lane at a time (16
+   candidate of a search over 256 lanes and of one lane at a time (8
    candidates), each warmed first, and their ratio (printed only); (e) a
    256-slot RLS engine with 192 co-tenants where tenant 0 calls
    submit_autotuned with 64 probes on the spare lanes, under chunk and
@@ -185,6 +186,28 @@ on failure:
    on the card, which must say that admission control is off (the
    committed BENCH_serve.json is a CPU grid). `python3 chip_smoke.py
    --fleet` runs it alone.
+3i. Sharded plans (ExecPlan(mesh=DeviceMesh), api/sharded.py) in a child
+   process (`chip_smoke.py --sharded-child`, rank 0 of a world of one:
+   RANK / WORLD_SIZE / LOCAL_RANK set by the parent, a FileStore, NCCL;
+   NCCL runs no two ranks on one card), so that its process group never
+   reaches the phases after it. It prints the NCCL version, the backend and
+   the init time, then at the reservoir cell's shapes: (a) on a (1, 1) mesh
+   ("data", "model") a tick_chunk with lanes frozen, retired and admitted
+   mid-chunk, the same with learn="rls" at learn_reg LEARN_REG (m, states,
+   P, W, preds), drive_batch over a per-lane series, integrate(20) and tick,
+   each bit-equal to the unsharded impl="scan" sim, and drive_batch over a
+   shared series within SHARED_ATOL (another contraction); the all-gathers a
+   chunk (K x hold x 4, +1 for a learning chunk's feature block) and the RLS
+   run's peak memory; (b) the same on a 1-D mesh ("data",) with model_axis
+   None (no gather); (c) precision="bf16_coupling" on the mesh against the
+   f32 mesh plan within BF16_STATE_ATOL, norm_error within BF16_NORM_ATOL;
+   a chunk's ms sharded against unsharded scan (CUDA events), rk4_chunk's
+   for context, the gather events of one chunk under torch.profiler; (d) a
+   ReservoirEngine on the sharded sim serving the 512 NARMA-10 sessions,
+   each bit-equal to an engine on the unsharded scan sim, sessions/s by the
+   host clock; (e) the mesh plan's plan-cache key stable across two
+   compile_plan calls and distinct from the unsharded one.
+   `python3 chip_smoke.py --sharded` runs it alone.
 4. Hold the flash-attention kernel against its plain version at the shapes
    h2o-danube-1.8b's prefill gives it (B=1, H=32, KVH=8, D=80, causal,
    window 4096; bf16 at Sq=Sk=129, 1024, 4608 and Sq=512 < Sk=1536; f32 at
@@ -347,16 +370,17 @@ TUNE_REGS = (1e-4, 1e-2)
 STABLE_CURRENT = (1e-3, 3e-3)
 STABLE_A_CP = (0.3, 0.9)
 ORACLE_REG = 1e-2
-# the first REPLAYS of them (16 until phase 3h joined the script; 8 keep the
-# whole run near half its time limit: the E = 1 oracle costs ~4.3 s each)
-REPLAYS = 8
+# the first REPLAYS of them (16 until phase 3h joined the script, 8 until
+# phase 3i did; 4 keep the whole run near 750 s: the E = 1 oracle costs
+# 4.3-6.7 s each on an H100)
+REPLAYS = 4
 # a replayed trial's learn_nmse against the E = 1 scan oracle on the card,
 # relative: f32 rounding alone moves it by up to 1.39e-3 on the first 16
 # candidates 3g(c) replays (f32 against f64 scan on a CPU, N = 2500, learn_reg 1e-2;
 # 5e-6 at 2.2 mA, 1e-3 near 3 mA, the edge of the stable regime; 3.2x at
 # learn_reg 1e-4, which is why the oracle holds 1e-2 only); ~7x that
 NMSE_ORACLE_RTOL = 1e-2
-SEQ_BUDGET = 16
+SEQ_BUDGET = 8  # 16 until phase 3i joined the script
 AUTOTUNE_TENANTS = 192
 AUTOTUNE_BUDGET = 64
 AUTOTUNE_WASHOUT = 40
@@ -3310,6 +3334,261 @@ def fleet_only():
     print("3h held", flush=True)
 
 
+# phase 3i, sharded plans: one rank on the one card (NCCL runs no two ranks
+# on one card; the multi-rank decompositions are checked over gloo on the
+# CPU, tests/test_torch_sharded.py)
+SHARDED_T = 8  # drive_batch samples
+# precision="bf16_coupling" on the mesh against the f32 mesh plan: the
+# reference's bounds (tests/test_sharded_ensemble.py) on the state and on
+# norm_error
+BF16_STATE_ATOL = 5e-2
+BF16_NORM_ATOL = 1e-4
+# a shared drive series is contracted once a sample ('ni,i->n') where scan
+# contracts it per lane: another op, held to the reference tests' sharded
+# tolerance (tests/test_api_plan.py)
+SHARED_ATOL = 1e-6
+
+
+def _same(label, got, want):
+    """Bit-equal, or raise with the largest difference."""
+    if not torch.equal(got, want):
+        diff = (got.double() - want.double()).abs().max().item()
+        raise AssertionError(f"3i {label}: not bit-equal (max |diff| {diff:.3e})")
+
+
+def _sharded_refs(spec, scan, scan_rls, inputs):
+    """The unsharded impl="scan" results every mesh is held to."""
+    m0, u, mask, y, u_lanes, u_shared = inputs
+    refs = {"chunk": scan.tick_chunk(m0, u, mask)}
+    refs["rls"] = scan_rls.tick_chunk(m0, u, mask, targets=y,
+                                      learn_state=scan_rls.init_learn_state())
+    refs["drive_lanes"] = scan.drive_batch(u_lanes)
+    refs["drive_shared"] = scan.drive_batch(u_shared)
+    refs["integrate"] = scan.integrate(20)[0]
+    refs["tick"] = scan.tick(m0, u[0], mask[0])
+    torch.cuda.synchronize()
+    return refs
+
+
+def _sharded_plan(mesh, **kw):
+    model = "model" if "model" in mesh.mesh_dim_names else None
+    return ExecPlan(ensemble=E, chunk_ticks=K, mesh=mesh, model_axis=model, **kw)
+
+
+def sharded_checks(label, spec, mesh, refs, inputs, name_power):
+    """3i(a)/(b): every entry point of a mesh plan against the unsharded
+    scan's results, bit for bit (the shared-series drive to SHARED_ATOL)."""
+    from repro_torch.api import sharded
+
+    m0, u, mask, y, u_lanes, u_shared = inputs
+    sim = compile_plan(spec, _sharded_plan(mesh), device="cuda")
+    sim_rls = compile_plan(spec, _sharded_plan(mesh, learn="rls", learn_reg=LEARN_REG),
+                           device="cuda")
+    assert sim.impl == "scan" and sim.device.type == "cuda", (sim.impl, sim.device)
+    t0 = time.perf_counter()
+    sharded.GATHERS["all_gather"] = 0
+    m, states = sim.tick_chunk(m0, u, mask)
+    gathers = sharded.GATHERS["all_gather"]
+    _same(f"{label} tick_chunk m", m, refs["chunk"][0])
+    _same(f"{label} tick_chunk states", states, refs["chunk"][1])
+    _same(f"{label} frozen lane", m[:, :, 0], m0[:, :, 0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # the scan results held for the checks
+    sharded.GATHERS["all_gather"] = 0
+    out = sim_rls.tick_chunk(m0, u, mask, targets=y, learn_state=sim_rls.init_learn_state())
+    torch.cuda.synchronize()
+    gathers_rls = sharded.GATHERS["all_gather"]
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    want = refs["rls"]
+    for name, a, b in (("m", out[0], want[0]), ("states", out[1], want[1]),
+                       ("P", out[2][0], want[2][0]), ("W", out[2][1], want[2][1]),
+                       ("preds", out[3], want[3])):
+        _same(f"{label} RLS {name}", a, b)
+    del out
+    for name, a, b in zip(("mT", "states"), sim.drive_batch(u_lanes), refs["drive_lanes"]):
+        _same(f"{label} drive_batch per lane {name}", a, b)
+    shared = 0.0
+    for a, b in zip(sim.drive_batch(u_shared), refs["drive_shared"]):
+        shared = max(shared, (a - b).abs().max().item())
+    assert shared <= SHARED_ATOL, f"3i {label} drive_batch shared series: {shared} > {SHARED_ATOL}"
+    _same(f"{label} integrate(20)", sim.integrate(20)[0], refs["integrate"])
+    for name, a, b in zip(("m", "states"), sim.tick(m0, u[0], mask[0]), refs["tick"]):
+        _same(f"{label} tick {name}", a, b)
+    print(
+        f"3i{label} mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, model_axis "
+        f"{sim.plan.model_axis}: tick_chunk (lanes frozen, retired, admitted) bit-equal, "
+        f"{gathers} all-gathers; RLS chunk (learn_reg {LEARN_REG}) m, states, P, W, preds "
+        f"bit-equal, {gathers_rls} all-gathers, peak {peak:.3f} GiB above the {held:.3f} GiB "
+        f"held before it; drive_batch per lane "
+        f"bit-equal, shared series max |diff| {shared:.3e} (atol {SHARED_ATOL}); integrate(20) "
+        f"and tick bit-equal; {time.perf_counter() - t0:.1f} s ({name_power})",
+        flush=True,
+    )
+    return sim, gathers, gathers_rls
+
+
+def sharded_child():
+    """Phase 3i in a process of its own (`chip_smoke.py --sharded-child`, as
+    a torchrun rank: RANK, WORLD_SIZE, LOCAL_RANK from the environment), so
+    that its process group never outlives the phase."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import plan_cache_key, sharded
+
+    rank, world, local = (int(os.environ[k]) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+    torch.cuda.set_device(local)
+    name_power = card_line()
+    t_phase = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="sharded-store-")
+    try:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), world),
+                                rank=rank, world_size=world)
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        probe = torch.empty(4, device="cuda")
+        dist.all_gather_into_tensor(probe, torch.ones(4, device="cuda"),
+                                    group=mesh.get_group("model"))  # the communicator's first use
+        torch.cuda.synchronize()
+        init_ms = 1e3 * (time.perf_counter() - t0)
+        nccl = torch.cuda.nccl.version()
+        nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+        print(f"3i NCCL {nccl}, backend {dist.get_backend(mesh.get_group('model'))}, world "
+              f"{world}, mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}: init_process_group + "
+              f"init_device_mesh + first all-gather {init_ms:.1f} ms ({name_power})", flush=True)
+
+        spec = make_spec(N, n_in=1, seed=0, hold_steps=HOLD, device="cuda")
+        rng = np.random.default_rng(11)
+        dev = torch.device("cuda")
+        u = torch.as_tensor(rng.uniform(0.0, 0.5, (K, E, 1)), dtype=torch.float32, device=dev)
+        mask = torch.ones((K, E), dtype=torch.bool, device=dev)
+        mask[:, 0] = False  # frozen
+        mask[K // 2:, 1] = False  # retired mid-chunk
+        mask[: K // 2, 2] = False  # admitted mid-chunk
+        y = torch.as_tensor(rng.normal(size=(K, E, 1)), dtype=torch.float32, device=dev)
+        u_lanes = torch.as_tensor(rng.uniform(0.0, 0.5, (SHARDED_T, E, 1)), dtype=torch.float32,
+                                  device=dev)
+        u_shared = u_lanes[:, 0]
+        m0 = ops.to_planes(spec.m0.expand(E, N, 3)).contiguous()
+        inputs = (m0, u, mask, y, u_lanes, u_shared)
+        scan = compile_plan(spec, ExecPlan(impl="scan", ensemble=E, chunk_ticks=K), device="cuda")
+        scan_rls = compile_plan(spec, ExecPlan(impl="scan", ensemble=E, chunk_ticks=K, learn="rls",
+                                               learn_reg=LEARN_REG), device="cuda")
+        refs = _sharded_refs(spec, scan, scan_rls, inputs)
+
+        # (a) the (1, 1) mesh; (b) a 1-D mesh without a model axis
+        sim, gathers, gathers_rls = sharded_checks("(a)", spec, mesh, refs, inputs, name_power)
+        want = K * HOLD * 4
+        assert gathers == want and gathers_rls == want + 1, (gathers, gathers_rls, want)
+        mesh1 = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        sim1, gathers1, _ = sharded_checks("(b)", spec, mesh1, refs, inputs, name_power)
+        assert gathers1 == 0, gathers1
+        del refs
+
+        # (c) bf16 coupling on the mesh against the f32 mesh plan
+        bf = compile_plan(spec, _sharded_plan(mesh, precision="bf16_coupling"), device="cuda")
+        f32_m, f32_s = sim.tick_chunk(m0, u, mask)
+        bf_m, bf_s = bf.tick_chunk(m0, u, mask)
+        f32_i, bf_i = sim.integrate(50)[0], bf.integrate(50)[0]
+        err = max((bf_m - f32_m).abs().max().item(), (bf_s - f32_s).abs().max().item(),
+                  (bf_i - f32_i).abs().max().item())
+        nerr = max(sto.norm_error(ops.from_planes(bf_m, (E,))).item(), sto.norm_error(bf_i).item())
+        assert 0.0 < err < BF16_STATE_ATOL and nerr < BF16_NORM_ATOL, (err, nerr)
+        print(f"3i(c) precision=bf16_coupling on the mesh (gather dtype {bf._gather_dtype}) "
+              f"against f32: tick_chunk and integrate(50) max |state diff| {err:.3e} (< "
+              f"{BF16_STATE_ATOL}), norm_error {nerr:.3e} (< {BF16_NORM_ATOL}) ({name_power})",
+              flush=True)
+        del f32_m, f32_s, bf_m, bf_s, f32_i, bf_i
+
+        # a chunk's time, sharded against unsharded scan (CUDA events), and
+        # rk4_chunk's for context; the gathers of one chunk under the profiler
+        _build.load()
+        chunk = compile_plan(spec, ExecPlan(impl="chunk", ensemble=E, chunk_ticks=K), device="cuda")
+        runs = (("scan", scan), ("sharded", sim), ("sharded_1d", sim1), ("scan2", scan),
+                ("rk4_chunk", chunk))
+        ms = {name: time_ms(lambda s=s: s.tick_chunk(m0, u, mask), 3) for name, s in runs}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sim.tick_chunk(m0, u, mask)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+            e, "self_cuda_time_total", 0.0)
+        gather_events = {e.key: (e.count, round(e.cpu_time_total / 1e3, 3), round(dev_us(e) / 1e3, 3))
+                         for e in prof.key_averages()
+                         if "gather" in e.key.lower() or "nccl" in e.key.lower()}
+        print(f"3i chunk ms (K={K}, hold {HOLD}, N={N}, E={E}, CUDA events, median of 3, in "
+              f"turns): scan {ms['scan']:.3f} / {ms['scan2']:.3f}, sharded (1, 1) "
+              f"{ms['sharded']:.3f} ({ms['sharded'] / ms['scan']:.3f}x), sharded 1-D (no gather) "
+              f"{ms['sharded_1d']:.3f}, rk4_chunk {ms['rk4_chunk']:.3f} (context); all-gathers a "
+              f"chunk {gathers} (+1 a learning chunk); one (1, 1) chunk under torch.profiler: wall "
+              f"{wall:.3f} ms, gather events (count, host ms, device ms) {gather_events} "
+              f"({name_power})", flush=True)
+
+        # (d) the engine on the sharded sim against one on the unsharded scan
+        served = {}
+        for name, s in (("sharded", sim), ("scan", scan)):
+            eng = ReservoirEngine(s)
+            sessions = make_sessions(np.random.default_rng(0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served[name] = eng.run(sessions)
+            torch.cuda.synchronize()
+            served[name + "_s"] = time.perf_counter() - t0
+        assert len(served["sharded"]) == SESSIONS, len(served["sharded"])
+        for sess in sessions:
+            a, b = served["sharded"][sess.sid], served["scan"][sess.sid]
+            assert a.error is None, a.error
+            for field in ("states", "outputs", "final_m"):
+                assert np.array_equal(getattr(a, field), getattr(b, field)), (sess.sid, field)
+        print(f"3i(d) ReservoirEngine on the sharded sim: {SESSIONS} NARMA-10 sessions bit-equal "
+              f"to an engine on the unsharded scan sim (states, outputs, final_m); sessions/s "
+              f"(host clock) sharded {SESSIONS / served['sharded_s']:.1f}, scan "
+              f"{SESSIONS / served['scan_s']:.1f} ({name_power})", flush=True)
+        del served
+
+        # (e) the plan cache's key
+        plan = _sharded_plan(mesh)
+        keys = [plan_cache_key(compile_plan(spec, plan, device="cuda").plan) for _ in range(2)]
+        unkey = plan_cache_key(scan.plan)
+        assert keys[0] == keys[1] and keys[0] != unkey, (keys, unkey)
+        print(f"3i(e) plan_cache_key of the mesh plan stable across two compile_plan calls and "
+              f"distinct from the unsharded scan's: mesh entry {keys[0][6]}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    print(f"phase 3i child: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def sharded_phase(name_power):
+    """Phase 3i: sharded plans on the card, in a child process that runs as
+    rank 0 of a world of one (a FileStore: no network)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--sharded-child"],
+                          capture_output=True, text=True, timeout=900, env=env)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise RuntimeError(f"sharded child failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    print(f"phase 3i: {time.perf_counter() - t0:.1f} s ({name_power})", flush=True)
+
+
+def sharded_only():
+    """`chip_smoke.py --sharded`: build the kernels and run phase 3i alone."""
+    name_power = card_line()
+    _build.load()
+    sharded_phase(name_power)
+    print("3i held", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3394,6 +3673,7 @@ def main():
     del served
     tune_phase(spec, name_power)
     fleet_phase(spec, name_power)
+    sharded_phase(name_power)
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
@@ -3417,5 +3697,9 @@ if __name__ == "__main__":
         tune_only()
     elif sys.argv[1:2] == ["--fleet"]:
         fleet_only()
+    elif sys.argv[1:2] == ["--sharded"]:
+        sharded_only()
+    elif sys.argv[1:2] == ["--sharded-child"]:
+        sharded_child()
     else:
         main()

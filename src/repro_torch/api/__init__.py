@@ -4,9 +4,10 @@
     sim = api.compile_plan(spec, ensemble=64)              # resolved execution
     mT, states = sim.drive_batch(U)
 
-Every impl-dispatch / padding / ensemble decision is made inside
+Every impl-dispatch / padding / ensemble / sharding decision is made inside
 `compile_plan`; `serve.reservoir.ReservoirEngine` serves from a CompiledSim,
-drawn from the process-wide `PLAN_CACHE` (api/cache.py).
+drawn from the process-wide `PLAN_CACHE` (api/cache.py). Sharded serving is
+`ExecPlan(mesh=DeviceMesh)`, its bodies in `api.sharded`.
 """
 
 from repro_torch.api.spec import (
@@ -27,6 +28,7 @@ from repro_torch.api.plan import (
     PLAN_TUNABLE,
     check_plan_supports_topology,
 )
+from repro_torch.api import sharded
 from repro_torch.api.compiled import CompiledSim, compile_plan
 from repro_torch.api.cache import (
     PLAN_CACHE,

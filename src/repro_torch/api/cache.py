@@ -155,11 +155,19 @@ def spec_structural_hash(spec: SimSpec) -> str:
 
 
 def _mesh_key(plan: ExecPlan):
-    """The mesh decomposition (None while sharded plans are not ported:
-    ExecPlan(mesh=...) raises)."""
+    """Hashable description of the mesh decomposition (None when unsharded):
+    the (dim name, size) pairs, the device type, the ranks in the mesh's
+    order, the ensemble axes and the model axis."""
     if plan.mesh is None:
         return None
-    raise NotImplementedError("sharded plans are not ported yet (ROADMAP queue 1 item 12)")
+    mesh = plan.mesh
+    return (
+        tuple((str(k), int(v)) for k, v in zip(mesh.mesh_dim_names, mesh.shape)),
+        str(mesh.device_type),
+        tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+        tuple(plan.ensemble_axes),
+        plan.model_axis,
+    )
 
 
 def plan_cache_key(plan: ExecPlan) -> Tuple:

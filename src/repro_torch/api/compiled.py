@@ -32,6 +32,10 @@ chunk worker per layout (`_tick_chunk_scan_family`,
 `_tick_chunk_planes_family`): every entry point of a family plan is a
 chunk of that worker, so serving's per-tick and chunked paths agree by
 construction.
+Sharded plans (ExecPlan(mesh=...)) run every coupled-array entry point
+through `api.sharded`'s bodies: the scan step in the core layout on each
+rank's block, SPMD over torch.distributed, global tensors in and out.
+
 time_multiplexed under "chunk" on the card is K x (the feedback product,
 one `sto_step.tm_delay_line` launch); under "ref" (and "chunk" on the CPU or
 with interpret=True) the plain body `kernels.ref.tm_chunk_planes`.
@@ -52,10 +56,12 @@ from repro_torch.core.constants import STOParams
 from repro_torch.core.ensemble import broadcast_params
 from repro_torch.core.reservoir import coerce_input_series
 from repro_torch.device import require_full_f32_matmul, resolve_device
+from repro_torch.distributed.sharding import axis_size
 from repro_torch.kernels import _build, ops, sto_step
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rls as krls
 
+from repro_torch.api import sharded as _sharded
 from repro_torch.api.plan import ExecPlan, check_plan_supports_topology
 from repro_torch.api.spec import SimSpec, validate_topology
 
@@ -499,6 +505,8 @@ class CompiledSim:
         # scan's dt: a 0-d tensor of the state dtype (integrators module note)
         self._dt_scan = integrators.dt_tensor(spec.dt, spec.m0)
         self.precision = ops.normalize_precision(plan.precision)
+        # the sharded coupling path's wire dtype (precision subsumes gather_dtype)
+        self._gather_dtype = _sharded.torch_dtype(plan.effective_gather_dtype)
         # the learners' knobs, Python floats (RLS: lam == 1 skips the P
         # rescale; LMS: mu is the gain's numerator)
         self._lam = float(plan.learn_lam) if plan.learn else None
@@ -543,14 +551,26 @@ class CompiledSim:
             interpret=self.plan.interpret, precision=self.precision,
         )
 
+    def _sharded_kw(self) -> dict:
+        return dict(
+            ensemble_axes=tuple(self.plan.ensemble_axes), model_axis=self.plan.model_axis,
+            tableau_name=self.spec.tableau, gather_dtype=self._gather_dtype,
+            precision=self.precision,
+        )
+
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.spec.dtype).to(self.device, non_blocking=True)
 
-    def _coerce_batch_u(self, u) -> torch.Tensor:
-        """(T, N_in) shared or (T, E, N_in) per lane -> (T, E, N_in)."""
+    def _coerce_batch_u(self, u, keep_shared: bool = False) -> torch.Tensor:
+        """(T, N_in) shared or (T, E, N_in) per lane -> (T, E, N_in).
+
+        keep_shared=True returns a valid shared series as it is: the sharded
+        path contracts it once a sample instead of once a lane."""
         spec = self.spec
         u = self._tensor(u)
         if u.ndim == 2 and u.shape[1] == spec.n_in:
+            if keep_shared:
+                return u
             return u[:, None, :].expand(u.shape[0], self.e, spec.n_in)
         if u.ndim == 3 and tuple(u.shape[1:]) == (self.e, spec.n_in):
             return u
@@ -593,12 +613,12 @@ class CompiledSim:
     def drive(self, u_seq, m0=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Solo drive: input series (T, N_in) -> (final m (N, 3), states (T, N)).
 
-        Requires ensemble == 1."""
+        Requires ensemble == 1 and an unsharded plan."""
         spec = self.spec
-        if self.e != 1:
+        if self.e != 1 or self.plan.sharded:
             raise ValueError(
-                "drive() is the solo entry point (ensemble == 1); use "
-                "drive_batch() for ensemble plans"
+                "drive() is the solo entry point (ensemble == 1, no mesh); "
+                "use drive_batch() for ensemble/sharded plans"
             )
         u_seq = coerce_input_series(u_seq, spec.n_in, spec.dtype).to(self.device)
         m_start = spec.m0 if m0 is None else self._tensor(m0)
@@ -637,6 +657,13 @@ class CompiledSim:
         spec = self.spec
         m0_e = self._coerce_batch_m0(m0)
         params_e = self.ensemble_params(params)
+        if self.plan.sharded:
+            # a shared series stays (T, N_in), contracted once a sample
+            return _sharded.drive_sharded(
+                self.plan.mesh, params_e, spec.w_cp, spec.w_in, m0_e,
+                self._coerce_batch_u(u_seq, keep_shared=True), self._dt_scan,
+                spec.hold_steps, **self._sharded_kw(),
+            )
         u_e = self._coerce_batch_u(u_seq)
         if self.topology != "coupled_array":
             mT, states = self._family_chunk_infer(
@@ -672,6 +699,14 @@ class CompiledSim:
             )
         m0_e = self._coerce_batch_m0(m0)
         params_e = self.ensemble_params(params)
+        if self.plan.sharded:
+            if save_every:
+                raise NotImplementedError("save_every on sharded plans")
+            mT = _sharded.integrate_sharded(
+                self.plan.mesh, params_e, self.spec.w_cp, m0_e, self._dt_scan, n_steps,
+                **self._sharded_kw(),
+            )
+            return mT, None
         if save_every and n_steps % save_every:
             raise ValueError(f"n_steps ({n_steps}) must be a multiple of save_every ({save_every})")
         if self.impl == "scan":
@@ -713,6 +748,13 @@ class CompiledSim:
                 self.ensemble_params(params), m_planes, self._tensor(u)[None], mask[None]
             )
             return mT, states[0]
+        if self.plan.sharded:
+            m_new, states = _sharded.tick_sharded(
+                self.plan.mesh, self.ensemble_params(params), spec.w_cp, spec.w_in,
+                m_planes.permute(2, 1, 0), self._tensor(u), mask, self._dt_scan,
+                spec.hold_steps, **self._sharded_kw(),
+            )
+            return m_new.permute(2, 1, 0).contiguous(), states.T.contiguous()
         if self.impl == "scan":
             return _tick_scan(
                 self.ensemble_params(params), spec.w_cp, spec.w_in, m_planes,
@@ -818,6 +860,19 @@ class CompiledSim:
                 f"{spec.n + 1}), W ({self.e}, {spec.n + 1}, n_out)); got "
                 f"P={None if p0 is None else tuple(p0.shape)}"
             )
+        if self.plan.sharded:
+            m_new, states, pT, wT, preds = _sharded.tick_chunk_sharded_rls(
+                self.plan.mesh, params_e, spec.w_cp, spec.w_in, m_planes.permute(2, 1, 0),
+                u_block, mask_block, targets, lmask_block, p0, w0, self._lam,
+                self._dt_scan, spec.hold_steps, **self._sharded_kw(),
+            )
+            # states arrive (K, E, N): the (K, N, E) block contract
+            return (
+                m_new.permute(2, 1, 0).contiguous(),
+                states.permute(0, 2, 1).contiguous(),
+                (pT, wT),
+                preds,
+            )
         if self.impl == "scan":
             mT, states, pT, wT, preds = _tick_chunk_scan_rls(
                 params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
@@ -890,6 +945,13 @@ class CompiledSim:
         spec = self.spec
         if self.topology != "coupled_array":
             return self._family_chunk_infer(params_e, m_planes, u_block, mask_block)
+        if self.plan.sharded:
+            m_new, states = _sharded.tick_chunk_sharded(
+                self.plan.mesh, params_e, spec.w_cp, spec.w_in, m_planes.permute(2, 1, 0),
+                u_block, mask_block, self._dt_scan, spec.hold_steps, **self._sharded_kw(),
+            )
+            # states arrive (K, E, N): the (K, N, E) block contract
+            return m_new.permute(2, 1, 0).contiguous(), states.permute(0, 2, 1).contiguous()
         if self.impl == "scan":
             return _tick_chunk_scan(
                 params_e, spec.w_cp, spec.w_in, m_planes, u_block, mask_block,
@@ -944,9 +1006,14 @@ class CompiledSim:
         interpret plans and CPU plans have nothing to build. n_out is
         accepted for `warmup`'s signature: the learn tails are torch code.
 
-        Raises NotImplementedError for a family plan, as the reference's
-        AOT lowering does: a family plan warms by one masked chunk
+        Raises NotImplementedError for a sharded or a family plan, as the
+        reference's AOT lowering does: such a plan warms by one masked chunk
         (compile_plan(aot=True) and PLAN_CACHE.warm(aot=True) catch it)."""
+        if self.plan.sharded:
+            raise NotImplementedError(
+                "aot_compile covers unsharded plans; sharded plans warm by "
+                "executing one masked chunk (CompiledSim.warmup)"
+            )
         if self.topology != "coupled_array":
             raise NotImplementedError(
                 "aot_compile covers coupled_array plans; family plans warm by "
@@ -1013,6 +1080,36 @@ def auto_impl(
     return family_auto_impl(topology, impl, device_type)
 
 
+def _check_sharded(spec: SimSpec, plan: ExecPlan, dev: torch.device) -> torch.device:
+    """A mesh plan's device and decomposition: the device agrees with the
+    mesh's device type (on CUDA the rank's card is the current device, which
+    the caller set from LOCAL_RANK), this rank lies in the mesh, and E and N
+    divide by the ensemble-axis and model-axis sizes. Returns the device."""
+    mesh = plan.mesh
+    if dev.type != mesh.device_type:
+        raise ValueError(
+            f"compile_plan(device={str(dev)!r}) does not agree with the mesh's "
+            f"device type {mesh.device_type!r}; pass device={mesh.device_type!r}"
+        )
+    if mesh.get_coordinate() is None:
+        raise ValueError(f"this rank is not in the plan's mesh {mesh!r}")
+    e_axes = axis_size(mesh, tuple(plan.ensemble_axes))
+    if plan.ensemble % e_axes:
+        raise ValueError(
+            f"ensemble={plan.ensemble} does not divide over the mesh's ensemble axes "
+            f"{tuple(plan.ensemble_axes)} of size {e_axes}"
+        )
+    n_axis = axis_size(mesh, plan.model_axis)
+    if spec.n % n_axis:
+        raise ValueError(
+            f"N={spec.n} does not divide over the mesh's model axis "
+            f"{plan.model_axis!r} of size {n_axis}"
+        )
+    if dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def compile_plan(
     spec: SimSpec, plan: Optional[ExecPlan] = None, device="cuda", **overrides
 ) -> CompiledSim:
@@ -1026,7 +1123,9 @@ def compile_plan(
     (the platform's persisted JSON included); `measure=True` first times
     the candidates at this (N, E) through the process-wide PLAN_CACHE's
     memo and pins the winner; `aot=True` then runs `aot_compile`; a
-    `compilation_cache_dir` pins the kernel library's build directory.
+    `compilation_cache_dir` pins the kernel library's build directory. A
+    mesh plan resolves to impl="scan" before any of that, on the rank's
+    device of the mesh's type (`_check_sharded`).
     """
     if plan is None:
         plan = ExecPlan(**overrides)
@@ -1064,7 +1163,12 @@ def compile_plan(
         )
 
     impl = plan.impl
-    if impl == "auto":
+    if plan.sharded:
+        dev = _check_sharded(spec, plan, dev)
+        if spec.device != dev:
+            spec = spec.to(dev)
+        impl = "scan"  # a mesh plan integrates in the core layout (api/sharded.py)
+    elif impl == "auto":
         if plan.measure and (dev.type != "cuda" or spec.dtype == torch.float32):
             # memoized: one (device, N, E, dtype, precision, K) key is timed
             # once; the card's candidates are kernels, which take f32 only

@@ -38,10 +38,21 @@ The fields are the reference's (api/plan.py), resolved exactly once, in
              so a restarted process skips nvcc; the first directory wins
              for the process.
 
+  mesh       a torch.distributed DeviceMesh (built with init_device_mesh
+             after init_process_group) makes the plan SHARDED: E spans
+             `ensemble_axes`, N spans `model_axis` (None: E only), with the
+             layouts of `distributed.sharding.reservoir_specs`; every rank
+             calls the sim with the same global tensors (api/sharded.py).
+             Its dim names must include the plan's axes; impl must be "auto"
+             or "scan" (a mesh plan integrates in the core layout);
+             learn="lms" and the physics families are refused; reduced
+             precision is allowed and gathers m^x in bf16.
+  gather_dtype  the sharded coupling path's wire and operand dtype (bf16:
+             half the gather's bytes); subsumed by `precision`, an explicit
+             gather_dtype still wins (`effective_gather_dtype`).
+
 `aot` and `compilation_cache_dir` change when work happens, never what
-runs: the plan cache's key leaves them out (api/cache.py). Not ported yet,
-and refused with NotImplementedError when set: `mesh` and its axes
-(sharded plans, ROADMAP queue 1 item 12).
+runs: the plan cache's key leaves them out (api/cache.py).
 """
 
 from __future__ import annotations
@@ -106,6 +117,26 @@ def _is_dtype(d) -> bool:
     return True
 
 
+def _check_mesh(mesh, ensemble_axes, model_axis) -> None:
+    """A mesh plan takes a DeviceMesh whose dim names include the plan's
+    ensemble axes and model axis (when that is not None)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or mesh.mesh_dim_names is None:
+        raise ValueError(
+            "ExecPlan.mesh must be a torch.distributed DeviceMesh with "
+            f"mesh_dim_names (init_device_mesh(..., mesh_dim_names=...)); got {mesh!r}"
+        )
+    axes = tuple(ensemble_axes) + (() if model_axis is None else (model_axis,))
+    missing = [a for a in axes if a not in mesh.mesh_dim_names]
+    if missing or len(set(axes)) != len(axes):
+        raise ValueError(
+            f"ExecPlan(ensemble_axes={tuple(ensemble_axes)!r}, model_axis={model_axis!r}) "
+            f"names mesh dims {missing or axes} that mesh {mesh!r} does not hold once "
+            f"each (its dims: {tuple(mesh.mesh_dim_names)})"
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecPlan:
     impl: str = "auto"
@@ -159,6 +190,13 @@ class ExecPlan:
             )
         if self.learn not in PLAN_LEARN:
             raise ValueError(f"learn must be one of {PLAN_LEARN}; got {self.learn!r}")
+        if self.learn == "lms" and self.mesh is not None:
+            raise ValueError(
+                "learn='lms' is not wired through the sharded (mesh) serving "
+                "path — its per-lane weight columns would need a lane-sharded "
+                "P-free variant of api/sharded's learn plumbing; use "
+                "learn='rls' on sharded plans"
+            )
         if not isinstance(self.learn_lam, (int, float)) or isinstance(
             self.learn_lam, bool
         ) or not (0.0 < float(self.learn_lam) <= 1.0):
@@ -193,9 +231,7 @@ class ExecPlan:
                     f"{granule} must be a multiple of the kernels' 64-wide tile; got {v!r}"
                 )
         if self.mesh is not None:
-            raise NotImplementedError(
-                "ExecPlan.mesh is not ported yet (ROADMAP queue 1 item 12, sharded plans)"
-            )
+            _check_mesh(self.mesh, self.ensemble_axes, self.model_axis)
 
     def with_knobs(self, **knobs) -> "ExecPlan":
         """A new plan with named PLAN_TUNABLE knobs applied, through

@@ -1,6 +1,16 @@
-"""Ensembles of parameter sets (one value per ensemble lane)."""
+"""Ensembles of parameter sets (one value per ensemble lane), and the
+sharded ensemble drive.
+
+Of the reference's module, the deprecated shims `integrate_ensemble`,
+`integrate_ensemble_sharded` and `fit_ridge_ensemble` are left out by
+design (`compile_plan(spec, ExecPlan(...)).integrate` / `drive_batch` do
+their work), and `lower_sharded_ensemble`, which lowers XLA from
+ShapeDtypeStructs, has no torch counterpart.
+"""
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -26,3 +36,30 @@ def broadcast_params(base: STOParams, size: int, **sweeps) -> STOParams:
             v = getattr(base, name).expand(size, 1)
         leaves[name] = v
     return STOParams(**leaves)
+
+
+def drive_ensemble_sharded(
+    mesh,
+    params: STOParams,  # leaves (E, 1)
+    w_cp: torch.Tensor,  # (N, N)
+    w_in: torch.Tensor,  # (N, N_in)
+    m0: torch.Tensor,  # (E, N, 3)
+    u_seq: torch.Tensor,  # (T, N_in) shared input series
+    dt: float,
+    hold_steps: int,
+    ensemble_axes: Sequence[str] = ("data",),
+    model_axis: Optional[str] = "model",
+    tableau_name: str = "rk4",
+    gather_dtype=None,
+):
+    """Reservoir drive (input on) for an ensemble sharded over a DeviceMesh,
+    SPMD with global tensors on every rank. Returns (mT (E, N, 3), states
+    (T, E, N)). Delegates to `api.sharded.drive_sharded`; prefer
+    `compile_plan(spec, ExecPlan(mesh=...)).drive_batch(u)`."""
+    from repro_torch.api import sharded  # deferred: api imports core
+
+    return sharded.drive_sharded(
+        mesh, params, w_cp, w_in, m0, u_seq, dt, hold_steps,
+        ensemble_axes=ensemble_axes, model_axis=model_axis,
+        tableau_name=tableau_name, gather_dtype=gather_dtype,
+    )

@@ -57,17 +57,21 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def rls_init(
-    e: int, n_state: int, n_out: int, reg: float, dtype, device="cpu"
+    e: int, n_state: int, n_out: int, reg: float, dtype, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fresh per-lane learning state: P = I / reg, W = 0.
 
-    Returns (P (E, S, S), W (E, S, n_out)), both contiguous on `device`. reg
-    plays exactly the role of ridge regression's `reg`.
+    Returns (P (E, S, S), W (E, S, n_out)), both contiguous on `device`
+    ("cuda" when None; raises without a card unless given device="cpu").
+    reg plays exactly the role of ridge regression's `reg`.
     """
     if reg <= 0:
         raise ValueError(f"reg must be > 0 (P0 = I / reg); got {reg}")
+    device = resolve_device(device)
     eye = torch.eye(n_state, dtype=dtype, device=device) / torch.tensor(
         reg, dtype=dtype, device=device
     )
@@ -246,9 +250,10 @@ def rls_chunk(
 _LMS_EPS = 1e-8
 
 
-def lms_init(e: int, n_state: int, n_out: int, dtype, device="cpu") -> torch.Tensor:
-    """Fresh per-lane LMS weights: W = 0, shape (E, S, n_out)."""
-    return torch.zeros((e, n_state, n_out), dtype=dtype, device=device)
+def lms_init(e: int, n_state: int, n_out: int, dtype, device=None) -> torch.Tensor:
+    """Fresh per-lane LMS weights: W = 0, shape (E, S, n_out), on `device`
+    ("cuda" when None; raises without a card unless given device="cpu")."""
+    return torch.zeros((e, n_state, n_out), dtype=dtype, device=resolve_device(device))
 
 
 def lms_update(

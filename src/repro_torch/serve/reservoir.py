@@ -80,6 +80,7 @@ from repro_torch.api import (
 from repro_torch.api.cache import _params_equal
 from repro_torch.core.constants import STOParams
 from repro_torch.core.reservoir import Readout, coerce_input_series
+from repro_torch.distributed.sharding import axis_size
 from repro_torch.serve.scheduler import AutoscalePolicy, QueueDepthPolicy, SlotScheduler
 from repro_torch.serve.state_store import SlotStore, _host
 
@@ -332,6 +333,13 @@ def _bucket_slots(demand: int, min_slots: int, max_slots: int) -> int:
     return min(b, max_slots)
 
 
+def _ensemble_axis_size(plan: ExecPlan) -> int:
+    """Ranks the ensemble axis spans on a sharded plan (1 if unsharded)."""
+    if plan.mesh is None:
+        return 1
+    return axis_size(plan.mesh, tuple(plan.ensemble_axes))
+
+
 def _bucket_ladder(min_slots: int, max_slots: int) -> List[int]:
     """Every width `_bucket_slots` can return: min_slots * 2^k while below
     max_slots, plus the clamp bucket max_slots itself (which need not be a
@@ -375,7 +383,8 @@ class ReservoirEngine:
       prewarm       autoscaling engines warm the buckets adjacent to their
                     width in a daemon thread, at construction and after
                     every rescale (`prewarm_buckets`), on the stream the
-                    engine serves on (one masked chunk each); prewarm=False
+                    engine serves on (one masked chunk each; a sharded
+                    plan's in the calling thread); prewarm=False
                     leaves each bucket's compile and launch-free warm
                     (aot) to its rescale. A failed prewarm
                     is not fatal (the rescale compiles on demand) and is
@@ -474,6 +483,21 @@ class ReservoirEngine:
                     f"num_slots <= max_slots; got min={self.min_slots} "
                     f"num={num_slots} max={self.max_slots}"
                 )
+            if sim.plan.sharded:
+                # every reachable bucket width must divide over the mesh's
+                # ensemble axes, or a rescale would strand lanes on a
+                # decomposition the sharded body cannot express
+                axis = _ensemble_axis_size(sim.plan)
+                widths = [num_slots] + _bucket_ladder(self.min_slots, self.max_slots)
+                bad = sorted({w for w in widths if w % axis})
+                if bad:
+                    raise ValueError(
+                        "autoscale on a sharded plan requires every bucket "
+                        "width to be divisible by the ensemble-axis size "
+                        f"{axis} (mesh axes {tuple(sim.plan.ensemble_axes)}); "
+                        f"min_slots={self.min_slots} / max_slots="
+                        f"{self.max_slots} reach incompatible widths {bad}"
+                    )
             if sim.spec.params.gamma.ndim != 0:
                 raise ValueError(
                     "autoscale requires scalar-leaved spec params (per-tenant "
@@ -564,8 +588,16 @@ class ReservoirEngine:
         the spec's family cannot run (a fused or tiled template serving a
         time_multiplexed tenant) becomes "auto", which compile_plan resolves
         to one it can; so does a chunk template serving an array_transient
-        tenant, whose "chunk" is the eager plain body, not a kernel."""
+        tenant, whose "chunk" is the eager plain body, not a kernel. Sharded
+        templates refuse: families do not shard, and serving a tenant
+        unsharded on a mesh engine would misstate its placement."""
         plan = self.sim.plan
+        if plan.mesh is not None:
+            raise ValueError(
+                "mixed-spec tenancy is not supported on sharded engines — "
+                "a sub-engine cannot inherit the mesh decomposition; serve "
+                f"the {spec.topology!r} spec from an unsharded engine"
+            )
         impl = plan.impl
         if impl not in FAMILY_IMPLS[spec.topology] or (
             spec.topology == "array_transient" and impl == "chunk"
@@ -913,7 +945,9 @@ class ReservoirEngine:
         bucket waits for that one compile. Not fatal: a failure is recorded
         in `prewarm_errors` and the rescale compiles on demand; a previous
         prewarm still running skips this round. Returns the widths
-        scheduled; block=True waits for them."""
+        scheduled; block=True waits for them. A sharded plan warms in the
+        calling thread: its warmup chunk runs collectives, which every rank
+        must issue in the same order."""
         if self.autoscale is None:
             return ()
         if self._prewarm_thread is not None and self._prewarm_thread.is_alive():
@@ -946,6 +980,9 @@ class ReservoirEngine:
                     except Exception as exc:  # not fatal: the rescale compiles on demand
                         self.prewarm_errors.append((b, f"{type(exc).__name__}: {exc}"))
 
+        if plan.sharded:
+            work()
+            return targets
         t = threading.Thread(target=work, daemon=True, name="plan-prewarm")
         self._prewarm_thread = t
         t.start()

@@ -32,6 +32,21 @@ F64_ATOL = 1e-10
 DTYPES = {"f32": (jnp.float32, torch.float32), "f64": (jnp.float64, torch.float64)}
 
 
+@pytest.fixture(scope="module")
+def gloo_mesh(tmp_path_factory):
+    """A world-size-1 gloo process group over a FileStore (no port) and its
+    (1, 1) DeviceMesh ("data", "model"), destroyed at teardown."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("gloo") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
 def _specs(n=12, n_in=2, hold=3, dt="f32"):
     jdt, _ = DTYPES[dt]
     sj = jmake_spec(n, n_in=n_in, seed=1, hold_steps=hold, dtype=jdt)
@@ -88,11 +103,12 @@ def test_exec_plan_rejects(kwargs):
     [dict(mesh=object()), dict(aot=True), dict(compilation_cache_dir="/x")],
 )
 def test_exec_plan_waiting_fields_raise_not_implemented(kwargs):
-    """mesh still waits for sharded plans; aot and compilation_cache_dir are
-    accepted as the reference accepts them, and the plan cache's key leaves
-    them out (they change when work happens, not what runs)."""
+    """A mesh must be a DeviceMesh (anything else is a ValueError naming
+    it); aot and compilation_cache_dir are accepted as the reference accepts
+    them, and the plan cache's key leaves them out (they change when work
+    happens, not what runs)."""
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        with pytest.raises(ValueError, match="DeviceMesh.*object"):
             ExecPlan(**kwargs)
         return
     ((field, value),) = kwargs.items()
@@ -101,10 +117,37 @@ def test_exec_plan_waiting_fields_raise_not_implemented(kwargs):
     assert plan_cache_key(plan) == plan_cache_key(ExecPlan())
 
 
+def test_exec_plan_accepts_a_device_mesh(gloo_mesh):
+    """A world-size-1 gloo DeviceMesh is a sharded plan; its dim names must
+    include the plan's axes."""
+    plan = ExecPlan(ensemble=2, mesh=gloo_mesh)
+    assert plan.sharded and plan.mesh is gloo_mesh
+    assert ExecPlan(mesh=gloo_mesh, ensemble_axes=("data", "model"), model_axis=None).sharded
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        ExecPlan(mesh=gloo_mesh, model_axis="x")
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        ExecPlan(mesh=gloo_mesh, ensemble_axes=("model",))
+
+
 def test_exec_plan_properties():
     p = ExecPlan(precision="highest", chunk_ticks=4, block_n=128)
     assert p.effective_precision is None and not p.reduced_precision and not p.sharded
     assert ExecPlan(precision="mixed").reduced_precision
+
+
+def test_learn_state_init_defaults_to_the_card():
+    """kernels.rls.rls_init / lms_init are entry points: without a card they
+    raise unless asked for the CPU, as every other entry point does."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from repro_torch.kernels import rls as krls
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        krls.rls_init(2, 5, 1, 1e-2, torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        krls.lms_init(2, 5, 1, torch.float32)
+    assert krls.rls_init(2, 5, 1, 1e-2, torch.float32, device="cpu")[0].device.type == "cpu"
+    assert krls.lms_init(2, 5, 1, torch.float32, device="cpu").device.type == "cpu"
 
 
 def test_no_silent_cpu_without_cuda():
@@ -119,19 +162,19 @@ def test_no_silent_cpu_without_cuda():
         convert.readout_from_numpy(np.zeros((9, 1)), 0)
 
 
-def test_unported_paths_raise_not_implemented():
+def test_unported_paths_raise_not_implemented(gloo_mesh):
     sj, st = _specs()
     # an unknown tableau is the reference's ValueError
     with pytest.raises(ValueError, match="unknown tableau"):
         compile_plan(st._replace(tableau="rk2"), device="cpu")
     with pytest.raises(ValueError, match="unknown tableau"):
         jcompile(sj._replace(tableau="rk2"))
-    # the physics families are served; sharded plans still wait (item 12),
-    # for a family spec as for the coupled array
+    # the physics families are served, and refuse a mesh plan as the
+    # reference's do (families are unsharded)
     assert make_spec(8, topology="time_multiplexed", device="cpu").topology == "time_multiplexed"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh plans shard the coupled array"):
         compile_plan(make_spec(8, topology="time_multiplexed", device="cpu"),
-                     ExecPlan(mesh=object()), device="cpu")
+                     ExecPlan(mesh=gloo_mesh), device="cpu")
     sim = compile_plan(st, ExecPlan(impl="ref", ensemble=2), device="cpu")
     with pytest.raises(ValueError):
         sim.tick_chunk(

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (coupled-STO RK4, the time-multiplexed delay line
 and flash attention) against their plain PyTorch versions on a card, and the
-online learners, the scan oracle and the physics families' engines there.
+online learners, the scan oracle and the physics families' engines there,
+and a sharded plan on a world-size-1 NCCL mesh.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -1434,3 +1435,66 @@ def test_learners_keep_their_bits_in_any_lane(cuda, k):
     w3, preds3 = krls.lms_chunk(w, x, y, mask, 0.5)
     for out in (p2, w2, preds.transpose(0, 1), w3, preds3.transpose(0, 1)):
         assert all(torch.equal(out[i], out[0]) for i in range(1, e))
+
+
+_NCCL_SCRIPT = r"""
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.api import ExecPlan, compile_plan, make_spec
+from repro_torch.kernels import ops
+
+torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+dist.init_process_group("nccl", store=dist.FileStore(sys.argv[1], 1), rank=0, world_size=1)
+try:
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    n, e, k = 64, 8, 3
+    spec = make_spec(n, n_in=1, seed=0, hold_steps=3, device="cuda")
+    rng = np.random.default_rng(0)
+    u = torch.as_tensor(rng.uniform(0.0, 0.5, (k, e, 1)), dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(rng.normal(size=(k, e, 1)), dtype=torch.float32, device="cuda")
+    mask = torch.ones((k, e), dtype=torch.bool, device="cuda")
+    mask[:, 0] = False
+    mask[1:, 1] = False
+    m0 = ops.to_planes(spec.m0.expand(e, n, 3)).contiguous()
+    for learn in (None, "rls"):
+        kw = dict(ensemble=e, chunk_ticks=k, learn=learn, learn_reg=1e-2)
+        sh = compile_plan(spec, ExecPlan(mesh=mesh, **kw), device="cuda")
+        un = compile_plan(spec, ExecPlan(impl="scan", **kw), device="cuda")
+        assert sh.device == torch.device("cuda", 0), sh.device
+        extra = {} if learn is None else dict(targets=y, learn_state=un.init_learn_state())
+        a, b = sh.tick_chunk(m0, u, mask, **extra), un.tick_chunk(m0, u, mask, **extra)
+        flat = lambda out: [out[0], out[1]] + ([] if learn is None else [*out[2], out[3]])
+        for x, z in zip(flat(a), flat(b)):
+            assert torch.equal(x, z), (learn, (x - z).abs().max().item())
+        assert torch.equal(a[0][:, :, 0], m0[:, :, 0])
+    try:
+        compile_plan(spec, ExecPlan(ensemble=e, mesh=mesh), device="cpu")
+        raise AssertionError("a cpu device on a cuda mesh was accepted")
+    except ValueError as exc:
+        assert "device type 'cuda'" in str(exc), exc
+    print("ok")
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_world_size_one_nccl_mesh_is_bit_equal_to_scan(cuda, tmp_path):
+    """A sharded plan on a (1, 1) NCCL mesh, in a process of its own (rank 0
+    of a world of one, a FileStore): tick_chunk and the RLS chunk bit-equal
+    to the unsharded impl="scan" at N = 64, E = 8 (the frozen lane
+    bit-identical), and a CPU device refused on a CUDA mesh."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    proc = subprocess.run([sys.executable, "-c", _NCCL_SCRIPT, str(tmp_path / "store")],
+                          capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-4000:]

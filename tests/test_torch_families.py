@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from repro.api import ExecPlan as JPlan
+from repro.api import check_plan_supports_topology as jcheck_plan_supports_topology
 from repro.api import compile_plan as jcompile
 from repro.api import make_array_transient_spec as jmake_array_transient_spec
 from repro.api import make_spec as jmake_spec
@@ -85,6 +86,21 @@ def specs(topology):
         jb, tb = _BUILDERS[topology]
         _SPECS[topology] = (jb(), tb())
     return _SPECS[topology]
+
+
+@pytest.fixture(scope="module")
+def gloo_mesh(tmp_path_factory):
+    """A world-size-1 gloo process group over a FileStore (no port) and its
+    (1, 1) DeviceMesh ("data", "model"), destroyed at teardown."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("gloo") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
@@ -436,14 +452,22 @@ class TestGuards:
         assert compile_plan(spec, ExecPlan(ensemble=4), device="cpu").impl == "ref"
 
     @pytest.mark.parametrize("topology", FAMILIES)
-    def test_families_refuse_mesh(self, topology):
-        """ExecPlan(mesh=...) waits for sharded plans in the port; the family
-        check refuses a mesh plan as the reference's does."""
-        with pytest.raises(NotImplementedError, match="item 12"):
+    def test_families_refuse_mesh(self, topology, gloo_mesh):
+        """A family refuses a real DeviceMesh plan with the reference's
+        ValueError, at the family check and through compile_plan; a mesh
+        that is not a DeviceMesh is refused by ExecPlan itself."""
+        with pytest.raises(ValueError, match="DeviceMesh"):
             ExecPlan(ensemble=1, mesh=object())
-        plan = types.SimpleNamespace(mesh=object(), impl="auto")
-        with pytest.raises(ValueError, match="mesh"):
+        plan = ExecPlan(ensemble=1, mesh=gloo_mesh)
+        with pytest.raises(ValueError, match="mesh plans shard the coupled array"):
             check_plan_supports_topology(plan, topology)
+        with pytest.raises(ValueError, match="mesh plans shard the coupled array"):
+            jcheck_plan_supports_topology(types.SimpleNamespace(mesh=object(), impl="auto"),
+                                          topology)
+        build = {"time_multiplexed": make_time_multiplexed_spec,
+                 "array_transient": lambda n, **kw: make_array_transient_spec(n, 2, **kw)}[topology]
+        with pytest.raises(ValueError, match="mesh plans shard the coupled array"):
+            compile_plan(build(6, hold_steps=3, seed=0, device="cpu"), plan, device="cpu")
 
     def test_scan_refuses_reduced_precision(self):
         with pytest.raises(ValueError):

@@ -67,6 +67,21 @@ def _join_prewarm_threads():
             assert not t.is_alive(), "a prewarm thread hung"
 
 
+@pytest.fixture(scope="module")
+def gloo_mesh(tmp_path_factory):
+    """A world-size-1 gloo process group over a FileStore (no port) and its
+    (1, 1) DeviceMesh ("data", "model"), destroyed at teardown."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("gloo") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.fixture
 def plan_cache(monkeypatch):
     """A fresh PlanCache as the process-wide one, empty dispatch tables."""
@@ -207,7 +222,7 @@ def test_plan_key_is_the_references(kwargs):
     assert gd == jplan_cache_key(JPlan(gather_dtype=jnp.bfloat16, impl="scan"))
 
 
-def test_plan_key_fences_every_exec_plan_field():
+def test_plan_key_fences_every_exec_plan_field(gloo_mesh):
     """An ExecPlan field the key omits would be a silent cache collision:
     every field is keyed, enters through the mesh, or is a policy field."""
     fields = [f.name for f in dataclasses.fields(ExecPlan)]
@@ -232,10 +247,18 @@ def test_plan_key_fences_every_exec_plan_field():
     assert where == sorted(set(where)), dict(zip(cache._KEYED_FIELDS, where))
     for name, value in dict(aot=True, compilation_cache_dir="/x").items():
         assert plan_cache_key(dataclasses.replace(base, **{name: value})) == plan_cache_key(base)
-    # the mesh's axes enter only with a mesh, and a mesh is not ported yet
+    # the mesh's axes enter only with a mesh: without one they move nothing,
+    # with one each moves the key's mesh entry
     assert plan_cache_key(dataclasses.replace(base, ensemble_axes=("x",))) == plan_cache_key(base)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dataclasses.replace(base, impl="scan", mesh=object())
+    sharded = dataclasses.replace(base, impl="scan", mesh=gloo_mesh)
+    keys = {
+        plan_cache_key(sharded),
+        plan_cache_key(dataclasses.replace(sharded, model_axis=None)),
+        plan_cache_key(dataclasses.replace(sharded, ensemble_axes=("model",), model_axis="data")),
+    }
+    assert len(keys) == 3 and plan_cache_key(sharded) != plan_cache_key(
+        dataclasses.replace(base, impl="scan")
+    )
 
 
 def test_plan_key_excludes_pure_policy_fields():

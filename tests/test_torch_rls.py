@@ -119,12 +119,12 @@ def test_lms_update_and_chunk_match_reference(dt):
 
 
 def test_init_matches_reference():
-    p, w = krls.rls_init(3, 5, 2, 1e-2, torch.float32)
+    p, w = krls.rls_init(3, 5, 2, 1e-2, torch.float32, device="cpu")
     pj, wj = jrls.rls_init(3, 5, 2, 1e-2, jnp.float32)
     assert np.array_equal(p.numpy(), np.asarray(pj)) and np.array_equal(w.numpy(), np.asarray(wj))
-    assert np.array_equal(krls.lms_init(3, 5, 2, torch.float32).numpy(), np.asarray(jrls.lms_init(3, 5, 2, jnp.float32)))
+    assert np.array_equal(krls.lms_init(3, 5, 2, torch.float32, device="cpu").numpy(), np.asarray(jrls.lms_init(3, 5, 2, jnp.float32)))
     with pytest.raises(ValueError, match="reg"):
-        krls.rls_init(1, 3, 1, 0.0, torch.float32)
+        krls.rls_init(1, 3, 1, 0.0, torch.float32, device="cpu")
 
 
 # -- lane stability and masking, on the CPU ------------------------------------
@@ -404,7 +404,7 @@ def test_resume_weights_and_inverse_gram():
     whole = eng.run([StreamSession(sid=0, u_seq=u, targets=y)])[0]
     half = eng.run([StreamSession(sid=1, u_seq=u[:8], targets=y[:8])])[1]
     xb = torch.cat([torch.from_numpy(half.states), torch.ones(8, 1)], 1)
-    p, w = krls.rls_init(1, 9, 1, 1e-2, torch.float32)
+    p, w = krls.rls_init(1, 9, 1, 1e-2, torch.float32, device="cpu")
     for s0 in (0, 4):
         p, w, _ = krls.rls_chunk(p, w, xb[s0 : s0 + 4, None], torch.tensor(y[s0 : s0 + 4, None]), torch.ones(4, 1, dtype=torch.bool), 1.0)
     assert torch.equal(w[0], half.learned_readout.w_out)
