@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tune         # phase 3g alone
     python3 chip_smoke.py --fleet        # phase 3h alone
     python3 chip_smoke.py --sharded      # phase 3i alone
+    python3 chip_smoke.py --train        # phase 5b alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -241,6 +242,40 @@ on failure:
    within LOGIT_MARGIN of the step's maximum. Prints prefill and decode tokens/s, the
    peak device memory, one 4608-token prefill's time (CUDA events) and,
    from a profiler trace of it, the flash kernel's share of its device time.
+5b. Training (repro_torch.train, launch.steps, optim, data) on the card,
+   each check raising on failure: (a) at a reduced config (f32, d_model 320,
+   4 heads: head dim 80, one the flash kernel takes), from the same weights
+   and an AdamW state two CPU steps warmed, the loss, every gradient leaf,
+   the global norm and the AdamW update on the same clipped gradients match
+   the host CPU's within TRAIN_RTOL, and so do the whole make_train_step's
+   loss and grad norm, its updated leaves within TRAIN_STEP_RTOL (and a step
+   with the wrong step index, without the clip or on bf16 parameters beyond
+   it), with no flash launch;
+   (b) h2o-danube-1.8b at full width (24 layers, d_model 2560, bf16, remat
+   on, AdamW, SyntheticTokens seed 0, batch 4 x 512, lr 1e-3, warmup 5) for
+   20 steps: every loss and grad norm finite, the mean of the last 5 losses
+   LOSS_DROP below the first 5's; ms a step (CUDA events), tokens/s, peak
+   device memory; 3 more steps split into forward + backward, global norm +
+   clip and the AdamW update beside its bytes bound; one step under
+   torch.profiler (busy share, top device ops); one checkpoint (~18 GB, under
+   build/) written from a host copy, the device tree freed, read back on the
+   host bit-equal, its GB and seconds printed, then removed; (c) at 2 layers
+   (full width), 12 steps with a checkpoint every 4 and a crash injected at
+   step 9, relaunched: it resumes at step 8 and its losses are within
+   RESUME_RTOL of an uninterrupted run's (bit-equal or not printed); (d) on
+   (b)'s first batch, loss_fn under torch.no_grad() launches the flash
+   kernel once a layer (24), the 20 steps none, and the two losses agree
+   within ROUTING_RTOL; (e) in a child process (`chip_smoke.py
+   --train-child`, rank 0 of an NCCL world of one over a FileStore,
+   CUBLAS_WORKSPACE_CONFIG set), 4 steps at 2 layers on a (1, 1) ("data",
+   "model") mesh bit-equal to the run without a mesh under
+   torch.use_deterministic_algorithms(True), in losses and final
+   parameters (read from each run's final checkpoint), the all-reduces
+   counted; whether the run without deterministic algorithms is bit-equal
+   to the run with them, and a step's ms with and without them; (f) `python -m repro_torch.train.watchdog -- python -m
+   repro_torch.launch.train --arch h2o-danube-1.8b --reduced --steps 8
+   --batch 2 --seq 16 --ckpt-every 2 --fail-at-step 5 --device cuda` exits 0
+   with step_00000007 its last checkpoint. Prints the phase's seconds.
 6. Print the kernels line (the STO kernels, tm_delay_line and flash), the
    card line and, last, the contract line {"ok": true, "device": {...}}.
 
@@ -3589,6 +3624,504 @@ def sharded_only():
     print("3i held", flush=True)
 
 
+
+# -- phase 5b: training on the card -----------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 20
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
+TRAIN_SPLIT_STEPS = 3  # steps timed piece by piece after the 20 (CUDA events)
+# (a) one step on the card against the same step on the host CPU, relative to
+# each leaf's largest magnitude: f32 and TF32 off on both sides, sums in other
+# orders (cuBLAS, the backward's atomics); the CPU tests hold the port's step
+# to the reference's at the same bound
+TRAIN_RTOL = 1e-5
+# (a) the whole make_train_step's worst updated leaf against the CPU's: AdamW
+# divides each gradient element by the root of its second moment, so an
+# element whose gradient is small against its leaf's f32 rounding moves by
+# more than that rounding (8.9e-5 and 1.17e-4 read on the H100). Below the
+# controls that must fail it: the step with the wrong step index, without the
+# clip, or on bf16 parameters.
+TRAIN_STEP_RTOL = 5e-4
+# (b) the reference's test (tests/test_train_substrate.py:114-123): the mean
+# of the last 5 losses at least this far below the mean of the first 5
+LOSS_DROP = 0.2
+# (c) a resumed run against the uninterrupted one: the reference's bound
+# (tests/test_train_substrate.py:139); the backward's atomics (the embedding
+# gather's index_put) make the card's steps not bit-reproducible by default
+RESUME_RTOL = 2e-4
+RESUME_LAYERS = 2  # full width at 2 layers: a checkpoint of ~3 GB, not ~18
+# (d) the loss through the flash kernel (no_grad) against the einsum path
+# (grad) at full width: bf16 activations, f32 softmax on both sides
+ROUTING_RTOL = 5e-3
+# the AdamW walk's bytes a parameter: read p and g (bf16), mu and nu (f32),
+# write p, mu and nu
+ADAMW_BYTES = 2 + 2 + 4 + 4 + 2 + 4 + 4
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _train_cfg(layers=None):
+    import dataclasses
+
+    cfg = get_config(LM_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def _train_loop(ckpt_dir, **kw):
+    from repro_torch.train import LoopConfig
+
+    base = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                log_every=0, ckpt_dir=ckpt_dir)
+    return LoopConfig(**dict(base, **kw))
+
+
+def _rel(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _worst(got, want):
+    """(worst relative error, its leaf's name) over two trees, each leaf
+    relative to its largest magnitude."""
+    from repro_torch import tree
+
+    errs = [(_rel(a, b), tree.keystr(p))
+            for (p, a), b in zip(tree.leaves_with_path(got), tree.leaves(want))]
+    return max(errs)
+
+
+def train_card_vs_cpu(name_power):
+    """5b(a): the card against the host CPU from the same weights and AdamW
+    state, at a reduced config (f32, d_model 320, 4 heads: head dim 80,
+    which the flash kernel takes, so its counter would show a step that
+    reached it). Two CPU steps warm the state first. Held within
+    TRAIN_RTOL: the loss and every gradient leaf, the global norm, and the
+    AdamW update given the same clipped gradients (the card's, on both). The
+    whole make_train_step is then run on each side, its loss and grad norm
+    held within TRAIN_RTOL and its worst updated leaf within
+    TRAIN_STEP_RTOL; three faulty steps on the card (step index 3 for 2, no
+    clip, bf16 parameters) must each land above TRAIN_STEP_RTOL."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import reduce_config
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+    from repro_torch.optim import clip_by_global_norm, global_norm
+
+    cfg = reduce_config(get_config(LM_ARCH), d_model=320)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 128, TRAIN_BATCH, seed=0))
+    kw = dict(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+    step_cpu, opt, model = steps.make_train_step(cfg, device="cpu", **kw)
+    step_gpu, _, model_gpu = steps.make_train_step(cfg, device="cuda", **kw)
+    params = model.init(0)
+    state = opt.init(params, device="cpu")
+    for s in range(2):
+        params, state, _ = step_cpu(params, state, to_device(data.batch(s), "cpu"), torch.tensor(s))
+    copy = lambda t, dev: tree.tree_map(lambda x: x.to(dev).clone(), t)  # noqa: E731
+    b_cpu, b_gpu = to_device(data.batch(2), "cpu"), to_device(data.batch(2), "cuda")
+
+    # the gradients, the norm and the clip
+    fa.LAUNCHES["flash_attention"] = 0
+    p_gpu = copy(params, "cuda")
+    loss_gpu, g_gpu = steps.loss_and_grads(model_gpu, p_gpu, b_gpu)
+    loss_cpu, g_cpu = steps.loss_and_grads(model, copy(params, "cpu"), b_cpu)
+    gn_gpu, gn_cpu = global_norm(g_gpu), global_norm(g_cpu)
+    g_gpu = clip_by_global_norm(g_gpu, 1.0, gn_gpu)
+    errs = {"loss": _rel(loss_gpu, loss_cpu), "grad_norm": _rel(gn_gpu, gn_cpu)}
+    errs["grads"], grad_leaf = _worst(g_gpu, clip_by_global_norm(g_cpu, 1.0, gn_cpu))
+    # the AdamW update on the same clipped gradients
+    s_gpu = copy(state, "cuda")
+    opt.update(p_gpu, g_gpu, s_gpu, torch.tensor(2, device="cuda"))
+    p_ref, s_ref = copy(params, "cpu"), copy(state, "cpu")
+    opt.update(p_ref, copy(g_gpu, "cpu"), s_ref, torch.tensor(2))
+    errs["update"], update_leaf = _worst({"p": p_gpu, "s": s_gpu}, {"p": p_ref, "s": s_ref})
+
+    # the whole step on each side, then the controls on the card
+    two = torch.tensor(2, device="cuda")
+    p_gpu, s_gpu, m_gpu = step_gpu(copy(params, "cuda"), copy(state, "cuda"), b_gpu, two)
+    torch.cuda.synchronize()
+    flash = fa.LAUNCHES["flash_attention"]
+    controls = {"step index 3": step_gpu(copy(params, "cuda"), copy(state, "cuda"), b_gpu,
+                                         torch.tensor(3, device="cuda"))[:2]}
+    p_nc, s_nc = copy(params, "cuda"), copy(state, "cuda")
+    controls["no clip"] = opt.update(p_nc, steps.loss_and_grads(model_gpu, p_nc, b_gpu)[1],
+                                     s_nc, two)
+    step_bf16 = steps.make_train_step(dataclasses.replace(cfg, dtype="bfloat16"),
+                                      device="cuda", **kw)[0]
+    p_bf, s_bf = step_bf16(tree.tree_map(lambda x: x.to("cuda", torch.bfloat16), params),
+                           copy(state, "cuda"), b_gpu, two)[:2]
+    controls["bf16 parameters"] = (tree.tree_map(torch.Tensor.float, p_bf), s_bf)
+    params, state, m_cpu = step_cpu(params, state, b_cpu, torch.tensor(2))
+    errs["step_loss"] = _rel(m_gpu["loss"], m_cpu["loss"])
+    errs["step_grad_norm"] = _rel(m_gpu["grad_norm"], m_cpu["grad_norm"])
+    step_err, step_leaf = _worst({"p": p_gpu, "s": s_gpu}, {"p": params, "s": state})
+    control_errs = {k: _worst({"p": p, "s": st}, {"p": params, "s": state})[0]
+                    for k, (p, st) in controls.items()}
+    print(f"5b(a) reduced {cfg.name} (d_model {cfg.d_model}, head dim {cfg.head_dim}, f32), the "
+          f"card vs the host CPU from the same weights and state (relative, at most "
+          f"{TRAIN_RTOL}): loss {errs['loss']:.3e}, grad norm {errs['grad_norm']:.3e}, worst "
+          f"gradient leaf {errs['grads']:.3e} ({grad_leaf}); AdamW update on the same gradients, "
+          f"worst leaf {errs['update']:.3e} ({update_leaf}); the whole step: loss "
+          f"{errs['step_loss']:.3e}, grad norm {errs['step_grad_norm']:.3e}, worst updated leaf "
+          f"{step_err:.3e} ({step_leaf}; at most {TRAIN_STEP_RTOL}); controls, each above it: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in control_errs.items())
+          + f"; flash launches {flash} ({name_power})", flush=True)
+    assert flash == 0, f"a train step launched the flash kernel {flash} times"
+    assert max(errs.values()) <= TRAIN_RTOL, errs
+    assert step_err <= TRAIN_STEP_RTOL, (step_err, step_leaf)
+    assert min(control_errs.values()) > TRAIN_STEP_RTOL, control_errs
+
+
+def _split_step(model, opt, params, state, batch, step):
+    """One train step in its three parts, each timed with CUDA events:
+    forward + backward, the global norm and clip, the AdamW update (the
+    sequence make_train_step runs without compression). Returns ms each."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.optim import clip_by_global_norm, global_norm
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    _, grads = loss_and_grads(model, params, batch)
+    ev[1].record()
+    gnorm = global_norm(grads)
+    grads = clip_by_global_norm(grads, 1.0, gnorm)
+    ev[2].record()
+    opt.update(params, grads, state, torch.tensor(step, device="cuda"))
+    ev[3].record()
+    ev[3].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def train_full_width(name_power):
+    """5b(b) and (d): h2o-danube-1.8b at full width (bf16, remat on,
+    AdamW): the routing check, 20 steps, the step's split, a profiled step,
+    then one checkpoint written and read back bit-equal on the host."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+
+    cfg = _train_cfg()
+    assert cfg.remat and cfg.dtype == "bfloat16", (cfg.remat, cfg.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_step, opt, model = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                                   total_steps=100, device="cuda")
+    assert opt.name == steps.default_optimizer(cfg) == "adamw", opt.name
+    params = model.init(0)
+    state = opt.init(params, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"5b {LM_ARCH}: {n_params} parameters ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, remat {cfg.remat}, {cfg.dtype}), AdamW state "
+          f"{sum(t.numel() * 4 for t in tree.leaves(state)) / 1e9:.2f} GB; init "
+          f"{time.perf_counter() - t0:.3f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
+          flush=True)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+
+    # (d) the routing repair on the step's first batch
+    batch = to_device(data.batch(0), "cuda")
+    fa.LAUNCHES["flash_attention"] = 0
+    with torch.no_grad():
+        flash_loss, _ = model.loss_fn(params, batch)
+    torch.cuda.synchronize()
+    no_grad_launches = fa.LAUNCHES["flash_attention"]
+
+    # (b) 20 steps, each timed with CUDA events
+    fa.LAUNCHES["flash_attention"] = 0
+    hist, step_ms = [], []
+    for step in range(TRAIN_STEPS):
+        batch = to_device(data.batch(step), "cuda")
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, metrics = train_step(params, state, batch,
+                                            torch.tensor(step, device="cuda"))
+        stop.record()
+        stop.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        hist.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    step_launches = fa.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    grad_loss = hist[0][0]
+    print(f"5b(d) routing at full width, batch 0: loss_fn under no_grad {float(flash_loss):.6f} "
+          f"with {no_grad_launches} flash launches (one a layer: {cfg.num_layers}); the train "
+          f"step's loss under grad {grad_loss:.6f} with {step_launches} flash launches over "
+          f"{TRAIN_STEPS} steps; relative gap {abs(float(flash_loss) - grad_loss) / abs(grad_loss):.3e} "
+          f"(at most {ROUTING_RTOL}) ({name_power})", flush=True)
+    assert no_grad_launches == cfg.num_layers, no_grad_launches
+    assert step_launches == 0, step_launches
+    assert abs(float(flash_loss) - grad_loss) <= ROUTING_RTOL * abs(grad_loss)
+    losses = [h[0] for h in hist]
+    assert all(math.isfinite(a) and math.isfinite(g) for a, g in hist), hist
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"5b(b) {TRAIN_STEPS} steps: losses {' '.join(f'{x:.4f}' for x in losses)}; grad norms "
+          f"{' '.join(f'{g:.3f}' for _, g in hist)}; mean of the first 5 {first:.4f}, of the last "
+          f"5 {last:.4f} (must fall by {LOSS_DROP})", flush=True)
+    assert last < first - LOSS_DROP, (first, last)
+    steady = sorted(step_ms[5:])
+    med = steady[len(steady) // 2]
+    print(f"5b(b) ms a step (CUDA events, steps 5-{TRAIN_STEPS - 1}): median {med:.3f}, min "
+          f"{steady[0]:.3f}, max {steady[-1]:.3f}; first step {step_ms[0]:.3f}; "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (med / 1e3):.1f} tokens/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({name_power})", flush=True)
+
+    # the step's split, then one profiled step
+    splits = []
+    for i in range(TRAIN_SPLIT_STEPS):
+        step = TRAIN_STEPS + i
+        batch = to_device(data.batch(step), "cuda")
+        splits.append(_split_step(model, opt, params, state, batch, step))
+    fwd_bwd, clip, update = (sorted(x)[len(x) // 2] for x in zip(*splits))
+    bound = n_params * ADAMW_BYTES / HBM_BYTES_PER_S * 1e3
+    print(f"5b(b) a step's split (CUDA events, median of {TRAIN_SPLIT_STEPS}): forward + backward "
+          f"{fwd_bwd:.3f} ms, global norm + clip {clip:.3f} ms, AdamW update {update:.3f} ms "
+          f"against its bytes bound {bound:.3f} ms ({ADAMW_BYTES} B a parameter at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {100 * bound / update:.1f} %) ({name_power})",
+          flush=True)
+    counter = [TRAIN_STEPS + TRAIN_SPLIT_STEPS]
+
+    def one_step():
+        nonlocal params, state
+        batch = to_device(data.batch(counter[0]), "cuda")
+        params, state, _ = train_step(params, state, batch,
+                                      torch.tensor(counter[0], device="cuda"))
+        counter[0] += 1
+
+    trace("train step (full width)", one_step, name_power, top=10)
+    last_step = counter[0] - 1
+
+    # one checkpoint: written from a host copy (the device-to-host copy timed
+    # apart), the device tree freed, read back on the host, bit-equal
+    # under the checkout's build/ (a cache .gitignore lists), not TMPDIR,
+    # which may be memory
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train-ckpt-", dir=build)
+    try:
+        t0 = time.perf_counter()
+        host = tree.tree_map(lambda t: t.cpu(), {"p": params, "s": state})
+        d2h = time.perf_counter() - t0
+        del params, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt_dir, last_step, host["p"], host["s"], extra={"data_seed": 0})
+        write = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in path.iterdir())
+        template = transformer.param_template(cfg)
+        t0 = time.perf_counter()
+        p2, s2, _, step = restore_checkpoint(ckpt_dir, None, template,
+                                             opt.init(template, device="meta"), device="cpu")
+        read = time.perf_counter() - t0
+        bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32)  # noqa: E731
+        same = all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+                   for a, b in zip(tree.leaves(host), tree.leaves({"p": p2, "s": s2})))
+        print(f"5b(b) checkpoint of step {step}: {size / 1e9:.3f} GB; device-to-host copy "
+              f"{d2h:.3f} s, write {write:.3f} s ({size / 1e9 / write:.2f} GB/s), read on the host "
+              f"{read:.3f} s ({size / 1e9 / read:.2f} GB/s); bit-equal {same} ({name_power})",
+              flush=True)
+        assert same, "the checkpoint did not read back bit-equal"
+        del host, p2, s2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    return {"ms": med, "peak": peak}
+
+
+def train_resume(name_power):
+    """5b(c): full width at RESUME_LAYERS layers, 12 steps with a checkpoint
+    every 4 and a crash at step 9, relaunched; against an uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.train import train
+
+    cfg = _train_cfg(RESUME_LAYERS)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train-resume-", dir=build)
+    try:
+        t0 = time.perf_counter()
+        ref = train(cfg, _train_loop(os.path.join(root, "ref"), total_steps=12, ckpt_every=0,
+                                     resume=False), device="cuda")
+        t_ref = time.perf_counter() - t0
+        loop = _train_loop(os.path.join(root, "ft"), total_steps=12, ckpt_every=4, fail_at_step=9)
+        t0 = time.perf_counter()
+        try:
+            train(cfg, loop, device="cuda")
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as exc:
+            assert "injected failure at step 9" in str(exc), exc
+        t_crash = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hist = train(cfg, loop, device="cuda")
+        t_resume = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert [h["step"] for h in hist] == [8, 9, 10, 11], [h["step"] for h in hist]
+    want = {h["step"]: h["loss"] for h in ref}
+    gaps = [abs(h["loss"] - want[h["step"]]) / abs(want[h["step"]]) for h in hist]
+    got = " ".join(f"{h['loss']:.6f}" for h in hist)
+    ref_losses = " ".join(f"{want[h['step']]:.6f}" for h in hist)
+    print(f"5b(c) crash at step 9 and resume at {RESUME_LAYERS} layers, full width: resumed at "
+          f"step {hist[0]['step']}; losses {got} against {ref_losses}; largest relative gap "
+          f"{max(gaps):.3e} (at most {RESUME_RTOL}), bit-equal {max(gaps) == 0.0}; uninterrupted "
+          f"run {t_ref:.1f} s, crashed run {t_crash:.1f} s, resumed run {t_resume:.1f} s "
+          f"({name_power})", flush=True)
+    assert max(gaps) <= RESUME_RTOL, gaps
+
+
+def train_child():
+    """5b(e) in a process of its own (`chip_smoke.py --train-child`, rank 0
+    of an NCCL world of one: RANK / WORLD_SIZE / LOCAL_RANK and
+    CUBLAS_WORKSPACE_CONFIG set by the parent, a FileStore), so that its
+    process group and its deterministic mode never reach the phases after
+    it."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+    from repro_torch.train import restore_checkpoint, train, train_loop
+
+    rank, world, local = (int(os.environ[k]) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+    torch.cuda.set_device(local)
+    name_power = card_line()
+    cfg = _train_cfg(RESUME_LAYERS)
+    root = tempfile.mkdtemp(prefix="train-dp-")
+    make = steps.make_train_step
+    template = transformer.param_template(cfg)
+    opt_template = make(cfg, device="cuda")[1].init(template, device="meta")
+    try:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), world),
+                                rank=rank, world_size=world)
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        init_ms = 1e3 * (time.perf_counter() - t0)
+
+        def run(tag, mesh=None):  # the losses, and the parameters from the final checkpoint
+            ckpt_dir = os.path.join(root, tag)
+            hist = train(cfg, _train_loop(ckpt_dir, total_steps=4, ckpt_every=5),
+                         mesh=mesh, device="cuda")
+            params = restore_checkpoint(ckpt_dir, 3, template, opt_template, device="cpu")[0]
+            shutil.rmtree(ckpt_dir)
+            return [h["loss"] for h in hist], tree.leaves(params)
+
+        same = lambda a, b: a[0] == b[0] and all(  # noqa: E731
+            torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        plain = run("plain")
+        torch.use_deterministic_algorithms(True)
+        det = run("det")
+        before = train_loop.COLLECTIVES["all_reduce"]
+        dp = run("dp", mesh)
+        reduces = train_loop.COLLECTIVES["all_reduce"] - before
+        print(f"5b(e) NCCL world of one, mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, init "
+              f"{init_ms:.1f} ms; {RESUME_LAYERS} layers at full width, 4 steps: the run without "
+              f"deterministic algorithms bit-equal to the run with "
+              f"torch.use_deterministic_algorithms(True) {same(plain, det)}; the "
+              f"(1, 1) mesh run bit-equal to the run without a mesh {same(dp, det)} (losses "
+              f"{' '.join(f'{x:.6f}' for x in dp[0])}); {reduces} all-reduces over the data "
+              f"group ({name_power})", flush=True)
+        assert same(dp, det), "the (1, 1) mesh run is not bit-equal to the run without a mesh"
+        assert reduces == 4 * (2 + len(dp[1])), reduces  # a step: mask sum, loss, each leaf
+
+        # a step's cost with and without deterministic algorithms, in turns
+        step, opt, model = make(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100,
+                                device="cuda")
+        params = model.init(0)
+        state = opt.init(params, device="cuda")
+        batch = to_device(SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+                          .batch(0), "cuda")
+        zero = torch.tensor(0, device="cuda")
+        ms = {}
+        for tag, flag in (("off", False), ("on", True), ("on2", True), ("off2", False)):
+            torch.use_deterministic_algorithms(flag)
+            ms[tag] = time_ms(lambda: step(params, state, batch, zero), 5)
+        print(f"5b(e) ms a step at {RESUME_LAYERS} layers (CUDA events, median of 5, in turns): "
+              f"deterministic algorithms off {ms['off']:.3f} / {ms['off2']:.3f}, on "
+              f"{ms['on']:.3f} / {ms['on2']:.3f} ({name_power})", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_dp_phase(name_power):
+    t0 = time.perf_counter()
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-child"],
+                          capture_output=True, text=True, timeout=600, env=env)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise RuntimeError(f"train child failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    print(f"5b(e): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def train_launcher(name_power):
+    """5b(f): tests/test_watchdog.py:13-36 on the card, the port's launcher
+    under the port's watchdog."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="train-watchdog-")
+    ckpt = os.path.join(root, "ckpt")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    cmd = [sys.executable, "-m", "repro_torch.train.watchdog", "--heartbeat",
+           os.path.join(ckpt, "heartbeat.json"), "--stall-s", "300", "--max-restarts", "2", "--",
+           sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--reduced",
+           "--steps", "8", "--batch", "2", "--seq", "16", "--ckpt-every", "2",
+           "--fail-at-step", "5", "--device", "cuda", "--ckpt-dir", ckpt]
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=src))
+        seconds = time.perf_counter() - t0
+        steps_ = sorted(d for d in os.listdir(ckpt) if d.startswith("step_")) if os.path.isdir(
+            ckpt) else []
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    restarts = [ln for ln in proc.stderr.splitlines() if ln.startswith("[watchdog]")]
+    print(f"5b(f) watchdog -- launch.train --fail-at-step 5 --device cuda: exit "
+          f"{proc.returncode}, {restarts}, checkpoints {steps_}, "
+          f"{proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ''}; {seconds:.1f} s "
+          f"({name_power})", flush=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert steps_ and steps_[-1] == "step_00000007", steps_
+
+
+def train_phase(name_power):
+    """Phase 5b: training on the card."""
+    t0 = time.perf_counter()
+    train_card_vs_cpu(name_power)
+    train_full_width(name_power)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_resume(name_power)
+    train_dp_phase(name_power)
+    train_launcher(name_power)
+    print(f"phase 5b: {time.perf_counter() - t0:.1f} s ({name_power})", flush=True)
+
+
+def train_only():
+    """`chip_smoke.py --train`: build the kernels and run phase 5b alone."""
+    name_power = card_line()
+    print(f"card: {name_power}", flush=True)
+    _build.load()
+    train_phase(name_power)
+    print("5b held", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3677,6 +4210,7 @@ def main():
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
+    train_phase(name_power)
 
     kernels = [
         dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k], **rows[k])
@@ -3701,5 +4235,9 @@ if __name__ == "__main__":
         sharded_only()
     elif sys.argv[1:2] == ["--sharded-child"]:
         sharded_child()
+    elif sys.argv[1:2] == ["--train"]:
+        train_only()
+    elif sys.argv[1:2] == ["--train-child"]:
+        train_child()
     else:
         main()

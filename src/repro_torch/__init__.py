@@ -8,7 +8,12 @@ mirrors its module names:
     repro_torch.core      the paper's coupled-STO reservoir physics
     repro_torch.kernels   CUDA kernels (kernels/csrc), their wrappers and
                           plain PyTorch versions
-    repro_torch.serve     the multi-tenant streaming engine
+    repro_torch.serve     the multi-tenant streaming engine and the LM engine
+    repro_torch.models    the LM substrate (dense attention family)
+    repro_torch.optim, repro_torch.data, repro_torch.train
+                          training: optimizers, the synthetic token
+                          pipeline, checkpoints, the loop, the watchdog
+    repro_torch.launch    command-line entry points (serve, train)
     repro_torch.convert   carry the reference's weights and state across
 
 It imports neither jax nor repro. Entry points take device= ("cuda" by

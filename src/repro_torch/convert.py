@@ -1,13 +1,15 @@
 """Carry weights and state across from the reference package.
 
 The reference's SimSpec leaves, readouts, per-tenant parameters, online
-learners' (P, W) lanes and session checkpoints, and its LM parameter and
-KV-cache pytrees, reach the port as numpy arrays (`np.asarray` of each leaf); these converters rebuild
-the port's objects from them on `device`, so both packages compute the same
-thing from the same numbers. A session checkpoint also goes the other way
+learners' (P, W) lanes and session checkpoints, and its LM parameter,
+KV-cache and optimizer-state pytrees, reach the port as numpy arrays
+(`np.asarray` of each leaf); these converters rebuild the port's objects
+from them on `device`, so both packages compute the same thing from the
+same numbers. A session checkpoint also goes the other way
 (`checkpoint_to_numpy`), so a session moves between the two packages'
-engines and fleet replicas in either direction. Nothing here imports the
-reference.
+engines and fleet replicas in either direction, and so do LM parameters and
+optimizer states (`lm_params_to_numpy`, `opt_state_to_numpy`), so tests hold
+the two packages' trees leaf for leaf. Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -207,3 +209,54 @@ def lm_caches_from_numpy(tree, device="cuda"):
     decode's, numpy leaves); period-stacked caches keep their leading
     num_periods axis."""
     return _tree_from_numpy(tree, resolve_device(device))
+
+
+# the reference optimizers' state keys: a tree per key (AdamW, SGD), or one
+# dict per parameter leaf (Adafactor: factored vr / vc, else v)
+_OPT_KEYS = {"adamw": {"mu", "nu"}, "sgd": {"mom"}}
+_ADAFACTOR_LEAVES = ({"vr", "vc"}, {"v"})
+
+
+def _adafactor_leaves(state):
+    if isinstance(state, dict) and set(state) in _ADAFACTOR_LEAVES:
+        return [set(state)]
+    items = state.values() if isinstance(state, dict) else state
+    return [keys for v in items for keys in _adafactor_leaves(v)]
+
+
+def opt_state_from_numpy(name: str, tree, device="cuda"):
+    """The port's optimizer state for optimizer `name` ("adamw": mu / nu,
+    "adafactor": vr / vc or v per parameter, "sgd": mom) from the
+    reference's state pytree with every leaf `np.asarray`'d."""
+    state = _tree_from_numpy(tree, resolve_device(device))
+    if name in _OPT_KEYS:
+        if not isinstance(state, dict) or set(state) != _OPT_KEYS[name]:
+            raise ValueError(f"{name} state needs the keys {sorted(_OPT_KEYS[name])}")
+    elif name == "adafactor":
+        if not _adafactor_leaves(state):
+            raise ValueError("adafactor state needs a vr / vc or v dict per parameter")
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    return state
+
+
+def _tree_to_numpy(tree):
+    """Nested dicts/lists of tensors -> the same structure of numpy copies
+    (a bf16 leaf as float32, which holds its values exactly: numpy has no
+    bf16)."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def lm_params_to_numpy(params):
+    """The port's LM parameters as numpy leaves (bf16 as exact float32)."""
+    return _tree_to_numpy(params)
+
+
+def opt_state_to_numpy(state):
+    """An optimizer state of the port as numpy leaves."""
+    return _tree_to_numpy(state)

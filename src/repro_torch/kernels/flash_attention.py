@@ -18,7 +18,10 @@ Two entries, one kernel (it reads its operands through strides):
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `flash_attention_plain`, and nothing else does. Each launch adds one
-to LAUNCHES["flash_attention"].
+to LAUNCHES["flash_attention"]. The kernel has no backward (nor has the
+reference's), so both entries raise on inputs that need a gradient under
+grad mode, on either device, instead of cutting the autograd graph: a caller
+that trains runs the einsum path (models/attention.grouped_attend).
 
 `tile_plan` and `tile_work` mirror the bf16 kernel's tiles: whole positions
 of a kv head's q heads per 128-row tile, the KV tiles each q tile reads, and
@@ -217,6 +220,15 @@ def _check_shapes(q, k, v, h_ax):
         )
 
 
+def _refuse_grad(q, k, v):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: inputs that require grad would cut the "
+            "autograd graph; run the einsum path (attention._grouped_attend_dense) or "
+            "call under torch.no_grad()"
+        )
+
+
 def _args(q, causal, window, scale):
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0; got {window}")
@@ -227,6 +239,7 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0, scale
     """q (B, Sq, H, D), k/v (B, Sk, KVH, D) -> (B, Sq, H, D), the layout the
     model makes; read through strides, never transposed in memory."""
     _check_shapes(q, k, v, 2)
+    _refuse_grad(q, k, v)
     causal, window, scale = _args(q, causal, window, scale)
     if _on_cpu(q, k, v):
         t = lambda x: x.transpose(1, 2)  # noqa: E731
@@ -241,6 +254,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None
     """q (B, H, Sq, D), k/v (B, KVH, Sk, D) -> (B, H, Sq, D), the reference's
     user-layout wrapper."""
     _check_shapes(q, k, v, 1)
+    _refuse_grad(q, k, v)
     causal, window, scale = _args(q, causal, window, scale)
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal, window, scale)

@@ -12,8 +12,11 @@ Layouts: activations (B, S, D); q/k/v (B, S, H, head_dim); caches
 On a CUDA tensor, `grouped_attend` sends every call inside the flash
 kernel's contract (a head dim in HEAD_DIMS, bf16 or f32, no kv_len, no
 softcap, scalar q_offset == Sk - Sq: every `attn_forward` call of a model
-whose head dim the kernel was built for) to the hand-written kernel
-(kernels/flash_attention.py). Every other call (decode's per-row q_offset
+whose head dim the kernel was built for) that needs no gradient to the
+hand-written kernel (kernels/flash_attention.py). The kernel has no backward,
+as the reference's has none (its model always runs the einsum), so a call
+under grad mode whose q, k or v requires grad (a training step) runs the
+einsum path, and the kernel's wrapper refuses such inputs. Every other call (decode's per-row q_offset
 and kv_len; another head dim, such as a reduced config's 16) runs
 `_grouped_attend_dense`, the port of the reference's einsum path, which the
 reference computes for every call outside its Pallas kernel. On the CPU every call
@@ -70,6 +73,15 @@ def _kernel_takes(q, k, v, q_offset, kv_len, softcap) -> bool:
     return q_offset is None or (isinstance(q_offset, int) and q_offset == sk - sq)
 
 
+def _on_card(q) -> bool:
+    return q.device.type == "cuda"
+
+
+def _needs_grad(q, k, v) -> bool:
+    """Whether autograd would record a graph through q, k or v."""
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
 def grouped_attend(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, KVH, D)
@@ -82,7 +94,7 @@ def grouped_attend(
     softcap: float = 0.0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    if q.device.type == "cuda" and _kernel_takes(q, k, v, q_offset, kv_len, softcap):
+    if _on_card(q) and not _needs_grad(q, k, v) and _kernel_takes(q, k, v, q_offset, kv_len, softcap):
         return flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
     return _grouped_attend_dense(
         q, k, v, causal=causal, window=window, q_offset=q_offset,

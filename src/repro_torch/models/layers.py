@@ -1,4 +1,5 @@
-"""Shared model layers: norms, MLPs, RoPE, embeddings, the LM head.
+"""Shared model layers: norms, MLPs, RoPE, embeddings, the LM head and the
+cross-entropy losses.
 
 The counterpart of the reference's models/layers.py. Params are plain
 nested dicts of tensors with the reference's names and layouts:
@@ -11,7 +12,10 @@ return tensors on that device; they do not reproduce the reference's
 jax.random draws (tests carry the reference's weights across instead,
 convert.lm_params_from_numpy). Casts follow the reference op for op: `dense`
 multiplies in the parameter dtype, norms and RoPE compute in f32 and cast
-back, `lm_logits` multiplies f32-cast operands.
+back, `lm_logits` and the cross-entropy functions multiply f32-cast operands
+(full f32 on the card: TF32 off). The reference's `constrain` calls on the
+logits are not carried: they are inert without a model axis, and the port
+trains data-parallel only (distributed/sharding.py).
 """
 
 from __future__ import annotations
@@ -22,8 +26,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import require_full_f32_matmul
+
 
 def _normal(generator, shape, scale, dtype):
+    if generator.device.type == "meta":  # a template (transformer.param_template)
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
     return (scale * x).to(dtype)
 
@@ -138,3 +146,65 @@ def lm_logits(p_head, x, tied_embed=None, softcap: float = 0.0):
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+# --- losses ----------------------------------------------------------------------
+
+NEG_INF = -1e30  # the padded vocab's logits (the reference's fill)
+
+
+def _mask_padded_vocab(logits, vocab_size: int):
+    """Set the padded vocab columns (index >= vocab_size) to NEG_INF."""
+    if logits.shape[-1] <= vocab_size:
+        return logits
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+    return logits.masked_fill(pad, NEG_INF)
+
+
+def _nll(logits, labels):
+    """-log p(label) per position, from f32 logits: logsumexp less the gold logit."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    return logz - gold
+
+
+def cross_entropy_from_features(x, w, labels, vocab_size: int, mask=None, chunk: int = 1024):
+    """Sequence-chunked CE from final features x (B, S, d) and the head w
+    (d, V_pad): logits for `chunk` positions at a time, so memory is
+    O(B * chunk * V) instead of O(B * S * V). The chunks run in order as a
+    Python loop where the reference scans, then the remainder; the mean is
+    over unmasked positions (a mask sum below 1 counts as 1)."""
+    b, s, _ = x.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    if x.device.type == "cuda":
+        require_full_f32_matmul()
+    chunk = min(chunk, s)
+    n = s // chunk
+    wf = w.float()
+
+    def ce_sum(xc, lc, mc):
+        logits = _mask_padded_vocab(xc.float() @ wf, vocab_size)
+        mc = mc.float()
+        return (_nll(logits, lc) * mc).sum(), mc.sum()
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        part = slice(i * chunk, (i + 1) * chunk)
+        ls, ms = ce_sum(x[:, part], labels[:, part], mask[:, part])
+        loss_sum, m_sum = loss_sum + ls, m_sum + ms
+    if s > n * chunk:
+        ls, ms = ce_sum(x[:, n * chunk:], labels[:, n * chunk:], mask[:, n * chunk:])
+        loss_sum, m_sum = loss_sum + ls, m_sum + ms
+    return loss_sum / torch.clamp(m_sum, min=1.0)
+
+
+def cross_entropy_loss(logits, labels, vocab_size: int, mask=None):
+    """Mean CE over valid tokens; padded-vocab columns are excluded by
+    masking them to NEG_INF before the softmax."""
+    nll = _nll(_mask_padded_vocab(logits, vocab_size), labels)
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

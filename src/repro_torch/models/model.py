@@ -1,6 +1,6 @@
-"""Public model API: build_model(cfg) -> Model with init / forward / prefill /
-decode_step / cache_specs, and make_input_specs for the prefill and decode
-shape cells.
+"""Public model API: build_model(cfg) -> Model with init / loss_fn / forward /
+prefill / decode_step / cache_specs, make_input_specs for the train, prefill
+and decode shape cells, and concrete_batch.
 
 The counterpart of the reference's models/model.py for the dense attention
 family (see models/transformer.py for what the port runs). `init` draws from
@@ -16,14 +16,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 from repro_torch.models.transformer import TensorSpec
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable  # (seed or generator) -> params
-    loss_fn: Callable  # (params, batch) -> (loss, metrics); training slice
+    loss_fn: Callable  # (params, batch) -> (loss, metrics)
     forward: Callable  # (params, batch) -> logits
     prefill: Callable  # (params, batch) -> (last_logits, caches)
     decode_step: Callable  # (params, tokens, caches, pos) -> (logits, caches)
@@ -50,9 +50,16 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         return logits
 
     def loss_fn(params, batch):
-        raise NotImplementedError(
-            "loss_fn and the cross-entropy functions: the training slice, ROADMAP queue 1 item 13b"
+        """(loss, {"ce", "aux"}): the sequence-chunked CE of the features
+        against batch["labels"] under batch["loss_mask"] (if any), plus the
+        MoE aux loss at its weight (0 for the dense family)."""
+        feats, aux, _ = transformer.forward_logits(params, cfg, batch, mode="features")
+        w = params["embed"]["embed"].T if cfg.tie_embeddings else params["lm_head"]["kernel"]
+        ce = layers.cross_entropy_from_features(
+            feats, w, batch["labels"], cfg.vocab_size, batch.get("loss_mask")
         )
+        aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+        return ce + aux_w * aux, {"ce": ce, "aux": aux}
 
     def prefill(params, batch):
         logits, _, caches = transformer.forward_logits(params, cfg, batch, mode="prefill")
@@ -71,11 +78,14 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
 
 
 def make_input_specs(cfg: ModelConfig, cell: ShapeCell):
-    """Batch pytree (TensorSpecs) for one (arch x shape) cell: prefill
-    carries the full token sequence, decode one token + cache + per-sequence
-    positions."""
+    """Batch pytree (TensorSpecs) for one (arch x shape) cell: train carries
+    tokens, labels and an f32 loss mask, prefill the full token sequence,
+    decode one token + cache + per-sequence positions."""
     b, s = cell.global_batch, cell.seq_len
     tok = lambda *shape: TensorSpec(shape, torch.int32)  # noqa: E731
+    if cell.kind == "train":
+        return {"tokens": tok(b, s), "labels": tok(b, s),
+                "loss_mask": TensorSpec((b, s), torch.float32)}
     if cell.kind == "prefill":
         return {"tokens": tok(b, s)}
     if cell.kind == "decode":
@@ -84,6 +94,31 @@ def make_input_specs(cfg: ModelConfig, cell: ShapeCell):
             "caches": transformer.cache_specs(cfg, b, s),
             "pos": tok(b),
         }
-    if cell.kind == "train":
-        raise NotImplementedError("train input specs: the training slice, ROADMAP queue 1 item 13b")
     raise ValueError(cell.kind)
+
+
+def concrete_batch(cfg: ModelConfig, cell: ShapeCell, generator: torch.Generator):
+    """A random batch matching make_input_specs, on the generator's device
+    (smoke tests only): int leaves uniform in [0, vocab), float leaves
+    0.02 x normal; the loss mask all ones, decode positions seq_len - 1. It
+    draws from a torch.Generator, so its numbers are not the reference's
+    (which draws from a jax key)."""
+    dev = generator.device
+
+    def mk(spec):
+        if not isinstance(spec, TensorSpec):
+            return {k: mk(v) for k, v in spec.items()} if isinstance(spec, dict) else [
+                mk(v) for v in spec]
+        if spec.dtype == torch.int32:
+            return torch.randint(0, max(cfg.vocab_size, 2), spec.shape, generator=generator,
+                                 device=dev, dtype=torch.int32)
+        return 0.02 * torch.randn(spec.shape, generator=generator, device=dev,
+                                  dtype=torch.float32).to(spec.dtype)
+
+    batch = mk(make_input_specs(cfg, cell))
+    if "loss_mask" in batch:
+        batch["loss_mask"] = torch.ones_like(batch["loss_mask"])
+    if "pos" in batch:
+        batch["pos"] = torch.full(batch["pos"].shape, cell.seq_len - 1, dtype=torch.int32,
+                                  device=dev)
+    return batch

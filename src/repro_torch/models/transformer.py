@@ -7,8 +7,13 @@ period parameters and caches are STACKED: every leaf under "stack" carries a
 leading num_periods axis, so the reference's pytrees map onto the port's
 leaf for leaf (convert.lm_params_from_numpy). Where the reference scans the
 period body with lax.scan, the port runs a Python loop over the periods on
-views of the stacked leaves; `remat`, `scan_unroll` and the sequence-parallel
-knob are training/mesh settings and are not carried.
+views of the stacked leaves. With `cfg.remat` and grad mode on, each
+period's body runs under torch.utils.checkpoint (non-reentrant), the
+counterpart of the reference's jax.checkpoint of the scan body: only the
+period's input is kept, and the backward recomputes the rest. The
+reference's REPRO_REMAT_POLICY=dots knob (keep the matmul outputs) is not
+carried, nor are `scan_unroll` and the sequence-parallel knob
+(REPRO_SEQ_PARALLEL, a model-axis layout).
 
 Decode writes each new token's k/v into the caches IN PLACE and returns the
 same dict (the reference returns new caches).
@@ -19,12 +24,15 @@ embedding input) raise NotImplementedError naming their ROADMAP item.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention, layers
+from repro_torch.tree import tree_map  # noqa: F401 (the package's name for it)
 
 # what each refused feature waits for (ROADMAP queue 1, item 13)
 _TODO = {
@@ -129,16 +137,8 @@ def _layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch, seq, dtype):
 
 
 # ---------------------------------------------------------------------------
-# pytree helpers (nested dicts / lists of tensors)
+# pytree helpers (nested dicts / lists of tensors: repro_torch.tree)
 # ---------------------------------------------------------------------------
-
-
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def _period(stack, i):
@@ -182,6 +182,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
     return p
 
 
+class _MetaDraws:
+    """Stands in for a torch.Generator: init_params then draws nothing and
+    makes meta tensors."""
+
+    device = torch.device("meta")
+
+
+def param_template(cfg: ModelConfig):
+    """The parameter tree as meta tensors: init_params's structure, shapes
+    and dtypes without storage (a checkpoint's restore template)."""
+    return init_params(cfg, _MetaDraws())
+
+
 def _stack_leaves(trees):
     first = trees[0]
     if isinstance(first, dict):
@@ -200,6 +213,15 @@ def _embed_inputs(p, cfg: ModelConfig, batch):
     return x, positions
 
 
+def _period_forward(lp, cfg: ModelConfig, x, positions, mode):
+    """One period's layers. Returns (x, the layers' caches)."""
+    cs = []
+    for j, spec in enumerate(cfg.period):
+        x, c = _layer_forward(lp[j], cfg, spec, x, positions, mode=mode)
+        cs.append(c)
+    return x, cs
+
+
 def _run_stack(p, cfg: ModelConfig, x, positions, mode):
     """prefix layers + the periods in order. Returns (x, aux, caches)."""
     caches: Dict[str, Any] = {}
@@ -211,13 +233,13 @@ def _run_stack(p, cfg: ModelConfig, x, positions, mode):
         if mode == "prefill":
             caches["prefix"] = pc
     if cfg.num_periods > 0:
+        body = _period_forward
+        if cfg.remat and mode == "train" and torch.is_grad_enabled():
+            body = functools.partial(checkpoint, _period_forward, use_reentrant=False,
+                                     preserve_rng_state=False)
         per_period = []
         for i in range(cfg.num_periods):
-            lp = _period(p["stack"], i)
-            cs = []
-            for j, spec in enumerate(cfg.period):
-                x, c = _layer_forward(lp[j], cfg, spec, x, positions, mode=mode)
-                cs.append(c)
+            x, cs = body(_period(p["stack"], i), cfg, x, positions, mode)
             per_period.append(cs)
         if mode == "prefill":
             caches["stack"] = [
@@ -230,13 +252,17 @@ def _run_stack(p, cfg: ModelConfig, x, positions, mode):
 
 def forward_logits(p, cfg: ModelConfig, batch, mode="train"):
     """Full-sequence forward to (padded-vocab) logits, mode "train" or
-    "prefill". Returns (logits, aux, caches)."""
-    if mode not in ("train", "prefill"):
-        raise NotImplementedError(f"forward_logits mode {mode!r}: the training slice, ROADMAP queue 1 item 13b")
+    "prefill"; mode "features" returns the final-normed features (B, S, d)
+    in place of logits (the loss projects them chunk by chunk). Returns
+    (logits or features, aux, caches)."""
+    if mode not in ("train", "prefill", "features"):
+        raise ValueError(f"forward_logits mode {mode!r}")
     check_supported(cfg)
     x, positions = _embed_inputs(p, cfg, batch)
-    x, aux, caches = _run_stack(p, cfg, x, positions, mode)
+    x, aux, caches = _run_stack(p, cfg, x, positions, "train" if mode == "features" else mode)
     x = layers.apply_norm(p["final_norm"], x)
+    if mode == "features":
+        return x, aux, caches
     if mode == "prefill":
         # only the last position's logits are needed
         x = x[:, -1:]

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (coupled-STO RK4, the time-multiplexed delay line
 and flash attention) against their plain PyTorch versions on a card, and the
 online learners, the scan oracle and the physics families' engines there,
-and a sharded plan on a world-size-1 NCCL mesh.
+and a sharded plan on a world-size-1 NCCL mesh, and training: the routing
+of a step's attention around the flash kernel, one train step against the
+CPU's, and a crash and resume.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -1498,3 +1500,162 @@ def test_world_size_one_nccl_mesh_is_bit_equal_to_scan(cuda, tmp_path):
     proc = subprocess.run([sys.executable, "-c", _NCCL_SCRIPT, str(tmp_path / "store")],
                           capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-4000:]
+
+
+# -- training on the card ------------------------------------------------------
+
+# one train step on the card against the same step on the CPU, relative to
+# each leaf's largest magnitude: f32 on both sides with TF32 off, sums in
+# other orders (cuBLAS, atomics in the gather's and the embedding's backward)
+TRAIN_RTOL = 1e-5
+# the whole step's worst updated leaf: AdamW divides each gradient element by
+# the root of its second moment, so an element small against its leaf's f32
+# rounding moves by more than that rounding; below a step with the wrong step
+# index, without the clip or on bf16 parameters
+TRAIN_STEP_RTOL = 5e-4
+# a resumed run against the uninterrupted one (tests/test_train_substrate.py's
+# bound; the backward's atomics make the card's steps not bit-reproducible)
+RESUME_RTOL = 2e-4
+
+
+def _train_cfg(dtype="float32"):
+    """Reduced h2o-danube at d_model 320, 4 heads: head dim 80, one the flash
+    kernel takes, so a step that reached it would show in its counter."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+
+    cfg = reduce_config(get_config("h2o-danube-1.8b"), d_model=320)
+    assert cfg.head_dim == 80
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _tree_to(t, dev):
+    from repro_torch import tree
+
+    return tree.tree_map(lambda x: x.detach().to(dev).clone(), t)
+
+
+@pytest.mark.cuda
+def test_training_grads_reach_wq_wk_wv_through_the_einsum_path(cuda):
+    """Under grad, the attention of a bf16 model whose head dim the flash
+    kernel takes runs the einsum path (no launch) and wq / wk / wv get
+    non-zero gradients, equal to a no-flash forward's (the einsum path
+    forced by hand) within one bf16 ulp; under no_grad the same loss launches the
+    kernel once a layer, and the two losses agree within 5e-3."""
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, build_model
+
+    cfg = _train_cfg("bfloat16")
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    batch = to_device(SyntheticTokens(DataConfig(cfg.vocab_size, 128, 2)).batch(0), "cuda")
+    grads = lambda: steps.loss_and_grads(model, params, batch)  # noqa: E731
+    LAUNCHES["flash_attention"] = 0
+    loss, g = grads()
+    assert LAUNCHES["flash_attention"] == 0
+    mixer = g["stack"][0]["mixer"]
+    for name in ("wq", "wk", "wv"):
+        assert float(mixer[name]["kernel"].float().abs().max()) > 0, name
+    on_card = attention._on_card
+    attention._on_card = lambda q: False  # every call to the einsum path
+    try:
+        _, g_dense = grads()
+    finally:
+        attention._on_card = on_card
+    for name in ("wq", "wk", "wv"):
+        a, b = mixer[name]["kernel"].float(), g_dense["stack"][0]["mixer"][name]["kernel"].float()
+        # one path, run twice: within one bf16 ulp of the leaf's largest
+        # magnitude (2^-7 of it), should a reduction on the card reorder
+        assert float((a - b).abs().max()) <= 2.0**-7 * float(b.abs().max()), name
+    with torch.no_grad():
+        flash_loss, _ = model.loss_fn(params, batch)
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    assert abs(float(flash_loss) - float(loss)) <= 5e-3 * abs(float(loss))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """From the same weights and an AdamW state two CPU steps warmed: the
+    loss and every gradient leaf, the global norm, and the AdamW update on
+    the same clipped gradients match the CPU's within TRAIN_RTOL; the whole
+    step's loss and grad norm too, with no flash launch, and its updated
+    leaves within TRAIN_STEP_RTOL, which a step with the wrong step index,
+    without the clip or on bf16 parameters exceeds."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.launch import steps
+    from repro_torch.optim import clip_by_global_norm, global_norm
+
+    cfg = _train_cfg()
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4))
+    kw = dict(lr=1e-3, warmup=2, total_steps=100)
+    step_cpu, opt, model = steps.make_train_step(cfg, device="cpu", **kw)
+    step_gpu, _, model_gpu = steps.make_train_step(cfg, device="cuda", **kw)
+    params = model.init(0)
+    state = opt.init(params, device="cpu")
+    for s in range(2):
+        params, state, _ = step_cpu(params, state, to_device(data.batch(s), "cpu"), torch.tensor(s))
+    b_cpu, b_gpu = to_device(data.batch(2), "cpu"), to_device(data.batch(2), "cuda")
+    rel = lambda a, b: float((a.cpu().double() - b.double()).abs().max()  # noqa: E731
+                             / b.double().abs().max().clamp(min=1e-30))
+    LAUNCHES["flash_attention"] = 0
+    p_gpu = _tree_to(params, cuda)
+    loss_gpu, g_gpu = steps.loss_and_grads(model_gpu, p_gpu, b_gpu)
+    loss_cpu, g_cpu = steps.loss_and_grads(model, _tree_to(params, "cpu"), b_cpu)
+    assert rel(loss_gpu, loss_cpu) <= TRAIN_RTOL
+    gn_gpu, gn_cpu = global_norm(g_gpu), global_norm(g_cpu)
+    assert rel(gn_gpu, gn_cpu) <= TRAIN_RTOL
+    g_gpu, g_cpu = clip_by_global_norm(g_gpu, 1.0, gn_gpu), clip_by_global_norm(g_cpu, 1.0, gn_cpu)
+    for a, b in zip(tree.leaves(g_gpu), tree.leaves(g_cpu)):
+        assert rel(a, b) <= TRAIN_RTOL
+    s_gpu = _tree_to(state, cuda)
+    opt.update(p_gpu, g_gpu, s_gpu, torch.tensor(2, device=cuda))
+    p_ref, s_ref = _tree_to(params, "cpu"), _tree_to(state, "cpu")
+    opt.update(p_ref, _tree_to(g_gpu, "cpu"), s_ref, torch.tensor(2))
+    for a, b in zip(tree.leaves({"p": p_gpu, "s": s_gpu}), tree.leaves({"p": p_ref, "s": s_ref})):
+        assert rel(a, b) <= TRAIN_RTOL
+    two = torch.tensor(2, device=cuda)
+    p_gpu, s_gpu, m_gpu = step_gpu(_tree_to(params, cuda), _tree_to(state, cuda), b_gpu, two)
+    assert LAUNCHES["flash_attention"] == 0
+    controls = {"step index 3": step_gpu(_tree_to(params, cuda), _tree_to(state, cuda), b_gpu,
+                                         torch.tensor(3, device=cuda))[:2]}
+    p_nc, s_nc = _tree_to(params, cuda), _tree_to(state, cuda)
+    controls["no clip"] = opt.update(p_nc, steps.loss_and_grads(model_gpu, p_nc, b_gpu)[1],
+                                     s_nc, two)
+    step_bf16 = steps.make_train_step(_train_cfg("bfloat16"), device="cuda", **kw)[0]
+    p_bf, s_bf = step_bf16(tree.tree_map(lambda x: x.to(cuda, torch.bfloat16), params),
+                           _tree_to(state, cuda), b_gpu, two)[:2]
+    controls["bf16 parameters"] = (tree.tree_map(torch.Tensor.float, p_bf), s_bf)
+    p_cpu, s_cpu, m_cpu = step_cpu(params, state, b_cpu, torch.tensor(2))
+    assert rel(m_gpu["loss"], m_cpu["loss"]) <= TRAIN_RTOL
+    assert rel(m_gpu["grad_norm"], m_cpu["grad_norm"]) <= TRAIN_RTOL
+    want = tree.leaves({"p": p_cpu, "s": s_cpu})
+    worst = lambda got: max(rel(a, b) for a, b in zip(tree.leaves(got), want))  # noqa: E731
+    step_err = worst({"p": p_gpu, "s": s_gpu})
+    control_errs = {k: worst({"p": p, "s": st}) for k, (p, st) in controls.items()}
+    print(f"whole step's worst leaf {step_err:.3e}; controls {control_errs}")
+    assert step_err <= TRAIN_STEP_RTOL
+    assert min(control_errs.values()) > TRAIN_STEP_RTOL, control_errs
+
+
+@pytest.mark.cuda
+def test_training_resumes_after_a_crash_on_the_card(cuda, tmp_path):
+    """12 steps with a checkpoint every 4; a crash at step 9; the relaunch
+    resumes at step 8 and its losses track the uninterrupted run's."""
+    from repro_torch.train import LoopConfig, train
+
+    cfg = _train_cfg()
+    kw = dict(total_steps=12, seq_len=64, global_batch=4, ckpt_every=4, log_every=0,
+              lr=1e-3, warmup=5)
+    ref = train(cfg, LoopConfig(ckpt_dir=str(tmp_path / "ref"), resume=False, **kw))
+    with pytest.raises(RuntimeError, match="injected failure"):
+        train(cfg, LoopConfig(ckpt_dir=str(tmp_path / "ft"), fail_at_step=9, **kw))
+    hist = train(cfg, LoopConfig(ckpt_dir=str(tmp_path / "ft"), fail_at_step=9, **kw))
+    assert hist[0]["step"] == 8 and hist[-1]["step"] == 11
+    ref_loss = {h["step"]: h["loss"] for h in ref}
+    for h in hist:
+        assert abs(h["loss"] - ref_loss[h["step"]]) <= RESUME_RTOL * abs(ref_loss[h["step"]])

@@ -43,7 +43,10 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels.flash_attention, repro_torch.configs, repro_torch.configs.archs, "
         "repro_torch.models, repro_torch.models.counting, repro_torch.serve.engine, "
         "repro_torch.launch.serve, repro_torch.tune, repro_torch.serve.fleet, "
-        "repro_torch.api.sharded, repro_torch.distributed, repro_torch.distributed.collectives; "
+        "repro_torch.api.sharded, repro_torch.distributed, repro_torch.distributed.collectives, "
+        "repro_torch.optim, repro_torch.data, repro_torch.train, repro_torch.train.watchdog, "
+        "repro_torch.launch.train, repro_torch.launch.steps, repro_torch.launch.mesh, "
+        "repro_torch.tree; "
         "assert len(repro_torch.configs.list_configs()) == 10; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "assert not bad, bad"
