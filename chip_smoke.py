@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fleet        # phase 3h alone
     python3 chip_smoke.py --sharded      # phase 3i alone
     python3 chip_smoke.py --train        # phase 5b alone
+    python3 chip_smoke.py --moe          # phase 5c alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -183,9 +184,9 @@ on failure:
    chunks out of one process replica into the other (P and W through the
    pipe), bit-equal to the learners served unmoved on one engine; (e)
    sessions/s of one engine, two local and two process replicas by the host
-   clock (no claim); (f) the launcher's --fleet with two process replicas
-   on the card, which must say that admission control is off (the
-   committed BENCH_serve.json is a CPU grid). `python3 chip_smoke.py
+   clock (no claim); (f) the launcher's --fleet with two local replicas
+   on the card (process replicas are (b)-(d)'s), which must say that
+   admission control is off (the committed BENCH_serve.json is a CPU grid). `python3 chip_smoke.py
    --fleet` runs it alone.
 3i. Sharded plans (ExecPlan(mesh=DeviceMesh), api/sharded.py) in a child
    process (`chip_smoke.py --sharded-child`, rank 0 of a world of one:
@@ -257,9 +258,10 @@ on failure:
    LOSS_DROP below the first 5's; ms a step (CUDA events), tokens/s, peak
    device memory; 3 more steps split into forward + backward, global norm +
    clip and the AdamW update beside its bytes bound; one step under
-   torch.profiler (busy share, top device ops); one checkpoint (~18 GB, under
-   build/) written from a host copy, the device tree freed, read back on the
-   host bit-equal, its GB and seconds printed, then removed; (c) at 2 layers
+   torch.profiler (busy share, top device ops); one checkpoint of the
+   trained tree's first 2 layers (~3 GB, under build/) written from a host
+   copy, the device tree freed, read back on the host bit-equal, its GB and
+   seconds printed, then removed; (c) at 2 layers
    (full width), 12 steps with a checkpoint every 4 and a crash injected at
    step 9, relaunched: it resumes at step 8 and its losses are within
    RESUME_RTOL of an uninterrupted run's (bit-equal or not printed); (d) on
@@ -276,6 +278,39 @@ on failure:
    repro_torch.launch.train --arch h2o-danube-1.8b --reduced --steps 8
    --batch 2 --seq 16 --ckpt-every 2 --fail-at-step 5 --device cuda` exits 0
    with step_00000007 its last checkpoint. Prints the phase's seconds.
+5c. MoE (models/moe.py), run after phase 5 (whose tree is freed) and before
+   5b: (a) one MoE layer of qwen2-moe-a2.7b at full width (make_moe from
+   seed 0, bf16: 60 experts, top-4, capacity factor 1.25, router chunk 512,
+   a 5632-wide shared SwiGLU) on 4097 normalised hidden states (8 router
+   chunks and a remainder of 1) and on a 4-row decode batch, the card's
+   apply_moe and moe.route against the host CPU's on the same tensors:
+   top-k flips at most MOE_MAX_FLIPS, each a near-tie (f32 probability gap
+   under MOE_FLIP_GAP), every token whose routing differs touching a
+   flipped expert; y within MOE_Y_RTOL on the tokens whose routing agrees,
+   aux within MOE_AUX_RTOL; the share of (token, k) pairs dropped per
+   chunk; (b) the flash kernel at qwen2-moe's heads (H = KVH = 16, D = 128,
+   4608 tokens, causal, no window) against its plain version by phase 4's
+   two measures, beside SDPA's flash backend; (c) 8 requests (phase 5's
+   prompts, 32 new tokens each) through the Engine at qwen2-moe-a2.7b's
+   full width (24 layers, bf16, random weights from seed 0, 4 slots,
+   capacity 4640), counters set to 0 before the run: 32 tokens in [0,
+   vocab) each, flash launched 24 x 8 times, no STO kernel; a second engine
+   run bit-equal token for token; then the config at capacity factor
+   num_experts / top_k (no drops) served again and held to phase 5's
+   teacher-forced witness (the request alone in the engine's 4-row
+   geometry: every gap 0; at batch 1 within LOGIT_MARGIN); prefill and
+   decode tokens/s, peak memory, the init's seconds and peak; (d) one
+   4608-token prefill and one batch-4 decode step timed with CUDA events
+   beside their bounds (the reference's dispatch as run, and what this
+   run's tokens need), each traced once with profiler spans that this
+   script puts around the MoE layer's parts (router, each einsum, the
+   shared expert, the layer): device ms per part beside the flash kernel's;
+   (e) a reduced qwen2-moe (f32, capacity factor 1.25) on the card against
+   the host CPU over two steps (loss, ce, aux, every gradient leaf, the
+   router's, the global norm within TRAIN_RTOL), then 2 layers at full
+   width, 5 AdamW steps at batch 2 x 512: every loss and aux finite, aux >
+   0, the router's gradient finite and not zero; ms a step, peak memory.
+   Prints the phase's seconds. `python3 chip_smoke.py --moe` runs it alone.
 6. Print the kernels line (the STO kernels, tm_delay_line and flash), the
    card line and, last, the contract line {"ok": true, "device": {...}}.
 
@@ -3321,12 +3356,13 @@ def fleet_migration(spec, name_power):
 
 
 def fleet_launcher(name_power):
-    """3h(f): the launcher's --fleet with two process replicas on the card
-    (its default device): it serves every session and says that admission
-    control is off, BENCH_serve.json being a CPU grid."""
+    """3h(f): the launcher's --fleet with two local replicas on the card (its
+    default device; 3h(b)-(d) hold process replicas, which take ~19 s each to
+    spawn): it serves every session and says that admission control is off,
+    BENCH_serve.json being a CPU grid."""
     from repro_torch.launch import serve as launch_serve
 
-    argv = ["--mode", "reservoir", "--fleet", "--replicas", "2", "--transport", "process",
+    argv = ["--mode", "reservoir", "--fleet", "--replicas", "2", "--transport", "local",
             "--checkpoint-every", "2", "--n", str(N), "--slots", str(E), "--sessions", str(SESSIONS),
             "--ticks", "40", "--hold-steps", str(HOLD), "--chunk-ticks", str(K), "--backend", "chunk"]
     out = io.StringIO()
@@ -3650,6 +3686,9 @@ LOSS_DROP = 0.2
 # gather's index_put) make the card's steps not bit-reproducible by default
 RESUME_RTOL = 2e-4
 RESUME_LAYERS = 2  # full width at 2 layers: a checkpoint of ~3 GB, not ~18
+# (b)'s checkpoint holds the trained tree's first 2 layers (~3 GB): the same
+# save / restore code as the whole ~18 GB tree, which took ~52-70 s a call
+CKPT_LAYERS = 2
 # (d) the loss through the flash kernel (no_grad) against the einsum path
 # (grad) at full width: bf16 activations, f32 softmax on both sides
 ROUTING_RTOL = 5e-3
@@ -3664,6 +3703,17 @@ def _train_cfg(layers=None):
 
     cfg = get_config(LM_ARCH)
     return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def _first_periods(t, n):
+    """A parameter tree, or a state tree of such trees, cut to its first n
+    periods (every leaf under "stack" sliced to [:n])."""
+    from repro_torch import tree
+
+    if isinstance(t, dict):
+        return {k: tree.tree_map(lambda x: x[:n], v) if k == "stack" else _first_periods(v, n)
+                for k, v in t.items()}
+    return t
 
 
 def _train_loop(ckpt_dir, **kw):
@@ -3894,16 +3944,18 @@ def train_full_width(name_power):
     trace("train step (full width)", one_step, name_power, top=10)
     last_step = counter[0] - 1
 
-    # one checkpoint: written from a host copy (the device-to-host copy timed
-    # apart), the device tree freed, read back on the host, bit-equal
-    # under the checkout's build/ (a cache .gitignore lists), not TMPDIR,
-    # which may be memory
+    # one checkpoint of the trained tree's first CKPT_LAYERS periods (the
+    # embedding, head and final norm whole): written from a host copy (the
+    # device-to-host copy timed apart), the device tree freed, read back on
+    # the host, bit-equal, under the checkout's build/ (a cache .gitignore
+    # lists), not TMPDIR, which may be memory
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     ckpt_dir = tempfile.mkdtemp(prefix="train-ckpt-", dir=build)
     try:
         t0 = time.perf_counter()
-        host = tree.tree_map(lambda t: t.cpu(), {"p": params, "s": state})
+        host = tree.tree_map(lambda t: t.cpu(), _first_periods({"p": params, "s": state},
+                                                               CKPT_LAYERS))
         d2h = time.perf_counter() - t0
         del params, state, batch
         gc.collect()
@@ -3912,7 +3964,7 @@ def train_full_width(name_power):
         path = save_checkpoint(ckpt_dir, last_step, host["p"], host["s"], extra={"data_seed": 0})
         write = time.perf_counter() - t0
         size = sum(f.stat().st_size for f in path.iterdir())
-        template = transformer.param_template(cfg)
+        template = transformer.param_template(_train_cfg(CKPT_LAYERS))
         t0 = time.perf_counter()
         p2, s2, _, step = restore_checkpoint(ckpt_dir, None, template,
                                              opt.init(template, device="meta"), device="cpu")
@@ -3920,7 +3972,8 @@ def train_full_width(name_power):
         bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32)  # noqa: E731
         same = all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
                    for a, b in zip(tree.leaves(host), tree.leaves({"p": p2, "s": s2})))
-        print(f"5b(b) checkpoint of step {step}: {size / 1e9:.3f} GB; device-to-host copy "
+        print(f"5b(b) checkpoint of step {step} ({CKPT_LAYERS} of {cfg.num_layers} layers): "
+              f"{size / 1e9:.3f} GB; device-to-host copy "
               f"{d2h:.3f} s, write {write:.3f} s ({size / 1e9 / write:.2f} GB/s), read on the host "
               f"{read:.3f} s ({size / 1e9 / read:.2f} GB/s); bit-equal {same} ({name_power})",
               flush=True)
@@ -4122,6 +4175,565 @@ def train_only():
     print("5b held", flush=True)
 
 
+# -- phase 5c: MoE, qwen2-moe-a2.7b at full width ----------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_TOKENS = 4097  # (a): 8 router chunks of 512 and a remainder of 1
+# (a) the card's routing against the host CPU's: the router runs in f32 on
+# both sides (TF32 off), its logits a dot over d_model = 2048 summed in
+# another order (~1e-7 of a probability apart), so a (token, k) choice may
+# flip only where two probabilities lie closer than that; a flip moves later
+# tokens' slots in the two experts it touches, and those tokens are left out
+# of the y comparison. At most MOE_MAX_FLIPS flips, each with an f32
+# probability gap under MOE_FLIP_GAP (~100x the rounding).
+MOE_MAX_FLIPS = 4
+MOE_FLIP_GAP = 1e-5
+# (a) y on the tokens whose routing agrees, relative to max |y|: the card's
+# and the host's bf16 products round each of the four expert products (and
+# the shared expert's) to bf16 from f32 sums in other orders, so an element
+# may land a bf16 ulp or two away, at most 2^-7 of its value each (one ulp
+# at max |y|, 5.95e-3, read on the CPU against the reference at the reduced
+# width); aux from f32 probabilities
+MOE_Y_RTOL = 2.0**-6
+MOE_AUX_RTOL = 1e-5
+# (b) flash at qwen2-moe's heads (H = KVH = 16, D = 128), its longest prompt
+MOE_FLASH_CASE = (4608, 4608, torch.bfloat16, 0)
+# (e) 2 layers at full width, AdamW, batch 2 x 512
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 5, 2
+
+
+def moe_routing_check(name_power):
+    """5c(a): one MoE layer at full width (make_moe from seed 0, bf16), on a
+    4097-token sequence of normalised hidden states and on a 4-row decode
+    batch: the card's apply_moe and routing against the host CPU's, on the
+    same tensors."""
+    from repro_torch.models import layers, moe
+
+    cfg = get_config(MOE_ARCH)
+    dev = torch.device("cuda")
+    p = moe.make_moe(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
+    p_host = transformer.tree_map(lambda t: t.cpu(), p)
+    g = torch.Generator(device=dev).manual_seed(1)
+    norm = {"scale": torch.ones(cfg.d_model, dtype=torch.bfloat16, device=dev)}
+    for label, shape in (("prefill", (1, MOE_TOKENS)), ("decode", (LM_SLOTS, 1))):
+        x = layers.apply_norm(norm, torch.randn(shape + (cfg.d_model,), generator=g,
+                                                device=dev).to(torch.bfloat16))
+        x_host = x.cpu()
+        t0 = time.perf_counter()
+        y, aux = moe.apply_moe(p, cfg, x)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y_host, aux_host = moe.apply_moe(p_host, cfg, x_host)
+        host_s = time.perf_counter() - t0
+        flat, flat_host = x.reshape(-1, cfg.d_model), x_host.reshape(-1, cfg.d_model)
+        n = flat.shape[0]
+        chunk = min(cfg.moe.router_chunk, n)
+        bounds = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+        flips, agree, drops = [], torch.ones(n, dtype=torch.bool), []
+        for lo, hi in bounds:
+            r, rh = moe.route(p, cfg.moe, flat[lo:hi]), moe.route(p_host, cfg.moe, flat_host[lo:hi])
+            top_e, keep = r.top_e.cpu(), r.keep.cpu()
+            moved = set()
+            for t, k in (top_e != rh.top_e).nonzero().tolist():
+                a, b = int(top_e[t, k]), int(rh.top_e[t, k])
+                flips.append(dict(token=lo + t, k=k, card=a, host=b,
+                                  gap=abs(float(rh.probs[t, a] - rh.probs[t, b]))))
+                moved |= {a, b}
+            same = (top_e == rh.top_e).all(-1) & (keep == rh.keep).all(-1)
+            # a token whose routing differs must have an expert a flip touched
+            for t in (~same).nonzero().flatten().tolist():
+                assert moved & set(rh.top_e[t].tolist()), (
+                    f"{label} chunk {lo}:{hi} token {t}: routing differs with no flip: card "
+                    f"{top_e[t].tolist()} {keep[t].tolist()}, host {rh.top_e[t].tolist()} "
+                    f"{rh.keep[t].tolist()}")
+            agree[lo:hi] = same
+            drops.append(round(float((~rh.keep).float().mean()), 4))
+            assert r.cap == rh.cap
+        y_err = ((y.cpu().float() - y_host.float()).reshape(n, -1)[agree].abs().max()
+                 / y_host.float().abs().max()).item()
+        aux_err = abs(float(aux) - float(aux_host)) / abs(float(aux_host))
+        print(f"5c(a) {label}: {n} tokens, {len(bounds)} router chunks (cap "
+              f"{[max(1, math.ceil((hi - lo) * cfg.moe.top_k / cfg.moe.num_experts * cfg.moe.capacity_factor)) for lo, hi in bounds]}); "
+              f"card vs host CPU: top-k flips {len(flips)} (at most {MOE_MAX_FLIPS}, each gap "
+              f"under {MOE_FLIP_GAP}) {json.dumps(flips)}; tokens whose routing agrees "
+              f"{int(agree.sum())} of {n}; y on them max|err| / max|y| {y_err:.3e} (at most "
+              f"{MOE_Y_RTOL:.3e}); aux {float(aux):.6f} vs {float(aux_host):.6f}, relative "
+              f"{aux_err:.3e} (at most {MOE_AUX_RTOL}); share of (token, k) pairs dropped by "
+              f"capacity per chunk {drops}; apply_moe card {card_s:.3f} s (first call), host CPU "
+              f"{host_s:.3f} s ({name_power})", flush=True)
+        assert len(flips) <= MOE_MAX_FLIPS and all(f["gap"] < MOE_FLIP_GAP for f in flips), flips
+        assert y_err <= MOE_Y_RTOL, y_err
+        assert aux_err <= MOE_AUX_RTOL, aux_err
+        assert torch.isfinite(y).all()
+    del p, p_host
+
+
+class _EinsumSpans:
+    """torch for models/moe.py, with each einsum inside a profiler span
+    named by its equation (phase 5c(d)'s split only)."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def einsum(eq, *ops):
+        with torch.profiler.record_function(f"moe einsum {eq}"):
+            return torch.einsum(eq, *ops)
+
+
+class _SharedSpan:
+    """models.layers for models/moe.py, apply_mlp (the shared expert) in a span."""
+
+    def __getattr__(self, name):
+        from repro_torch.models import layers
+
+        return getattr(layers, name)
+
+    @staticmethod
+    def apply_mlp(*a, **kw):
+        from repro_torch.models import layers
+
+        with torch.profiler.record_function("moe shared expert"):
+            return layers.apply_mlp(*a, **kw)
+
+
+@contextlib.contextmanager
+def moe_spans():
+    """Profiler spans around the MoE layer's parts, put in by this script for
+    a traced call: the router (moe.route: f32 product, softmax, sort,
+    cumsum), each einsum, the shared expert, the whole apply_moe."""
+    from repro_torch.models import moe
+
+    saved = (moe.torch, moe.layers, moe.route, moe.apply_moe)
+    route, apply_moe = moe.route, moe.apply_moe
+
+    def spanned(label, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return call
+
+    moe.torch, moe.layers = _EinsumSpans(), _SharedSpan()
+    moe.route = spanned("moe router", route)
+    moe.apply_moe = spanned("moe layer", apply_moe)
+    try:
+        yield
+    finally:
+        moe.torch, moe.layers, moe.route, moe.apply_moe = saved
+
+
+MOE_SPLIT = {  # span label prefix -> the split's part
+    "moe einsum ecd,edf->ecf": "expert einsums",
+    "moe einsum ecf,efd->ecd": "expert einsums",
+    "moe einsum tec,td->ecd": "one-hot dispatch / combine einsums",
+    "moe einsum tec,ecd->td": "one-hot dispatch / combine einsums",
+    "moe einsum tk,tke->te": "one-hot dispatch / combine einsums",
+    "moe router": "router + top-k + cumsum",
+    "moe shared expert": "shared expert",
+    "moe layer": "MoE layer, all",
+}
+
+
+def moe_split(label, fn, name_power):
+    """fn traced once under moe_spans: the device time under each span of
+    MOE_SPLIT, the flash kernel's, and the device's busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with moe_spans():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    self_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0.0)
+    # the spans show up twice: on the host (their ops' kernels, summed
+    # through the children) and as device-side annotations, which span the
+    # idle gaps too; the split reads the first, the busy sum skips the second
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and self_us(e) > 0
+               and e.key not in MOE_SPLIT]
+    busy = sum(self_us(e) for e in kernels) / 1e3
+
+    def kernels_under(e):  # (name, us) of every kernel an op or its children launched
+        own = [(k.name, k.duration) for k in e.kernels if k.name not in MOE_SPLIT]
+        return own + [kd for c in e.cpu_children for kd in kernels_under(c)]
+
+    split, tops = {}, {}
+    for e in prof.events():
+        part = MOE_SPLIT.get(e.name)
+        if part and e.device_type == DeviceType.CPU:
+            for kname, us in kernels_under(e):
+                split[part] = split.get(part, 0.0) + us / 1e3
+                if part != "MoE layer, all":
+                    key = (part, kname[:50])
+                    tops[key] = tops.get(key, 0.0) + us / 1e3
+    split["flash kernel"] = sum(self_us(e) for e in kernels if "flash" in e.key) / 1e3
+    split["other (attention projections, norms, RoPE, head, casts)"] = busy - split.get(
+        "MoE layer, all", 0.0) - split["flash kernel"]
+    print(f"5c(d) {label}, traced: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall_ms:.1f} %), {sum(e.count for e in kernels)} device ops; device ms "
+          f"by part: {json.dumps({k: round(v, 3) for k, v in split.items()})} ({name_power})",
+          flush=True)
+    for part in sorted({p for p, _ in tops}):
+        top = sorted(((ms, k) for (p, k), ms in tops.items() if p == part), reverse=True)[:3]
+        print(f"5c(d) {label}, {part}: top kernels "
+              + "; ".join(f"{k} {ms:.3f} ms" for ms, k in top), flush=True)
+    return split
+
+
+@contextlib.contextmanager
+def route_spy(record):
+    """Call record(routing) on every routed chunk (moe.route wrapped by this
+    script)."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def spy(*a, **kw):
+        r = route(*a, **kw)
+        record(r)
+        return r
+
+    moe.route = spy
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def kept(out):
+    """A route_spy record: (the experts that kept at least one token, the
+    (token, k) pairs kept) of each chunk, appended to `out`."""
+    return lambda r: out.append((int(r.top_e[r.keep].unique().numel()), int(r.keep.sum())))
+
+
+def moe_prefill_bounds(cfg, prompt, kept):
+    """A prefill's operations bound two ways (ms): the reference's dispatch as
+    the port runs it (every expert's capacity slots, filled or not, and the
+    one-hot dispatch and combine products), and what the tokens need (the
+    expert SwiGLU of each kept (token, k) pair, `kept` summed over the
+    layers' chunks, and no dispatch products); bf16 products at the tensor
+    peak, the f32 router and head at the FP32 peak. Also the first's TFLOP."""
+    fp32, tensor, _ = peaks(torch.cuda.get_device_name(0))
+    m, d, h, kvh, hd = cfg.moe, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    e, f, fs = m.num_experts, m.d_ff_expert, m.d_ff_expert * m.num_shared
+    algo = 0.0
+    f32 = 2 * d * cfg.padded_vocab / cfg.num_layers  # the last position's head
+    for lo in range(0, prompt, m.router_chunk):
+        t = min(m.router_chunk, prompt - lo)
+        c = max(1, math.ceil(t * m.top_k / e * m.capacity_factor))
+        algo += 3 * 2 * e * c * d * f + 2 * 2 * t * e * c * d
+        f32 += 2 * t * d * e
+    need = 3 * 2 * kept * d * f / cfg.num_layers
+    common = (3 * 2 * prompt * d * fs + 2 * prompt * d * (h + 2 * kvh) * hd
+              + 2 * prompt * h * hd * d + 4 * h * hd * unmasked_pairs(prompt, prompt, True, 0))
+    ms = lambda bf16: 1e3 * cfg.num_layers * (bf16 / tensor + f32 / fp32)  # noqa: E731
+    return ms(algo + common), ms(need + common), cfg.num_layers * (algo + common + f32) / 1e12
+
+
+def moe_decode_bounds(cfg, rows, pos, used):
+    """A decode step's bytes bound two ways (ms, GB): every weight once as the
+    reference's dispatch reads it (all experts; the embedding's `rows` rows
+    only), and only the experts the step's tokens kept (`used`, per layer),
+    with the cache rows each sequence needs (pos + 1) on both."""
+    _, _, bw = peaks(torch.cuda.get_device_name(0))
+    m, d = cfg.moe, cfg.d_model
+    expert = 3 * d * m.d_ff_expert * 2
+    weights = (counting.count_params(cfg) - cfg.padded_vocab * d) * 2 + rows * d * 2
+    weights += cfg.num_layers * d * m.num_experts * 2  # the router is f32
+    cache = 2 * cfg.num_layers * int(sum(pos + 1)) * cfg.num_kv_heads * cfg.head_dim * 2
+    algo = weights + cache
+    need = algo - expert * (cfg.num_layers * m.num_experts - sum(u for u, _ in used))
+    return 1e3 * algo / bw, 1e3 * need / bw, algo / 1e9, need / 1e9
+
+
+def no_drop_witness(model, params, cfg, reqs, results):
+    """5c(c)'s witness at a dropless capacity: each request alone,
+    teacher-forced on the engine's tokens. In the engine's 4-row geometry
+    every step's gap must be 0 (as phase 5's). At batch 1 the request's
+    hidden states round otherwise (other GEMM shapes), and a top-k choice
+    whose probabilities lie within that rounding flips, changing the layer's
+    output for that token and every later step's cache: so each step is held
+    within LOGIT_MARGIN up to the first decode step whose routing differs
+    from the 4-row run's (row 0, any layer), and the steps after it are
+    counted, with the flip's f32 probability gap in the 4-row run."""
+    layers_ = cfg.num_layers
+    gaps4, gaps1, held, after, flips, reordered = [], [], [], [], [], 0
+    for r in reqs:
+        toks = results[r.rid]
+        r4, r1 = [], []
+        with route_spy(lambda q: r4.append((q.top_e[0].clone(), q.probs[0].clone()))):
+            g4 = teacher_forced_margins(model, params, cfg, r, toks, LM_SLOTS)
+        with route_spy(lambda q: r1.append((q.top_e[0].clone(), q.probs[0].clone()))):
+            g1 = teacher_forced_margins(model, params, cfg, r, toks, 1)
+        assert len(r4) == len(r1), (len(r4), len(r1))
+        e4, e1 = (torch.stack([e for e, _ in rs]) for rs in (r4, r1))
+        n_prefill = len(r4) - layers_ * (len(toks) - 1)
+        assert torch.equal(e4[:n_prefill], e1[:n_prefill]), f"request {r.rid}: prefills differ"
+        # a flip changes the chosen set; an order change alone moves no expert
+        # (no drops) and only the order of the combine's sum
+        same_set = (e4.sort(-1).values == e1.sort(-1).values).all(-1)
+        reordered += int(((e4 != e1).any(-1) & same_set).sum())
+        differ = (~same_set).nonzero().flatten().tolist()
+        cut = len(toks)
+        if differ:
+            i = differ[0]
+            cut = (i - n_prefill) // layers_ + 1  # gaps[cut] is the first step after the flip
+            a = sorted(set(e4[i].tolist()) - set(e1[i].tolist()))
+            b = sorted(set(e1[i].tolist()) - set(e4[i].tolist()))
+            p = r4[i][1]
+            flips.append(dict(rid=r.rid, step=cut - 1, layer=(i - n_prefill) % layers_,
+                              card4=a, card1=b,
+                              prob_gap=float((p[a].max() - p[b].min()).abs())))
+        gaps4 += g4
+        gaps1 += g1
+        held += g1[:cut]
+        after += g1[cut:]
+    worst4, worst_held = max(gaps4), max(held)
+    print(f"5c(c) no drops, vs each request alone (teacher-forced): 4-row decode worst logit "
+          f"margin {worst4:.4e} (must be 0), steps off the argmax {sum(g > 0 for g in gaps4)} of "
+          f"{len(gaps4)}; 1-row decode worst margin before a routing flip {worst_held:.4e} (at "
+          f"most {LOGIT_MARGIN}) over {len(held)} steps, {sum(g > 0 for g in held)} off the "
+          f"argmax; {len(flips)} of {len(reqs)} requests flip a top-k choice against the 4-row "
+          f"run (the first flip each) {json.dumps(flips)}, {reordered} layer steps reorder the "
+          f"same k experts; after the flip {sum(g > 0 for g in after)} of {len(after)} "
+          f"steps off the argmax, worst margin {max(after, default=0.0):.4e} (not held)",
+          flush=True)
+    assert worst4 == 0.0, f"no-drop engine vs the 4-row rerun: margin {worst4}"
+    assert worst_held <= LOGIT_MARGIN, f"no-drop engine vs batch 1 before a flip: {worst_held}"
+
+
+def moe_engine_run(cfg, params, reqs):
+    eng = Engine(cfg, params, num_slots=LM_SLOTS, capacity=CAPACITY, device="cuda")
+    torch.cuda.synchronize()
+    sto_step.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run(list(reqs))
+    torch.cuda.synchronize()
+    return eng, results, time.perf_counter() - t0, dict(sto_step.LAUNCHES)
+
+
+def moe_serve(name_power):
+    """5c(c) and (d): qwen2-moe-a2.7b served at full width; returns the
+    flash launches of the engine run and the tree's peak memory."""
+    import dataclasses
+
+    from repro_torch import tree
+
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"5c(c) {MOE_ARCH}: {n_params} parameters (count_params {counting.count_params(cfg)}, "
+          f"active {counting.count_params(cfg, active_only=True)}), init on the card "
+          f"{init_s:.3f} s, peak {init_peak / 2**30:.3f} GiB ({name_power})", flush=True)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, torch.from_numpy(rng.integers(0, cfg.vocab_size, n)), MAX_NEW)
+            for i, n in enumerate(PROMPTS)]
+    Engine(cfg, params, num_slots=2, capacity=64, device="cuda").run(
+        [Request(0, reqs[-1].prompt[:32], 2), Request(1, reqs[-1].prompt[:16], 2)])
+    torch.cuda.reset_peak_memory_stats()
+    eng, results, seconds, launches = moe_engine_run(cfg, params, reqs)
+    peak = torch.cuda.max_memory_allocated()
+    assert sorted(results) == [r.rid for r in reqs], f"served {sorted(results)}"
+    for r in reqs:
+        toks = results[r.rid]
+        assert len(toks) == MAX_NEW and all(0 <= t < cfg.vocab_size for t in toks), (r.rid, toks)
+    want = cfg.num_layers * len(PROMPTS)
+    assert launches["flash_attention"] == want, f"flash launches {launches} != {want}"
+    assert not any(launches[k] for k in STO_KERNELS), f"STO kernels launched: {launches}"
+    st = eng.stats
+    print(f"5c(c) serve {MOE_ARCH}: {len(reqs)} requests, {sum(map(len, results.values()))} "
+          f"tokens in {seconds:.3f} s; prefill {st.prefill_tokens} tokens in "
+          f"{st.prefill_seconds:.3f} s = {st.prefill_tokens / st.prefill_seconds:.1f} tok/s; "
+          f"decode {st.decode_steps} steps, {st.decode_tokens} tokens in {st.decode_seconds:.3f} s "
+          f"= {st.decode_tokens / st.decode_seconds:.1f} tok/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"launches {launches} ({name_power})", flush=True)
+    del eng
+    eng, again, _, _ = moe_engine_run(cfg, params, reqs)
+    same = all(again[r.rid] == results[r.rid] for r in reqs)
+    print(f"5c(c) a second engine run on the same requests bit-equal, token for token: {same}",
+          flush=True)
+    assert same, "the second engine run differs"
+
+    # (d) where the time goes: one 4608-token prefill and one batch-4 decode step
+    prompt = max(PROMPTS)
+    batch = {"tokens": reqs[0].prompt[None].cuda()}
+    prefill_ms = time_ms(lambda: model.prefill(params, batch), 3)
+    used = []
+    with route_spy(kept(used)):
+        model.prefill(params, batch)
+    bound, bound_need, tflop = moe_prefill_bounds(cfg, prompt, sum(k for _, k in used))
+    print(f"5c(d) prefill {prompt} tokens: {prefill_ms:.3f} ms (CUDA events, median of 3); "
+          f"operations bound {bound:.3f} ms as the reference's dispatch computes it ({tflop:.2f} "
+          f"TFLOP; {100 * bound / prefill_ms:.1f} %), {bound_need:.3f} ms for what the tokens "
+          f"need (kept pairs' experts only, no one-hot products) ({name_power})", flush=True)
+    moe_split(f"prefill {prompt} tokens", lambda: model.prefill(params, batch), name_power)
+    # a full batch on the second run's cache, each row its slot's last token
+    tokens, caches = eng.next_tokens.clone(), eng.caches
+    pos = torch.tensor([n - 1 for n in PROMPTS[:LM_SLOTS]], device="cuda")
+    decode_ms = time_ms(lambda: model.decode_step(params, tokens, caches, pos), 5)
+    used = []
+    with route_spy(kept(used)):
+        model.decode_step(params, tokens, caches, pos)
+    bound, bound_need, gb, gb_need = moe_decode_bounds(cfg, LM_SLOTS, pos.cpu(), used)
+    print(f"5c(d) decode step, batch {LM_SLOTS}, capacity {CAPACITY}: {decode_ms:.3f} ms (CUDA "
+          f"events, median of 5); bytes bound {bound:.3f} ms ({gb:.2f} GB: every weight once, "
+          f"all {cfg.moe.num_experts} experts a layer as the reference's dispatch reads them, the "
+          f"cache rows up to each position; {100 * bound / decode_ms:.1f} %), {bound_need:.3f} ms "
+          f"({gb_need:.2f} GB) for the experts the step kept ({min(used)[0]}-{max(used)[0]} a "
+          f"layer, {sum(u for u, _ in used)} in all) ({name_power})", flush=True)
+    moe_split(f"decode step batch {LM_SLOTS}",
+              lambda: model.decode_step(params, tokens, caches, pos), name_power)
+    del caches, eng
+
+    # the no-drop witness: capacity num_experts / top_k keeps every token
+    m = cfg.moe
+    cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    model_nd = build_model(cfg_nd, device="cuda")
+    eng, results_nd, seconds, launches = moe_engine_run(cfg_nd, params, reqs)
+    del eng
+    assert launches["flash_attention"] == want, launches
+    changed = sum(results_nd[r.rid] != results[r.rid] for r in reqs)
+    print(f"5c(c) capacity factor {cfg_nd.moe.capacity_factor} (no drops): {len(reqs)} requests "
+          f"in {seconds:.3f} s; {changed} of {len(reqs)} requests' tokens differ from the "
+          f"capacity-{m.capacity_factor} run", flush=True)
+    no_drop_witness(model_nd, params, cfg_nd, reqs, results_nd)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=want, peak=peak, init_peak=init_peak, prefill_ms=prefill_ms,
+                decode_ms=decode_ms)
+
+
+def moe_train(name_power):
+    """5c(e): a reduced qwen2-moe (f32, capacity 1.25) on the card against the
+    host CPU over two steps; then 2 layers at full width, 5 AdamW steps."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import reduce_config
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+    from repro_torch.optim import global_norm
+
+    base = reduce_config(get_config(MOE_ARCH))
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=1.25))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4, seed=0))
+    kw = dict(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+    step_cpu, opt, model = steps.make_train_step(cfg, device="cpu", **kw)
+    model_gpu = steps.make_train_step(cfg, device="cuda", **kw)[2]
+    params = model.init(0)
+    state = opt.init(params, device="cpu")
+    errs = {}
+    for s in range(2):
+        b_cpu, b_gpu = to_device(data.batch(s), "cpu"), to_device(data.batch(s), "cuda")
+        p_gpu = tree.tree_map(lambda t: t.cuda(), params)
+        with torch.no_grad():
+            met_gpu, met_cpu = model_gpu.loss_fn(p_gpu, b_gpu)[1], model.loss_fn(params, b_cpu)[1]
+        loss_gpu, g_gpu = steps.loss_and_grads(model_gpu, p_gpu, b_gpu)
+        loss_cpu, g_cpu = steps.loss_and_grads(model, params, b_cpu)
+        e = {"loss": _rel(loss_gpu, loss_cpu), "ce": _rel(met_gpu["ce"], met_cpu["ce"]),
+             "aux": _rel(met_gpu["aux"], met_cpu["aux"]),
+             "grad_norm": _rel(global_norm(g_gpu), global_norm(g_cpu))}
+        e["grads"], leaf = _worst(g_gpu, g_cpu)
+        e["router_grad"] = _rel(g_gpu["stack"][0]["mlp"]["router"]["kernel"],
+                                g_cpu["stack"][0]["mlp"]["router"]["kernel"])
+        errs[s] = (e, leaf, float(met_cpu["aux"]))
+        params, state, _ = step_cpu(params, state, b_cpu, torch.tensor(s))
+    print(f"5c(e) reduced {cfg.name} (f32, capacity factor 1.25, router chunk "
+          f"{cfg.moe.router_chunk}), the card vs the host CPU from the same weights, two steps "
+          f"(relative, at most {TRAIN_RTOL}): "
+          + "; ".join(f"step {s}: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                      + f" (worst gradient leaf {leaf}), aux {aux:.6f}"
+                      for s, (e, leaf, aux) in errs.items()) + f" ({name_power})", flush=True)
+    assert all(max(e.values()) <= TRAIN_RTOL for e, _, _ in errs.values()), errs
+
+    # 2 layers at full width: 5 AdamW steps, each step's aux read off forward_logits
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step, opt, model = steps.make_train_step(cfg, device="cuda", **kw)
+    params = model.init(0)
+    state = opt.init(params, device="cuda")
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, MOE_TRAIN_BATCH, seed=0))
+    auxes, forward = [], transformer.forward_logits
+
+    def spy(*a, **k):
+        out = forward(*a, **k)
+        auxes.append(out[1].detach())
+        return out
+
+    hist, step_ms = [], []
+    transformer.forward_logits = spy
+    try:
+        for s in range(MOE_TRAIN_STEPS):
+            batch = to_device(data.batch(s), "cuda")
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, met = train_step(params, state, batch, torch.tensor(s, device="cuda"))
+            stop.record()
+            stop.synchronize()
+            step_ms.append(start.elapsed_time(stop))
+            hist.append((float(met["loss"]), float(met["grad_norm"])))
+    finally:
+        transformer.forward_logits = forward
+    peak = torch.cuda.max_memory_allocated()
+    _, grads = steps.loss_and_grads(model, params, to_device(data.batch(MOE_TRAIN_STEPS), "cuda"))
+    router = grads["stack"][0]["mlp"]["router"]["kernel"].float()
+    aux = [float(a) for a in auxes]
+    print(f"5c(e) {MOE_TRAIN_LAYERS} layers at full width (bf16, remat {cfg.remat}, AdamW), "
+          f"batch {MOE_TRAIN_BATCH} x {TRAIN_SEQ}: losses {' '.join(f'{x:.4f}' for x, _ in hist)}; "
+          f"grad norms {' '.join(f'{g:.3f}' for _, g in hist)}; aux {' '.join(f'{a:.4f}' for a in aux)}; "
+          f"router gradient max |g| {router.abs().max().item():.3e}; ms a step (CUDA events) "
+          f"{' '.join(f'{x:.1f}' for x in step_ms)}; peak memory {peak / 2**30:.3f} GiB "
+          f"({name_power})", flush=True)
+    assert len(aux) == MOE_TRAIN_STEPS, len(aux)
+    assert all(math.isfinite(x) and math.isfinite(g) for x, g in hist), hist
+    assert all(math.isfinite(a) and a > 0 for a in aux), aux
+    assert torch.isfinite(router).all() and router.abs().max() > 0, "router gradient"
+    del params, state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_phase(name, name_power):
+    """Phase 5c: MoE. Returns the flash kernel's qwen2-moe row (D = 128) with
+    the engine run's launches."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_routing_check(name_power)
+    flash = flash_case(name, MOE_ARCH, *MOE_FLASH_CASE)
+    served = moe_serve(name_power)
+    moe_train(name_power)
+    seconds = time.perf_counter() - t0
+    print(f"phase 5c: {seconds:.1f} s ({name_power})", flush=True)
+    keys = ("ms", "single_call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "share_of_bound", "max_abs_err", "row_rel_err")
+    return dict({k: flash[k] for k in keys}, launches=served["launches"])
+
+
+def moe_only():
+    """`chip_smoke.py --moe`: build the kernels and run phase 5c alone."""
+    name_power = card_line()
+    print(f"card: {name_power}", flush=True)
+    _build.load()
+    moe_phase(torch.cuda.get_device_name(0), name_power)
+    print("5c held", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -4210,6 +4822,7 @@ def main():
 
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
+    rows["flash_attention"]["qwen2_moe"] = moe_phase(name, name_power)
     train_phase(name_power)
 
     kernels = [
@@ -4237,6 +4850,8 @@ if __name__ == "__main__":
         sharded_child()
     elif sys.argv[1:2] == ["--train"]:
         train_only()
+    elif sys.argv[1:2] == ["--moe"]:
+        moe_only()
     elif sys.argv[1:2] == ["--train-child"]:
         train_child()
     else:

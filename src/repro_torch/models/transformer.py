@@ -1,5 +1,5 @@
-"""Model assembly for the dense attention family: token input, `attn` and
-`swa` mixers, `mlp` channel mixers, no encoder.
+"""Model assembly for the attention family: token input, `attn` and `swa`
+mixers, `mlp` and `moe` channel mixers, no encoder.
 
 The counterpart of the reference's models/transformer.py. A config's layer
 plan is `prefix` (unstacked) + `period` x num_periods. As in the reference,
@@ -18,8 +18,12 @@ carried, nor are `scan_unroll` and the sequence-parallel knob
 Decode writes each new token's k/v into the caches IN PLACE and returns the
 same dict (the reference returns new caches).
 
-Layers the port does not run yet (MLA, MoE, Mamba, xLSTM, an encoder,
-embedding input) raise NotImplementedError naming their ROADMAP item.
+A `moe` layer returns its router's aux loss; the stack sums it over the
+prefix layers and the periods (through the checkpointed period body under
+remat), in the reference's order.
+
+Layers the port does not run yet (MLA, Mamba, xLSTM, an encoder, embedding
+input) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,13 +35,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.tree import tree_map  # noqa: F401 (the package's name for it)
 
 # what each refused feature waits for (ROADMAP queue 1, item 13)
 _TODO = {
     "mla": "MLA attention: ROADMAP queue 1 item 13d",
-    "moe": "MoE layers: ROADMAP queue 1 item 13c",
     "mamba": "Mamba layers: ROADMAP queue 1 item 13e",
     "mlstm": "xLSTM layers: ROADMAP queue 1 item 13f",
     "slstm": "xLSTM layers: ROADMAP queue 1 item 13f",
@@ -64,7 +67,7 @@ def check_supported(cfg: ModelConfig) -> None:
         for part in (spec.mixer, spec.mlp):
             if part in _TODO:
                 raise NotImplementedError(f"{cfg.name}: {_TODO[part]}")
-        if spec.mixer not in ("attn", "swa") or spec.mlp not in ("mlp", "none"):
+        if spec.mixer not in ("attn", "swa") or spec.mlp not in ("mlp", "moe", "none"):
             raise ValueError(f"{cfg.name}: unknown layer {spec}")
     if cfg.pos_type not in ("rope", "none"):
         raise NotImplementedError(
@@ -89,11 +92,17 @@ def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype):
             generator, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
             bias=cfg.attn_bias, out_scale=out_scale,
         )
+    elif spec.mlp == "moe":
+        p["mlp_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
+        p["mlp"] = moe.make_moe(generator, cfg, dtype)
     return p
 
 
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: str, causal=True):
-    """Full-sequence layer (mode "train" | "prefill"). Returns (x, cache or None)."""
+    """Full-sequence layer (mode "train" | "prefill"). Returns (x, aux,
+    cache or None); aux is the MoE router's loss, None for other layers (the
+    reference's zero, which the sum skips)."""
+    aux = None
     want_cache = mode == "prefill"
     window = cfg.sliding_window if spec.mixer == "swa" else 0
     xn = layers.apply_norm(p["mixer_norm"], x)
@@ -108,12 +117,16 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
         y_attn = out
     if cfg.parallel_block and spec.mlp != "none":
         y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
-        return x + y_attn + y_mlp, cache
+        return x + y_attn + y_mlp, aux, cache
     x = x + y_attn
-    if spec.mlp == "mlp":
+    if spec.mlp in ("mlp", "moe"):
         xn = layers.apply_norm(p["mlp_norm"], x)
-        x = x + layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
-    return x, cache
+        if spec.mlp == "mlp":
+            y = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
+        else:
+            y, aux = moe.apply_moe(p["mlp"], cfg, xn)
+        x = x + y
+    return x, aux, cache
 
 
 def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
@@ -127,7 +140,11 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
     x = x + y
     if "mlp" in p:
         xn = layers.apply_norm(p["mlp_norm"], x)
-        x = x + layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
+        if "router" in p["mlp"]:
+            y, _ = moe.apply_moe(p["mlp"], cfg, xn)
+        else:
+            y = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
+        x = x + y
     return x, cache
 
 
@@ -170,15 +187,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
     if cfg.prefix:
         p["prefix"] = [_init_layer(generator, cfg, spec, dtype) for spec in cfg.prefix]
     if cfg.num_periods > 0:
-        periods = [
-            [_init_layer(generator, cfg, spec, dtype) for spec in cfg.period]
-            for _ in range(cfg.num_periods)
-        ]
-        # stack period by period, leaf by leaf: [layer][...] leaves of (P, ...)
-        p["stack"] = [
-            _stack_leaves([periods[i][j] for i in range(cfg.num_periods)])
-            for j in range(len(cfg.period))
-        ]
+        # [layer][...] leaves of (P, ...), filled as the periods are drawn (in
+        # order): a period's leaves are copied into row i and dropped, so the
+        # peak holds the stack and one period, not every period twice
+        stack = None
+        for i in range(cfg.num_periods):
+            period = [_init_layer(generator, cfg, spec, dtype) for spec in cfg.period]
+            if stack is None:
+                stack = tree_map(lambda t: t.new_empty((cfg.num_periods,) + tuple(t.shape)),
+                                 period)
+            tree_map(lambda dst, src: dst[i].copy_(src), stack, period)
+            del period
+        p["stack"] = stack
     return p
 
 
@@ -213,22 +233,26 @@ def _embed_inputs(p, cfg: ModelConfig, batch):
     return x, positions
 
 
-def _period_forward(lp, cfg: ModelConfig, x, positions, mode):
-    """One period's layers. Returns (x, the layers' caches)."""
+def _period_forward(lp, cfg: ModelConfig, x, aux, positions, mode):
+    """One period's layers. Returns (x, aux plus the layers' aux, the
+    layers' caches)."""
     cs = []
     for j, spec in enumerate(cfg.period):
-        x, c = _layer_forward(lp[j], cfg, spec, x, positions, mode=mode)
+        x, a, c = _layer_forward(lp[j], cfg, spec, x, positions, mode=mode)
+        aux = aux if a is None else aux + a
         cs.append(c)
-    return x, cs
+    return x, aux, cs
 
 
 def _run_stack(p, cfg: ModelConfig, x, positions, mode):
     """prefix layers + the periods in order. Returns (x, aux, caches)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
     if cfg.prefix:
         pc = []
         for lp, spec in zip(p["prefix"], cfg.prefix):
-            x, c = _layer_forward(lp, cfg, spec, x, positions, mode=mode)
+            x, a, c = _layer_forward(lp, cfg, spec, x, positions, mode=mode)
+            aux = aux if a is None else aux + a
             pc.append(c)
         if mode == "prefill":
             caches["prefix"] = pc
@@ -239,14 +263,13 @@ def _run_stack(p, cfg: ModelConfig, x, positions, mode):
                                      preserve_rng_state=False)
         per_period = []
         for i in range(cfg.num_periods):
-            x, cs = body(_period(p["stack"], i), cfg, x, positions, mode)
+            x, aux, cs = body(_period(p["stack"], i), cfg, x, aux, positions, mode)
             per_period.append(cs)
         if mode == "prefill":
             caches["stack"] = [
                 _stack_leaves([per_period[i][j] for i in range(cfg.num_periods)])
                 for j in range(len(cfg.period))
             ]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE: no aux loss
     return x, aux, caches
 
 

@@ -19,6 +19,16 @@ alone through prefill + decode. On the CPU in f32 that holds to a stated
 logit margin (a batch of one and a batch of num_slots may sum in another
 order); the reference's bit-identical contract rests on XLA-CPU reduction
 order.
+
+Under capacity routing (an MoE layer whose capacity factor can drop tokens,
+such as qwen2-moe's 1.25), decode rows are coupled, in both packages. A
+decode step's router chunk is the whole slot batch, so at 4 slots, top-4 of
+60 experts, an expert holds ceil(4 * 4 / 60 * 1.25) = 1 token, and a row
+loses an expert's output to any earlier row that chose the same expert.
+Idle slots decode too, so they take capacity as well. That is the
+reference's behaviour and the port keeps it (no row is masked from the
+router); a request's tokens then agree with it run alone only where no
+drop moved them, and the contract above holds for a dropless config.
 """
 
 from __future__ import annotations

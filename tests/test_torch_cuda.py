@@ -1199,6 +1199,52 @@ def test_reduced_lm_serves_on_cuda(cuda, capsys):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [None, 1.25])
+def test_reduced_moe_serves_on_cuda(cuda, capacity_factor, capsys):
+    """A reduced qwen2-moe (f32; dropless, and at its published capacity
+    factor, where decode rows compete for slots): apply_moe's routing on the
+    card bit-equal to the CPU's and y within 1e-5 (f32 sums in another
+    order), and the engine generates the CPU's tokens; the launcher serves
+    it with its default device."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model, moe, transformer
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = reduce_config(get_config("qwen2-moe-a2.7b"))
+    if capacity_factor:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               capacity_factor=capacity_factor))
+    params = build_model(cfg, device="cpu").init(0)
+    lp = transformer.tree_map(lambda t: t[0], params["stack"][0]["mlp"])
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 37, cfg.d_model))
+                         .astype(np.float32))
+    y, aux = moe.apply_moe(lp, cfg, x)
+    lp_gpu = transformer.tree_map(lambda t: t.to(cuda), lp)
+    y_gpu, aux_gpu = moe.apply_moe(lp_gpu, cfg, x.to(cuda))
+    assert (y_gpu.cpu() - y).abs().max() <= 1e-5
+    assert abs(float(aux_gpu) - float(aux)) <= 1e-6 * abs(float(aux))
+    for lo in range(0, 74, cfg.moe.router_chunk):
+        xc = x.reshape(-1, cfg.d_model)[lo:lo + cfg.moe.router_chunk]
+        r, r_gpu = moe.route(lp, cfg.moe, xc), moe.route(lp_gpu, cfg.moe, xc.to(cuda))
+        for a, b in ((r.top_e, r_gpu.top_e), (r.pos, r_gpu.pos), (r.keep, r_gpu.keep)):
+            assert torch.equal(a, b.cpu())
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 19, 24, 17)]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = transformer.tree_map(lambda t: t.to(dev), params)
+        reqs = [Request(i, torch.from_numpy(x), 6) for i, x in enumerate(prompts)]
+        out[str(dev)] = Engine(cfg, p, num_slots=2, capacity=32, device=dev).run(reqs)
+    assert out["cpu"] == out["cuda"]
+    launch_serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--requests", "3",
+                       "--slots", "2", "--gen", "4", "--prompt-len", "20"])
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("topology", ["coupled_array", "time_multiplexed", "array_transient"])
 def test_f64_engine_under_auto(cuda, topology):
     """impl="auto" on an f64 spec resolves to "ref" on the card (the kernels

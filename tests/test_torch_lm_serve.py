@@ -10,10 +10,16 @@ Engine against the reference's Engine on the same carried-across weights.
 Tolerance, stated as a logit margin: the reference's bit-identical contract
 rests on XLA-CPU reduction order; here a batch of one and a batch of
 num_slots, or the two frameworks, may sum in another order. So each chosen
-token is checked teacher-forced: its logit must be within MARGIN = 1e-4
+token is checked teacher-forced: its logit must be within from test_torch_models import with_qkv_biases  # noqa: E402
+
+MARGIN = 1e-4
 (f32) of the step's maximum. Where the port's and the reference's greedy
 tokens differ, the first differing step must be such a near-tie in the
-reference's own logits; no request is skipped.
+reference's own logits; no request is skipped. For qwen2-moe at its
+published capacity factor ("+cap") decode rows are coupled (a decode step's
+router chunk is the whole slot batch, one slot an expert), so a flip there
+is held in the reference engine's own batch geometry: its logits recorded at
+the step that chose the token.
 """
 
 import dataclasses
@@ -31,10 +37,12 @@ from repro.models import transformer as jax_transformer
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.convert import lm_params_from_numpy
+from repro_torch.convert import lm_caches_from_numpy, lm_params_from_numpy
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model, transformer
 from repro_torch.serve.engine import Engine, Request, _splice_cache
+
+from test_torch_models import with_qkv_biases  # noqa: E402
 
 MARGIN = 1e-4
 # (prompt length, max_new): ragged, all prompts past the window of 16
@@ -42,9 +50,18 @@ SCHEDULE = [(18, 4), (24, 3), (20, 5), (30, 2), (17, 6)]
 
 
 def _cfg(variant, jax_side=False):
-    arch, _, gqa = variant.partition("+")
+    """A reduced variant: "+gqa" 2 kv heads, "+cap" the MoE's published
+    capacity factor (1.25)."""
+    arch, _, extra = variant.partition("+")
     cfg = jax_reduce(jax_get_config(arch)) if jax_side else reduce_config(get_config(arch))
-    return dataclasses.replace(cfg, num_kv_heads=2) if gqa else cfg
+    if extra == "cap":
+        cf = get_config(arch).moe.capacity_factor
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return dataclasses.replace(cfg, num_kv_heads=2) if extra == "gqa" else cfg
+
+
+def _tokens_np(cfg, b, s, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
 def _requests(cfg, schedule, seed=1):
@@ -113,24 +130,79 @@ def _jax_margin_at(jm, jp, jcfg, prompt, prefix, tok, capacity):
     return float(logits.max() - logits[tok])
 
 
-@pytest.mark.parametrize("variant", ["h2o-danube-1.8b", "h2o-danube-1.8b+gqa", "gemma-7b"])
+def _record_decode(jeng):
+    """Wrap the reference engine's decode step: per step, the slots' rids
+    and the step's last-position logits."""
+    steps, decode = [], jeng._decode
+
+    def recorded(params, tokens, caches, pos):
+        logits, caches = decode(params, tokens, caches, pos)
+        steps.append(([s.rid for s in jeng.slots], np.asarray(logits[:, -1, : jeng.cfg.vocab_size])))
+        return logits, caches
+
+    jeng._decode = recorded
+    return steps
+
+
+def _batch_margin_at(steps, rid, j, tok):
+    """The reference engine's own margin for `tok` as rid's j-th token
+    (j >= 1: the (j-1)-th decode step that held rid)."""
+    held = [(rids.index(rid), logits) for rids, logits in steps if rid in rids]
+    row, logits = held[j - 1]
+    return float(logits[row].max() - logits[row, tok])
+
+
+@pytest.mark.parametrize("variant", ["h2o-danube-1.8b", "h2o-danube-1.8b+gqa", "gemma-7b",
+                                     "qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap"])
 def test_engine_matches_reference_engine(variant):
     jcfg, cfg = _cfg(variant, jax_side=True), _cfg(variant)
     jm = jax_build_model(jcfg)
-    jp = jm.init(jax.random.PRNGKey(0))
+    jp = with_qkv_biases(jcfg, jm.init(jax.random.PRNGKey(0)))
     params = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     reqs = _requests(cfg, SCHEDULE[:4])
     capacity = 40
     ours = Engine(cfg, params, num_slots=2, capacity=capacity, device="cpu").run(list(reqs))
     jreqs = [JaxRequest(r.rid, jnp.asarray(r.prompt.numpy(), jnp.int32), r.max_new) for r in reqs]
-    ref = JaxEngine(jcfg, jp, num_slots=2, capacity=capacity).run(jreqs)
+    jeng = JaxEngine(jcfg, jp, num_slots=2, capacity=capacity)
+    coupled = variant.endswith("+cap")
+    steps = _record_decode(jeng)
+    ref = jeng.run(jreqs)
     for r in reqs:
         a, b = ours[r.rid], ref[r.rid]
         assert len(a) == len(b) == r.max_new
         if a != b:  # a cross-framework near-tie flipped: check that it is one
             j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            margin = _jax_margin_at(jm, jp, jcfg, r.prompt.numpy(), a[:j], a[j], capacity)
+            if coupled and j > 0:
+                margin = _batch_margin_at(steps, r.rid, j, a[j])
+            else:
+                margin = _jax_margin_at(jm, jp, jcfg, r.prompt.numpy(), a[:j], a[j], capacity)
             assert margin <= MARGIN, (r.rid, j, margin)
+
+
+def test_capacity_couples_decode_rows():
+    """At capacity factor 1.25 a 2-row decode step gives each expert one
+    slot, so in both packages a row's logits depend on the other row (the
+    earlier row wins a shared expert): changing row 0's token moves row 1."""
+    jcfg, cfg = _cfg("qwen2-moe-a2.7b+cap", jax_side=True), _cfg("qwen2-moe-a2.7b+cap")
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    m = build_model(cfg, device="cpu")
+    toks = _tokens_np(cfg, 2, 12)
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
+    jc = jax_transformer.pad_caches(jcfg, jc, 16)
+    pos = np.array([12, 12], np.int32)
+    moved = []
+    for first in range(cfg.vocab_size):
+        step = np.array([[first], [7]], np.int32)
+        jl, _ = jm.decode_step(jp, jnp.asarray(step), jc, jnp.asarray(pos))
+        tc = lm_caches_from_numpy(jax.tree.map(np.asarray, jc), device="cpu")
+        tl, _ = m.decode_step(params, torch.from_numpy(step), tc, torch.from_numpy(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+        moved.append(np.asarray(jl[1]))
+        if first and not np.array_equal(moved[0], moved[-1]):
+            break
+    assert not np.array_equal(moved[0], moved[-1]), "row 1 never depended on row 0"
 
 
 def test_engine_needs_two_slots():
@@ -195,6 +267,22 @@ def test_launcher_serves_reduced_on_cpu(capsys):
                        "--slots", "2", "--gen", "4", "--prompt-len", "20", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out and "on cpu" in out
+
+
+def test_launcher_serves_reduced_moe_on_cpu(capsys):
+    launch_serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--requests", "3",
+                       "--slots", "2", "--gen", "4", "--prompt-len", "20", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out and "on cpu" in out
+
+
+def test_launcher_trains_reduced_moe_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train as launch_train
+
+    launch_train.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--steps", "3", "--batch", "2",
+                       "--seq", "16", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert "done: final loss" in capsys.readouterr().out
+    assert (tmp_path / "step_00000002").is_dir()
 
 
 def test_launcher_reservoir_mode_is_refused():

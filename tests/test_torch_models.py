@@ -6,9 +6,13 @@ Both packages compute from the same numbers: the reference's
 across by `convert.lm_params_from_numpy`; inputs are numpy draws. Configs
 are reduced (d_model 64, one period, f32): h2o-danube (SWA, window 16),
 phi4-mini, gemma-7b (geglu, embed_scale, tied head), command-r-plus
-(layernorm, parallel block), and a GQA variant of h2o-danube with 2 kv heads
-(reduce_config collapses GQA to MHA). Prompts are longer than the window
-and decode runs past it, so the band bites.
+(layernorm, parallel block), a GQA variant of h2o-danube with 2 kv heads
+(reduce_config collapses GQA to MHA), and qwen2-moe (MoE layers, q/k/v
+biases) at reduce_config's dropless capacity and, as "+cap", at its
+published capacity factor 1.25, where decode rows compete for an expert's
+slots. The qwen2-moe variants draw their q/k/v biases from a seed (the
+reference's init leaves them zero), so the bias path is held too. Prompts
+are longer than the window and decode runs past it, so the band bites.
 
 Tolerance: logits and caches atol 1e-4 (f32 on both sides, sums in another
 order; TF32 plays no part on the CPU). Layer functions atol 1e-5.
@@ -41,20 +45,43 @@ LOGIT_ATOL = 1e-4
 LAYER_ATOL = 1e-5
 DENSE_ARCHS = ["h2o-danube-1.8b", "phi4-mini-3.8b", "gemma-7b", "command-r-plus-104b"]
 REFUSED_ARCHS = [
-    "deepseek-v2-lite-16b", "jamba-1.5-large-398b", "qwen2-moe-a2.7b", "xlstm-125m",
+    "deepseek-v2-lite-16b", "jamba-1.5-large-398b", "xlstm-125m",
     "whisper-base", "llava-next-mistral-7b",
 ]
-VARIANTS = DENSE_ARCHS + ["h2o-danube-1.8b+gqa"]
+MOE_VARIANTS = ["qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap"]
+VARIANTS = DENSE_ARCHS + ["h2o-danube-1.8b+gqa"] + MOE_VARIANTS
 
 
 def _cfgs(variant):
-    """(reference config, port config) for a reduced variant."""
-    arch, _, gqa = variant.partition("+")
+    """(reference config, port config) for a reduced variant: "+gqa" 2 kv
+    heads, "+cap" the MoE's published capacity factor (1.25)."""
+    arch, _, extra = variant.partition("+")
     jcfg, cfg = jax_reduce(jax_get_config(arch)), reduce_config(get_config(arch))
-    if gqa:
+    if extra == "gqa":
         jcfg = dataclasses.replace(jcfg, num_kv_heads=2)
         cfg = dataclasses.replace(cfg, num_kv_heads=2)
+    if extra == "cap":
+        cf = jax_get_config(arch).moe.capacity_factor
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=cf))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
     return jcfg, cfg
+
+
+def with_qkv_biases(jcfg, jp, seed=0):
+    """The reference's params with every q/k/v bias drawn from `seed` (its
+    init leaves them zero); unchanged for a config without them."""
+    if not jcfg.qkv_bias:
+        return jp
+    rng = np.random.default_rng(seed)
+    stack = []
+    for layer in jp["stack"]:
+        mixer = dict(layer["mixer"])
+        for w in ("wq", "wk", "wv"):
+            b = mixer[w]["bias"]
+            draw = 0.5 * rng.standard_normal(b.shape).astype(np.float32)
+            mixer[w] = dict(mixer[w], bias=jnp.asarray(draw).astype(b.dtype))
+        stack.append(dict(layer, mixer=mixer))
+    return dict(jp, stack=stack)
 
 
 @pytest.fixture(scope="module", params=VARIANTS)
@@ -62,7 +89,7 @@ def pair(request):
     """Reference and port models with the same weights."""
     jcfg, cfg = _cfgs(request.param)
     jm = jax_build_model(jcfg)
-    jp = jm.init(jax.random.PRNGKey(0))
+    jp = with_qkv_biases(jcfg, jm.init(jax.random.PRNGKey(0)))
     params = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return dict(jcfg=jcfg, cfg=cfg, jm=jm, jp=jp, m=build_model(cfg, device="cpu"), p=params,
                 jdecode=jax.jit(jm.decode_step))
@@ -124,6 +151,16 @@ def test_build_model_refuses_unported_layers(arch):
         build_model(get_config(arch), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(reduce_config(get_config(arch)), device="cpu")
+
+
+@pytest.mark.parametrize("arch,item", [("deepseek-v2-lite-16b", "13d"),
+                                       ("jamba-1.5-large-398b", "13e")])
+def test_moe_archs_still_refused_name_their_item(arch, item):
+    """deepseek (MLA) and jamba (Mamba) have MoE layers too; they wait for
+    their other layer, and say which."""
+    for cfg in (get_config(arch), reduce_config(get_config(arch))):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            build_model(cfg, device="cpu")
 
 
 def test_build_model_defaults_to_cuda():
@@ -306,7 +343,7 @@ def test_prefill_then_decode(pair):
 
 
 def test_cache_and_input_specs():
-    for arch in DENSE_ARCHS:
+    for arch in DENSE_ARCHS + ["qwen2-moe-a2.7b"]:
         cfg, jcfg = get_config(arch), jax_get_config(arch)
         ours = transformer.cache_specs(cfg, 4, 4640)
         ref = jax_transformer.cache_specs(jcfg, 4, 4640)
