@@ -7,6 +7,7 @@
     python3 chip_smoke.py --sharded      # phase 3i alone
     python3 chip_smoke.py --train        # phase 5b alone
     python3 chip_smoke.py --moe          # phase 5c alone
+    python3 chip_smoke.py --mla          # phase 5d alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -155,8 +156,8 @@ on failure:
    plan and width in the lane it was evaluated in (learn_nmse bit-equal),
    and on the E = 1 scan oracle on the card (within NMSE_ORACLE_RTOL); a
    search on an interpret=True plan launches nothing; (d) seconds a
-   candidate of a search over 256 lanes and of one lane at a time (8
-   candidates), each warmed first, and their ratio (printed only); (e) a
+   candidate of a search over 256 lanes and of one lane at a time
+   (SEQ_BUDGET candidates), each warmed first, and their ratio (printed only); (e) a
    256-slot RLS engine with 192 co-tenants where tenant 0 calls
    submit_autotuned with 64 probes on the spare lanes, under chunk and
    tiled: no probe sid in pop_results, the winner frozen into the
@@ -167,15 +168,16 @@ on failure:
 3h. The fleet (repro_torch.serve.fleet) at the same shapes, replicas built
    by make_engine (backend chunk) through fleet_engine, which loads the
    kernel library and, in a replica child, fails if that ran nvcc: (a) two
-   LocalReplicas behind FleetFrontend serve the 512 sessions through
-   submit_stream / drain_results (stepped from the front end's executor
-   thread), each session bit-equal to phase 3's one engine of the same width
+   LocalReplicas behind FleetFrontend serve FLEET_SESSIONS (64) of phase
+   3's 512 sessions (the same ones throughout 3h) through submit_stream /
+   drain_results (stepped from the front end's executor thread), each
+   session bit-equal to phase 3's one engine of the same width
    (a session that is not is printed with its gap and lanes and held
    bit-equal to its replay alone in its fleet lane); (b) two ProcessReplicas
    that share the build directory the parent built: each child's spawn to
    ready, its first three chunks (RPC round trips) beside its engine's median
    chunk, the card's free memory before the spawn and with both ready, the
-   512 sessions held to (a)'s results, each child's backend and kernel
+   sessions held to (a)'s results, each child's backend and kernel
    launches (through the stats RPC); (c) failover with checkpoint_every=2:
    one child hangs at its chunk 2 (rpc_timeout_s trips), the other crashes
    at chunk 3, both respawn: the respawn times, the time from the hung
@@ -185,7 +187,8 @@ on failure:
    pipe), bit-equal to the learners served unmoved on one engine; (e)
    sessions/s of one engine, two local and two process replicas by the host
    clock (no claim); (f) the launcher's --fleet with two local replicas
-   on the card (process replicas are (b)-(d)'s), which must say that
+   on the card (process replicas are (b)-(d)'s) serving FLEET_SESSIONS
+   sessions, which must say that
    admission control is off (the committed BENCH_serve.json is a CPU grid). `python3 chip_smoke.py
    --fleet` runs it alone.
 3i. Sharded plans (ExecPlan(mesh=DeviceMesh), api/sharded.py) in a child
@@ -311,8 +314,40 @@ on failure:
    width, 5 AdamW steps at batch 2 x 512: every loss and aux finite, aux >
    0, the router's gradient finite and not zero; ms a step, peak memory.
    Prints the phase's seconds. `python3 chip_smoke.py --moe` runs it alone.
-6. Print the kernels line (the STO kernels, tm_delay_line and flash), the
-   card line and, last, the contract line {"ok": true, "device": {...}}.
+5d. MLA (models/attention.py: make_mla, mla_forward, mla_decode and the
+   latent cache), run after phase 5c (whose tree is freed): (a) one MLA layer
+   of deepseek-v2-lite-16b at full width (make_mla from seed 0, bf16: r 512,
+   dn 128, dr 64, dv 128, 16 heads) on normalised hidden states, the card's
+   against the host CPU's on the same tensors by phase 4's two measures
+   (MLA_Y_RTOL, MLA_CACHE_RTOL): mla_forward over MLA_TOKENS tokens (y,
+   c_kv, k_rope; on the card through flash_bf16<192>, one launch), then
+   mla_decode on a 4-row batch at MLA_DECODE_POS over a CAPACITY-row latent
+   cache filled from a seed (y and the written rows; the cache written in
+   place at exactly those rows, every other row bit-equal); (b) the flash
+   kernel at deepseek's prefill call (H = KVH = 16, D = dn + dr = 192, v's
+   last 64 columns zero, 4608 tokens, causal) against its plain version by
+   phase 4's two measures, the output's pad columns exactly 0, beside SDPA
+   (its flash backend, or the backend that ran if that one refuses D = 192),
+   with the bound as launched and with P.V at v's own width; (c) 8 requests
+   (phase 5's prompts, 32 new tokens each) through the Engine at
+   deepseek-v2-lite-16b's full width (27 layers, bf16, random weights from
+   seed 0, 4 slots, capacity 4640), counters set to 0 before the run: 32
+   tokens in [0, vocab) each, flash launched 27 x 8 times, no STO kernel,
+   the latent cache's bytes those of cache_specs; a second engine run
+   bit-equal token for token; then the config at capacity factor
+   num_experts / top_k (no drops) served again and held to phase 5's
+   teacher-forced witness (the 4-row geometry: every gap 0; batch 1 within
+   LOGIT_MARGIN up to a request's first changed expert set); prefill and
+   decode tokens/s, peak memory, the init's seconds and peak; (d) one
+   4608-token prefill and one batch-4 decode step timed with CUDA events
+   beside their bounds, each traced once with profiler spans that this
+   script puts around MLA's parts (q projection + rope, wkv_a + norm + rope,
+   the decompression einsums, the absorbed einsums and softmax, wo) and the
+   MoE layer: device ms per part beside the flash kernel's. Prints the
+   phase's seconds. `python3 chip_smoke.py --mla` runs it alone.
+6. Print the kernels line (the STO kernels, tm_delay_line and flash, whose
+   row carries its qwen2_moe and deepseek_v2_lite entries), the card line
+   and, last, the contract line {"ok": true, "device": {...}}.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -441,16 +476,16 @@ STABLE_CURRENT = (1e-3, 3e-3)
 STABLE_A_CP = (0.3, 0.9)
 ORACLE_REG = 1e-2
 # the first REPLAYS of them (16 until phase 3h joined the script, 8 until
-# phase 3i did; 4 keep the whole run near 750 s: the E = 1 oracle costs
-# 4.3-6.7 s each on an H100)
-REPLAYS = 4
+# phase 3i did, 4 until phase 5d did: the E = 1 oracle costs 4.3-6.7 s each
+# on an H100)
+REPLAYS = 2
 # a replayed trial's learn_nmse against the E = 1 scan oracle on the card,
 # relative: f32 rounding alone moves it by up to 1.39e-3 on the first 16
 # candidates 3g(c) replays (f32 against f64 scan on a CPU, N = 2500, learn_reg 1e-2;
 # 5e-6 at 2.2 mA, 1e-3 near 3 mA, the edge of the stable regime; 3.2x at
 # learn_reg 1e-4, which is why the oracle holds 1e-2 only); ~7x that
 NMSE_ORACLE_RTOL = 1e-2
-SEQ_BUDGET = 8  # 16 until phase 3i joined the script
+SEQ_BUDGET = 4  # 16 until phase 3i joined the script, 8 until phase 5d did
 AUTOTUNE_TENANTS = 192
 AUTOTUNE_BUDGET = 64
 AUTOTUNE_WASHOUT = 40
@@ -1098,16 +1133,21 @@ def sdpa_causal(qt, kt, vt):
     g = qt.shape[1] // kt.shape[1]
     if qt.dtype != torch.bfloat16:
         return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), "PyTorch's default"
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        try:
-            sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)
-            fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)  # noqa: E731
-            how = "flash backend" + (", enable_gqa" if g > 1 else "")
-        except RuntimeError:
-            kr, vr = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
-            fn = lambda: sdpa(qt, kr, vr, is_causal=True)  # noqa: E731
-            how = "flash backend, K/V repeated outside the timed call"
-            fn()
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            try:
+                sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)
+                fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)  # noqa: E731
+                how = "flash backend" + (", enable_gqa" if g > 1 else "")
+            except RuntimeError:
+                kr, vr = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+                fn = lambda: sdpa(qt, kr, vr, is_causal=True)  # noqa: E731
+                how = "flash backend, K/V repeated outside the timed call"
+                fn()
+    except RuntimeError as err:  # the flash backend refuses these inputs (a head dim)
+        fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)  # noqa: E731
+        return fn, ("PyTorch's default choice: the flash backend refused these inputs ("
+                    + str(err).strip().splitlines()[0][:160] + ")")
 
     def run():
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
@@ -1116,20 +1156,29 @@ def sdpa_causal(qt, kt, vt):
     return run, how
 
 
-def flash_case(name, arch, sq, sk, dtype, window):
+def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None):
     """One flash case: the kernel vs its plain version, timed beside the plain
-    version and one SDPA call, with its bound and tile plan."""
+    version and one SDPA call, with its bound and tile plan. head_dim
+    overrides the config's (MLA's dn + dr); with v_dim, v's columns from
+    v_dim on are zero (MLA's padded v), and so must the output's be."""
     dev = torch.device("cuda")
     cfg = get_config(arch)
-    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, head_dim or cfg.head_dim
     fp32, tensor, bw = peaks(name)
     g = torch.Generator(device=dev).manual_seed(sq * 7 + sk + d)
     q = torch.randn((1, sq, h, d), generator=g, device=dev).to(dtype)
     k = torch.randn((1, sk, kvh, d), generator=g, device=dev).to(dtype)
     v = torch.randn((1, sk, kvh, d), generator=g, device=dev).to(dtype)
+    if v_dim is not None:
+        v[..., v_dim:] = 0
     out = fa.flash_attention_bshd(q, k, v, causal=True, window=window)
     ref = plain_bshd(q, k, v, window)
     torch.cuda.synchronize()
+    if v_dim is not None:
+        pad = out[..., v_dim:]
+        assert torch.equal(pad, torch.zeros_like(pad)), (
+            f"flash {arch} {sq}x{sk}: v's zero columns {v_dim}: came back non-zero "
+            f"(max {pad.float().abs().max().item()})")
     err = (out.float() - ref.float()).abs().max().item()
     rel = row_rel_err(out, ref)
     assert err <= FLASH_ATOL[dtype] and rel <= FLASH_RTOL[dtype], (
@@ -1179,6 +1228,14 @@ def flash_case(name, arch, sq, sk, dtype, window):
     )
     case["share_of_bound"] = case["bound_ms"] / case["ms"]
     case["vs_library"] = case["ms"] / case["library_ms"]
+    if v_dim is not None:  # the FLOPs of P.V at v's own width, no padded columns
+        pairs = unmasked_pairs(sq, sk, True, window)
+        case["v_dim"] = v_dim
+        case["gflop_as_launched"] = flops / 1e9
+        case["gflop_v_own_width"] = 2.0 * h * pairs * (d + v_dim) / 1e9
+        case["bound_ms_v_own_width"] = max(1e3 * 1e9 * case["gflop_v_own_width"] / rate,
+                                           1e3 * t_bytes)
+        case["pad_columns_exactly_zero"] = True
     if dtype == torch.bfloat16:
         plan = tile_summary(h, kvh, d, sq, sk, window)
         print(f"flash {arch} {sq}x{sk} tile plan (the Python mirror fa.tile_plan / "
@@ -1214,7 +1271,7 @@ def check_flash(name):
     return row
 
 
-def teacher_forced_margins(model, params, cfg, req, tokens, rows=LM_SLOTS):
+def teacher_forced_margins(model, params, cfg, req, tokens, rows=LM_SLOTS, stop=None):
     """Run `req` alone, teacher-forced on `tokens`, decoding `rows` rows with
     the request in row 0. At rows = LM_SLOTS this is the engine's decode
     geometry: the prefill spliced into slot 0 of a zeroed cache of CAPACITY
@@ -1223,7 +1280,9 @@ def teacher_forced_margins(model, params, cfg, req, tokens, rows=LM_SLOTS):
     meets the same kernels (the same GEMM shapes) as in the engine and
     should agree with it bit for bit. At rows = 1 the prefill's cache is
     padded to CAPACITY. Per step, the gap between the step's maximum logit
-    and the chosen token's (0 where the chosen token is the argmax)."""
+    and the chosen token's (0 where the chosen token is the argmax); with
+    `stop`, the run ends after the first decode step at which stop() is true,
+    and that step's gap is not taken."""
     last, seq_cache = model.prefill(params, {"tokens": req.prompt[None].cuda()})
     if rows == 1:
         caches = transformer.pad_caches(cfg, seq_cache, CAPACITY)
@@ -1244,6 +1303,8 @@ def teacher_forced_margins(model, params, cfg, req, tokens, rows=LM_SLOTS):
             pos[0] = len(req.prompt) + j
             lg, caches = model.decode_step(params, step_tokens, caches, pos)
             logits = lg[0, -1, : cfg.vocab_size]
+            if stop is not None and stop():
+                break
     return gaps
 
 
@@ -2756,6 +2817,7 @@ def families_phase(served, name, name_power):
     """Phase 3f. Returns the tm_delay_line kernel row."""
     t0 = time.perf_counter()
     row = delay_line_check(name, name_power)
+    parts = {"a": round(time.perf_counter() - t0, 1)}
     specs = {
         "time_multiplexed": make_time_multiplexed_spec(N, hold_steps=HOLD, device="cuda"),
         "array_transient": make_array_transient_spec(
@@ -2765,13 +2827,16 @@ def families_phase(served, name, name_power):
     row["launches"], runs = family_engines(specs, name_power)
     interpret_checks(specs, runs, name_power)
     del runs
+    parts["b"] = round(time.perf_counter() - t0 - sum(parts.values()), 1)
     window_one_check(served, name_power)
+    parts["c"] = round(time.perf_counter() - t0 - sum(parts.values()), 1)
     mixed_tenancy(make_spec(N, n_in=1, seed=0, hold_steps=HOLD, device="cuda"), specs, served,
                   name_power)
+    parts["d"] = round(time.perf_counter() - t0 - sum(parts.values()), 1)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 3f: {time.perf_counter() - t0:.1f} s; kernel tm_delay_line: " + json.dumps(row),
-          flush=True)
+    print(f"phase 3f: {time.perf_counter() - t0:.1f} s (seconds by part {json.dumps(parts)}); "
+          f"kernel tm_delay_line: " + json.dumps(row), flush=True)
     return row
 
 
@@ -3072,6 +3137,10 @@ def tune_only():
 FLEET_KW = dict(n=N, num_slots=E, hold_steps=HOLD, seed=0, backend="chunk", chunk_ticks=K,
                 device="cuda")
 FLEET_REPLICAS = 2
+# the sessions 3h serves (the first of phase 3's 512; all 512 until phase 5d
+# joined the script): the fleet's host costs (a submit hashes its spec) grow
+# with the sessions, its failover and migration checks do not
+FLEET_SESSIONS = 64
 # a process replica's reply deadline: far above a chunk (~0.03-0.25 s) and a
 # snapshot of 256 sessions (~100 MB of host data); the hung child trips it
 FLEET_RPC_TIMEOUT_S = 10.0
@@ -3106,7 +3175,7 @@ def fleet_engine(**kw):
 
 
 def fleet_sessions(learn=False):
-    return make_sessions(np.random.default_rng(0), learn=learn)
+    return make_sessions(np.random.default_rng(0), learn=learn)[:FLEET_SESSIONS]
 
 
 def replay_in_lane(spec, sess, slot, learn=None):
@@ -3177,11 +3246,11 @@ def fleet_local(spec, want, name_power):
     assert c.launches.get("rk4_chunk", 0) > 0 and set(c.launches) == {"rk4_chunk"}, c.launches
     off = hold_fleet("3h(a)", got, want, spec)
     print(f"3h(a) {FLEET_REPLICAS} local replicas behind FleetFrontend (N={N}, E={E}, K={K}, "
-          f"chunk): {SESSIONS} sessions in {c.seconds:.3f} s = {SESSIONS / c.seconds:.1f} "
-          f"sessions/s, {SESSIONS - len(off)} bit-equal to one engine, {len(off)} held to their "
+          f"chunk): {FLEET_SESSIONS} sessions in {c.seconds:.3f} s = {FLEET_SESSIONS / c.seconds:.1f} "
+          f"sessions/s, {FLEET_SESSIONS - len(off)} bit-equal to one engine, {len(off)} held to their "
           f"replay; per replica {[st.session_ticks for st in stats]} session-ticks, backends "
           f"{[st.backend for st in stats]}; launches {c.launches} ({name_power})", flush=True)
-    return got, SESSIONS / c.seconds
+    return got, FLEET_SESSIONS / c.seconds
 
 
 def spawn_replicas(kw, faults=(None, None)):
@@ -3240,11 +3309,11 @@ def fleet_process(spec, want, name_power):
           + f"; later chunks median {[round(1e3 * st.chunk_median_s, 3) for st in stats]} ms "
           f"(the child's engine clock); card memory free {free0 / 2**30:.2f} GiB before the "
           f"spawn, {free1 / 2**30:.2f} GiB with both children ready (of {total / 2**30:.2f}; "
-          f"{(free0 - free1) / 2**30:.2f} GiB for the two); {SESSIONS} sessions in {seconds:.3f} s "
-          f"= {SESSIONS / seconds:.1f} sessions/s, {SESSIONS - len(off)} bit-equal to 3h(a), "
+          f"{(free0 - free1) / 2**30:.2f} GiB for the two); {FLEET_SESSIONS} sessions in {seconds:.3f} s "
+          f"= {FLEET_SESSIONS / seconds:.1f} sessions/s, {FLEET_SESSIONS - len(off)} bit-equal to 3h(a), "
           f"{len(off)} held to their replay; backends {[st.backend for st in stats]}, each "
           f"child's launches {[st.launches for st in stats]} ({name_power})", flush=True)
-    return got, SESSIONS / seconds
+    return got, FLEET_SESSIONS / seconds
 
 
 def fleet_failover(spec, want, name_power):
@@ -3305,7 +3374,7 @@ def fleet_failover(spec, want, name_power):
           f"{FLEET_RPC_TIMEOUT_S}), replica 0 crashed at chunk 3; respawns "
           f"{', '.join(f'{x:.3f}' for x in respawn_s)} s; from the hung chunk's send to the "
           f"respawned replica's first chunk {hang_to_first:.3f} s; fault_stats {faults}; "
-          f"{SESSIONS} sessions in {seconds:.3f} s, {SESSIONS - len(off)} bit-equal to the run "
+          f"{FLEET_SESSIONS} sessions in {seconds:.3f} s, {FLEET_SESSIONS - len(off)} bit-equal to the run "
           f"without faults, {len(off)} held to their replay ({name_power})", flush=True)
 
 
@@ -3363,7 +3432,7 @@ def fleet_launcher(name_power):
     from repro_torch.launch import serve as launch_serve
 
     argv = ["--mode", "reservoir", "--fleet", "--replicas", "2", "--transport", "local",
-            "--checkpoint-every", "2", "--n", str(N), "--slots", str(E), "--sessions", str(SESSIONS),
+            "--checkpoint-every", "2", "--n", str(N), "--slots", str(E), "--sessions", str(FLEET_SESSIONS),
             "--ticks", "40", "--hold-steps", str(HOLD), "--chunk-ticks", str(K), "--backend", "chunk"]
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -3371,7 +3440,7 @@ def fleet_launcher(name_power):
         results = launch_serve.main(argv)
     seconds = time.perf_counter() - t0
     print(out.getvalue(), end="", flush=True)
-    assert len(results) == SESSIONS and all(r.error is None for r in results.values())
+    assert len(results) == FLEET_SESSIONS and all(r.error is None for r in results.values())
     assert ("planner: BENCH_serve.json was measured on cpu, not cuda — admission control "
             "disabled") in out.getvalue(), out.getvalue()
     assert "planner-predicted capacity" not in out.getvalue()
@@ -3385,16 +3454,30 @@ def fleet_phase(spec, name_power):
     torch.cuda.empty_cache()
     want, seconds, launches, _ = serve(spec, "chunk")
     engine_rate = SESSIONS / seconds
+    want = {s.sid: want[s.sid] for s in fleet_sessions()}
+    parts, t1 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t1
+        parts[part] = round(time.perf_counter() - t1, 1)
+        t1 = time.perf_counter()
+
     local, local_rate = fleet_local(spec, want, name_power)
+    lap("a")
     proc, proc_rate = fleet_process(spec, local, name_power)
+    lap("b")
     fleet_failover(spec, proc, name_power)
+    lap("c")
     fleet_migration(spec, name_power)
+    lap("d")
     fleet_launcher(name_power)
-    print(f"3h(e) sessions/s by the host clock, {SESSIONS} sessions, N={N}, E={E}, K={K}, chunk: "
-          f"1 engine {engine_rate:.1f} (launches {launches['rk4_chunk']} rk4_chunk), "
+    lap("f")
+    print(f"3h(e) sessions/s by the host clock, {FLEET_SESSIONS} sessions, N={N}, E={E}, K={K}, "
+          f"chunk: 1 engine {engine_rate:.1f} ({SESSIONS} sessions; launches {launches['rk4_chunk']} rk4_chunk), "
           f"{FLEET_REPLICAS} local replicas {local_rate:.1f}, {FLEET_REPLICAS} process replicas "
           f"{proc_rate:.1f} (no claim; {name_power})", flush=True)
-    print(f"phase 3h: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 3h: {time.perf_counter() - t0:.1f} s; seconds by part {json.dumps(parts)}",
+          flush=True)
 
 
 def fleet_only():
@@ -4335,13 +4418,16 @@ MOE_SPLIT = {  # span label prefix -> the split's part
 }
 
 
-def moe_split(label, fn, name_power):
-    """fn traced once under moe_spans: the device time under each span of
-    MOE_SPLIT, the flash kernel's, and the device's busy time."""
+def span_split(tag, label, fn, spans, split_map, name_power, parts, rest):
+    """fn traced once under the `spans` context: the device time under each
+    span of split_map (label -> the split's part), the flash kernel's, and the
+    device's busy time; `parts` are the disjoint parts that, with flash, leave
+    the rest of the busy time to `rest`. Each part but a whole layer's names
+    its top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with moe_spans():
+    with spans():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4356,34 +4442,42 @@ def moe_split(label, fn, name_power):
     # idle gaps too; the split reads the first, the busy sum skips the second
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and self_us(e) > 0
-               and e.key not in MOE_SPLIT]
+               and e.key not in split_map]
     busy = sum(self_us(e) for e in kernels) / 1e3
 
     def kernels_under(e):  # (name, us) of every kernel an op or its children launched
-        own = [(k.name, k.duration) for k in e.kernels if k.name not in MOE_SPLIT]
+        own = [(k.name, k.duration) for k in e.kernels
+               if k.name not in split_map and "flash" not in k.name]
         return own + [kd for c in e.cpu_children for kd in kernels_under(c)]
 
     split, tops = {}, {}
     for e in prof.events():
-        part = MOE_SPLIT.get(e.name)
+        part = split_map.get(e.name)
         if part and e.device_type == DeviceType.CPU:
             for kname, us in kernels_under(e):
                 split[part] = split.get(part, 0.0) + us / 1e3
-                if part != "MoE layer, all":
+                if not part.endswith(", all"):
                     key = (part, kname[:50])
                     tops[key] = tops.get(key, 0.0) + us / 1e3
     split["flash kernel"] = sum(self_us(e) for e in kernels if "flash" in e.key) / 1e3
-    split["other (attention projections, norms, RoPE, head, casts)"] = busy - split.get(
-        "MoE layer, all", 0.0) - split["flash kernel"]
-    print(f"5c(d) {label}, traced: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+    split[rest] = busy - sum(split.get(p, 0.0) for p in parts) - split["flash kernel"]
+    print(f"{tag} {label}, traced: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f} %), {sum(e.count for e in kernels)} device ops; device ms "
           f"by part: {json.dumps({k: round(v, 3) for k, v in split.items()})} ({name_power})",
           flush=True)
     for part in sorted({p for p, _ in tops}):
         top = sorted(((ms, k) for (p, k), ms in tops.items() if p == part), reverse=True)[:3]
-        print(f"5c(d) {label}, {part}: top kernels "
+        print(f"{tag} {label}, {part}: top kernels "
               + "; ".join(f"{k} {ms:.3f} ms" for ms, k in top), flush=True)
     return split
+
+
+def moe_split(label, fn, name_power):
+    """fn traced once under moe_spans: the device time under each span of
+    MOE_SPLIT, the flash kernel's, and the device's busy time."""
+    return span_split("5c(d)", label, fn, moe_spans, MOE_SPLIT, name_power,
+                      parts=("MoE layer, all",),
+                      rest="other (attention projections, norms, RoPE, head, casts)")
 
 
 @contextlib.contextmanager
@@ -4439,20 +4533,26 @@ def moe_prefill_bounds(cfg, prompt, kept):
 def moe_decode_bounds(cfg, rows, pos, used):
     """A decode step's bytes bound two ways (ms, GB): every weight once as the
     reference's dispatch reads it (all experts; the embedding's `rows` rows
-    only), and only the experts the step's tokens kept (`used`, per layer),
-    with the cache rows each sequence needs (pos + 1) on both."""
+    only; the f32 router), and only the experts the step kept (`used`, per
+    MoE layer), with the cache rows each sequence needs (pos + 1: k and v, or
+    an MLA layer's c_kv and k_rope) on both."""
     _, _, bw = peaks(torch.cuda.get_device_name(0))
     m, d = cfg.moe, cfg.d_model
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_kinds())
     expert = 3 * d * m.d_ff_expert * 2
     weights = (counting.count_params(cfg) - cfg.padded_vocab * d) * 2 + rows * d * 2
-    weights += cfg.num_layers * d * m.num_experts * 2  # the router is f32
-    cache = 2 * cfg.num_layers * int(sum(pos + 1)) * cfg.num_kv_heads * cfg.head_dim * 2
+    weights += n_moe * d * m.num_experts * 2  # the router is f32
+    if cfg.mla is not None:
+        row = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    else:
+        row = 2 * cfg.num_kv_heads * cfg.head_dim
+    cache = cfg.num_layers * int(sum(pos + 1)) * row * 2
     algo = weights + cache
-    need = algo - expert * (cfg.num_layers * m.num_experts - sum(u for u, _ in used))
+    need = algo - expert * (n_moe * m.num_experts - sum(u for u, _ in used))
     return 1e3 * algo / bw, 1e3 * need / bw, algo / 1e9, need / 1e9
 
 
-def no_drop_witness(model, params, cfg, reqs, results):
+def no_drop_witness(model, params, cfg, reqs, results, tag="5c(c)"):
     """5c(c)'s witness at a dropless capacity: each request alone,
     teacher-forced on the engine's tokens. In the engine's 4-row geometry
     every step's gap must be 0 (as phase 5's). At batch 1 the request's
@@ -4460,29 +4560,37 @@ def no_drop_witness(model, params, cfg, reqs, results):
     whose probabilities lie within that rounding flips, changing the layer's
     output for that token and every later step's cache: so each step is held
     within LOGIT_MARGIN up to the first decode step whose routing differs
-    from the 4-row run's (row 0, any layer), and the steps after it are
-    counted, with the flip's f32 probability gap in the 4-row run."""
-    layers_ = cfg.num_layers
-    gaps4, gaps1, held, after, flips, reordered = [], [], [], [], [], 0
+    from the 4-row run's (row 0, any layer), with the flip's f32 probability
+    gap in the 4-row run, and the batch-1 replay ends there (the steps after
+    a flip are not held, so they are not run)."""
+    layers_ = sum(spec.mlp == "moe" for spec in cfg.layer_kinds())  # routed chunks a step
+    gaps4, held, flips, reordered = [], [], [], 0
     for r in reqs:
         toks = results[r.rid]
-        r4, r1 = [], []
+        r4, r1, flip = [], [], []
         with route_spy(lambda q: r4.append((q.top_e[0].clone(), q.probs[0].clone()))):
             g4 = teacher_forced_margins(model, params, cfg, r, toks, LM_SLOTS)
-        with route_spy(lambda q: r1.append((q.top_e[0].clone(), q.probs[0].clone()))):
-            g1 = teacher_forced_margins(model, params, cfg, r, toks, 1)
-        assert len(r4) == len(r1), (len(r4), len(r1))
-        e4, e1 = (torch.stack([e for e, _ in rs]) for rs in (r4, r1))
+        e4 = torch.stack([e for e, _ in r4])
         n_prefill = len(r4) - layers_ * (len(toks) - 1)
+
+        def record(q):
+            i = len(r1)
+            r1.append(q.top_e[0].clone())
+            if not flip and i >= n_prefill and set(r1[i].tolist()) != set(e4[i].tolist()):
+                flip.append(i)
+
+        with route_spy(record):
+            g1 = teacher_forced_margins(model, params, cfg, r, toks, 1, stop=lambda: bool(flip))
+        e1 = torch.stack(r1)
         assert torch.equal(e4[:n_prefill], e1[:n_prefill]), f"request {r.rid}: prefills differ"
         # a flip changes the chosen set; an order change alone moves no expert
         # (no drops) and only the order of the combine's sum
-        same_set = (e4.sort(-1).values == e1.sort(-1).values).all(-1)
-        reordered += int(((e4 != e1).any(-1) & same_set).sum())
-        differ = (~same_set).nonzero().flatten().tolist()
+        n = len(e1)
+        same_set = (e4[:n].sort(-1).values == e1.sort(-1).values).all(-1)
+        reordered += int(((e4[:n] != e1).any(-1) & same_set).sum())
         cut = len(toks)
-        if differ:
-            i = differ[0]
+        if flip:
+            i = flip[0]
             cut = (i - n_prefill) // layers_ + 1  # gaps[cut] is the first step after the flip
             a = sorted(set(e4[i].tolist()) - set(e1[i].tolist()))
             b = sorted(set(e1[i].tolist()) - set(e4[i].tolist()))
@@ -4490,20 +4598,17 @@ def no_drop_witness(model, params, cfg, reqs, results):
             flips.append(dict(rid=r.rid, step=cut - 1, layer=(i - n_prefill) % layers_,
                               card4=a, card1=b,
                               prob_gap=float((p[a].max() - p[b].min()).abs())))
+        assert len(g1) == cut, (r.rid, len(g1), cut)
         gaps4 += g4
-        gaps1 += g1
-        held += g1[:cut]
-        after += g1[cut:]
+        held += g1
     worst4, worst_held = max(gaps4), max(held)
-    print(f"5c(c) no drops, vs each request alone (teacher-forced): 4-row decode worst logit "
+    print(f"{tag} no drops, vs each request alone (teacher-forced): 4-row decode worst logit "
           f"margin {worst4:.4e} (must be 0), steps off the argmax {sum(g > 0 for g in gaps4)} of "
           f"{len(gaps4)}; 1-row decode worst margin before a routing flip {worst_held:.4e} (at "
           f"most {LOGIT_MARGIN}) over {len(held)} steps, {sum(g > 0 for g in held)} off the "
           f"argmax; {len(flips)} of {len(reqs)} requests flip a top-k choice against the 4-row "
-          f"run (the first flip each) {json.dumps(flips)}, {reordered} layer steps reorder the "
-          f"same k experts; after the flip {sum(g > 0 for g in after)} of {len(after)} "
-          f"steps off the argmax, worst margin {max(after, default=0.0):.4e} (not held)",
-          flush=True)
+          f"run (the first flip each; the 1-row replay ends there) {json.dumps(flips)}, "
+          f"{reordered} layer steps up to it reorder the same k experts", flush=True)
     assert worst4 == 0.0, f"no-drop engine vs the 4-row rerun: margin {worst4}"
     assert worst_held <= LOGIT_MARGIN, f"no-drop engine vs batch 1 before a flip: {worst_held}"
 
@@ -4734,6 +4839,366 @@ def moe_only():
     print("5c held", flush=True)
 
 
+# -- phase 5d: MLA (deepseek-v2-lite-16b at full width) -------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_TOKENS = 1024  # (a): the host CPU's einsum over 16 x 1024^2 logits stays within seconds
+MLA_DECODE_POS = (17, 1023, 2500, 4600)  # (a): a 4-row decode over a CAPACITY-row cache
+# (a) the card against the host CPU on the same tensors, by phase 4's two
+# measures: the largest absolute error (held at the rtol times the host's
+# largest magnitude) and the row measure. c_kv and k_rope are one bf16 GEMM's
+# output normed or roped in f32 and cast back, so an element may land a bf16
+# ulp or two away (2^-8 of it each); the host CPU's bf16 against its own f32
+# reads 6.0e-3 / 7.0e-3 of a row at this width.
+MLA_CACHE_RTOL = 2.0**-6
+# y: four bf16 roundings in the chain (q, c_kv, the decompressed k and v, the
+# attention output) and, on the card, the flash kernel's bf16 probabilities
+# (phase 4's 1e-2 a row); the host CPU's bf16 against f32 reads 7.3e-3
+# (prefill) and 3.4e-3 (the absorbed decode).
+MLA_Y_RTOL = 2.0**-5
+# (b) flash at deepseek's heads (H = KVH = 16) and MLA's concat head dim dn +
+# dr = 192, v zero-padded from dv = 128, its longest prompt
+MLA_FLASH_CASE = (4608, 4608, torch.bfloat16, 0)
+
+
+def _held(label, got, want, rtol):
+    """got (card) against want (host CPU) by phase 4's two measures; raises."""
+    g, w = got.detach().float().cpu(), want.detach().float()
+    err, scale = (g - w).abs().max().item(), w.abs().max().item()
+    rel = row_rel_err(g, w)
+    assert err <= rtol * scale and rel <= rtol, (
+        f"5d(a) {label}: max abs error {err} (at most {rtol * scale}), row error {rel} "
+        f"(at most {rtol})")
+    return dict(max_abs_err=err, atol=rtol * scale, row_rel_err=rel, rtol=rtol)
+
+
+def mla_layer_check(name_power):
+    """5d(a): one MLA layer at full width (make_mla from seed 0, bf16) on
+    normalised hidden states: mla_forward over MLA_TOKENS tokens (on the card
+    through flash_bf16<192>) and mla_decode on a 4-row batch at
+    MLA_DECODE_POS over a CAPACITY-row latent cache filled from a seed, the
+    card against the host CPU on the same tensors; the cache written in place
+    at exactly those rows."""
+    from repro_torch.models import attention, layers
+
+    cfg = get_config(MLA_ARCH)
+    dev = torch.device("cuda")
+    p = attention.make_mla(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
+    p_host = transformer.tree_map(lambda t: t.cpu(), p)
+    g = torch.Generator(device=dev).manual_seed(1)
+    norm = {"scale": torch.ones(cfg.d_model, dtype=torch.bfloat16, device=dev)}
+    hidden = lambda *shape: layers.apply_norm(norm, torch.randn(  # noqa: E731
+        shape + (cfg.d_model,), generator=g, device=dev).to(torch.bfloat16))
+    x = hidden(1, MLA_TOKENS)
+    positions = torch.arange(MLA_TOKENS, device=dev)[None]
+    sto_step.reset_launches()
+    t0 = time.perf_counter()
+    y, cache = attention.mla_forward(p, cfg, x, positions, return_cache=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = sto_step.LAUNCHES["flash_attention"]
+    assert launches == 1, f"mla_forward on the card launched flash {launches} times"
+    t0 = time.perf_counter()
+    y_h, cache_h = attention.mla_forward(p_host, cfg, x.cpu(), positions.cpu(), return_cache=True)
+    host_s = time.perf_counter() - t0
+    pre = {"y": _held("prefill y", y, y_h, MLA_Y_RTOL)}
+    for k in ("c_kv", "k_rope"):
+        pre[k] = _held(f"prefill {k}", cache[k], cache_h[k], MLA_CACHE_RTOL)
+    print(f"5d(a) mla_forward, {MLA_TOKENS} tokens (flash_bf16<192>, {launches} launch) vs the "
+          f"host CPU's einsum path: {json.dumps(pre)}; card {card_s:.3f} s (first call), host CPU "
+          f"{host_s:.3f} s ({name_power})", flush=True)
+
+    r, dr = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+    latent = lambda w: torch.randn((LM_SLOTS, CAPACITY, w), generator=g,  # noqa: E731
+                                   device=dev).to(torch.bfloat16)
+    cache = {"c_kv": latent(r), "k_rope": latent(dr)}
+    before = {k: v.clone() for k, v in cache.items()}
+    cache_h = {k: v.cpu() for k, v in cache.items()}
+    xd = hidden(LM_SLOTS, 1)
+    pos = torch.tensor(MLA_DECODE_POS, device=dev)
+    t0 = time.perf_counter()
+    yd, out = attention.mla_decode(p, cfg, xd, cache, pos)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    assert out is cache, "mla_decode returned another cache"
+    yd_h, _ = attention.mla_decode(p_host, cfg, xd.cpu(), cache_h, pos.cpu())
+    dec = {"y": _held("decode y", yd, yd_h, MLA_Y_RTOL)}
+    rows = torch.arange(LM_SLOTS, device=dev)
+    written = torch.zeros((LM_SLOTS, CAPACITY), dtype=torch.bool, device=dev)
+    written[rows, pos] = True
+    for k in ("c_kv", "k_rope"):
+        assert torch.equal(cache[k][~written], before[k][~written]), f"5d(a) {k}: a row moved"
+        assert not torch.equal(cache[k][written], before[k][written]), f"5d(a) {k}: not written"
+        dec[k] = _held(f"decode {k} rows", cache[k][rows, pos], cache_h[k][rows.cpu(), pos.cpu()],
+                       MLA_CACHE_RTOL)
+    print(f"5d(a) mla_decode, {LM_SLOTS} rows at positions {list(MLA_DECODE_POS)} over a "
+          f"{CAPACITY}-row latent cache vs the host CPU: {json.dumps(dec)}; the cache written in "
+          f"place at exactly those rows, every other row bit-equal; card {card_s:.3f} s (first "
+          f"call) ({name_power})", flush=True)
+    for t in (y, yd):
+        assert torch.isfinite(t).all()
+    del p, p_host, cache, before, cache_h
+
+
+class _MlaTorchSpans:
+    """torch for models/attention.py, each einsum and the absorbed decode's
+    softmax inside a profiler span (phase 5d(d)'s split only)."""
+
+    LABELS = {"bsr,rhd->bshd": "mla decompression einsums"}
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @classmethod
+    def einsum(cls, eq, *ops):
+        with torch.profiler.record_function(cls.LABELS.get(eq, "mla absorbed einsums + softmax")):
+            return torch.einsum(eq, *ops)
+
+    @staticmethod
+    def softmax(*a, **kw):
+        with torch.profiler.record_function("mla absorbed einsums + softmax"):
+            return torch.softmax(*a, **kw)
+
+
+@contextlib.contextmanager
+def mla_spans(mla):
+    """Profiler spans around MLA's parts and the MoE layer, put in by this
+    script for a traced call: the q projection and its rope (_mla_qsplit),
+    wkv_a with the latent's norm and the rope key, the decompression einsums
+    (prefill), the absorbed einsums and softmax (decode), wo, and apply_moe as
+    a whole (`mla`: the config's MLAConfig). The flash kernel is read by its
+    name."""
+    from repro_torch.models import attention, moe
+
+    saved = (attention.torch, attention._mla_qsplit, attention.dense, attention.apply_norm,
+             attention.apply_rope, moe.apply_moe)
+    qsplit, dense, apply_norm, apply_rope, apply_moe = saved[1:]
+    in_q = []
+
+    def span(label, fn, *a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+
+    def q_part(*a, **kw):
+        in_q.append(True)
+        try:
+            return span("mla q projection + rope", qsplit, *a, **kw)
+        finally:
+            in_q.pop()
+
+    def dense_part(p, x):
+        if in_q:  # wq, inside the q span
+            return dense(p, x)
+        latent = p["kernel"].shape[-1] == mla.kv_lora_rank + mla.qk_rope_head_dim
+        return span("mla wkv_a + norm + rope" if latent else "mla wo", dense, p, x)
+
+    def rope_part(x, ang):
+        return apply_rope(x, ang) if in_q else span("mla wkv_a + norm + rope", apply_rope, x, ang)
+
+    attention.torch = _MlaTorchSpans()
+    attention._mla_qsplit = q_part
+    attention.dense = dense_part
+    attention.apply_norm = lambda *a, **kw: span("mla wkv_a + norm + rope", apply_norm, *a, **kw)
+    attention.apply_rope = rope_part
+    moe.apply_moe = lambda *a, **kw: span("moe layer", apply_moe, *a, **kw)
+    try:
+        yield
+    finally:
+        (attention.torch, attention._mla_qsplit, attention.dense, attention.apply_norm,
+         attention.apply_rope, moe.apply_moe) = saved
+
+
+MLA_SPLIT = {  # span label -> the split's part
+    "mla q projection + rope": "q projection + rope",
+    "mla wkv_a + norm + rope": "wkv_a + norm + rope",
+    "mla decompression einsums": "decompression einsums",
+    "mla absorbed einsums + softmax": "absorbed einsums + softmax",
+    "mla wo": "wo",
+    "moe layer": "MoE layer, all",
+}
+
+
+def mla_split(cfg, label, fn, name_power):
+    """fn traced once under mla_spans: device ms by MLA_SPLIT's parts."""
+    return span_split("5d(d)", label, fn, lambda: mla_spans(cfg.mla), MLA_SPLIT, name_power,
+                      parts=tuple(MLA_SPLIT.values()),
+                      rest="other (embedding, norms, the dense prefix MLP, head, casts)")
+def mla_prefill_bounds(cfg, prompt, kept):
+    """A prefill's operations bound (ms) two ways, as moe_prefill_bounds: MLA
+    as the port launches it (q, wkv_a, the decompression, attention at the
+    concat head dim on both products, wo) with the reference's MoE dispatch
+    (every expert's capacity slots and the one-hot products), and with only
+    the kept pairs' experts; bf16 products at the tensor peak, the f32 router
+    and head at the FP32 peak. Also the first's TFLOP, and the attention's
+    GFLOP a layer as launched and with P.V at v's own width."""
+    fp32, tensor, _ = peaks(torch.cuda.get_device_name(0))
+    m, d, h, t = cfg.moe, cfg.d_model, cfg.num_heads, prompt
+    r, dn, dr, dv = (cfg.mla.kv_lora_rank, cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim,
+                     cfg.mla.v_head_dim)
+    pairs = unmasked_pairs(t, t, True, 0)
+    attn, attn_own = 4 * h * (dn + dr) * pairs, 2 * h * pairs * (dn + dr + dv)
+    mla = (2 * t * d * h * (dn + dr) + 2 * t * d * (r + dr) + 2 * t * r * h * (dn + dv)
+           + 2 * t * h * dv * d + attn)
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_kinds())
+    e, f, fs = m.num_experts, m.d_ff_expert, m.d_ff_expert * m.num_shared
+    algo, router = 0.0, 0.0
+    for lo in range(0, t, m.router_chunk):
+        c = min(m.router_chunk, t - lo)
+        cap = max(1, math.ceil(c * m.top_k / e * m.capacity_factor))
+        algo += 3 * 2 * e * cap * d * f + 2 * 2 * c * e * cap * d
+        router += 2 * c * d * e
+    need = 3 * 2 * kept * d * f
+    common = cfg.num_layers * mla + n_moe * 3 * 2 * t * d * fs + 3 * 2 * t * d * cfg.d_ff
+    f32 = n_moe * router + 2 * d * cfg.padded_vocab  # the router; the last position's head
+    ms = lambda bf16: 1e3 * (bf16 / tensor + f32 / fp32)  # noqa: E731
+    return (ms(n_moe * algo + common), ms(need + common), (n_moe * algo + common + f32) / 1e12,
+            attn / 1e9, attn_own / 1e9)
+
+
+def mla_serve(name_power):
+    """5d(c) and (d): deepseek-v2-lite-16b served at full width; returns the
+    flash launches of the engine run and the timings."""
+    import dataclasses
+
+    from repro_torch import tree
+
+    cfg = get_config(MLA_ARCH)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"5d(c) {MLA_ARCH}: {n_params} parameters (count_params {counting.count_params(cfg)}, "
+          f"active {counting.count_params(cfg, active_only=True)}), init on the card "
+          f"{init_s:.3f} s, peak {init_peak / 2**30:.3f} GiB ({name_power})", flush=True)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, torch.from_numpy(rng.integers(0, cfg.vocab_size, n)), MAX_NEW)
+            for i, n in enumerate(PROMPTS)]
+    Engine(cfg, params, num_slots=2, capacity=64, device="cuda").run(
+        [Request(0, reqs[-1].prompt[:32], 2), Request(1, reqs[-1].prompt[:16], 2)])
+    torch.cuda.reset_peak_memory_stats()
+    eng, results, seconds, launches = moe_engine_run(cfg, params, reqs)
+    peak = torch.cuda.max_memory_allocated()
+    assert sorted(results) == [r.rid for r in reqs], f"served {sorted(results)}"
+    for r in reqs:
+        toks = results[r.rid]
+        assert len(toks) == MAX_NEW and all(0 <= t < cfg.vocab_size for t in toks), (r.rid, toks)
+    want = cfg.num_layers * len(PROMPTS)
+    assert launches["flash_attention"] == want, f"flash launches {launches} != {want}"
+    assert not any(launches[k] for k in STO_KERNELS), f"STO kernels launched: {launches}"
+    spec_bytes = sum(math.prod(sp.shape) * 2 for sp in tree.leaves(model.cache_specs(
+        LM_SLOTS, CAPACITY)))
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(eng.caches))
+    keys = sorted({k for layer in eng.caches["stack"] for k in layer["self"]})
+    assert cache_bytes == spec_bytes and keys == ["c_kv", "k_rope"], (cache_bytes, spec_bytes, keys)
+    st = eng.stats
+    print(f"5d(c) serve {MLA_ARCH}: {len(reqs)} requests, {sum(map(len, results.values()))} "
+          f"tokens in {seconds:.3f} s; prefill {st.prefill_tokens} tokens in "
+          f"{st.prefill_seconds:.3f} s = {st.prefill_tokens / st.prefill_seconds:.1f} tok/s; "
+          f"decode {st.decode_steps} steps, {st.decode_tokens} tokens in {st.decode_seconds:.3f} s "
+          f"= {st.decode_tokens / st.decode_seconds:.1f} tok/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"the latent cache ({keys}) {cache_bytes / 1e9:.3f} GB = cache_specs' "
+          f"{spec_bytes / 1e9:.3f} GB; launches {launches} ({name_power})", flush=True)
+    del eng
+    eng, again, _, _ = moe_engine_run(cfg, params, reqs)
+    same = all(again[r.rid] == results[r.rid] for r in reqs)
+    print(f"5d(c) a second engine run on the same requests bit-equal, token for token: {same}",
+          flush=True)
+    assert same, "the second engine run differs"
+
+    # (d) where the time goes: one 4608-token prefill and one batch-4 decode step
+    prompt = max(PROMPTS)
+    batch = {"tokens": reqs[0].prompt[None].cuda()}
+    prefill_ms = time_ms(lambda: model.prefill(params, batch), 3)
+    used = []
+    with route_spy(kept(used)):
+        model.prefill(params, batch)
+    bound, bound_need, tflop, attn_gflop, attn_own = mla_prefill_bounds(
+        cfg, prompt, sum(k for _, k in used))
+    print(f"5d(d) prefill {prompt} tokens: {prefill_ms:.3f} ms (CUDA events, median of 3); "
+          f"operations bound {bound:.3f} ms as the port launches MLA and the reference's dispatch "
+          f"computes the MoE ({tflop:.2f} TFLOP; {100 * bound / prefill_ms:.1f} %), "
+          f"{bound_need:.3f} ms for what the tokens need (kept pairs' experts only); attention "
+          f"{attn_gflop:.1f} GFLOP a layer as launched (QK and PV at {cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}), "
+          f"{attn_own:.1f} with PV at v's {cfg.mla.v_head_dim} ({name_power})", flush=True)
+    mla_split(cfg, f"prefill {prompt} tokens", lambda: model.prefill(params, batch), name_power)
+    tokens, caches = eng.next_tokens.clone(), eng.caches
+    pos = torch.tensor([n - 1 for n in PROMPTS[:LM_SLOTS]], device="cuda")
+    decode_ms = time_ms(lambda: model.decode_step(params, tokens, caches, pos), 5)
+    used = []
+    with route_spy(kept(used)):
+        model.decode_step(params, tokens, caches, pos)
+    bound, bound_need, gb, gb_need = moe_decode_bounds(cfg, LM_SLOTS, pos.cpu(), used)
+    print(f"5d(d) decode step, batch {LM_SLOTS}, capacity {CAPACITY}: {decode_ms:.3f} ms (CUDA "
+          f"events, median of 5); bytes bound {bound:.3f} ms ({gb:.2f} GB: every weight once, "
+          f"all {cfg.moe.num_experts} experts a layer as the reference's dispatch reads them, the "
+          f"latent rows up to each position; {100 * bound / decode_ms:.1f} %), {bound_need:.3f} ms "
+          f"({gb_need:.2f} GB) for the experts the step kept ({min(used)[0]}-{max(used)[0]} a "
+          f"layer, {sum(u for u, _ in used)} in all) ({name_power})", flush=True)
+    mla_split(cfg, f"decode step batch {LM_SLOTS}",
+              lambda: model.decode_step(params, tokens, caches, pos), name_power)
+    del caches, eng
+
+    # the no-drop witness: capacity num_experts / top_k keeps every token
+    m = cfg.moe
+    cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    model_nd = build_model(cfg_nd, device="cuda")
+    t_nd = time.perf_counter()
+    eng, results_nd, seconds, launches = moe_engine_run(cfg_nd, params, reqs)
+    del eng
+    assert launches["flash_attention"] == want, launches
+    changed = sum(results_nd[r.rid] != results[r.rid] for r in reqs)
+    print(f"5d(c) capacity factor {cfg_nd.moe.capacity_factor} (no drops): {len(reqs)} requests "
+          f"in {seconds:.3f} s; {changed} of {len(reqs)} requests' tokens differ from the "
+          f"capacity-{m.capacity_factor} run", flush=True)
+    no_drop_witness(model_nd, params, cfg_nd, reqs, results_nd, tag="5d(c)")
+    witness_s = time.perf_counter() - t_nd
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=want, peak=peak, init_peak=init_peak, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, witness_s=witness_s)
+
+
+def mla_phase(name, name_power):
+    """Phase 5d: MLA. Returns the flash kernel's deepseek-v2-lite row (D =
+    192) with the engine run's launches."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_layer_check(name_power)
+    cfg = get_config(MLA_ARCH)
+    flash = flash_case(name, MLA_ARCH, *MLA_FLASH_CASE,
+                       head_dim=cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                       v_dim=cfg.mla.v_head_dim)
+    t1 = time.perf_counter()
+    served = mla_serve(name_power)
+    seconds = time.perf_counter() - t0
+    print(f"phase 5d: {seconds:.1f} s ((a) and (b) {t1 - t0:.1f} s, (c) and (d) "
+          f"{seconds - (t1 - t0):.1f} s, of which the no-drop run and its witness "
+          f"{served['witness_s']:.1f} s) ({name_power})", flush=True)
+    keys = ("ms", "single_call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "share_of_bound", "max_abs_err", "row_rel_err", "head_dim", "v_dim",
+            "bound_ms_v_own_width")
+    return dict({k: flash[k] for k in keys}, launches=served["launches"])
+
+
+def mla_only():
+    """`chip_smoke.py --mla`: build the kernels and run phase 5d alone."""
+    name_power = card_line()
+    print(f"card: {name_power}", flush=True)
+    _build.load()
+    if _build.BUILD_LOG:
+        print(_build.BUILD_LOG.strip(), flush=True)
+    flash_config(torch.cuda.get_device_name(0))
+    mla_phase(torch.cuda.get_device_name(0), name_power)
+    print("5d held", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -4823,6 +5288,7 @@ def main():
     rows["flash_attention"] = check_flash(name)
     rows["flash_attention"]["launches"] = serve_lm(name_power)
     rows["flash_attention"]["qwen2_moe"] = moe_phase(name, name_power)
+    rows["flash_attention"]["deepseek_v2_lite"] = mla_phase(name, name_power)
     train_phase(name_power)
 
     kernels = [
@@ -4852,6 +5318,8 @@ if __name__ == "__main__":
         train_only()
     elif sys.argv[1:2] == ["--moe"]:
         moe_only()
+    elif sys.argv[1:2] == ["--mla"]:
+        mla_only()
     elif sys.argv[1:2] == ["--train-child"]:
         train_child()
     else:

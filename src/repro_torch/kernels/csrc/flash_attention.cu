@@ -38,14 +38,15 @@
 //     `full` mbarrier for K, one for V (TMA completes their byte counts) and
 //     an `empty` one (one arrive per consumer warp after its P.V). The
 //     producer waits on `empty` with the opposite parity, so the first
-//     STAGES loads go out at once. BK = 128 keys (64 at D = 256, to keep
-//     S, P and O within 232 registers); STAGES = 3 (2 at D >= 128, to fit
+//     STAGES loads go out at once. BK = 128 keys (64 at D = 192 and 256, to
+//     keep S, P and O within 232 registers); STAGES = 3 (2 at D >= 128, to fit
 //     227 KB). A block handles one q tile, so no phase carries over.
 //   * D in 128-byte swizzle atoms. A row of 64 bf16 is one atom. D = 80
 //     (h2o-danube) is one 64-column box with 128-byte swizzle plus a
 //     16-column box with 32-byte swizzle; D = 96 a 64-column box plus a
 //     32-column box with 64-byte swizzle; D = 32 that 32-column box alone;
-//     D = 64, 128, 256 one, two, four 64-column boxes. Every box has its own
+//     D = 64, 128, 192 (MLA's dn + dr), 256 one, two, three, four
+//     64-column boxes. Every box has its own
 //     tensor map and descriptor, so no column is padded and no FLOP wasted:
 //     S = Q K^T runs D / 16 k-steps (at D = 80: four in the first box, one
 //     in the tail) and O += P V one wgmma per box per k-step (n = 64 and
@@ -880,6 +881,7 @@ int flash_attention_fwd(int bf16, const void* q, const void* k, const void* v, v
         case 80: return launch<80>(a, bf16, batch, stream);
         case 96: return launch<96>(a, bf16, batch, stream);
         case 128: return launch<128>(a, bf16, batch, stream);
+        case 192: return launch<192>(a, bf16, batch, stream);
         case 256: return launch<256>(a, bf16, batch, stream);
         default: return cudaErrorInvalidValue;
     }
@@ -894,6 +896,7 @@ int flash_bf16_config(int d, int* out) {
         case 80: bf16_config<80>(out); return 0;
         case 96: bf16_config<96>(out); return 0;
         case 128: bf16_config<128>(out); return 0;
+        case 192: bf16_config<192>(out); return 0;
         case 256: bf16_config<256>(out); return 0;
         default: return cudaErrorInvalidValue;
     }

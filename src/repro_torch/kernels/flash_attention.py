@@ -40,7 +40,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401 (re-exported)
 
-HEAD_DIMS = (32, 64, 80, 96, 128, 256)  # the kernel's template instantiations
+HEAD_DIMS = (32, 64, 80, 96, 128, 192, 256)  # the kernel's template instantiations
 _DTYPES = (torch.bfloat16, torch.float32)
 TMAP_ERROR = 1000  # + CUresult: the driver refused a TMA tensor map
 
@@ -51,8 +51,8 @@ SMEM_LIMIT = 232448
 
 
 def kv_tile(d: int) -> int:
-    """Keys per KV tile: 64 at D = 256 (S, P and a 64 x 256 f32 O within a
-    consumer's registers), else 128."""
+    """Keys per KV tile: 64 above D = 128 (192, 256: S, P and a 64 x D f32 O
+    within a consumer's registers), else 128."""
     return 64 if d > 128 else 128
 
 

@@ -1,7 +1,7 @@
-"""Attention mixers: MHA/GQA/MQA and sliding-window attention.
+"""Attention mixers: MHA/GQA/MQA, sliding-window attention and MLA.
 
-The counterpart of the GQA/SWA half of the reference's models/attention.py.
-Two execution modes share one math core:
+The counterpart of the reference's models/attention.py (its cross-attention
+and encoder paths aside). Two execution modes share one math core:
     train / prefill  full-sequence self-attention (prefill also returns
                      the KV cache)
     decode           one token against a cache of capacity S
@@ -26,7 +26,14 @@ decode row is fully masked. The reference's q-chunked einsum path for long
 sequences (its REPRO_ATTN_* knobs) is not carried: on the card the kernel
 never materialises the (Sq, Sk) logits, and decode has Sq = 1.
 
-MLA (latent attention, deepseek-v2-lite) is not ported yet and raises.
+MLA (DeepSeek's multi-head latent attention, deepseek-v2-lite) keeps the
+reference's two paths. `mla_forward` (train / prefill) decompresses the
+latent into per-head k and v and folds the nope and rope logits into one
+`grouped_attend` call at head dim dn + dr (192 at full width, in HEAD_DIMS,
+so a bf16 prefill on the card runs the flash kernel), v zero-padded to that
+width and sliced back. `mla_decode` attends in latent space (the absorbed
+path) in f32, over a cache of only c_kv (B, S, r) and k_rope (B, S, dr),
+which it writes IN PLACE.
 """
 
 from __future__ import annotations
@@ -35,13 +42,17 @@ from typing import Optional, Tuple
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import require_full_f32_matmul
+from repro_torch.distributed.sharding import BATCH, MODEL, constrain
 from repro_torch.kernels.flash_attention import _DTYPES, HEAD_DIMS, flash_attention_bshd
-from repro_torch.models.layers import apply_rope, dense, make_dense, rope_freqs
+from repro_torch.models.layers import (
+    _normal, apply_norm, apply_rope, dense, make_dense, make_norm, rope_freqs,
+)
 
 NEG_INF = -1e30
-
-_MLA_TODO = "MLA attention (deepseek-v2-lite) is not ported yet: ROADMAP queue 1 item 13d"
 
 
 def make_attention(generator, cfg: ModelConfig, dtype):
@@ -198,13 +209,102 @@ def attn_decode(
     return y, cache
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_dims(cfg: ModelConfig):
+    mla = cfg.mla
+    return mla.kv_lora_rank, mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+
+
 def make_mla(generator, cfg: ModelConfig, dtype):
-    raise NotImplementedError(_MLA_TODO)
+    d, h = cfg.d_model, cfg.num_heads
+    r, dn, dr, dv = _mla_dims(cfg)
+    out_scale = (h * dv) ** -0.5 / (2.0 * cfg.num_layers) ** 0.5
+    return {
+        "wq": make_dense(generator, d, h * (dn + dr), dtype),
+        "wkv_a": make_dense(generator, d, r + dr, dtype),  # latent + shared rope key
+        "kv_norm": make_norm("rmsnorm", r, dtype, generator.device),
+        "w_uk": _normal(generator, (r, h, dn), r**-0.5, dtype),
+        "w_uv": _normal(generator, (r, h, dv), r**-0.5, dtype),
+        "wo": make_dense(generator, h * dv, d, dtype, scale=out_scale),
+    }
+
+
+def _mla_qsplit(p, cfg: ModelConfig, x, positions):
+    _, dn, dr, _ = _mla_dims(cfg)
+    q = dense(p["wq"], x).reshape(*x.shape[:-1], cfg.num_heads, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, rope_freqs(positions, dr, cfg.rope_theta))
+    return q_nope, q_rope
 
 
 def mla_forward(p, cfg: ModelConfig, x, positions, *, return_cache=False):
-    raise NotImplementedError(_MLA_TODO)
+    """Train / prefill MLA: decompress k and v and run standard attention.
+
+    The decoupled-rope logits q_nope.k_nope + q_rope.k_rope are one
+    grouped_attend call over the concatenated nope / rope components per
+    head (k_rope shared by every head); v is zero-padded to the concat width
+    and sliced back (the extra columns contribute nothing)."""
+    b, s, _ = x.shape
+    r, dn, dr, dv = _mla_dims(cfg)
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_qsplit(p, cfg, x, positions)
+
+    kv_a = dense(p["wkv_a"], x)  # (B, S, r + dr)
+    c_kv = apply_norm(p["kv_norm"], kv_a[..., :r])
+    k_rope = kv_a[..., r:].reshape(b, s, 1, dr)
+    k_rope = apply_rope(k_rope, rope_freqs(positions, dr, cfg.rope_theta))[:, :, 0]
+
+    k_nope = constrain(torch.einsum("bsr,rhd->bshd", c_kv, p["w_uk"]), BATCH, None, MODEL, None)
+    v = constrain(torch.einsum("bsr,rhd->bshd", c_kv, p["w_uv"]), BATCH, None, MODEL, None)
+
+    # torch.cat and F.pad write new contiguous tensors (the flash kernel's
+    # TMA maps need 16-byte rows; no stride-0 head axis reaches it)
+    qq = torch.cat([q_nope, q_rope], dim=-1)  # (B, S, H, dn + dr)
+    kk = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, dr)], dim=-1)
+    vv = F.pad(v, (0, dn + dr - dv))
+    out = grouped_attend(qq, kk, vv, causal=True, q_offset=0)[..., :dv]
+    y = dense(p["wo"], out.reshape(b, s, -1))
+    if return_cache:
+        return y, {"c_kv": c_kv, "k_rope": k_rope}
+    return y
 
 
 def mla_decode(p, cfg: ModelConfig, x, cache, pos):
-    raise NotImplementedError(_MLA_TODO)
+    """Absorbed-matrix MLA decode: attend in latent space over a cache of
+    r + dr values a token, W_uk folded into the query and W_uv into the
+    output, in f32 (full f32 on the card: TF32 off). Writes the new token's
+    c_kv and k_rope rows into `cache` IN PLACE and returns it (the reference
+    returns a new cache)."""
+    b = x.shape[0]
+    r, dn, dr, _ = _mla_dims(cfg)
+    q_nope, q_rope = _mla_qsplit(p, cfg, x, pos[:, None])  # (B, 1, H, *)
+
+    kv_a = dense(p["wkv_a"], x)  # (B, 1, r + dr)
+    c_new = apply_norm(p["kv_norm"], kv_a[..., :r])[:, 0]  # (B, r)
+    k_rope_new = kv_a[..., r:].reshape(b, 1, 1, dr)
+    k_rope_new = apply_rope(k_rope_new, rope_freqs(pos[:, None], dr, cfg.rope_theta))[:, 0, 0]
+
+    bidx = torch.arange(b, device=x.device)
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]  # (B, S, r), (B, S, dr)
+    c_cache[bidx, pos.long()] = c_new.to(c_cache.dtype)
+    r_cache[bidx, pos.long()] = k_rope_new.to(r_cache.dtype)
+
+    if x.device.type == "cuda":
+        require_full_f32_matmul()
+    c32 = c_cache.float()
+    # absorb W_uk into q: (B, 1, H, dn) x (r, H, dn) -> (B, H, r)
+    q_lat = torch.einsum("bqhd,rhd->bhr", q_nope.float(), p["w_uk"].float())
+    lg = torch.einsum("bhr,bsr->bhs", q_lat, c32)
+    lg = lg + torch.einsum("bqhd,bsd->bhs", q_rope.float(), r_cache.float())
+    lg = lg * (dn + dr) ** -0.5
+    mask = torch.arange(c_cache.shape[1], device=x.device)[None, :] <= pos[:, None]  # (B, S)
+    lg = lg.masked_fill(~mask[:, None], NEG_INF)
+    pr = torch.softmax(lg, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pr, c32)
+    out = torch.einsum("bhr,rhd->bhd", ctx, p["w_uv"].float()).to(x.dtype)
+    y = dense(p["wo"], out.reshape(b, 1, -1))
+    return y, cache

@@ -1,5 +1,5 @@
-"""Model assembly for the attention family: token input, `attn` and `swa`
-mixers, `mlp` and `moe` channel mixers, no encoder.
+"""Model assembly for the attention family: token input, `attn`, `swa` and
+`mla` mixers, `mlp` and `moe` channel mixers, no encoder.
 
 The counterpart of the reference's models/transformer.py. A config's layer
 plan is `prefix` (unstacked) + `period` x num_periods. As in the reference,
@@ -15,15 +15,18 @@ reference's REPRO_REMAT_POLICY=dots knob (keep the matmul outputs) is not
 carried, nor are `scan_unroll` and the sequence-parallel knob
 (REPRO_SEQ_PARALLEL, a model-axis layout).
 
-Decode writes each new token's k/v into the caches IN PLACE and returns the
-same dict (the reference returns new caches).
+Decode writes each new token's k/v (an `mla` layer: its c_kv and k_rope
+latent rows) into the caches IN PLACE and returns the same dict (the
+reference returns new caches). As in the reference, a parallel block
+(`cfg.parallel_block`) runs the MLP beside the mixer in the forward for every
+attention-like mixer, and at decode only for `attn` / `swa`.
 
 A `moe` layer returns its router's aux loss; the stack sums it over the
 prefix layers and the periods (through the checkpointed period body under
 remat), in the reference's order.
 
-Layers the port does not run yet (MLA, Mamba, xLSTM, an encoder, embedding
-input) raise NotImplementedError naming their ROADMAP item.
+Layers the port does not run yet (Mamba, xLSTM, an encoder, embedding input)
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from repro_torch.tree import tree_map  # noqa: F401 (the package's name for it)
 
 # what each refused feature waits for (ROADMAP queue 1, item 13)
 _TODO = {
-    "mla": "MLA attention: ROADMAP queue 1 item 13d",
     "mamba": "Mamba layers: ROADMAP queue 1 item 13e",
     "mlstm": "xLSTM layers: ROADMAP queue 1 item 13f",
     "slstm": "xLSTM layers: ROADMAP queue 1 item 13f",
@@ -67,7 +69,7 @@ def check_supported(cfg: ModelConfig) -> None:
         for part in (spec.mixer, spec.mlp):
             if part in _TODO:
                 raise NotImplementedError(f"{cfg.name}: {_TODO[part]}")
-        if spec.mixer not in ("attn", "swa") or spec.mlp not in ("mlp", "moe", "none"):
+        if spec.mixer not in ("attn", "swa", "mla") or spec.mlp not in ("mlp", "moe", "none"):
             raise ValueError(f"{cfg.name}: unknown layer {spec}")
     if cfg.pos_type not in ("rope", "none"):
         raise NotImplementedError(
@@ -84,7 +86,10 @@ def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype):
     p: Dict[str, Any] = {}
     dev = generator.device
     p["mixer_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
-    p["mixer"] = attention.make_attention(generator, cfg, dtype)
+    if spec.mixer == "mla":
+        p["mixer"] = attention.make_mla(generator, cfg, dtype)
+    else:
+        p["mixer"] = attention.make_attention(generator, cfg, dtype)
     if spec.mlp == "mlp":
         p["mlp_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
         out_scale = cfg.d_ff**-0.5 / (2.0 * cfg.num_layers) ** 0.5
@@ -106,9 +111,13 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
     want_cache = mode == "prefill"
     window = cfg.sliding_window if spec.mixer == "swa" else 0
     xn = layers.apply_norm(p["mixer_norm"], x)
-    out = attention.attn_forward(
-        p["mixer"], cfg, xn, positions, causal=causal, window=window, return_cache=want_cache,
-    )
+    if spec.mixer == "mla":
+        out = attention.mla_forward(p["mixer"], cfg, xn, positions, return_cache=want_cache)
+    else:
+        out = attention.attn_forward(
+            p["mixer"], cfg, xn, positions, causal=causal, window=window,
+            return_cache=want_cache,
+        )
     cache = None
     if want_cache:
         y_attn, kv = out
@@ -133,8 +142,11 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
     """One-token layer step; updates `cache` in place. Returns (x, cache)."""
     window = cfg.sliding_window if spec.mixer == "swa" else 0
     xn = layers.apply_norm(p["mixer_norm"], x)
-    y, _ = attention.attn_decode(p["mixer"], cfg, xn, cache["self"], pos, window=window)
-    if cfg.parallel_block and "mlp" in p:
+    if spec.mixer == "mla":
+        y, _ = attention.mla_decode(p["mixer"], cfg, xn, cache["self"], pos)
+    else:
+        y, _ = attention.attn_decode(p["mixer"], cfg, xn, cache["self"], pos, window=window)
+    if cfg.parallel_block and spec.mixer in ("attn", "swa") and "mlp" in p:
         y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
         return x + y + y_mlp, cache
     x = x + y
@@ -149,6 +161,10 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
 
 
 def _layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch, seq, dtype):
+    if spec.mixer == "mla":
+        mla = cfg.mla
+        return {"self": {"c_kv": TensorSpec((batch, seq, mla.kv_lora_rank), dtype),
+                         "k_rope": TensorSpec((batch, seq, mla.qk_rope_head_dim), dtype)}}
     sd = TensorSpec((batch, seq, cfg.num_kv_heads, cfg.head_dim), dtype)
     return {"self": {"k": sd, "v": sd}}
 
@@ -316,13 +332,14 @@ def decode_step(p, cfg: ModelConfig, tokens, caches, pos):
     return logits, caches
 
 
-_SEQ_CACHE_KEYS = ("k", "v")
+_SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")
 
 
 def pad_caches(cfg: ModelConfig, caches, capacity: int):
     """Grow prefill caches (seq axis) to `capacity` with zeros so decode can
-    append. Self caches in the period stack carry a leading num_periods axis
-    (seq axis 2); prefix-layer caches have it at axis 1."""
+    append: attention k / v (B, S, KVH, D) and MLA latents c_kv (B, S, r) /
+    k_rope (B, S, dr). Self caches in the period stack carry a leading
+    num_periods axis (seq axis 2); prefix-layer caches have it at axis 1."""
 
     def pad_layer(c, stacked):
         out = {}

@@ -4,7 +4,8 @@ The counterpart of the reference's serve/engine.py: vLLM-style slot
 scheduling on top of the model's prefill/decode steps. A fixed decode batch
 of `num_slots` sequences; whenever a sequence finishes (max tokens here),
 its slot is refilled by prefilling the next queued request and SPLICING its
-KV cache into the batched cache at that slot, so decode never stalls on
+cache (attention k / v, or an MLA layer's c_kv / k_rope latents) into the
+batched cache at that slot, so decode never stalls on
 stragglers. Idle slots decode too (at position 0, against stale rows that
 the kv_len mask hides) and are ignored.
 
@@ -23,7 +24,8 @@ order.
 Under capacity routing (an MoE layer whose capacity factor can drop tokens,
 such as qwen2-moe's 1.25), decode rows are coupled, in both packages. A
 decode step's router chunk is the whole slot batch, so at 4 slots, top-4 of
-60 experts, an expert holds ceil(4 * 4 / 60 * 1.25) = 1 token, and a row
+60 experts, an expert holds ceil(4 * 4 / 60 * 1.25) = 1 token (deepseek-v2-
+lite, top-6 of 64: ceil(4 * 6 / 64 * 1.25) = 1 as well), and a row
 loses an expert's output to any earlier row that chose the same expert.
 Idle slots decode too, so they take capacity as well. That is the
 reference's behaviour and the port keeps it (no row is masked from the

@@ -3,7 +3,9 @@ and flash attention) against their plain PyTorch versions on a card, and the
 online learners, the scan oracle and the physics families' engines there,
 and a sharded plan on a world-size-1 NCCL mesh, and training: the routing
 of a step's attention around the flash kernel, one train step against the
-CPU's, and a crash and resume.
+CPU's, and a crash and resume; and MLA: the flash kernel at D = 192 with a
+zero-padded v, a reduced deepseek-v2-lite at the full MLA dims served as on
+the CPU through the kernel, and its gradients against the CPU's.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -394,7 +396,8 @@ def test_flash_matches_plain(cuda, dtype, shape, causal, window):
 # Sk of many KV tiles with the last one ragged, every residue of the tile
 # count modulo the ring depth (3 at D = 80, 2 at D = 128 and 256), so the
 # mbarrier parities wrap at every point of the ring
-RING_CASES = [(80, 16), (80, 17), (80, 18), (128, 16), (128, 17), (256, 16), (256, 17)]
+RING_CASES = [(80, 16), (80, 17), (80, 18), (128, 16), (128, 17), (192, 16), (192, 17),
+              (256, 16), (256, 17)]
 
 
 @pytest.mark.cuda
@@ -460,6 +463,26 @@ def test_flash_bf16_config_matches_mirror(cuda):
         out = (ctypes.c_int * 4)()
         assert _build.load().flash_bf16_config(d, out) == 0
         assert list(out) == [fa.ROWS, fa.kv_tile(d), fa.ring_depth(d), fa.smem_bytes(d)], d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,sk", [(129, 129), (1000, 1000), (129, 1000)])
+def test_flash_at_mla_head_dim_matches_plain(cuda, dtype, sq, sk):
+    """flash_bf16<192> and flash_f32<192> at MLA's prefill call shape (H =
+    KVH, D = dn + dr = 192, v zero-padded from dv = 128) against the plain
+    version, at ragged lengths; the pad columns come back exactly 0."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(cuda, 1, 4, 4, sq, sk, 192, dtype, seed=sq + sk)
+    v[..., 128:] = 0
+    sto_step.reset_launches()
+    out = fa.flash_attention_bshd(q, k, v, causal=True)
+    assert sto_step.LAUNCHES["flash_attention"] == 1
+    ref = _plain_bshd(q, k, v, True, 0)
+    assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL[dtype]
+    assert _row_rel_err(out[..., :128], ref[..., :128]) <= FLASH_RTOL[dtype]
+    assert torch.equal(out[..., 128:], torch.zeros_like(out[..., 128:]))
 
 
 @pytest.mark.cuda
@@ -1242,6 +1265,80 @@ def test_reduced_moe_serves_on_cuda(cuda, capacity_factor, capsys):
     launch_serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--requests", "3",
                        "--slots", "2", "--gen", "4", "--prompt-len", "20"])
     assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+def _mla_cfg(dtype="float32"):
+    """Reduced deepseek-v2-lite (f32, 2 layers: the dense prefix and one MoE
+    period) with its MLA dims set back to the full ones, so that a prefill's
+    concat head dim is 192, one the flash kernel takes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(reduce_config(full), mla=full.mla, dtype=dtype)
+    assert cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim == 192
+    return cfg
+
+
+@pytest.mark.cuda
+def test_reduced_mla_serves_on_cuda(cuda, capsys):
+    """The reduced deepseek at the full MLA dims: every prefill runs the flash
+    kernel (one launch a layer), decode the absorbed einsums, and the engine
+    generates the CPU's tokens; the launcher serves the reduced config with
+    its default device."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model, transformer
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = _mla_cfg()
+    params = build_model(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 19, 24, 17)]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = transformer.tree_map(lambda t: t.to(dev), params)
+        reqs = [Request(i, torch.from_numpy(x), 6) for i, x in enumerate(prompts)]
+        sto_step.reset_launches()
+        out[str(dev)] = Engine(cfg, p, num_slots=2, capacity=32, device=dev).run(reqs)
+        want = cfg.num_layers * len(prompts) if dev != "cpu" else 0
+        assert sto_step.LAUNCHES["flash_attention"] == want, (dev, dict(sto_step.LAUNCHES))
+    assert out["cpu"] == out["cuda"]
+    launch_serve.main(["--arch", "deepseek-v2-lite-16b", "--reduced", "--requests", "3",
+                       "--slots", "2", "--gen", "4", "--prompt-len", "20"])
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_reduced_mla_grads_on_the_card_match_the_cpu(cuda):
+    """The reduced deepseek at the full MLA dims: the loss and every gradient
+    leaf on the card against the CPU's within TRAIN_RTOL, with no flash launch
+    under grad; under no_grad the loss launches it once a layer and agrees
+    within 5e-3."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    cfg = _mla_cfg()
+    model, model_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params = model.init(0)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4))
+    b_cpu, b_gpu = to_device(data.batch(0), "cpu"), to_device(data.batch(0), "cuda")
+    rel = lambda a, b: float((a.detach().cpu().double() - b.detach().double()).abs().max()  # noqa: E731
+                             / b.detach().double().abs().max().clamp(min=1e-30))
+    p_gpu = _tree_to(params, cuda)
+    sto_step.reset_launches()
+    loss_gpu, g_gpu = steps.loss_and_grads(model_gpu, p_gpu, b_gpu)
+    assert sto_step.LAUNCHES["flash_attention"] == 0
+    loss_cpu, g_cpu = steps.loss_and_grads(model, params, b_cpu)
+    assert rel(loss_gpu, loss_cpu) <= TRAIN_RTOL
+    for a, b in zip(tree.leaves(g_gpu), tree.leaves(g_cpu)):
+        assert rel(a, b) <= TRAIN_RTOL
+    with torch.no_grad():
+        flash_loss, _ = model_gpu.loss_fn(p_gpu, b_gpu)
+    assert sto_step.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert abs(float(flash_loss) - float(loss_gpu)) <= 5e-3 * abs(float(loss_gpu))
 
 
 @pytest.mark.cuda

@@ -15,8 +15,9 @@ token is checked teacher-forced: its logit must be within from test_torch_models
 MARGIN = 1e-4
 (f32) of the step's maximum. Where the port's and the reference's greedy
 tokens differ, the first differing step must be such a near-tie in the
-reference's own logits; no request is skipped. For qwen2-moe at its
-published capacity factor ("+cap") decode rows are coupled (a decode step's
+reference's own logits; no request is skipped. For qwen2-moe and
+deepseek-v2-lite (MLA: a latent cache, spliced at the prefix layer and the
+period stack) at their published capacity factor ("+cap") decode rows are coupled (a decode step's
 router chunk is the whole slot batch, one slot an expert), so a flip there
 is held in the reference engine's own batch geometry: its logits recorded at
 the step that chose the token.
@@ -153,7 +154,8 @@ def _batch_margin_at(steps, rid, j, tok):
 
 
 @pytest.mark.parametrize("variant", ["h2o-danube-1.8b", "h2o-danube-1.8b+gqa", "gemma-7b",
-                                     "qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap"])
+                                     "qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap",
+                                     "deepseek-v2-lite-16b", "deepseek-v2-lite-16b+cap"])
 def test_engine_matches_reference_engine(variant):
     jcfg, cfg = _cfg(variant, jax_side=True), _cfg(variant)
     jm = jax_build_model(jcfg)
@@ -281,6 +283,23 @@ def test_launcher_trains_reduced_moe_on_cpu(tmp_path, capsys):
 
     launch_train.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--steps", "3", "--batch", "2",
                        "--seq", "16", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert "done: final loss" in capsys.readouterr().out
+    assert (tmp_path / "step_00000002").is_dir()
+
+
+def test_launcher_serves_reduced_mla_on_cpu(capsys):
+    launch_serve.main(["--arch", "deepseek-v2-lite-16b", "--reduced", "--requests", "3",
+                       "--slots", "2", "--gen", "4", "--prompt-len", "20", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out and "on cpu" in out
+
+
+def test_launcher_trains_reduced_mla_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train as launch_train
+
+    launch_train.main(["--arch", "deepseek-v2-lite-16b", "--reduced", "--steps", "3",
+                       "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path),
+                       "--device", "cpu"])
     assert "done: final loss" in capsys.readouterr().out
     assert (tmp_path / "step_00000002").is_dir()
 

@@ -8,9 +8,10 @@ are reduced (d_model 64, one period, f32): h2o-danube (SWA, window 16),
 phi4-mini, gemma-7b (geglu, embed_scale, tied head), command-r-plus
 (layernorm, parallel block), a GQA variant of h2o-danube with 2 kv heads
 (reduce_config collapses GQA to MHA), and qwen2-moe (MoE layers, q/k/v
-biases) at reduce_config's dropless capacity and, as "+cap", at its
-published capacity factor 1.25, where decode rows compete for an expert's
-slots. The qwen2-moe variants draw their q/k/v biases from a seed (the
+biases) and deepseek-v2-lite (MLA mixers, a dense prefix layer with its own
+latent cache, then MoE periods), each at reduce_config's dropless capacity
+and, as "+cap", at its published capacity factor 1.25, where decode rows
+compete for an expert's slots. The qwen2-moe variants draw their q/k/v biases from a seed (the
 reference's init leaves them zero), so the bias path is held too. Prompts
 are longer than the window and decode runs past it, so the band bites.
 
@@ -45,11 +46,11 @@ LOGIT_ATOL = 1e-4
 LAYER_ATOL = 1e-5
 DENSE_ARCHS = ["h2o-danube-1.8b", "phi4-mini-3.8b", "gemma-7b", "command-r-plus-104b"]
 REFUSED_ARCHS = [
-    "deepseek-v2-lite-16b", "jamba-1.5-large-398b", "xlstm-125m",
-    "whisper-base", "llava-next-mistral-7b",
+    "jamba-1.5-large-398b", "xlstm-125m", "whisper-base", "llava-next-mistral-7b",
 ]
 MOE_VARIANTS = ["qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap"]
-VARIANTS = DENSE_ARCHS + ["h2o-danube-1.8b+gqa"] + MOE_VARIANTS
+MLA_VARIANTS = ["deepseek-v2-lite-16b", "deepseek-v2-lite-16b+cap"]
+VARIANTS = DENSE_ARCHS + ["h2o-danube-1.8b+gqa"] + MOE_VARIANTS + MLA_VARIANTS
 
 
 def _cfgs(variant):
@@ -153,11 +154,10 @@ def test_build_model_refuses_unported_layers(arch):
         build_model(reduce_config(get_config(arch)), device="cpu")
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-v2-lite-16b", "13d"),
-                                       ("jamba-1.5-large-398b", "13e")])
+@pytest.mark.parametrize("arch,item", [("jamba-1.5-large-398b", "13e")])
 def test_moe_archs_still_refused_name_their_item(arch, item):
-    """deepseek (MLA) and jamba (Mamba) have MoE layers too; they wait for
-    their other layer, and say which."""
+    """jamba (Mamba) has MoE layers too; it waits for its other layer, and
+    says which."""
     for cfg in (get_config(arch), reduce_config(get_config(arch))):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             build_model(cfg, device="cpu")
@@ -272,6 +272,8 @@ def test_grouped_attend_prefill_and_decode(kvh, window):
 
 
 def test_attn_forward_and_decode(pair):
+    """The first period's mixer (attn_forward / attn_decode, or for an MLA
+    config mla_forward / mla_decode over its latent cache)."""
     cfg, jcfg = pair["cfg"], pair["jcfg"]
     lp_j = jax.tree.map(lambda a: a[0], pair["jp"]["stack"][0]["mixer"])
     lp_t = transformer.tree_map(lambda t: t[0], pair["p"]["stack"][0]["mixer"])
@@ -279,6 +281,9 @@ def test_attn_forward_and_decode(pair):
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
     posn = np.tile(np.arange(24, dtype=np.int32), (2, 1))
+    if cfg.mla is not None:
+        _mla_forward_and_decode(cfg, jcfg, lp_t, lp_j, rng, x, posn)
+        return
     jy, jc = jax_attention.attn_forward(lp_j, jcfg, jnp.asarray(x), jnp.asarray(posn),
                                         window=window, return_cache=True)
     ty, tc = attention.attn_forward(lp_t, cfg, torch.from_numpy(x), torch.from_numpy(posn),
@@ -300,9 +305,27 @@ def test_attn_forward_and_decode(pair):
     _cache_close(jc, tc, LOGIT_ATOL)
 
 
-def test_mla_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.make_mla(torch.Generator(), get_config("deepseek-v2-lite-16b"), torch.float32)
+def _mla_forward_and_decode(cfg, jcfg, lp_t, lp_j, rng, x, posn):
+    jy, jc = jax_attention.mla_forward(lp_j, jcfg, jnp.asarray(x), jnp.asarray(posn),
+                                       return_cache=True)
+    ty, tc = attention.mla_forward(lp_t, cfg, torch.from_numpy(x), torch.from_numpy(posn),
+                                   return_cache=True)
+    _close(ty.numpy(), jy, LOGIT_ATOL)
+    _cache_close(jc, tc, LOGIT_ATOL)
+    # one decode step on a latent cache of capacity 32, rows past each pos stale
+    r, dr = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+    c = rng.standard_normal((2, 32, r)).astype(np.float32)
+    kr = rng.standard_normal((2, 32, dr)).astype(np.float32)
+    xd = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    pos = np.array([20, 31], np.int32)
+    jy, jc = jax_attention.mla_decode(lp_j, jcfg, jnp.asarray(xd),
+                                      {"c_kv": jnp.asarray(c), "k_rope": jnp.asarray(kr)},
+                                      jnp.asarray(pos))
+    tcache = {"c_kv": torch.from_numpy(c.copy()), "k_rope": torch.from_numpy(kr.copy())}
+    ty, tc = attention.mla_decode(lp_t, cfg, torch.from_numpy(xd), tcache, torch.from_numpy(pos))
+    assert tc is tcache  # in place
+    _close(ty.numpy(), jy, LOGIT_ATOL)
+    _cache_close(jc, tc, LOGIT_ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +366,7 @@ def test_prefill_then_decode(pair):
 
 
 def test_cache_and_input_specs():
-    for arch in DENSE_ARCHS + ["qwen2-moe-a2.7b"]:
+    for arch in DENSE_ARCHS + ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]:
         cfg, jcfg = get_config(arch), jax_get_config(arch)
         ours = transformer.cache_specs(cfg, 4, 4640)
         ref = jax_transformer.cache_specs(jcfg, 4, 4640)

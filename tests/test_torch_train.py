@@ -429,7 +429,7 @@ def test_cross_entropy_matches_reference(s, chunk):
 
 
 @pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "gemma-7b"])
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "gemma-7b", "deepseek-v2-lite-16b"])
 def test_loss_and_grads_match_reference(arch, remat):
     jcfg, cfg = _cfgs(arch, remat=remat)
     jm = jbuild(jcfg)
@@ -647,6 +647,9 @@ def test_port_train_resumes_a_reference_run(tmp_path):
 # ---------------------------------------------------------------------------
 
 MESH_AXES = [((2, 4), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
+# deepseek: MLA's leaves (wkv_a replicated, w_uk / w_uv heads on model) and
+# its latent cache (c_kv / k_rope), a prefix layer beside the period stack
+LAYOUT_ARCHS = DENSE_ARCHS + ["deepseek-v2-lite-16b"]
 
 
 def _specs_equal(ours, ref_shardings):
@@ -658,7 +661,7 @@ def _specs_equal(ours, ref_shardings):
 
 
 @pytest.mark.parametrize("shape,names", MESH_AXES)
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", LAYOUT_ARCHS)
 def test_param_specs_match_reference(arch, shape, names):
     jmesh, mesh = JAbstractMesh(shape, names), shd.AbstractMesh(shape, names)
     jcfg, cfg = jget(arch), get_config(arch)
@@ -671,7 +674,7 @@ def test_param_specs_match_reference(arch, shape, names):
 
 @pytest.mark.parametrize("mode", ["auto", "0", "1"])
 @pytest.mark.parametrize("shape,names", MESH_AXES)
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", LAYOUT_ARCHS)
 def test_batch_and_cache_specs_match_reference(arch, shape, names, mode, monkeypatch):
     monkeypatch.setenv("REPRO_KV_SEQ_SHARD", mode)
     jmesh, mesh = JAbstractMesh(shape, names), shd.AbstractMesh(shape, names)

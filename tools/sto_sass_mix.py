@@ -49,7 +49,7 @@ KERNELS = {
 }
 # label -> (mangled-name fragment, the opcode whose loop is reported)
 STEP_LOOPS = {"tm_delay_line_kernel RK4 step": ("tm_delay_line_kernel", "FMUL")}
-FLASH_DIMS = (32, 64, 80, 96, 128, 256)
+FLASH_DIMS = (32, 64, 80, 96, 128, 192, 256)
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
