@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train        # phase 5b alone
     python3 chip_smoke.py --moe          # phase 5c alone
     python3 chip_smoke.py --mla          # phase 5d alone
+    python3 chip_smoke.py --recurrent    # phase 5e alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -257,22 +258,23 @@ on failure:
    it), with no flash launch;
    (b) h2o-danube-1.8b at full width (24 layers, d_model 2560, bf16, remat
    on, AdamW, SyntheticTokens seed 0, batch 4 x 512, lr 1e-3, warmup 5) for
-   20 steps: every loss and grad norm finite, the mean of the last 5 losses
+   TRAIN_STEPS = 10 steps: every loss and grad norm
+   finite, the mean of the last 5 losses
    LOSS_DROP below the first 5's; ms a step (CUDA events), tokens/s, peak
    device memory; 3 more steps split into forward + backward, global norm +
    clip and the AdamW update beside its bytes bound; one step under
    torch.profiler (busy share, top device ops); one checkpoint of the
    trained tree's first 2 layers (~3 GB, under build/) written from a host
    copy, the device tree freed, read back on the host bit-equal, its GB and
-   seconds printed, then removed; (c) at 2 layers
-   (full width), 12 steps with a checkpoint every 4 and a crash injected at
+   seconds printed, then removed; (c) at RESUME_LAYERS = 1 layer (2 until PR
+   26; full width), 12 steps with a checkpoint every 4 and a crash injected at
    step 9, relaunched: it resumes at step 8 and its losses are within
    RESUME_RTOL of an uninterrupted run's (bit-equal or not printed); (d) on
    (b)'s first batch, loss_fn under torch.no_grad() launches the flash
-   kernel once a layer (24), the 20 steps none, and the two losses agree
+   kernel once a layer (24), the TRAIN_STEPS steps none, and the two losses agree
    within ROUTING_RTOL; (e) in a child process (`chip_smoke.py
    --train-child`, rank 0 of an NCCL world of one over a FileStore,
-   CUBLAS_WORKSPACE_CONFIG set), 4 steps at 2 layers on a (1, 1) ("data",
+   CUBLAS_WORKSPACE_CONFIG set), 4 steps at RESUME_LAYERS layers on a (1, 1) ("data",
    "model") mesh bit-equal to the run without a mesh under
    torch.use_deterministic_algorithms(True), in losses and final
    parameters (read from each run's final checkpoint), the all-reduces
@@ -295,9 +297,10 @@ on failure:
    4608 tokens, causal, no window) against its plain version by phase 4's
    two measures, beside SDPA's flash backend; (c) 8 requests (phase 5's
    prompts, 32 new tokens each) through the Engine at qwen2-moe-a2.7b's
-   full width (24 layers, bf16, random weights from seed 0, 4 slots,
-   capacity 4640), counters set to 0 before the run: 32 tokens in [0,
-   vocab) each, flash launched 24 x 8 times, no STO kernel; a second engine
+   full width, cut in depth to its first MOE_SERVE_LAYERS = 2 of 24 layers
+   (bf16, random weights from seed 0, 4 slots, capacity 4640),
+   counters set to 0 before the run: 32 tokens in [0, vocab) each, flash
+   launched 2 x 8 times, no STO kernel; a second engine
    run bit-equal token for token; then the config at capacity factor
    num_experts / top_k (no drops) served again and held to phase 5's
    teacher-forced witness (the request alone in the engine's 4-row
@@ -330,9 +333,11 @@ on failure:
    (its flash backend, or the backend that ran if that one refuses D = 192),
    with the bound as launched and with P.V at v's own width; (c) 8 requests
    (phase 5's prompts, 32 new tokens each) through the Engine at
-   deepseek-v2-lite-16b's full width (27 layers, bf16, random weights from
-   seed 0, 4 slots, capacity 4640), counters set to 0 before the run: 32
-   tokens in [0, vocab) each, flash launched 27 x 8 times, no STO kernel,
+   deepseek-v2-lite-16b's full width, cut in depth to MLA_SERVE_LAYERS = 2
+   of 27 layers (the dense prefix and one MoE period; bf16,
+   random weights from seed 0, 4 slots, capacity 4640), counters set to 0
+   before the run: 32 tokens in [0, vocab) each, flash launched 2 x 8
+   times, no STO kernel,
    the latent cache's bytes those of cache_specs; a second engine run
    bit-equal token for token; then the config at capacity factor
    num_experts / top_k (no drops) served again and held to phase 5's
@@ -345,9 +350,59 @@ on failure:
    the decompression einsums, the absorbed einsums and softmax, wo) and the
    MoE layer: device ms per part beside the flash kernel's. Prints the
    phase's seconds. `python3 chip_smoke.py --mla` runs it alone.
+5e. The recurrent mixers (models/mamba.py, models/xlstm.py), run after phase
+   5d (whose tree is freed): (a) one Mamba layer of jamba-1.5-large at full
+   width (make_mamba from seed 0, bf16: d_model 8192, d_inner 16384, d_state
+   16, dt_rank 512, chunk 64) on normalised hidden states, the card against
+   the host CPU on the same tensors by phase 4's two measures
+   (MAMBA_Y_RTOL, MAMBA_STATE_RTOL, MAMBA_TAIL_RTOL; h's row measure over
+   the row's largest term magnitude, as it sums terms of both signs):
+   mamba_forward over
+   MAMBA_TOKENS = 1024 + 37 tokens (y, h, conv_tail; the last chunk padded),
+   mamba_decode on a 4-row batch with states from a seed (y and the cache,
+   written in place: the same tensors, the tail shifted by a row); chunks of
+   64 against one chunk of the whole sequence on the card
+   (MAMBA_CHUNK_RTOL); a 4608-token prefill and a batch-4 decode step timed
+   on the card (CUDA events) and on the host CPU, beside their bounds; (b)
+   the flash kernel at jamba's attention call (H 64, KVH 8: a GQA group of
+   8, D 128, no RoPE, 4608 tokens, causal) against its plain version by
+   phase 4's two measures, beside SDPA's flash backend, with its bound; (c)
+   jamba cut in depth to its period's first 4 layer specs (num_layers 4: 3
+   Mamba layers, the attention layer, 2 MoE and 2 MLP channel mixers, 23.0 B
+   parameters, ~46 GB in bf16; the whole 72-layer model, 398.6 B, fits no
+   card; the cut is jamba_cut(), not a registered config) served at full
+   width: 8 requests (phase 5's prompts, 32 new tokens each), random weights
+   from seed 0, 4 slots, capacity 4640, counters set to 0 before the run:
+   tokens in [0, vocab), flash launched 1 x 8 times, no STO kernel; a second
+   run bit-equal; 4 requests admitted into a fresh engine, each slot's h and
+   conv_tail bit-equal to its lone prefill's; the config at capacity factor
+   num_experts / top_k (no drops) held to phase 5's teacher-forced witness
+   in the engine's 4-row geometry (every gap 0); prefill and decode tokens/s,
+   peak memory, the init's seconds and peak; one 4608-token prefill and one
+   batch-4 decode step timed with CUDA events beside their bounds, each
+   traced once with profiler spans that this script puts around Mamba's
+   parts (in_proj, the conv, x_proj + norms + dt, the scan with its C
+   einsum, the gate with out_proj) and the MoE layer, beside the flash
+   kernel's device time; (d) xlstm-125m whole (12 blocks, bf16, seed 0): one
+   mLSTM and one sLSTM block on the card against the host CPU (XLSTM_RTOL
+   by both measures, the mLSTM prefill's c and n over their terms'
+   magnitudes; the forward over XLSTM_TOKENS tokens with its cache, the
+   decode writing
+   its states in place), then 8 requests served as in (c): no kernel
+   launched (xLSTM launches no TPU kernel's counterpart), a second run
+   bit-equal, each request rerun alone in the 4-row geometry exact at every
+   step, tokens/s, peak memory, and the prefill's ms at the longest prompt
+   run (phase 5's prompts at an eighth of their lengths, XLSTM_PROMPTS: the
+   sLSTM blocks run a Python loop over the tokens); (e) reduced jamba and
+   reduced xlstm-125m (f32) on the card against the host CPU over two steps
+   from the same weights: the loss within TRAIN_RTOL, every gradient leaf
+   within RECURRENT_GRAD_RTOL (autograd through the plain ops: neither
+   mixer has a kernel).
+   Prints the phase's seconds. `python3 chip_smoke.py --recurrent` runs it
+   alone.
 6. Print the kernels line (the STO kernels, tm_delay_line and flash, whose
-   row carries its qwen2_moe and deepseek_v2_lite entries), the card line
-   and, last, the contract line {"ok": true, "device": {...}}.
+   row carries its qwen2_moe, deepseek_v2_lite and jamba entries), the card
+   line and, last, the contract line {"ok": true, "device": {...}}.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -3746,9 +3801,10 @@ def sharded_only():
 
 # -- phase 5b: training on the card -----------------------------------------------
 
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 20
+# (b) 10 steps (20 before phase 5e was added, cut to pay for its seconds)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 10
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
-TRAIN_SPLIT_STEPS = 3  # steps timed piece by piece after the 20 (CUDA events)
+TRAIN_SPLIT_STEPS = 3  # steps timed piece by piece after the TRAIN_STEPS (CUDA events)
 # (a) one step on the card against the same step on the host CPU, relative to
 # each leaf's largest magnitude: f32 and TF32 off on both sides, sums in other
 # orders (cuBLAS, the backward's atomics); the CPU tests hold the port's step
@@ -3768,7 +3824,9 @@ LOSS_DROP = 0.2
 # (tests/test_train_substrate.py:139); the backward's atomics (the embedding
 # gather's index_put) make the card's steps not bit-reproducible by default
 RESUME_RTOL = 2e-4
-RESUME_LAYERS = 2  # full width at 2 layers: a checkpoint of ~3 GB, not ~18
+# (c), (e) full width at 1 layer (2 before phase 5e, cut to pay for it): a
+# checkpoint of ~2.3 GB, not ~18
+RESUME_LAYERS = 1
 # (b)'s checkpoint holds the trained tree's first 2 layers (~3 GB): the same
 # save / restore code as the whole ~18 GB tree, which took ~52-70 s a call
 CKPT_LAYERS = 2
@@ -3927,7 +3985,7 @@ def _split_step(model, opt, params, state, batch, step):
 
 def train_full_width(name_power):
     """5b(b) and (d): h2o-danube-1.8b at full width (bf16, remat on,
-    AdamW): the routing check, 20 steps, the step's split, a profiled step,
+    AdamW): the routing check, TRAIN_STEPS steps, the step's split, a profiled step,
     then one checkpoint written and read back bit-equal on the host."""
     import shutil
     import tempfile
@@ -3964,7 +4022,7 @@ def train_full_width(name_power):
     torch.cuda.synchronize()
     no_grad_launches = fa.LAUNCHES["flash_attention"]
 
-    # (b) 20 steps, each timed with CUDA events
+    # (b) TRAIN_STEPS steps, each timed with CUDA events
     fa.LAUNCHES["flash_attention"] = 0
     hist, step_ms = [], []
     for step in range(TRAIN_STEPS):
@@ -4283,6 +4341,9 @@ MOE_AUX_RTOL = 1e-5
 MOE_FLASH_CASE = (4608, 4608, torch.bfloat16, 0)
 # (e) 2 layers at full width, AdamW, batch 2 x 512
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 5, 2
+# (c), (d) qwen2-moe served at full width cut in depth to its first
+# MOE_SERVE_LAYERS of 24 layers (cut to pay for phase 5e's seconds)
+MOE_SERVE_LAYERS = 2
 
 
 def moe_routing_check(name_power):
@@ -4630,7 +4691,7 @@ def moe_serve(name_power):
 
     from repro_torch import tree
 
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_SERVE_LAYERS)
     model = build_model(cfg, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4639,7 +4700,8 @@ def moe_serve(name_power):
     torch.cuda.synchronize()
     init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in tree.leaves(params))
-    print(f"5c(c) {MOE_ARCH}: {n_params} parameters (count_params {counting.count_params(cfg)}, "
+    print(f"5c(c) {MOE_ARCH} at {cfg.num_layers} of {get_config(MOE_ARCH).num_layers} layers: "
+          f"{n_params} parameters (count_params {counting.count_params(cfg)}, "
           f"active {counting.count_params(cfg, active_only=True)}), init on the card "
           f"{init_s:.3f} s, peak {init_peak / 2**30:.3f} GiB ({name_power})", flush=True)
     rng = np.random.default_rng(0)
@@ -4859,17 +4921,81 @@ MLA_Y_RTOL = 2.0**-5
 # (b) flash at deepseek's heads (H = KVH = 16) and MLA's concat head dim dn +
 # dr = 192, v zero-padded from dv = 128, its longest prompt
 MLA_FLASH_CASE = (4608, 4608, torch.bfloat16, 0)
+# (c), (d) deepseek-v2-lite served at full width cut in depth to its dense
+# prefix layer and the first MLA_SERVE_LAYERS - 1 of its 26 MoE periods (cut
+# to pay for phase 5e's seconds: every layer kind it has)
+MLA_SERVE_LAYERS = 2
 
 
-def _held(label, got, want, rtol):
-    """got (card) against want (host CPU) by phase 4's two measures; raises."""
-    g, w = got.detach().float().cpu(), want.detach().float()
+# The row measure of a recurrent state over its terms' magnitudes (_held's
+# `terms`). Each term is weighted by the exponential of a sum of logits that
+# bf16 products round (Mamba: exp(A * the sum of dt since the token, dt from
+# dt_proj); mLSTM: exp(i + the sum of log sigmoid(f)), the gates from w_if),
+# so a term moves by its exponent's absolute error, a bf16 rounding of each
+# logit accumulated over the tokens: 1e-2 to 3e-2 of the term where the
+# exponent reaches a few units. Read (chip_smoke.py --recurrent, NVIDIA H100
+# 80GB HBM3, 700.00 W): Mamba's h 1.3e-2 (prefill), 2.0e-2 (decode), 9.4e-3
+# (chunk 64 against one chunk); the mLSTM prefill's c 3.0e-2, n 3.7e-3. The
+# limit is twice the largest.
+STATE_TERMS_RTOL = 2.0**-4
+
+
+def _held(label, got, want, rtol, tag="5d(a)", terms=None):
+    """got (card) against want (host CPU) by phase 4's two measures; raises.
+    `terms`, where given, are the magnitudes of the terms that want sums: a
+    recurrent state sums terms of both signs over the tokens, which can
+    cancel within a row to a small fraction of them while the row carries
+    their rounding. The row measure is then each row's max|got - want| over
+    the row's largest term magnitude, not over its largest element, held at
+    STATE_TERMS_RTOL."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
     err, scale = (g - w).abs().max().item(), w.abs().max().item()
-    rel = row_rel_err(g, w)
-    assert err <= rtol * scale and rel <= rtol, (
-        f"5d(a) {label}: max abs error {err} (at most {rtol * scale}), row error {rel} "
-        f"(at most {rtol})")
-    return dict(max_abs_err=err, atol=rtol * scale, row_rel_err=rel, rtol=rtol)
+    if terms is None:
+        rel, row_rtol = row_rel_err(g, w), rtol
+    else:
+        den = terms.detach().float().cpu().amax(-1).clamp_min(1e-30)
+        rel, row_rtol = ((g - w).abs().amax(-1) / den).max().item(), STATE_TERMS_RTOL
+    assert err <= rtol * scale and rel <= row_rtol, (
+        f"{tag} {label}: max abs error {err} (at most {rtol * scale}), row error {rel} "
+        f"(at most {row_rtol})")
+    return dict(max_abs_err=err, atol=rtol * scale, row_rel_err=rel, rtol=row_rtol,
+                row_scale="row" if terms is None else "terms")
+
+
+def _mamba_terms(p, cfg, x, h0=None, tail=None):
+    """The magnitudes of the terms that Mamba's state sums: its recurrence
+    h_t = da_t * h_{t-1} + |dbx_t| over x's tokens from |h0| (or zeros), in
+    f32 on x's device (da > 0, so each term enters by its magnitude)."""
+    from repro_torch.models import layers, mamba
+
+    di = p["in_proj"]["kernel"].shape[1] // 2
+    x1 = layers.dense(p["in_proj"], x)[..., :di]
+    xc, _ = mamba._conv_causal(p["conv_w"], p["conv_b"], x1, tail)
+    da, dbx, _ = mamba._ssm_inputs(p, cfg, torch.nn.functional.silu(xc))
+    h = h0.abs() if h0 is not None else torch.zeros_like(da[:, 0])
+    for t in range(da.shape[1]):
+        h = torch.addcmul(dbx[:, t].abs(), da[:, t], h)
+    return h
+
+
+def _mlstm_terms(p, cfg, x):
+    """The magnitudes of the terms that an mLSTM prefill's c and n sum:
+    _mlstm_state_from_seq over |k| and |v| (its weights are positive)."""
+    from repro_torch.models import layers, xlstm
+
+    q, k, v, i_pre, f_pre, _, tail, _ = xlstm._mlstm_qkvgates(
+        p, cfg, layers.apply_norm(p["norm"], x))
+    st = xlstm._mlstm_state_from_seq(q, k.abs(), v.abs(), i_pre, f_pre, tail)
+    return {"c": st["c"], "n": st["n"]}
+
+
+def _hidden(cfg, g, dev):
+    """(*shape) -> normalised bf16 hidden states (B, S, d_model) from g."""
+    from repro_torch.models import layers
+
+    norm = {"scale": torch.ones(cfg.d_model, dtype=torch.bfloat16, device=dev)}
+    return lambda *shape: layers.apply_norm(norm, torch.randn(
+        shape + (cfg.d_model,), generator=g, device=dev).to(torch.bfloat16))
 
 
 def mla_layer_check(name_power):
@@ -4879,16 +5005,14 @@ def mla_layer_check(name_power):
     MLA_DECODE_POS over a CAPACITY-row latent cache filled from a seed, the
     card against the host CPU on the same tensors; the cache written in place
     at exactly those rows."""
-    from repro_torch.models import attention, layers
+    from repro_torch.models import attention
 
     cfg = get_config(MLA_ARCH)
     dev = torch.device("cuda")
     p = attention.make_mla(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
     p_host = transformer.tree_map(lambda t: t.cpu(), p)
     g = torch.Generator(device=dev).manual_seed(1)
-    norm = {"scale": torch.ones(cfg.d_model, dtype=torch.bfloat16, device=dev)}
-    hidden = lambda *shape: layers.apply_norm(norm, torch.randn(  # noqa: E731
-        shape + (cfg.d_model,), generator=g, device=dev).to(torch.bfloat16))
+    hidden = _hidden(cfg, g, dev)
     x = hidden(1, MLA_TOKENS)
     positions = torch.arange(MLA_TOKENS, device=dev)[None]
     sto_step.reset_launches()
@@ -4913,7 +5037,7 @@ def mla_layer_check(name_power):
                                    device=dev).to(torch.bfloat16)
     cache = {"c_kv": latent(r), "k_rope": latent(dr)}
     before = {k: v.clone() for k, v in cache.items()}
-    cache_h = {k: v.cpu() for k, v in cache.items()}
+    cache_h = {k: v.cpu().clone() for k, v in cache.items()}
     xd = hidden(LM_SLOTS, 1)
     pos = torch.tensor(MLA_DECODE_POS, device=dev)
     t0 = time.perf_counter()
@@ -5062,7 +5186,7 @@ def mla_serve(name_power):
 
     from repro_torch import tree
 
-    cfg = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_SERVE_LAYERS)
     model = build_model(cfg, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5071,7 +5195,8 @@ def mla_serve(name_power):
     torch.cuda.synchronize()
     init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in tree.leaves(params))
-    print(f"5d(c) {MLA_ARCH}: {n_params} parameters (count_params {counting.count_params(cfg)}, "
+    print(f"5d(c) {MLA_ARCH} at {cfg.num_layers} of {get_config(MLA_ARCH).num_layers} layers: "
+          f"{n_params} parameters (count_params {counting.count_params(cfg)}, "
           f"active {counting.count_params(cfg, active_only=True)}), init on the card "
           f"{init_s:.3f} s, peak {init_peak / 2**30:.3f} GiB ({name_power})", flush=True)
     rng = np.random.default_rng(0)
@@ -5199,6 +5324,648 @@ def mla_only():
     print("5d held", flush=True)
 
 
+# -- phase 5e: the recurrent mixers: jamba's Mamba at full width, xlstm-125m whole ------
+
+JAMBA_ARCH = "jamba-1.5-large-398b"
+XLSTM_ARCH = "xlstm-125m"
+# (c) the depth cut: jamba's period cut to its first 4 layer specs (3 Mamba
+# layers, the attention layer, 2 MoE and 2 MLP channel mixers: every layer
+# kind jamba has), num_layers 4: 23.0 B parameters, ~46 GB in bf16. The
+# whole 72-layer model (398.6 B) fits no card.
+JAMBA_SPECS = 4
+MAMBA_TOKENS = 1024 + 37  # (a): 16 chunks of 64 and a remainder of 37 (27 padded steps)
+# (a) the card against the host CPU on the same tensors, by phase 4's two
+# measures. y: the chain rounds to bf16 at in_proj, the conv and its silu,
+# x_proj, the three norms, dt_proj and the gated output before out_proj,
+# each GEMM's f32 sums in another order on each side (an element a bf16 ulp
+# or two, 2^-8 of it each, apart), and the f32 scan carries those
+# differences along 1061 steps; as MLA_Y_RTOL. h: the f32 state built from
+# those bf16 inputs, alike; its row measure is over the row's largest term
+# magnitude (_held's `terms`, from _mamba_terms): a channel's state is a sum
+# over the tokens of terms of both signs, which can cancel to a small
+# fraction of the terms whose rounding it carries (a card reading found a
+# row at 9.4e-2 of its own largest element with the whole tensor within
+# 4.0e-3 of its largest, about one bf16 rounding, 2^-8).
+# conv_tail: the last K - 1 rows of in_proj's bf16 output, one GEMM: as
+# MLA_CACHE_RTOL.
+MAMBA_Y_RTOL = 2.0**-5
+MAMBA_STATE_RTOL = 2.0**-5
+MAMBA_TAIL_RTOL = 2.0**-6
+# (a) chunks of 64 against one chunk of the whole sequence, on the card: the
+# f32 recurrence runs step by step in the same order either way; x_proj,
+# dt_proj and the C product run at another row count (64 against 1061),
+# which may round a bf16 value or an f32 sum otherwise: two bf16 ulps.
+MAMBA_CHUNK_RTOL = 2.0**-6
+# (d) one xLSTM block (bf16) on the card against the host CPU: the up, q, k,
+# v, gate and down products and the norms round to bf16 (a bf16 ulp or two
+# apart), and the f32 states and the mLSTM's parallel form sum them in
+# another order; as MAMBA_Y_RTOL. The f32 states (c, n, m; sLSTM's h) alike;
+# the mLSTM prefill's c and n, sums over the tokens as Mamba's h is, by the
+# row measure over their terms' magnitudes (_mlstm_terms).
+XLSTM_TOKENS = 1024
+XLSTM_RTOL = 2.0**-5
+# (d) xlstm-125m serves phase 5's prompts cut to an eighth of their lengths
+# (576 ... 16 tokens): the sLSTM blocks run a Python loop over the tokens,
+# ~0.39 ms a token a block on the card (a 4608-token prefill of the whole
+# model 5.3 s), so phase 5's 14 731 prompt tokens cost 17 s a run and the
+# engine runs and the witness ~70 s (a run with the whole prompts)
+XLSTM_PROMPTS = tuple(n // 8 for n in PROMPTS)
+# (b) flash at jamba's attention layer: H 64, KVH 8 (a GQA group of 8), D 128,
+# no RoPE (pos_type "none"), its longest prompt
+JAMBA_FLASH_CASE = (4608, 4608, torch.bfloat16, 0)
+
+
+def jamba_cut():
+    """jamba-1.5-large with its period cut to its first JAMBA_SPECS layer
+    specs and num_layers JAMBA_SPECS (one period), at full width."""
+    import dataclasses
+
+    full = get_config(JAMBA_ARCH)
+    return dataclasses.replace(full, period=full.period[:JAMBA_SPECS], num_layers=JAMBA_SPECS)
+
+
+def _host_ms(fn, reps=1):
+    """Median host-clock ms of fn on the host CPU over reps calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def _states_from_seed(spec, g, dev):
+    """A cache dict for a TensorSpec dict, every leaf normal draws from g."""
+    return {k: torch.randn(s.shape, generator=g, device=dev).to(s.dtype) for k, s in spec.items()}
+
+
+def mamba_layer_bounds(cfg, t, rows):
+    """A full-width Mamba layer's bounds (ms): a t-token prefill by
+    operations (the four bf16 products; the f32 scan, ~7 operations a token
+    and state element: dA, dBx, the step, the C product), and a rows-row
+    decode step by bytes (every weight once, h read and written in f32, the
+    conv tail)."""
+    from repro_torch.models import mamba
+
+    fp32, tensor, bw = peaks(torch.cuda.get_device_name(0))
+    mc, di, dtr = mamba._dims(cfg)
+    d, ds = cfg.d_model, mc.d_state
+    gemm = 2 * t * (d * 2 * di + di * (dtr + 2 * ds) + dtr * di + di * d)
+    prefill = 1e3 * (gemm / tensor + 7 * t * di * ds / fp32)
+    weights = 2 * (d * 2 * di + mc.d_conv * di + di * (dtr + 2 * ds) + dtr * di + di * d
+                   + 3 * di + dtr + 2 * ds) + 4 * di * ds
+    state = rows * (2 * 4 * di * ds + 2 * 2 * (mc.d_conv - 1) * di)
+    return prefill, 1e3 * (weights + state) / bw
+
+
+def mamba_layer_check(name_power):
+    """5e(a): one Mamba layer of jamba at full width (make_mamba from seed 0,
+    bf16: d_model 8192, d_inner 16384, d_state 16, dt_rank 512, chunk 64) on
+    normalised hidden states: mamba_forward over MAMBA_TOKENS tokens (y, h,
+    conv_tail) and mamba_decode on a 4-row batch with states from a seed (y
+    and the cache written in place), the card against the host CPU on the
+    same tensors; chunks of 64 against one chunk of the whole sequence on the
+    card; the prefill (phase 5's longest prompt) and the decode step timed on
+    the card (CUDA events) and on the host CPU (host clock)."""
+    import dataclasses
+
+    from repro_torch.models import mamba
+
+    cfg = get_config(JAMBA_ARCH)
+    dev = torch.device("cuda")
+    p = mamba.make_mamba(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
+    p_host = transformer.tree_map(lambda t: t.cpu(), p)
+    g = torch.Generator(device=dev).manual_seed(1)
+    hidden = _hidden(cfg, g, dev)
+    x = hidden(1, MAMBA_TOKENS)
+    sto_step.reset_launches()
+    t0 = time.perf_counter()
+    y, cache = mamba.mamba_forward(p, cfg, x, return_cache=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    assert not any(sto_step.LAUNCHES.values()), dict(sto_step.LAUNCHES)
+    t0 = time.perf_counter()
+    y_h, cache_h = mamba.mamba_forward(p_host, cfg, x.cpu(), return_cache=True)
+    host_s = time.perf_counter() - t0
+    terms = _mamba_terms(p, cfg, x)
+    pre = {"y": _held("prefill y", y, y_h, MAMBA_Y_RTOL, "5e(a)"),
+           "h": _held("prefill h", cache["h"], cache_h["h"], MAMBA_STATE_RTOL, "5e(a)", terms),
+           "conv_tail": _held("prefill conv_tail", cache["conv_tail"], cache_h["conv_tail"],
+                              MAMBA_TAIL_RTOL, "5e(a)")}
+    whole = dataclasses.replace(cfg, mamba=dataclasses.replace(cfg.mamba, chunk=MAMBA_TOKENS))
+    y1, c1 = mamba.mamba_forward(p, whole, x, return_cache=True)
+    chunked = {"y": _held("chunk 64 vs one chunk: y", y, y1, MAMBA_CHUNK_RTOL, "5e(a)"),
+               "h": _held("chunk 64 vs one chunk: h", cache["h"], c1["h"], MAMBA_CHUNK_RTOL,
+                          "5e(a)", terms)}
+    for t in (y, cache["h"], y1):
+        assert torch.isfinite(t).all()
+    del y1, c1, y_h, cache_h, terms
+    print(f"5e(a) mamba_forward, {MAMBA_TOKENS} tokens (chunks of {cfg.mamba.chunk}, "
+          f"{-MAMBA_TOKENS % cfg.mamba.chunk} padded steps), no kernel launched, vs the host CPU: "
+          f"{json.dumps(pre)}; chunks of {cfg.mamba.chunk} vs one chunk of {MAMBA_TOKENS} on the "
+          f"card: {json.dumps(chunked)}; card {card_s:.3f} s (first call), host CPU {host_s:.3f} s "
+          f"({name_power})", flush=True)
+
+    cache = _states_from_seed(mamba.mamba_cache_spec(cfg, LM_SLOTS, torch.bfloat16), g, dev)
+    before = {k: v.clone() for k, v in cache.items()}
+    leaves = dict(cache)
+    cache_h = {k: v.cpu().clone() for k, v in cache.items()}
+    xd = hidden(LM_SLOTS, 1)
+    yd, out = mamba.mamba_decode(p, cfg, xd, cache)
+    assert out is cache and all(cache[k] is leaves[k] for k in leaves), "not in place"
+    yd_h, _ = mamba.mamba_decode(p_host, cfg, xd.cpu(), cache_h)
+    terms = _mamba_terms(p, cfg, xd, before["h"], before["conv_tail"])
+    dec = {"y": _held("decode y", yd, yd_h, MAMBA_Y_RTOL, "5e(a)"),
+           "h": _held("decode h", cache["h"], cache_h["h"], MAMBA_STATE_RTOL, "5e(a)", terms),
+           "conv_tail": _held("decode conv_tail", cache["conv_tail"], cache_h["conv_tail"],
+                              MAMBA_TAIL_RTOL, "5e(a)")}
+    shifted = torch.equal(cache["conv_tail"][:, :-1], before["conv_tail"][:, 1:])
+    assert shifted and not torch.equal(cache["h"], before["h"]), "decode wrote no new state"
+    print(f"5e(a) mamba_decode, {LM_SLOTS} rows, states from a seed, vs the host CPU: "
+          f"{json.dumps(dec)}; h and conv_tail written in place (the same tensors; the tail "
+          f"shifted by one row) ({name_power})", flush=True)
+
+    xl = hidden(1, max(PROMPTS))
+    prefill_ms = time_ms(lambda: mamba.mamba_forward(p, cfg, xl), 3)
+    host_prefill_ms = _host_ms(lambda: mamba.mamba_forward(p_host, cfg, xl.cpu()))
+    decode_ms = time_ms(lambda: mamba.mamba_decode(p, cfg, xd, cache), 5)
+    cache_h = {k: v.cpu().clone() for k, v in cache.items()}
+    host_decode_ms = _host_ms(lambda: mamba.mamba_decode(p_host, cfg, xd.cpu(), cache_h), 3)
+    pb, db = mamba_layer_bounds(cfg, max(PROMPTS), LM_SLOTS)
+    print(f"5e(a) one Mamba layer at full width: prefill {max(PROMPTS)} tokens {prefill_ms:.3f} ms "
+          f"on the card (CUDA events, median of 3; operations bound {pb:.3f} ms, "
+          f"{100 * pb / prefill_ms:.1f} %), {host_prefill_ms:.3f} ms on the host CPU (one call); "
+          f"decode step, batch {LM_SLOTS}: {decode_ms:.3f} ms on the card (median of 5; bytes "
+          f"bound {db:.4f} ms, {100 * db / decode_ms:.1f} %), {host_decode_ms:.3f} ms on the host "
+          f"CPU (median of 3) ({name_power})", flush=True)
+    del p, p_host, cache, before, cache_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, host_prefill_ms=host_prefill_ms, decode_ms=decode_ms,
+                host_decode_ms=host_decode_ms)
+
+
+class _MambaTorchSpans:
+    """torch for models/mamba.py, each einsum (the C product of a prefill
+    chunk; decode's) inside the scan's profiler span (phase 5e(c)'s split
+    only)."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def einsum(eq, *ops):
+        with torch.profiler.record_function("mamba scan + C einsum"):
+            return torch.einsum(eq, *ops)
+
+
+@contextlib.contextmanager
+def mamba_spans(cfg):
+    """Profiler spans around Mamba's parts and the MoE layer, put in by this
+    script for a traced call: in_proj, the causal conv, x_proj with the three
+    norms and dt (_ssm_inputs: also dA and dBx), the scan with the C
+    einsum (_chunk_states and the einsums), the skip and gate with out_proj,
+    and apply_moe as a whole. The flash kernel is read by its name."""
+    from repro_torch.models import mamba, moe
+
+    saved = (mamba.torch, mamba.dense, mamba._conv_causal, mamba._ssm_inputs,
+             mamba._chunk_states, mamba._gate_output, moe.apply_moe)
+    _, dense, conv, ssm, states, gate, apply_moe = saved
+    two_di = 2 * mamba._dims(cfg)[1]
+    in_ssm = []
+
+    def span(label, fn, *a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+
+    def ssm_part(*a, **kw):
+        in_ssm.append(True)
+        try:
+            return span("mamba x_proj + norms + dt", ssm, *a, **kw)
+        finally:
+            in_ssm.pop()
+
+    def dense_part(p, x):
+        if in_ssm:  # x_proj, dt_proj: inside their span
+            return dense(p, x)
+        label = "mamba in_proj" if p["kernel"].shape[-1] == two_di else "mamba gate + out_proj"
+        return span(label, dense, p, x)
+
+    mamba.torch = _MambaTorchSpans()
+    mamba.dense = dense_part
+    mamba._conv_causal = lambda *a, **kw: span("mamba conv", conv, *a, **kw)
+    mamba._ssm_inputs = ssm_part
+    mamba._chunk_states = lambda *a, **kw: span("mamba scan + C einsum", states, *a, **kw)
+    mamba._gate_output = lambda *a, **kw: span("mamba gate + out_proj", gate, *a, **kw)
+    moe.apply_moe = lambda *a, **kw: span("moe layer", apply_moe, *a, **kw)
+    try:
+        yield
+    finally:
+        (mamba.torch, mamba.dense, mamba._conv_causal, mamba._ssm_inputs, mamba._chunk_states,
+         mamba._gate_output, moe.apply_moe) = saved
+
+
+MAMBA_SPLIT = {  # span label -> the split's part
+    "mamba in_proj": "in_proj",
+    "mamba conv": "conv",
+    "mamba x_proj + norms + dt": "x_proj + norms + dt",
+    "mamba scan + C einsum": "scan + C einsum",
+    "mamba gate + out_proj": "gate + out_proj",
+    "moe layer": "MoE layers, all",
+}
+
+
+def jamba_split(cfg, label, fn, name_power):
+    """fn traced once under mamba_spans: device ms by MAMBA_SPLIT's parts."""
+    return span_split("5e(c)", label, fn, lambda: mamba_spans(cfg), MAMBA_SPLIT, name_power,
+                      parts=tuple(MAMBA_SPLIT.values()),
+                      rest="other (the attention layer's projections, the MLPs, silu, norms, "
+                           "embedding, head, casts)")
+
+
+def jamba_prefill_bound(cfg, t):
+    """A t-token prefill of the cut jamba by operations (ms, TFLOP), as the
+    port runs it: the Mamba layers' products (bf16) and scans (f32), the
+    attention layer's projections and flash, the MLPs, the MoE layers as the
+    reference's dispatch computes them (every capacity slot, the one-hot
+    products; the router in f32), the last position's f32 head."""
+    from repro_torch.models import mamba
+
+    fp32, tensor, _ = peaks(torch.cuda.get_device_name(0))
+    mc, di, dtr = mamba._dims(cfg)
+    d, ds, m = cfg.d_model, mc.d_state, cfg.moe
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    layer_bf16 = {
+        "mamba": 2 * t * (d * 2 * di + di * (dtr + 2 * ds) + dtr * di + di * d),
+        "attn": 2 * t * d * (h + 2 * kvh) * hd + 2 * t * h * hd * d
+                + 4 * h * hd * unmasked_pairs(t, t, True, 0),
+        "mlp": 3 * 2 * t * d * cfg.d_ff,
+        "moe": 0.0,
+    }
+    router = 0.0
+    for lo in range(0, t, m.router_chunk):
+        c = min(m.router_chunk, t - lo)
+        cap = max(1, math.ceil(c * m.top_k / m.num_experts * m.capacity_factor))
+        layer_bf16["moe"] += (3 * 2 * m.num_experts * cap * d * m.d_ff_expert
+                              + 2 * 2 * c * m.num_experts * cap * d)
+        router += 2 * c * d * m.num_experts
+    bf16 = f32 = 0.0
+    for spec in cfg.layer_kinds():
+        bf16 += layer_bf16[spec.mixer] + layer_bf16[spec.mlp]
+        f32 += 7 * t * di * ds if spec.mixer == "mamba" else 0.0
+        f32 += router if spec.mlp == "moe" else 0.0
+    f32 += 2 * d * cfg.padded_vocab
+    return 1e3 * (bf16 / tensor + f32 / fp32), (bf16 + f32) / 1e12
+
+
+def jamba_decode_bound(cfg, params, rows, pos):
+    """A rows-row decode step's bytes bound (ms, GB): every weight of the
+    tree once (all 16 experts a MoE layer, as the reference's dispatch reads
+    them; the embedding's `rows` rows only), the attention layer's k / v rows
+    up to each position, each Mamba layer's h (f32) read and written and its
+    conv tail."""
+    from repro_torch import tree
+    from repro_torch.models import mamba
+
+    _, _, bw = peaks(torch.cuda.get_device_name(0))
+    mc, di, _ = mamba._dims(cfg)
+    weights = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    weights -= (cfg.padded_vocab - rows) * cfg.d_model * 2
+    kinds = [spec.mixer for spec in cfg.layer_kinds()]
+    kv = kinds.count("attn") * int(sum(pos + 1)) * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    states = kinds.count("mamba") * rows * (2 * 4 * di * mc.d_state + 2 * 2 * (mc.d_conv - 1) * di)
+    total = weights + kv + states
+    return 1e3 * total / bw, total / 1e9
+
+
+def jamba_splice_check(cfg, params):
+    """Four requests admitted into the slots of a fresh engine: each slot's
+    h and conv_tail in every Mamba layer bit-equal to its lone prefill's."""
+    model = build_model(cfg, device="cuda")
+    rng = np.random.default_rng(5)
+    reqs = [Request(i, torch.from_numpy(rng.integers(0, cfg.vocab_size, n)), 2)
+            for i, n in enumerate(PROMPTS[LM_SLOTS:])]
+    eng = Engine(cfg, params, num_slots=LM_SLOTS, capacity=CAPACITY, device="cuda")
+    checked = 0
+    for slot, r in enumerate(reqs):
+        eng._admit(r, slot)
+        _, alone = model.prefill(params, {"tokens": r.prompt[None].cuda()})
+        for layer, lone, spec in zip(eng.caches["stack"], alone["stack"], cfg.period):
+            if spec.mixer == "mamba":
+                for k in ("h", "conv_tail"):
+                    assert torch.equal(layer["self"][k][:, slot], lone["self"][k][:, 0]), (slot, k)
+                    checked += 1
+    del eng
+    return checked
+
+
+def jamba_serve(name_power):
+    """5e(c): the cut jamba served at full width; returns the flash launches
+    of the engine run and the timings."""
+    import dataclasses
+
+    from repro_torch import tree
+
+    cfg = jamba_cut()
+    model = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"5e(c) {JAMBA_ARCH} cut to period[:{JAMBA_SPECS}] "
+          f"({', '.join(f'{s.mixer}+{s.mlp}' for s in cfg.period)}), num_layers {cfg.num_layers}: "
+          f"{n_params} parameters (count_params {counting.count_params(cfg)}; the whole "
+          f"{get_config(JAMBA_ARCH).num_layers}-layer model "
+          f"{counting.count_params(get_config(JAMBA_ARCH))}), init on the card {init_s:.3f} s, "
+          f"peak {init_peak / 2**30:.3f} GiB ({name_power})", flush=True)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, torch.from_numpy(rng.integers(0, cfg.vocab_size, n)), MAX_NEW)
+            for i, n in enumerate(PROMPTS)]
+    Engine(cfg, params, num_slots=2, capacity=64, device="cuda").run(
+        [Request(0, reqs[-1].prompt[:32], 2), Request(1, reqs[-1].prompt[:16], 2)])
+    torch.cuda.reset_peak_memory_stats()
+    eng, results, seconds, launches = moe_engine_run(cfg, params, reqs)
+    peak = torch.cuda.max_memory_allocated()
+    assert sorted(results) == [r.rid for r in reqs], f"served {sorted(results)}"
+    for r in reqs:
+        toks = results[r.rid]
+        assert len(toks) == MAX_NEW and all(0 <= t < cfg.vocab_size for t in toks), (r.rid, toks)
+    want = sum(spec.mixer == "attn" for spec in cfg.layer_kinds()) * len(PROMPTS)
+    assert launches["flash_attention"] == want, f"flash launches {launches} != {want}"
+    assert not any(launches[k] for k in STO_KERNELS), f"STO kernels launched: {launches}"
+    st = eng.stats
+    print(f"5e(c) serve the cut {JAMBA_ARCH}: {len(reqs)} requests, "
+          f"{sum(map(len, results.values()))} tokens in {seconds:.3f} s; prefill "
+          f"{st.prefill_tokens} tokens in {st.prefill_seconds:.3f} s = "
+          f"{st.prefill_tokens / st.prefill_seconds:.1f} tok/s; decode {st.decode_steps} steps, "
+          f"{st.decode_tokens} tokens in {st.decode_seconds:.3f} s = "
+          f"{st.decode_tokens / st.decode_seconds:.1f} tok/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"launches {launches} (flash_bf16<128> at H {cfg.num_heads}, KVH {cfg.num_kv_heads}: a "
+          f"GQA group of {cfg.num_heads // cfg.num_kv_heads}) ({name_power})", flush=True)
+    del eng
+    eng, again, _, _ = moe_engine_run(cfg, params, reqs)
+    same = all(again[r.rid] == results[r.rid] for r in reqs)
+    print(f"5e(c) a second engine run on the same requests bit-equal, token for token: {same}",
+          flush=True)
+    assert same, "the second engine run differs"
+    checked = jamba_splice_check(cfg, params)
+    print(f"5e(c) splice: {LM_SLOTS} requests admitted into {LM_SLOTS} slots, each slot's h and "
+          f"conv_tail in every Mamba layer bit-equal to its lone prefill's ({checked} leaves)",
+          flush=True)
+
+    # (c) where the time goes: one 4608-token prefill and one batch-4 decode step
+    prompt = max(PROMPTS)
+    batch = {"tokens": reqs[0].prompt[None].cuda()}
+    prefill_ms = time_ms(lambda: model.prefill(params, batch), 3)
+    bound, tflop = jamba_prefill_bound(cfg, prompt)
+    print(f"5e(c) prefill {prompt} tokens: {prefill_ms:.3f} ms (CUDA events, median of 3); "
+          f"operations bound {bound:.3f} ms as the port runs it ({tflop:.2f} TFLOP; the MoE "
+          f"layers as the reference's dispatch computes them; {100 * bound / prefill_ms:.1f} %) "
+          f"({name_power})", flush=True)
+    jamba_split(cfg, f"prefill {prompt} tokens", lambda: model.prefill(params, batch), name_power)
+    tokens, caches = eng.next_tokens.clone(), eng.caches
+    pos = torch.tensor([n - 1 for n in PROMPTS[:LM_SLOTS]], device="cuda")
+    decode_ms = time_ms(lambda: model.decode_step(params, tokens, caches, pos), 5)
+    bound, gb = jamba_decode_bound(cfg, params, LM_SLOTS, pos.cpu())
+    print(f"5e(c) decode step, batch {LM_SLOTS}, capacity {CAPACITY}: {decode_ms:.3f} ms (CUDA "
+          f"events, median of 5); bytes bound {bound:.3f} ms ({gb:.2f} GB: every weight once, all "
+          f"{cfg.moe.num_experts} experts a MoE layer, the k / v rows up to each position, the "
+          f"Mamba states; {100 * bound / decode_ms:.1f} %) ({name_power})", flush=True)
+    jamba_split(cfg, f"decode step batch {LM_SLOTS}",
+                lambda: model.decode_step(params, tokens, caches, pos), name_power)
+    del caches, eng
+
+    # the no-drop witness: capacity num_experts / top_k keeps every token
+    m = cfg.moe
+    cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    model_nd = build_model(cfg_nd, device="cuda")
+    t_nd = time.perf_counter()
+    eng, results_nd, seconds, launches = moe_engine_run(cfg_nd, params, reqs)
+    del eng
+    assert launches["flash_attention"] == want, launches
+    changed = sum(results_nd[r.rid] != results[r.rid] for r in reqs)
+    print(f"5e(c) capacity factor {cfg_nd.moe.capacity_factor} (no drops): {len(reqs)} requests "
+          f"in {seconds:.3f} s; {changed} of {len(reqs)} requests' tokens differ from the "
+          f"capacity-{m.capacity_factor} run", flush=True)
+    gaps = [gap for r in reqs for gap in teacher_forced_margins(
+        model_nd, params, cfg_nd, r, results_nd[r.rid], LM_SLOTS)]
+    print(f"5e(c) no drops, vs each request alone (teacher-forced, {LM_SLOTS}-row decode): worst "
+          f"logit margin {max(gaps):.4e} (must be 0), steps off the argmax "
+          f"{sum(g > 0 for g in gaps)} of {len(gaps)}", flush=True)
+    assert max(gaps) == 0.0, f"no-drop jamba engine vs the 4-row rerun: margin {max(gaps)}"
+    witness_s = time.perf_counter() - t_nd
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=want, peak=peak, init_peak=init_peak, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, witness_s=witness_s)
+
+
+def xlstm_layer_check(name_power):
+    """5e(d): one mLSTM and one sLSTM block of xlstm-125m at full width
+    (make_mlstm / make_slstm from seed 0, bf16) on normalised hidden states:
+    the forward over XLSTM_TOKENS tokens with its cache (mLSTM: out, c, n, m,
+    conv_tail; sLSTM: out, c, n, m, h) and the decode on a 4-row batch with
+    states from a seed (out and the states, written in place), the card
+    against the host CPU on the same tensors."""
+    from repro_torch.models import xlstm
+
+    cfg = get_config(XLSTM_ARCH)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    hidden = _hidden(cfg, g, dev)
+    for block in ("mlstm", "slstm"):
+        make = getattr(xlstm, f"make_{block}")
+        fwd, dec = getattr(xlstm, f"{block}_forward"), getattr(xlstm, f"{block}_decode")
+        spec = getattr(xlstm, f"{block}_cache_spec")(cfg, LM_SLOTS, torch.bfloat16)
+        p = make(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)
+        p_host = transformer.tree_map(lambda t: t.cpu(), p)
+        x = hidden(1, XLSTM_TOKENS)
+        sto_step.reset_launches()
+        t0 = time.perf_counter()
+        out, cache = fwd(p, cfg, x, return_cache=True)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        assert not any(sto_step.LAUNCHES.values()), dict(sto_step.LAUNCHES)
+        t0 = time.perf_counter()
+        out_h, cache_h = fwd(p_host, cfg, x.cpu(), return_cache=True)
+        host_s = time.perf_counter() - t0
+        pre = {"out": _held(f"{block} prefill out", out, out_h, XLSTM_RTOL, "5e(d)")}
+        terms = _mlstm_terms(p, cfg, x) if block == "mlstm" else {}
+        for k in spec:
+            pre[k] = _held(f"{block} prefill {k}", cache[k], cache_h[k], XLSTM_RTOL, "5e(d)",
+                           terms.get(k))
+        del terms
+        cache = _states_from_seed(spec, g, dev)
+        leaves = dict(cache)
+        cache_h = {k: v.cpu().clone() for k, v in cache.items()}
+        xd = hidden(LM_SLOTS, 1)
+        yd, got = dec(p, cfg, xd, cache)
+        assert got is cache and all(cache[k] is leaves[k] for k in leaves), "not in place"
+        yd_h, _ = dec(p_host, cfg, xd.cpu(), cache_h)
+        step = {"out": _held(f"{block} decode out", yd, yd_h, XLSTM_RTOL, "5e(d)")}
+        for k in spec:
+            step[k] = _held(f"{block} decode {k}", cache[k], cache_h[k], XLSTM_RTOL, "5e(d)")
+        print(f"5e(d) {block} block, card vs the host CPU: forward over {XLSTM_TOKENS} tokens "
+              f"{json.dumps(pre)}; decode, {LM_SLOTS} rows, states from a seed, written in place "
+              f"{json.dumps(step)}; forward card {card_s:.3f} s (first call), host CPU "
+              f"{host_s:.3f} s ({name_power})", flush=True)
+        del p, p_host, cache, cache_h
+
+
+def xlstm_serve(name_power):
+    """5e(d): xlstm-125m whole (12 blocks) served at full width: 8 requests
+    (XLSTM_PROMPTS: phase 5's prompts at an eighth of their lengths, 32 new
+    tokens each), 4 slots, capacity 4640; no
+    kernel launched; a second run bit-equal; each request rerun alone in the
+    engine's 4-row geometry (phase 5's witness) exact at every step; the
+    prefill's ms at the longest prompt."""
+    from repro_torch import tree
+
+    cfg = get_config(XLSTM_ARCH)
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, torch.from_numpy(rng.integers(0, cfg.vocab_size, n)), MAX_NEW)
+            for i, n in enumerate(XLSTM_PROMPTS)]
+    Engine(cfg, params, num_slots=2, capacity=64, device="cuda").run(
+        [Request(0, reqs[-1].prompt[:32], 2), Request(1, reqs[-1].prompt[:16], 2)])
+    torch.cuda.reset_peak_memory_stats()
+    eng, results, seconds, launches = moe_engine_run(cfg, params, reqs)
+    peak = torch.cuda.max_memory_allocated()
+    assert sorted(results) == [r.rid for r in reqs], f"served {sorted(results)}"
+    for r in reqs:
+        toks = results[r.rid]
+        assert len(toks) == MAX_NEW and all(0 <= t < cfg.vocab_size for t in toks), (r.rid, toks)
+    assert not any(launches.values()), f"xLSTM launched kernels: {launches}"
+    st = eng.stats
+    print(f"5e(d) serve {XLSTM_ARCH} ({cfg.num_layers} blocks, {n_params} parameters, count_params "
+          f"{counting.count_params(cfg)}): {len(reqs)} requests (prompts {list(XLSTM_PROMPTS)}), "
+          f"{sum(map(len, results.values()))} tokens in {seconds:.3f} s; prefill "
+          f"{st.prefill_tokens} tokens in {st.prefill_seconds:.3f} s = "
+          f"{st.prefill_tokens / st.prefill_seconds:.1f} tok/s; decode {st.decode_steps} steps, "
+          f"{st.decode_tokens} tokens in {st.decode_seconds:.3f} s = "
+          f"{st.decode_tokens / st.decode_seconds:.1f} tok/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"launches {launches}: xLSTM launches no TPU kernel's counterpart (its mixers are "
+          f"plain ops, as in the reference) ({name_power})", flush=True)
+    del eng
+    _, again, _, _ = moe_engine_run(cfg, params, reqs)
+    same = all(again[r.rid] == results[r.rid] for r in reqs)
+    print(f"5e(d) a second engine run on the same requests bit-equal, token for token: {same}",
+          flush=True)
+    assert same, "the second engine run differs"
+    gaps = [gap for r in reqs
+            for gap in teacher_forced_margins(model, params, cfg, r, results[r.rid], LM_SLOTS)]
+    print(f"5e(d) vs each request alone (teacher-forced, {LM_SLOTS}-row decode): worst logit "
+          f"margin {max(gaps):.4e} (must be 0), steps off the argmax {sum(g > 0 for g in gaps)} "
+          f"of {len(gaps)}", flush=True)
+    assert max(gaps) == 0.0, f"xlstm engine vs the 4-row rerun: margin {max(gaps)}"
+    batch = {"tokens": reqs[0].prompt[None].cuda()}
+    prefill_ms = time_ms(lambda: model.prefill(params, batch), 1)
+    print(f"5e(d) {XLSTM_ARCH} prefill {len(reqs[0].prompt)} tokens (the longest prompt run): "
+          f"{prefill_ms:.3f} ms (CUDA events, one call after one untimed; the sLSTM blocks a "
+          f"Python loop over the tokens) ({name_power})", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(peak=peak, prefill_ms=prefill_ms)
+
+
+# (e) the recurrent archs' gradients, card against host CPU: the loss within
+# TRAIN_RTOL, every gradient leaf within RECURRENT_GRAD_RTOL relative to its
+# largest magnitude (TRAIN_RTOL holds the dense family's). Basis
+# (tools/recurrent_grad_margin.py --device cuda, NVIDIA H100 80GB HBM3,
+# 700.00 W): these gradients are that sensitive. One f32 rounding of every
+# parameter moves the host CPU's own leaves by up to 6.3e-5, and the card
+# against the host CPU reads up to 1.0e-4 (xlstm; jamba 1.6e-5) over seeds
+# 0-4 and two steps. The subtlest planted fault (sLSTM's normaliser clamp
+# dropped) reads 0.22. The limit sits 5x above the one, 440x below the other.
+RECURRENT_GRAD_RTOL = 5e-4
+
+
+def recurrent_train(name_power):
+    """5e(e): reduced jamba and reduced xlstm-125m (f32) on the card against
+    the host CPU over two steps from the same weights: the loss within
+    TRAIN_RTOL, every gradient leaf within RECURRENT_GRAD_RTOL. Neither mixer
+    has a kernel, so this holds the autograd of the plain ops on the card."""
+    from repro_torch import tree
+    from repro_torch.configs import reduce_config
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+
+    for arch in (JAMBA_ARCH, XLSTM_ARCH):
+        cfg = reduce_config(get_config(arch))
+        data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4, seed=0))
+        kw = dict(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+        step_cpu, opt, model = steps.make_train_step(cfg, device="cpu", **kw)
+        model_gpu = steps.make_train_step(cfg, device="cuda", **kw)[2]
+        params = model.init(0)
+        state = opt.init(params, device="cpu")
+        errs = {}
+        sto_step.reset_launches()
+        for s in range(2):
+            b_cpu, b_gpu = to_device(data.batch(s), "cpu"), to_device(data.batch(s), "cuda")
+            loss_gpu, g_gpu = steps.loss_and_grads(
+                model_gpu, tree.tree_map(lambda t: t.cuda(), params), b_gpu)
+            loss_cpu, g_cpu = steps.loss_and_grads(model, params, b_cpu)
+            grads, leaf = _worst(g_gpu, g_cpu)
+            errs[s] = (_rel(loss_gpu, loss_cpu), grads, leaf, float(loss_cpu))
+            params, state, _ = step_cpu(params, state, b_cpu, torch.tensor(s))
+        print(f"5e(e) reduced {cfg.name} (f32), the card vs the host CPU from the same weights, "
+              f"two steps (relative; the loss at most {TRAIN_RTOL}, each gradient leaf at most "
+              f"{RECURRENT_GRAD_RTOL}): "
+              + "; ".join(f"step {s}: loss {a:.3e} (loss {ls:.4f}), worst gradient leaf {g:.3e} "
+                          f"({leaf})" for s, (a, g, leaf, ls) in errs.items())
+              + f"; launches {dict(sto_step.LAUNCHES)} ({name_power})", flush=True)
+        assert all(a <= TRAIN_RTOL and g <= RECURRENT_GRAD_RTOL
+                   for a, g, _, _ in errs.values()), errs
+        assert not any(sto_step.LAUNCHES.values()), dict(sto_step.LAUNCHES)
+
+
+def recurrent_phase(name, name_power):
+    """Phase 5e: the recurrent mixers. Returns the flash kernel's jamba row
+    (H 64, KVH 8, D 128) with the engine run's launches."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = mamba_layer_check(name_power)
+    flash = flash_case(name, JAMBA_ARCH, *JAMBA_FLASH_CASE)
+    t1 = time.perf_counter()
+    served = jamba_serve(name_power)
+    t2 = time.perf_counter()
+    xlstm_layer_check(name_power)
+    xl = xlstm_serve(name_power)
+    t3 = time.perf_counter()
+    recurrent_train(name_power)
+    seconds = time.perf_counter() - t0
+    print(f"phase 5e: {seconds:.1f} s ((a) and (b) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, of which "
+          f"the no-drop run and its witness {served['witness_s']:.1f} s, (d) {t3 - t2:.1f} s, (e) "
+          f"{seconds - (t3 - t0):.1f} s); the Mamba layer's prefill {layer['prefill_ms']:.3f} ms "
+          f"/ {layer['host_prefill_ms']:.3f} ms on the host CPU, decode {layer['decode_ms']:.3f} / "
+          f"{layer['host_decode_ms']:.3f} ms; xlstm-125m prefill {xl['prefill_ms']:.3f} ms "
+          f"({name_power})", flush=True)
+    keys = ("ms", "single_call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "share_of_bound", "max_abs_err", "row_rel_err", "heads", "kv_heads", "head_dim")
+    return dict({k: flash[k] for k in keys}, launches=served["launches"])
+
+
+def recurrent_only():
+    """`chip_smoke.py --recurrent`: build the kernels and run phase 5e alone."""
+    name_power = card_line()
+    print(f"card: {name_power}", flush=True)
+    _build.load()
+    if _build.BUILD_LOG:
+        print(_build.BUILD_LOG.strip(), flush=True)
+    flash_config(torch.cuda.get_device_name(0))
+    recurrent_phase(torch.cuda.get_device_name(0), name_power)
+    print("5e held", flush=True)
+
+
 def main():
     name_power = card_line()
     name = torch.cuda.get_device_name(0)
@@ -5210,7 +5977,10 @@ def main():
     if _build.BUILD_LOG:
         print(_build.BUILD_LOG.strip(), flush=True)
 
+    t0 = time.perf_counter()
     rows = check_kernels(name)
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
 
     spec = make_spec(N, n_in=1, seed=0, hold_steps=HOLD, device="cuda")
     impl_kernel = {"chunk": "rk4_chunk", "fused": "rk4_fused", "tiled": "field_tiled"}
@@ -5238,6 +6008,7 @@ def main():
         flush=True,
     )
 
+    print(f"phase 3 serving: {time.perf_counter() - t0:.1f} s", flush=True)
     # phase 3's host trace: where a chunk's time outside the kernel goes
     t0 = time.perf_counter()
     for backend in ("chunk", "tiled"):
@@ -5245,6 +6016,7 @@ def main():
     print(f"phase 3 host trace: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the chunk and tiled runs against the plain versions of the same engine
+    t0 = time.perf_counter()
     for backend in ("chunk", "tiled"):
         ref, seconds, launches, sessions = serve(spec, backend, interpret=True)
         assert not any(launches.values()), f"interpret run launched kernels: {launches}"
@@ -5267,6 +6039,7 @@ def main():
             f"{SESSIONS / seconds:.1f} sessions/s",
             flush=True,
         )
+    print(f"phase 3 interpret runs: {time.perf_counter() - t0:.1f} s", flush=True)
     print(
         f"impl='auto' at N={N}, E={E}: f32 W -> {ops.choose_impl(N, E, platform='cuda')}, "
         f"bf16 W -> {ops.choose_impl(N, E, platform='cuda', precision='bf16_coupling')} "
@@ -5285,10 +6058,15 @@ def main():
     fleet_phase(spec, name_power)
     sharded_phase(name_power)
 
+    t0 = time.perf_counter()
     rows["flash_attention"] = check_flash(name)
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     rows["flash_attention"]["launches"] = serve_lm(name_power)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
     rows["flash_attention"]["qwen2_moe"] = moe_phase(name, name_power)
     rows["flash_attention"]["deepseek_v2_lite"] = mla_phase(name, name_power)
+    rows["flash_attention"]["jamba"] = recurrent_phase(name, name_power)
     train_phase(name_power)
 
     kernels = [
@@ -5320,6 +6098,8 @@ if __name__ == "__main__":
         moe_only()
     elif sys.argv[1:2] == ["--mla"]:
         mla_only()
+    elif sys.argv[1:2] == ["--recurrent"]:
+        recurrent_only()
     elif sys.argv[1:2] == ["--train-child"]:
         train_child()
     else:

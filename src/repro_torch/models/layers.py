@@ -21,12 +21,20 @@ trains data-parallel only (distributed/sharding.py).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import require_full_f32_matmul
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor that is not allocated (the reference's
+    jax.ShapeDtypeStruct)."""
+
+    shape: tuple
+    dtype: torch.dtype
 
 
 def _normal(generator, shape, scale, dtype):

@@ -2,8 +2,8 @@
 prefill / decode_step / cache_specs, make_input_specs for the train, prefill
 and decode shape cells, and concrete_batch.
 
-The counterpart of the reference's models/model.py for the dense attention
-family (see models/transformer.py for what the port runs). `init` draws from
+The counterpart of the reference's models/model.py (see
+models/transformer.py for the layers the port runs). `init` draws from
 an explicit torch.Generator; parameters and caches live on `device`
 ("cuda" by default; raises without a card unless device="cpu").
 """

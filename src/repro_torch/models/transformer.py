@@ -1,5 +1,5 @@
-"""Model assembly for the attention family: token input, `attn`, `swa` and
-`mla` mixers, `mlp` and `moe` channel mixers, no encoder.
+"""Model assembly: token input; `attn`, `swa`, `mla`, `mamba`, `mlstm` and
+`slstm` mixers; `mlp` and `moe` channel mixers; no encoder.
 
 The counterpart of the reference's models/transformer.py. A config's layer
 plan is `prefix` (unstacked) + `period` x num_periods. As in the reference,
@@ -25,38 +25,38 @@ A `moe` layer returns its router's aux loss; the stack sums it over the
 prefix layers and the periods (through the checkpointed period body under
 remat), in the reference's order.
 
-Layers the port does not run yet (Mamba, xLSTM, an encoder, embedding input)
-raise NotImplementedError naming their ROADMAP item.
+The recurrent mixers keep O(1) states in place of a sequence-indexed cache:
+a `mamba` layer (models/mamba.py) {h, conv_tail}, normed input and the
+residual here, as attention; `mlstm` {c, n, m, conv_tail} and `slstm` {c, n,
+m, h} blocks (models/xlstm.py) take x itself and return x with their own
+residual (their configs use mlp="none"). Their decodes write the states in
+place too.
+
+Layers the port does not run yet (an encoder, embedding input) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, mamba, moe, xlstm
+from repro_torch.models.layers import TensorSpec  # noqa: F401 (the package's name for it)
 from repro_torch.tree import tree_map  # noqa: F401 (the package's name for it)
+
+_MIXERS = ("attn", "swa", "mla", "mamba", "mlstm", "slstm")
+_NORMED_MIXERS = ("attn", "swa", "mla", "mamba")  # xLSTM blocks norm their own input
 
 # what each refused feature waits for (ROADMAP queue 1, item 13)
 _TODO = {
-    "mamba": "Mamba layers: ROADMAP queue 1 item 13e",
-    "mlstm": "xLSTM layers: ROADMAP queue 1 item 13f",
-    "slstm": "xLSTM layers: ROADMAP queue 1 item 13f",
     "encoder": "the whisper encoder and cross-attention: ROADMAP queue 1 item 13g",
     "embeddings": "embedding input (vlm/audio frontends): ROADMAP queue 1 item 13h",
 }
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of a tensor that is not allocated (the reference's
-    jax.ShapeDtypeStruct)."""
-
-    shape: tuple
-    dtype: torch.dtype
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -66,10 +66,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.input_mode != "tokens":
         raise NotImplementedError(f"{cfg.name}: {_TODO['embeddings']}")
     for spec in cfg.layer_kinds():
-        for part in (spec.mixer, spec.mlp):
-            if part in _TODO:
-                raise NotImplementedError(f"{cfg.name}: {_TODO[part]}")
-        if spec.mixer not in ("attn", "swa", "mla") or spec.mlp not in ("mlp", "moe", "none"):
+        if spec.mixer not in _MIXERS or spec.mlp not in ("mlp", "moe", "none"):
             raise ValueError(f"{cfg.name}: unknown layer {spec}")
     if cfg.pos_type not in ("rope", "none"):
         raise NotImplementedError(
@@ -85,11 +82,11 @@ def check_supported(cfg: ModelConfig) -> None:
 def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype):
     p: Dict[str, Any] = {}
     dev = generator.device
-    p["mixer_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
-    if spec.mixer == "mla":
-        p["mixer"] = attention.make_mla(generator, cfg, dtype)
-    else:
-        p["mixer"] = attention.make_attention(generator, cfg, dtype)
+    if spec.mixer in _NORMED_MIXERS:
+        p["mixer_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
+    make = {"mla": attention.make_mla, "mamba": mamba.make_mamba, "mlstm": xlstm.make_mlstm,
+            "slstm": xlstm.make_slstm}.get(spec.mixer, attention.make_attention)
+    p["mixer"] = make(generator, cfg, dtype)
     if spec.mlp == "mlp":
         p["mlp_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
         out_scale = cfg.d_ff**-0.5 / (2.0 * cfg.num_layers) ** 0.5
@@ -109,25 +106,34 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
     reference's zero, which the sum skips)."""
     aux = None
     want_cache = mode == "prefill"
-    window = cfg.sliding_window if spec.mixer == "swa" else 0
-    xn = layers.apply_norm(p["mixer_norm"], x)
-    if spec.mixer == "mla":
-        out = attention.mla_forward(p["mixer"], cfg, xn, positions, return_cache=want_cache)
+    if spec.mixer in ("mlstm", "slstm"):  # x in, x (with the block's residual) out
+        fwd = xlstm.mlstm_forward if spec.mixer == "mlstm" else xlstm.slstm_forward
+        out = fwd(p["mixer"], cfg, x, return_cache=want_cache)
     else:
-        out = attention.attn_forward(
-            p["mixer"], cfg, xn, positions, causal=causal, window=window,
-            return_cache=want_cache,
-        )
+        xn = layers.apply_norm(p["mixer_norm"], x)
+        if spec.mixer == "mla":
+            out = attention.mla_forward(p["mixer"], cfg, xn, positions, return_cache=want_cache)
+        elif spec.mixer == "mamba":
+            out = mamba.mamba_forward(p["mixer"], cfg, xn, return_cache=want_cache)
+        else:
+            out = attention.attn_forward(
+                p["mixer"], cfg, xn, positions, causal=causal,
+                window=cfg.sliding_window if spec.mixer == "swa" else 0,
+                return_cache=want_cache,
+            )
     cache = None
     if want_cache:
-        y_attn, kv = out
-        cache = {"self": kv}
+        y, state = out
+        cache = {"self": state}
     else:
-        y_attn = out
-    if cfg.parallel_block and spec.mlp != "none":
+        y = out
+    if spec.mixer in ("mlstm", "slstm"):
+        x = y
+    elif cfg.parallel_block and spec.mixer != "mamba" and spec.mlp != "none":
         y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
-        return x + y_attn + y_mlp, aux, cache
-    x = x + y_attn
+        return x + y + y_mlp, aux, cache
+    else:
+        x = x + y
     if spec.mlp in ("mlp", "moe"):
         xn = layers.apply_norm(p["mlp_norm"], x)
         if spec.mlp == "mlp":
@@ -140,16 +146,22 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
 
 def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
     """One-token layer step; updates `cache` in place. Returns (x, cache)."""
-    window = cfg.sliding_window if spec.mixer == "swa" else 0
-    xn = layers.apply_norm(p["mixer_norm"], x)
-    if spec.mixer == "mla":
-        y, _ = attention.mla_decode(p["mixer"], cfg, xn, cache["self"], pos)
+    if spec.mixer in ("mlstm", "slstm"):
+        dec = xlstm.mlstm_decode if spec.mixer == "mlstm" else xlstm.slstm_decode
+        x, _ = dec(p["mixer"], cfg, x, cache["self"])
     else:
-        y, _ = attention.attn_decode(p["mixer"], cfg, xn, cache["self"], pos, window=window)
-    if cfg.parallel_block and spec.mixer in ("attn", "swa") and "mlp" in p:
-        y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
-        return x + y + y_mlp, cache
-    x = x + y
+        xn = layers.apply_norm(p["mixer_norm"], x)
+        if spec.mixer == "mla":
+            y, _ = attention.mla_decode(p["mixer"], cfg, xn, cache["self"], pos)
+        elif spec.mixer == "mamba":
+            y, _ = mamba.mamba_decode(p["mixer"], cfg, xn, cache["self"])
+        else:
+            window = cfg.sliding_window if spec.mixer == "swa" else 0
+            y, _ = attention.attn_decode(p["mixer"], cfg, xn, cache["self"], pos, window=window)
+        if cfg.parallel_block and spec.mixer in ("attn", "swa") and "mlp" in p:
+            y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
+            return x + y + y_mlp, cache
+        x = x + y
     if "mlp" in p:
         xn = layers.apply_norm(p["mlp_norm"], x)
         if "router" in p["mlp"]:
@@ -161,6 +173,10 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
 
 
 def _layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch, seq, dtype):
+    recurrent = {"mamba": mamba.mamba_cache_spec, "mlstm": xlstm.mlstm_cache_spec,
+                 "slstm": xlstm.slstm_cache_spec}.get(spec.mixer)
+    if recurrent is not None:
+        return {"self": recurrent(cfg, batch, dtype)}
     if spec.mixer == "mla":
         mla = cfg.mla
         return {"self": {"c_kv": TensorSpec((batch, seq, mla.kv_lora_rank), dtype),
@@ -203,17 +219,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
     if cfg.prefix:
         p["prefix"] = [_init_layer(generator, cfg, spec, dtype) for spec in cfg.prefix]
     if cfg.num_periods > 0:
-        # [layer][...] leaves of (P, ...), filled as the periods are drawn (in
-        # order): a period's leaves are copied into row i and dropped, so the
-        # peak holds the stack and one period, not every period twice
-        stack = None
-        for i in range(cfg.num_periods):
-            period = [_init_layer(generator, cfg, spec, dtype) for spec in cfg.period]
-            if stack is None:
-                stack = tree_map(lambda t: t.new_empty((cfg.num_periods,) + tuple(t.shape)),
-                                 period)
-            tree_map(lambda dst, src: dst[i].copy_(src), stack, period)
-            del period
+        # [layer][...] leaves of (P, ...), filled as the layers are drawn (in
+        # order, period by period): a layer's leaves are copied into row i and
+        # dropped, so the peak holds the stack and one layer, not every layer
+        # twice
+        p_count = cfg.num_periods
+        stack = [None] * len(cfg.period)
+        for i in range(p_count):
+            for j, spec in enumerate(cfg.period):
+                layer = _init_layer(generator, cfg, spec, dtype)
+                if stack[j] is None:
+                    stack[j] = tree_map(lambda t: t.new_empty((p_count,) + tuple(t.shape)), layer)
+                tree_map(lambda dst, src: dst[i].copy_(src), stack[j], layer)
+                del layer
         p["stack"] = stack
     return p
 

@@ -5,7 +5,10 @@ and a sharded plan on a world-size-1 NCCL mesh, and training: the routing
 of a step's attention around the flash kernel, one train step against the
 CPU's, and a crash and resume; and MLA: the flash kernel at D = 192 with a
 zero-padded v, a reduced deepseek-v2-lite at the full MLA dims served as on
-the CPU through the kernel, and its gradients against the CPU's.
+the CPU through the kernel, and its gradients against the CPU's; and the
+recurrent mixers: reduced jamba (its attention through the kernel at a GQA
+group of 8) and xlstm-125m served as on the CPU, each Mamba / mLSTM / sLSTM
+block and the gradients against the CPU's.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -1339,6 +1342,121 @@ def test_reduced_mla_grads_on_the_card_match_the_cpu(cuda):
         flash_loss, _ = model_gpu.loss_fn(p_gpu, b_gpu)
     assert sto_step.LAUNCHES["flash_attention"] == cfg.num_layers
     assert abs(float(flash_loss) - float(loss_gpu)) <= 5e-3 * abs(float(loss_gpu))
+
+
+def _recurrent_cfg(arch):
+    """Reduced jamba or xlstm-125m (f32). jamba's attention layer at H 8,
+    KVH 1, D 128: a GQA group of 8, as the full config's 64 / 8, at a head
+    dim the flash kernel takes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+
+    cfg = reduce_config(get_config(arch))
+    if cfg.mamba is not None:
+        cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=1, head_dim=128)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_reduced_recurrent_serves_on_cuda(cuda, arch, capsys):
+    """Reduced jamba (Mamba layers, its attention layer through the flash
+    kernel at G = 8, one launch a prefill; MoE) and xlstm-125m (mLSTM and
+    sLSTM, no kernel): the engine generates the CPU's tokens; the launcher
+    serves the reduced config with its default device."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model, transformer
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = _recurrent_cfg(arch)
+    params = build_model(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 19, 24, 17)]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = transformer.tree_map(lambda t: t.to(dev), params)
+        reqs = [Request(i, torch.from_numpy(x), 6) for i, x in enumerate(prompts)]
+        sto_step.reset_launches()
+        out[str(dev)] = Engine(cfg, p, num_slots=2, capacity=32, device=dev).run(reqs)
+        attn = sum(spec.mixer == "attn" for spec in cfg.layer_kinds())
+        want = attn * len(prompts) if dev != "cpu" else 0
+        assert sto_step.LAUNCHES["flash_attention"] == want, (dev, dict(sto_step.LAUNCHES))
+    assert out["cpu"] == out["cuda"]
+    launch_serve.main(["--arch", arch, "--reduced", "--requests", "3",
+                       "--slots", "2", "--gen", "4", "--prompt-len", "20"])
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["mamba", "mlstm", "slstm"])
+def test_recurrent_blocks_on_the_card_match_the_cpu(cuda, block):
+    """One reduced Mamba / mLSTM / sLSTM block (f32): a 37-token forward with
+    its cache (Mamba: chunks of 8 and a padded remainder), then a decode
+    step writing the cache in place, the card against the CPU within 2e-5
+    (f32 sums in another order: the bound the CPU tests hold the port to
+    against the reference)."""
+    from repro_torch.models import build_model, mamba, transformer, xlstm
+
+    arch = "jamba-1.5-large-398b" if block == "mamba" else "xlstm-125m"
+    cfg = _recurrent_cfg(arch)
+    layer = [spec.mixer for spec in cfg.period].index(block)
+    params = build_model(cfg, device="cpu").init(0)
+    p = transformer.tree_map(lambda t: t[0], params["stack"][layer]["mixer"])
+    mod = mamba if block == "mamba" else xlstm
+    fwd, dec = getattr(mod, f"{block}_forward"), getattr(mod, f"{block}_decode")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 38, cfg.d_model))
+                         .astype(np.float32))
+    res = []
+    for dev in ("cpu", cuda):
+        pd = transformer.tree_map(lambda t: t.to(dev), p)
+        y, cache = fwd(pd, cfg, x[:, :37].to(dev), return_cache=True)
+        leaves = dict(cache)
+        yd, out = dec(pd, cfg, x[:, 37:].to(dev), cache)
+        assert out is cache and all(cache[k] is leaves[k] for k in leaves)
+        res.append([y, yd] + [cache[k] for k in sorted(cache)])
+    for a, b in zip(res[1], res[0]):
+        assert a.shape == b.shape and (a.cpu() - b).abs().max() <= 2e-5
+
+
+# the recurrent archs' gradient leaves, card against CPU, relative to each
+# leaf's largest magnitude (TRAIN_RTOL holds the dense family's).
+# Basis (tools/recurrent_grad_margin.py --device cuda, NVIDIA H100 80GB
+# HBM3, 700.00 W): these gradients are that sensitive. One f32 rounding of
+# every parameter moves the host CPU's own leaves by up to 6.3e-5, and the
+# card against the host CPU reads up to 1.0e-4 (xlstm; jamba 1.6e-5) over
+# seeds 0-4 and two steps. The subtlest planted fault (sLSTM's normaliser
+# clamp dropped) reads 0.22. The limit sits 5x above the one, 440x below
+# the other.
+RECURRENT_GRAD_RTOL = 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_reduced_recurrent_grads_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced jamba and xlstm-125m (f32): the loss on the card against the
+    CPU's within TRAIN_RTOL and every gradient leaf within
+    RECURRENT_GRAD_RTOL, through autograd on the plain ops (neither mixer
+    has a kernel; the flash kernel is not launched under grad)."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    cfg = _recurrent_cfg(arch)
+    model, model_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params = model.init(0)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4))
+    b_cpu, b_gpu = to_device(data.batch(0), "cpu"), to_device(data.batch(0), "cuda")
+    rel = lambda a, b: float((a.detach().cpu().double() - b.detach().double()).abs().max()  # noqa: E731
+                             / b.detach().double().abs().max().clamp(min=1e-30))
+    sto_step.reset_launches()
+    loss_gpu, g_gpu = steps.loss_and_grads(model_gpu, _tree_to(params, cuda), b_gpu)
+    assert sto_step.LAUNCHES["flash_attention"] == 0
+    loss_cpu, g_cpu = steps.loss_and_grads(model, params, b_cpu)
+    assert rel(loss_gpu, loss_cpu) <= TRAIN_RTOL
+    for a, b in zip(tree.leaves(g_gpu), tree.leaves(g_cpu)):
+        assert rel(a, b) <= RECURRENT_GRAD_RTOL
 
 
 @pytest.mark.cuda

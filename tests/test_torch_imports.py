@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels.dispatch_table, "
         "repro_torch.serve.reservoir, repro_torch.kernels.ops, "
         "repro_torch.kernels.flash_attention, repro_torch.configs, repro_torch.configs.archs, "
-        "repro_torch.models, repro_torch.models.counting, repro_torch.models.moe, repro_torch.serve.engine, "
+        "repro_torch.models, repro_torch.models.counting, repro_torch.models.moe, "
+        "repro_torch.models.mamba, repro_torch.models.xlstm, repro_torch.serve.engine, "
         "repro_torch.launch.serve, repro_torch.tune, repro_torch.serve.fleet, "
         "repro_torch.api.sharded, repro_torch.distributed, repro_torch.distributed.collectives, "
         "repro_torch.optim, repro_torch.data, repro_torch.train, repro_torch.train.watchdog, "

@@ -20,7 +20,10 @@ deepseek-v2-lite (MLA: a latent cache, spliced at the prefix layer and the
 period stack) at their published capacity factor ("+cap") decode rows are coupled (a decode step's
 router chunk is the whole slot batch, one slot an expert), so a flip there
 is held in the reference engine's own batch geometry: its logits recorded at
-the step that chose the token.
+the step that chose the token. The recurrent archs (reduced jamba: Mamba
+layers, one attention layer, MoE; xlstm-125m: mLSTM and sLSTM blocks) splice
+O(1) states whole; in the engine's own 4-row decode geometry a request
+rerun alone is exact.
 """
 
 import dataclasses
@@ -109,6 +112,48 @@ def test_engine_matches_per_request(variant, slots):
     assert st.decode_tokens == sum(g - 1 for _, g in SCHEDULE)
 
 
+def _margins_in_geometry(m, params, cfg, req, tokens, slots, capacity):
+    """Teacher-forced on `tokens`: per step, the step's max logit minus the
+    chosen token's, running `req` alone in the engine's decode geometry (its
+    prefill spliced into slot 0 of a zeroed cache of `slots` rows, the other
+    slots idle at position 0)."""
+    last, seq_cache = m.prefill(params, {"tokens": req.prompt[None]})
+    caches = transformer.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype),
+                                  m.cache_specs(slots, capacity))
+    _splice_cache(caches, seq_cache, 0)
+    step = torch.zeros((slots, 1), dtype=torch.long)
+    pos = torch.zeros((slots,), dtype=torch.long)
+    logits, out = last[0, -1, : cfg.vocab_size], []
+    for j, tok in enumerate(tokens):
+        out.append(float(logits.max() - logits[tok]))
+        if j + 1 < len(tokens):
+            step[0, 0], pos[0] = tok, len(req.prompt) + j
+            lg, caches = m.decode_step(params, step, caches, pos)
+            logits = lg[0, -1, : cfg.vocab_size]
+    return out
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_recurrent_engine_matches_lone_rerun_in_its_geometry(arch):
+    """The reduced recurrent archs through a 4-slot engine: each request
+    rerun alone in the engine's 4-row decode geometry, teacher-forced on the
+    engine's tokens, chooses every one of them (each margin 0: every decode
+    op is row-wise, and jamba's MoE is dropless at reduce_config's capacity);
+    alone at batch 1 each is within MARGIN of its step's top."""
+    cfg = _cfg(arch)
+    m = build_model(cfg, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    reqs = _requests(cfg, SCHEDULE)
+    eng = Engine(cfg, params, num_slots=4, capacity=40, device="cpu")
+    results = eng.run(list(reqs))
+    assert sorted(results) == [r.rid for r in reqs]
+    for r in reqs:
+        assert len(results[r.rid]) == r.max_new
+        assert max(_margins_in_geometry(m, params, cfg, r, results[r.rid], 4, 40)) == 0.0, r.rid
+        assert max(_margins(m, params, cfg, r, results[r.rid], 40)) <= MARGIN, r.rid
+    assert eng.stats.decode_tokens == sum(g - 1 for _, g in SCHEDULE)
+
+
 def test_more_requests_than_slots_all_served():
     cfg = reduce_config(get_config("phi4-mini-3.8b"))
     params = build_model(cfg, device="cpu").init(0)
@@ -155,7 +200,8 @@ def _batch_margin_at(steps, rid, j, tok):
 
 @pytest.mark.parametrize("variant", ["h2o-danube-1.8b", "h2o-danube-1.8b+gqa", "gemma-7b",
                                      "qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap",
-                                     "deepseek-v2-lite-16b", "deepseek-v2-lite-16b+cap"])
+                                     "deepseek-v2-lite-16b", "deepseek-v2-lite-16b+cap",
+                                     "jamba-1.5-large-398b", "xlstm-125m"])
 def test_engine_matches_reference_engine(variant):
     jcfg, cfg = _cfg(variant, jax_side=True), _cfg(variant)
     jm = jax_build_model(jcfg)
@@ -300,6 +346,20 @@ def test_launcher_trains_reduced_mla_on_cpu(tmp_path, capsys):
     launch_train.main(["--arch", "deepseek-v2-lite-16b", "--reduced", "--steps", "3",
                        "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path),
                        "--device", "cpu"])
+    assert "done: final loss" in capsys.readouterr().out
+    assert (tmp_path / "step_00000002").is_dir()
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_launcher_serves_and_trains_reduced_recurrent_on_cpu(arch, tmp_path, capsys):
+    from repro_torch.launch import train as launch_train
+
+    launch_serve.main(["--arch", arch, "--reduced", "--requests", "3", "--slots", "2",
+                       "--gen", "4", "--prompt-len", "20", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out and "on cpu" in out
+    launch_train.main(["--arch", arch, "--reduced", "--steps", "3", "--batch", "2",
+                       "--seq", "16", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
     assert "done: final loss" in capsys.readouterr().out
     assert (tmp_path / "step_00000002").is_dir()
 

@@ -11,7 +11,9 @@ phi4-mini, gemma-7b (geglu, embed_scale, tied head), command-r-plus
 biases) and deepseek-v2-lite (MLA mixers, a dense prefix layer with its own
 latent cache, then MoE periods), each at reduce_config's dropless capacity
 and, as "+cap", at its published capacity factor 1.25, where decode rows
-compete for an expert's slots. The qwen2-moe variants draw their q/k/v biases from a seed (the
+compete for an expert's slots, and the recurrent archs: jamba (Mamba layers
+around one attention layer, MoE on every second layer) and xlstm-125m (three
+mLSTM blocks and an sLSTM block, no MLP). The qwen2-moe variants draw their q/k/v biases from a seed (the
 reference's init leaves them zero), so the bias path is held too. Prompts
 are longer than the window and decode runs past it, so the band bites.
 
@@ -45,12 +47,13 @@ from repro_torch.models.model import make_input_specs
 LOGIT_ATOL = 1e-4
 LAYER_ATOL = 1e-5
 DENSE_ARCHS = ["h2o-danube-1.8b", "phi4-mini-3.8b", "gemma-7b", "command-r-plus-104b"]
-REFUSED_ARCHS = [
-    "jamba-1.5-large-398b", "xlstm-125m", "whisper-base", "llava-next-mistral-7b",
-]
+REFUSED_ARCHS = ["whisper-base", "llava-next-mistral-7b"]
+REFUSED_ITEMS = {"whisper-base": "13g", "llava-next-mistral-7b": "13h"}
 MOE_VARIANTS = ["qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap"]
 MLA_VARIANTS = ["deepseek-v2-lite-16b", "deepseek-v2-lite-16b+cap"]
-VARIANTS = DENSE_ARCHS + ["h2o-danube-1.8b+gqa"] + MOE_VARIANTS + MLA_VARIANTS
+RECURRENT_ARCHS = ["jamba-1.5-large-398b", "xlstm-125m"]
+VARIANTS = (DENSE_ARCHS + ["h2o-danube-1.8b+gqa"] + MOE_VARIANTS + MLA_VARIANTS
+            + RECURRENT_ARCHS)
 
 
 def _cfgs(variant):
@@ -148,19 +151,26 @@ def test_count_params_matches(arch):
 
 @pytest.mark.parametrize("arch", REFUSED_ARCHS)
 def test_build_model_refuses_unported_layers(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The archs still to port are refused, naming their ROADMAP item."""
+    item = REFUSED_ITEMS[arch]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         build_model(get_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         build_model(reduce_config(get_config(arch)), device="cpu")
 
 
-@pytest.mark.parametrize("arch,item", [("jamba-1.5-large-398b", "13e")])
-def test_moe_archs_still_refused_name_their_item(arch, item):
-    """jamba (Mamba) has MoE layers too; it waits for its other layer, and
-    says which."""
-    for cfg in (get_config(arch), reduce_config(get_config(arch))):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            build_model(cfg, device="cpu")
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_reduced_count_params_matches(variant):
+    """count_params of each reduced variant, and the number of values its
+    init draws, against the reference's."""
+    jcfg, cfg = _cfgs(variant)
+    assert counting.count_params(cfg) == jax_counting.count_params(jcfg)
+    assert counting.count_params(cfg, active_only=True) == jax_counting.count_params(
+        jcfg, active_only=True)
+    ref = jax.eval_shape(lambda: jax_transformer.init_params(jax.random.PRNGKey(0), jcfg))
+    ours = transformer.param_template(cfg)
+    assert sum(t.numel() for t in jax.tree.leaves(ours)) == sum(
+        int(np.prod(a.shape)) for a in jax.tree.leaves(ref))
 
 
 def test_build_model_defaults_to_cuda():
@@ -272,17 +282,24 @@ def test_grouped_attend_prefill_and_decode(kvh, window):
 
 
 def test_attn_forward_and_decode(pair):
-    """The first period's mixer (attn_forward / attn_decode, or for an MLA
-    config mla_forward / mla_decode over its latent cache)."""
+    """The first period's first mixer of its kind: attn_forward / attn_decode
+    (jamba: its attention layer), for an MLA config mla_forward / mla_decode
+    over its latent cache, for xlstm the first mLSTM block's forward and
+    decode (tests/test_torch_recurrent.py holds every recurrent function)."""
     cfg, jcfg = pair["cfg"], pair["jcfg"]
-    lp_j = jax.tree.map(lambda a: a[0], pair["jp"]["stack"][0]["mixer"])
-    lp_t = transformer.tree_map(lambda t: t[0], pair["p"]["stack"][0]["mixer"])
+    kinds = [spec.mixer for spec in cfg.period]
+    i = kinds.index("attn") if "attn" in kinds else 0
+    lp_j = jax.tree.map(lambda a: a[0], pair["jp"]["stack"][i]["mixer"])
+    lp_t = transformer.tree_map(lambda t: t[0], pair["p"]["stack"][i]["mixer"])
     window = cfg.sliding_window
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
     posn = np.tile(np.arange(24, dtype=np.int32), (2, 1))
     if cfg.mla is not None:
         _mla_forward_and_decode(cfg, jcfg, lp_t, lp_j, rng, x, posn)
+        return
+    if kinds[i] == "mlstm":
+        _mlstm_forward_and_decode(cfg, jcfg, lp_t, lp_j, x)
         return
     jy, jc = jax_attention.attn_forward(lp_j, jcfg, jnp.asarray(x), jnp.asarray(posn),
                                         window=window, return_cache=True)
@@ -301,6 +318,22 @@ def test_attn_forward_and_decode(pair):
     ty, tc = attention.attn_decode(lp_t, cfg, torch.from_numpy(xd), tcache,
                                    torch.from_numpy(pos), window=window)
     assert tc is tcache  # in place
+    _close(ty.numpy(), jy, LOGIT_ATOL)
+    _cache_close(jc, tc, LOGIT_ATOL)
+
+
+def _mlstm_forward_and_decode(cfg, jcfg, lp_t, lp_j, x):
+    from repro.models import xlstm as jax_xlstm
+    from repro_torch.models import xlstm
+
+    jy, jc = jax_xlstm.mlstm_forward(lp_j, jcfg, jnp.asarray(x), return_cache=True)
+    ty, tc = xlstm.mlstm_forward(lp_t, cfg, torch.from_numpy(x), return_cache=True)
+    _close(ty.numpy(), jy, LOGIT_ATOL)
+    _cache_close(jc, tc, LOGIT_ATOL)
+    xd = x[:, :1] + 1.0
+    jy, jc = jax_xlstm.mlstm_decode(lp_j, jcfg, jnp.asarray(xd), jc)
+    ty, out = xlstm.mlstm_decode(lp_t, cfg, torch.from_numpy(xd), tc)
+    assert out is tc  # in place
     _close(ty.numpy(), jy, LOGIT_ATOL)
     _cache_close(jc, tc, LOGIT_ATOL)
 
@@ -366,15 +399,20 @@ def test_prefill_then_decode(pair):
 
 
 def test_cache_and_input_specs():
-    for arch in DENSE_ARCHS + ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]:
+    """Shapes and dtypes of the cache specs (bf16 k / v and latents; the
+    recurrent mixers' f32 states and bf16 conv tails) and of the input specs,
+    against the reference's."""
+    for arch in DENSE_ARCHS + ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"] + RECURRENT_ARCHS:
         cfg, jcfg = get_config(arch), jax_get_config(arch)
         ours = transformer.cache_specs(cfg, 4, 4640)
         ref = jax_transformer.cache_specs(jcfg, 4, 4640)
         shapes = lambda tree: [tuple(s.shape) for s in jax.tree.leaves(  # noqa: E731
             tree, is_leaf=lambda x: hasattr(x, "shape"))]
         assert shapes(ours) == shapes(ref)
-        assert all(s.dtype == torch.bfloat16 for s in jax.tree.leaves(
-            ours, is_leaf=lambda x: isinstance(x, transformer.TensorSpec)))
+        dtypes = [str(s.dtype).split(".")[1] for s in jax.tree.leaves(
+            ours, is_leaf=lambda x: isinstance(x, transformer.TensorSpec))]
+        assert dtypes == [str(s.dtype) for s in jax.tree.leaves(ref)]
+        assert "bfloat16" in dtypes
         for cell in ("prefill_32k", "decode_32k"):
             assert shapes(make_input_specs(cfg, SHAPES[cell])) == shapes(
                 jax_input_specs(jcfg, JAX_SHAPES[cell])
