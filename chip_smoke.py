@@ -9,6 +9,7 @@
     python3 chip_smoke.py --moe          # phase 5c alone
     python3 chip_smoke.py --mla          # phase 5d alone
     python3 chip_smoke.py --recurrent    # phase 5e alone
+    python3 chip_smoke.py --encdec       # phase 5f alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -282,7 +283,8 @@ on failure:
    to the run with them, and a step's ms with and without them; (f) `python -m repro_torch.train.watchdog -- python -m
    repro_torch.launch.train --arch h2o-danube-1.8b --reduced --steps 8
    --batch 2 --seq 16 --ckpt-every 2 --fail-at-step 5 --device cuda` exits 0
-   with step_00000007 its last checkpoint. Prints the phase's seconds.
+   with step_00000007 its last checkpoint. (e)'s child and (f)'s processes,
+   which mostly start up, run beside (c). Prints the phase's seconds.
 5c. MoE (models/moe.py), run after phase 5 (whose tree is freed) and before
    5b: (a) one MoE layer of qwen2-moe-a2.7b at full width (make_moe from
    seed 0, bf16: 60 experts, top-4, capacity factor 1.25, router chunk 512,
@@ -363,7 +365,8 @@ on failure:
    written in place: the same tensors, the tail shifted by a row); chunks of
    64 against one chunk of the whole sequence on the card
    (MAMBA_CHUNK_RTOL); a 4608-token prefill and a batch-4 decode step timed
-   on the card (CUDA events) and on the host CPU, beside their bounds; (b)
+   on the card (CUDA events), beside their bounds, and on the host CPU (the
+   prefill there at MAMBA_TOKENS tokens: the run held above); (b)
    the flash kernel at jamba's attention call (H 64, KVH 8: a GQA group of
    8, D 128, no RoPE, 4608 tokens, causal) against its plain version by
    phase 4's two measures, beside SDPA's flash backend, with its bound; (c)
@@ -400,9 +403,48 @@ on failure:
    mixer has a kernel).
    Prints the phase's seconds. `python3 chip_smoke.py --recurrent` runs it
    alone.
+5f. The encoder-decoder and embedding-input paths (models/transformer.py:
+   encode, cross-attention, inputs_embeds), run after phase 5e (whose tree
+   is freed) and before 5b: (a) the flash kernel at this slice's new shapes
+   against its plain version by phase 4's two measures, beside SDPA's flash
+   backend (no mask where the call has none), with its bound, at the shapes
+   (b) and (c) launch it: whisper's encoder (B 1, H = KVH = 8, D 64, 1500 x
+   1500, bidirectional), its decoder's self prefill (B 1, 4 x 4, causal),
+   its cross prefill (B 1, Sq 4, Sk 1500) and a cross decode step (B 4, Sq
+   1), and llava's prefill (B 1, 2992 rows, causal, H 32, KVH 8, D 128);
+   (b) whisper-base
+   whole at full width (6 encoder and 6 decoder layers, bf16, weights from
+   seed 0; the conv frontend stubbed: LM_SLOTS requests of WHISPER_FRAMES =
+   1500 frames, 30 s of audio, 0.02 x normal from seed 0), the four
+   start-of-transcript ids as the prompt, WHISPER_NEW = 220 greedy tokens,
+   4 slots: each request prefilled alone and spliced into slot i of a 4-row
+   cache with enc_seq 1500 (the Engine prefills token prompts only, so
+   _serve_lockstep runs its loop), then lock-step decode; counters set to 0
+   before the run, flash's counted by call site as well (_launches_by_site):
+   flash launched exactly 18 times a prefill (6 encoder, 6 self, 6 cross)
+   and 6 a decode step (cross), no STO kernel; a second run
+   bit-equal; each request rerun alone in the 4-row geometry (phase 5's
+   witness, given the frames) exact at every step; one request through the
+   whole model on the card against the host CPU (the prefill's logits, every
+   self and cross k / v, WHISPER_CPU_STEPS decode steps' logits;
+   ENCDEC_CACHE_RTOL, ENCDEC_LOGIT_RTOL by both measures); prefill rows/s and
+   decode tokens/s, a prefill's and a decode step's ms beside their bounds,
+   each traced once (the busy share); (c) llava-next-mistral-7b at full width
+   (32 layers, bf16, seed 0): a 512-token prefill from inputs_embeds =
+   embed_tokens(tokens) bit-equal to the token prefill (logits and caches);
+   its first decoder layer on the card against the host CPU over
+   LLAVA_LAYER_TOKENS tokens (y, k, v); LM_SLOTS requests of
+   LLAVA_IMAGE_ROWS = 2928 stub image rows (LLaVA-NeXT's anyres layout of a
+   672 x 672 image) and 64 text rows, LLAVA_NEW = 32 new tokens, served as in
+   (b): flash launched exactly 32 times a prefill, the 4-row witness exact,
+   rows/s and tokens/s, the prefill's and a decode step's ms beside their
+   bounds, traced; (d) reduced whisper (remat on) and reduced llava at head
+   dim 64, f32, the loss and every gradient leaf on the card against the
+   host CPU within TRAIN_RTOL, no flash launch under grad. Prints the
+   phase's seconds by part. `python3 chip_smoke.py --encdec` runs it alone.
 6. Print the kernels line (the STO kernels, tm_delay_line and flash, whose
-   row carries its qwen2_moe, deepseek_v2_lite and jamba entries), the card
-   line and, last, the contract line {"ok": true, "device": {...}}.
+   row carries its qwen2_moe, deepseek_v2_lite, jamba and encdec entries),
+   the card line and, last, the contract line {"ok": true, "device": {...}}.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -1092,9 +1134,9 @@ def unmasked_pairs(sq, sk, causal, window):
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def plain_bshd(q, k, v, window):
+def plain_bshd(q, k, v, window, causal=True):
     t = lambda x: x.transpose(1, 2)  # noqa: E731
-    return t(fa.flash_attention_plain(t(q), t(k), t(v), True, window))
+    return t(fa.flash_attention_plain(t(q), t(k), t(v), causal, window))
 
 
 def row_rel_err(out, ref):
@@ -1161,13 +1203,13 @@ def flash_config(name):
     return out
 
 
-def tile_summary(h, kvh, d, sq, sk, window):
+def tile_summary(h, kvh, d, sq, sk, window, batch=1, causal=True):
     """The bf16 kernel's launch at one shape as the Python mirror
     (fa.tile_plan, fa.tile_work) plans it: worked out here, not read from
     the card, so it is printed on a line of its own and kept out of the
     kernels line."""
     plan = fa.tile_plan(h // kvh, sq, d)
-    work = list(fa.tile_work(plan, 1, kvh, sq, sk, True, window))
+    work = list(fa.tile_work(plan, batch, kvh, sq, sk, causal, window))
     tiles = [w.kv1 - w.kv0 for w in work]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(positions_per_tile=plan.positions, heads_per_tile=plan.heads, blocks=len(work),
@@ -1177,30 +1219,30 @@ def tile_summary(h, kvh, d, sq, sk, window):
                 computed_flop=4.0 * d * fa.ROWS * plan.kv_tile * sum(tiles))
 
 
-def sdpa_causal(qt, kt, vt):
-    """SDPA with is_causal (Sq = Sk) and the backend that ran: for bf16 the
-    flash backend, with enable_gqa where it takes it, else K/V repeated
-    here, outside the call that is timed; for f32 (which that backend
-    refuses) PyTorch's own choice."""
+def sdpa_flash(qt, kt, vt, causal=True):
+    """SDPA with is_causal (Sq = Sk), or without a mask, and the backend that
+    ran: for bf16 the flash backend, with enable_gqa where it takes it, else
+    K/V repeated here, outside the call that is timed; for f32 (which that
+    backend refuses) PyTorch's own choice."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = qt.shape[1] // kt.shape[1]
     if qt.dtype != torch.bfloat16:
-        return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), "PyTorch's default"
+        return lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True), "PyTorch's default"
     try:
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
             try:
-                sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)
-                fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)  # noqa: E731
+                sdpa(qt, kt, vt, is_causal=causal, enable_gqa=g > 1)
+                fn = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=g > 1)  # noqa: E731
                 how = "flash backend" + (", enable_gqa" if g > 1 else "")
             except RuntimeError:
                 kr, vr = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
-                fn = lambda: sdpa(qt, kr, vr, is_causal=True)  # noqa: E731
+                fn = lambda: sdpa(qt, kr, vr, is_causal=causal)  # noqa: E731
                 how = "flash backend, K/V repeated outside the timed call"
                 fn()
     except RuntimeError as err:  # the flash backend refuses these inputs (a head dim)
-        fn = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=g > 1)  # noqa: E731
+        fn = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=g > 1)  # noqa: E731
         return fn, ("PyTorch's default choice: the flash backend refused these inputs ("
                     + str(err).strip().splitlines()[0][:160] + ")")
 
@@ -1211,23 +1253,26 @@ def sdpa_causal(qt, kt, vt):
     return run, how
 
 
-def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None):
+def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None, batch=1,
+               causal=True):
     """One flash case: the kernel vs its plain version, timed beside the plain
     version and one SDPA call, with its bound and tile plan. head_dim
     overrides the config's (MLA's dn + dr); with v_dim, v's columns from
-    v_dim on are zero (MLA's padded v), and so must the output's be."""
+    v_dim on are zero (MLA's padded v), and so must the output's be; batch
+    rows and causal=False (an encoder's or a cross-attention's call: no
+    mask) as the caller's path gives them."""
     dev = torch.device("cuda")
     cfg = get_config(arch)
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, head_dim or cfg.head_dim
     fp32, tensor, bw = peaks(name)
     g = torch.Generator(device=dev).manual_seed(sq * 7 + sk + d)
-    q = torch.randn((1, sq, h, d), generator=g, device=dev).to(dtype)
-    k = torch.randn((1, sk, kvh, d), generator=g, device=dev).to(dtype)
-    v = torch.randn((1, sk, kvh, d), generator=g, device=dev).to(dtype)
+    q = torch.randn((batch, sq, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((batch, sk, kvh, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((batch, sk, kvh, d), generator=g, device=dev).to(dtype)
     if v_dim is not None:
         v[..., v_dim:] = 0
-    out = fa.flash_attention_bshd(q, k, v, causal=True, window=window)
-    ref = plain_bshd(q, k, v, window)
+    out = fa.flash_attention_bshd(q, k, v, causal=causal, window=window)
+    ref = plain_bshd(q, k, v, window, causal)
     torch.cuda.synchronize()
     if v_dim is not None:
         pad = out[..., v_dim:]
@@ -1243,7 +1288,7 @@ def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None):
     faults = None
     if sq > window > 0:  # the band bites
         faults = check_planted_faults(q, k, v, ref, window, dtype)
-    flops = 4.0 * h * d * unmasked_pairs(sq, sk, True, window)
+    flops = 4.0 * batch * h * d * unmasked_pairs(sq, sk, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     rate = tensor if dtype == torch.bfloat16 else fp32
     t_ops, t_bytes = flops / rate, nbytes / bw
@@ -1257,20 +1302,20 @@ def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None):
         )
         how = "explicit band mask (PyTorch's masked path)"
     else:
-        sdpa, how = sdpa_causal(qt, kt, vt)
+        sdpa, how = sdpa_flash(qt, kt, vt, causal)
     lib = sdpa().transpose(1, 2)
     torch.cuda.synchronize()
     lib_err = (lib.float() - ref.float()).abs().max().item()
     del ref, lib
-    kern = lambda: fa.flash_attention_bshd(q, k, v, causal=True, window=window)  # noqa: E731
+    kern = lambda: fa.flash_attention_bshd(q, k, v, causal=causal, window=window)  # noqa: E731
     ms, host_ms, sleep_ms = queued_ms(kern, 50)
     case = dict(
-        arch=arch, heads=h, kv_heads=kvh, head_dim=d, sq=sq, sk=sk,
-        dtype=str(dtype).split(".")[-1], window=window, max_abs_err=err, row_rel_err=rel,
-        atol=FLASH_ATOL[dtype], rtol=FLASH_RTOL[dtype],
+        arch=arch, batch=batch, heads=h, kv_heads=kvh, head_dim=d, sq=sq, sk=sk,
+        causal=causal, dtype=str(dtype).split(".")[-1], window=window, max_abs_err=err,
+        row_rel_err=rel, atol=FLASH_ATOL[dtype], rtol=FLASH_RTOL[dtype],
         ms=ms,
         single_call_ms=time_ms(kern, 20),
-        plain_ms=time_ms(lambda: plain_bshd(q, k, v, window), 3),
+        plain_ms=time_ms(lambda: plain_bshd(q, k, v, window, causal), 3),
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=queued_ms(sdpa, 20)[0],
@@ -1284,7 +1329,7 @@ def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None):
     case["share_of_bound"] = case["bound_ms"] / case["ms"]
     case["vs_library"] = case["ms"] / case["library_ms"]
     if v_dim is not None:  # the FLOPs of P.V at v's own width, no padded columns
-        pairs = unmasked_pairs(sq, sk, True, window)
+        pairs = batch * unmasked_pairs(sq, sk, causal, window)
         case["v_dim"] = v_dim
         case["gflop_as_launched"] = flops / 1e9
         case["gflop_v_own_width"] = 2.0 * h * pairs * (d + v_dim) / 1e9
@@ -1292,7 +1337,7 @@ def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None):
                                            1e3 * t_bytes)
         case["pad_columns_exactly_zero"] = True
     if dtype == torch.bfloat16:
-        plan = tile_summary(h, kvh, d, sq, sk, window)
+        plan = tile_summary(h, kvh, d, sq, sk, window, batch, causal)
         print(f"flash {arch} {sq}x{sk} tile plan (the Python mirror fa.tile_plan / "
               f"fa.tile_work, not read from the card): " + json.dumps(plan), flush=True)
     if faults:
@@ -1326,36 +1371,49 @@ def check_flash(name):
     return row
 
 
-def teacher_forced_margins(model, params, cfg, req, tokens, rows=LM_SLOTS, stop=None):
+def _prompt_len(batch):
+    """Rows of a prefill batch's decoder input: its tokens, or its
+    inputs_embeds."""
+    return (batch["tokens"] if "tokens" in batch else batch["inputs_embeds"]).shape[1]
+
+
+def teacher_forced_margins(model, params, cfg, req, tokens, rows=LM_SLOTS, stop=None,
+                           inputs=None, capacity=CAPACITY):
     """Run `req` alone, teacher-forced on `tokens`, decoding `rows` rows with
     the request in row 0. At rows = LM_SLOTS this is the engine's decode
-    geometry: the prefill spliced into slot 0 of a zeroed cache of CAPACITY
-    rows, the other slots idle at position 0, as the engine's idle slots
-    are; every operation of a decode step is row-wise, so the request's row
-    meets the same kernels (the same GEMM shapes) as in the engine and
-    should agree with it bit for bit. At rows = 1 the prefill's cache is
-    padded to CAPACITY. Per step, the gap between the step's maximum logit
-    and the chosen token's (0 where the chosen token is the argmax); with
+    geometry: the prefill spliced into slot 0 of a zeroed cache of
+    `capacity` rows, the other slots idle at position 0, as the engine's
+    idle slots are; every operation of a decode step is row-wise, so the
+    request's row meets the same kernels (the same GEMM shapes) as in the
+    engine and should agree with it bit for bit. At rows = 1 the prefill's
+    cache is padded to `capacity`. `inputs`, where given, is the prefill
+    batch in place of req's token prompt (whisper's encoder frames beside its
+    tokens, whose cross cache then has the frames' rows; llava's
+    inputs_embeds). Per step, the gap between the step's maximum logit and
+    the chosen token's (0 where the chosen token is the argmax); with
     `stop`, the run ends after the first decode step at which stop() is true,
     and that step's gap is not taken."""
-    last, seq_cache = model.prefill(params, {"tokens": req.prompt[None].cuda()})
+    batch = inputs if inputs is not None else {"tokens": req.prompt[None].cuda()}
+    n = _prompt_len(batch)
+    last, seq_cache = model.prefill(params, batch)
     if rows == 1:
-        caches = transformer.pad_caches(cfg, seq_cache, CAPACITY)
+        caches = transformer.pad_caches(cfg, seq_cache, capacity)
     else:
+        kw = {"enc_seq": batch["encoder_frames"].shape[1]} if "encoder_frames" in batch else {}
         caches = transformer.tree_map(
             lambda spec: torch.zeros(spec.shape, dtype=spec.dtype, device="cuda"),
-            model.cache_specs(rows, CAPACITY),
+            model.cache_specs(rows, capacity, **kw),
         )
         _splice_cache(caches, seq_cache, 0)
     step_tokens = torch.zeros((rows, 1), dtype=torch.long, device="cuda")
     pos = torch.zeros((rows,), dtype=torch.long, device="cuda")
     logits, gaps = last[0, -1, : cfg.vocab_size], []
     for j, tok in enumerate(tokens):
-        assert torch.isfinite(logits).all(), f"request {req.rid}: logits not finite"
+        assert torch.isfinite(logits).all(), f"request {getattr(req, 'rid', req)}: logits not finite"
         gaps.append((logits.max() - logits[tok]).item())
         if j + 1 < len(tokens):
             step_tokens[0, 0] = tok
-            pos[0] = len(req.prompt) + j
+            pos[0] = n + j
             lg, caches = model.decode_step(params, step_tokens, caches, pos)
             logits = lg[0, -1, : cfg.vocab_size]
             if stop is not None and stop():
@@ -4249,22 +4307,57 @@ def train_child():
         shutil.rmtree(root, ignore_errors=True)
 
 
-def train_dp_phase(name_power):
-    t0 = time.perf_counter()
+def _run_beside(cmd, **kw):
+    """Start subprocess.run(cmd, capture_output=True, text=True, **kw) on a
+    thread; returns wait(), which joins it and returns (the completed
+    process, its seconds), or raises what the run raised."""
+    import threading
+
+    done = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            done["proc"] = subprocess.run(cmd, capture_output=True, text=True, **kw)
+        except BaseException as e:  # noqa: BLE001 (re-raised by wait)
+            done["error"] = e
+        done["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in done:
+            raise done["error"]
+        return done["proc"], done["seconds"]
+
+    return wait
+
+
+def train_dp_phase():
+    """Start 5b(e)'s child (train_child); returns finish(), which waits for
+    it, prints its output and raises if it failed."""
     env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-child"],
-                          capture_output=True, text=True, timeout=600, env=env)
-    sys.stdout.write(proc.stdout)
-    sys.stdout.flush()
-    if proc.returncode != 0:
-        raise RuntimeError(f"train child failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
-    print(f"5b(e): {time.perf_counter() - t0:.1f} s", flush=True)
+    wait = _run_beside([sys.executable, os.path.abspath(__file__), "--train-child"],
+                       timeout=600, env=env)
+
+    def finish():
+        proc, seconds = wait()
+        sys.stdout.write(proc.stdout)
+        sys.stdout.flush()
+        if proc.returncode != 0:
+            raise RuntimeError(f"train child failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+        print(f"5b(e): {seconds:.1f} s, beside 5b(c) and 5b(f)", flush=True)
+
+    return finish
 
 
 def train_launcher(name_power):
     """5b(f): tests/test_watchdog.py:13-36 on the card, the port's launcher
-    under the port's watchdog."""
+    under the port's watchdog. Starts the watchdog's process tree and
+    returns finish(), which waits for it and checks it."""
     import shutil
     import tempfile
 
@@ -4276,34 +4369,43 @@ def train_launcher(name_power):
            sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--reduced",
            "--steps", "8", "--batch", "2", "--seq", "16", "--ckpt-every", "2",
            "--fail-at-step", "5", "--device", "cuda", "--ckpt-dir", ckpt]
-    try:
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                              env=dict(os.environ, PYTHONPATH=src))
-        seconds = time.perf_counter() - t0
-        steps_ = sorted(d for d in os.listdir(ckpt) if d.startswith("step_")) if os.path.isdir(
-            ckpt) else []
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    restarts = [ln for ln in proc.stderr.splitlines() if ln.startswith("[watchdog]")]
-    print(f"5b(f) watchdog -- launch.train --fail-at-step 5 --device cuda: exit "
-          f"{proc.returncode}, {restarts}, checkpoints {steps_}, "
-          f"{proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ''}; {seconds:.1f} s "
-          f"({name_power})", flush=True)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    assert steps_ and steps_[-1] == "step_00000007", steps_
+    wait = _run_beside(cmd, timeout=600, env=dict(os.environ, PYTHONPATH=src))
+
+    def finish():
+        try:
+            proc, seconds = wait()
+            steps_ = sorted(d for d in os.listdir(ckpt) if d.startswith("step_")) if os.path.isdir(
+                ckpt) else []
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        restarts = [ln for ln in proc.stderr.splitlines() if ln.startswith("[watchdog]")]
+        print(f"5b(f) watchdog -- launch.train --fail-at-step 5 --device cuda: exit "
+              f"{proc.returncode}, {restarts}, checkpoints {steps_}, "
+              f"{proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ''}; "
+              f"{seconds:.1f} s, beside 5b(c) and 5b(e) ({name_power})", flush=True)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert steps_ and steps_[-1] == "step_00000007", steps_
+
+    return finish
 
 
 def train_phase(name_power):
-    """Phase 5b: training on the card."""
+    """Phase 5b: training on the card. 5b(e)'s child and 5b(f)'s process
+    tree, which spend most of their time starting up, run beside 5b(c)."""
     t0 = time.perf_counter()
     train_card_vs_cpu(name_power)
     train_full_width(name_power)
     gc.collect()
     torch.cuda.empty_cache()
-    train_resume(name_power)
-    train_dp_phase(name_power)
-    train_launcher(name_power)
+    finish_launcher = train_launcher(name_power)
+    try:
+        finish_dp = train_dp_phase()
+        try:
+            train_resume(name_power)
+        finally:
+            finish_dp()
+    finally:
+        finish_launcher()
     print(f"phase 5b: {time.perf_counter() - t0:.1f} s ({name_power})", flush=True)
 
 
@@ -5426,7 +5528,9 @@ def mamba_layer_check(name_power):
     and the cache written in place), the card against the host CPU on the
     same tensors; chunks of 64 against one chunk of the whole sequence on the
     card; the prefill (phase 5's longest prompt) and the decode step timed on
-    the card (CUDA events) and on the host CPU (host clock)."""
+    the card (CUDA events), the decode step on the host CPU too (host clock);
+    the host CPU's prefill time is that of its MAMBA_TOKENS-token run above
+    (a 4608-token host run took 26-41 s of the script, and no check read it)."""
     import dataclasses
 
     from repro_torch.models import mamba
@@ -5487,21 +5591,21 @@ def mamba_layer_check(name_power):
 
     xl = hidden(1, max(PROMPTS))
     prefill_ms = time_ms(lambda: mamba.mamba_forward(p, cfg, xl), 3)
-    host_prefill_ms = _host_ms(lambda: mamba.mamba_forward(p_host, cfg, xl.cpu()))
     decode_ms = time_ms(lambda: mamba.mamba_decode(p, cfg, xd, cache), 5)
     cache_h = {k: v.cpu().clone() for k, v in cache.items()}
     host_decode_ms = _host_ms(lambda: mamba.mamba_decode(p_host, cfg, xd.cpu(), cache_h), 3)
     pb, db = mamba_layer_bounds(cfg, max(PROMPTS), LM_SLOTS)
     print(f"5e(a) one Mamba layer at full width: prefill {max(PROMPTS)} tokens {prefill_ms:.3f} ms "
           f"on the card (CUDA events, median of 3; operations bound {pb:.3f} ms, "
-          f"{100 * pb / prefill_ms:.1f} %), {host_prefill_ms:.3f} ms on the host CPU (one call); "
+          f"{100 * pb / prefill_ms:.1f} %), the host CPU {1e3 * host_s:.3f} ms for "
+          f"{MAMBA_TOKENS} tokens (one call); "
           f"decode step, batch {LM_SLOTS}: {decode_ms:.3f} ms on the card (median of 5; bytes "
           f"bound {db:.4f} ms, {100 * db / decode_ms:.1f} %), {host_decode_ms:.3f} ms on the host "
           f"CPU (median of 3) ({name_power})", flush=True)
     del p, p_host, cache, before, cache_h
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(prefill_ms=prefill_ms, host_prefill_ms=host_prefill_ms, decode_ms=decode_ms,
+    return dict(prefill_ms=prefill_ms, host_prefill_ms=1e3 * host_s, decode_ms=decode_ms,
                 host_decode_ms=host_decode_ms)
 
 
@@ -5946,7 +6050,8 @@ def recurrent_phase(name, name_power):
     print(f"phase 5e: {seconds:.1f} s ((a) and (b) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, of which "
           f"the no-drop run and its witness {served['witness_s']:.1f} s, (d) {t3 - t2:.1f} s, (e) "
           f"{seconds - (t3 - t0):.1f} s); the Mamba layer's prefill {layer['prefill_ms']:.3f} ms "
-          f"/ {layer['host_prefill_ms']:.3f} ms on the host CPU, decode {layer['decode_ms']:.3f} / "
+          f"({max(PROMPTS)} tokens) / {layer['host_prefill_ms']:.3f} ms on the host CPU "
+          f"({MAMBA_TOKENS} tokens), decode {layer['decode_ms']:.3f} / "
           f"{layer['host_decode_ms']:.3f} ms; xlstm-125m prefill {xl['prefill_ms']:.3f} ms "
           f"({name_power})", flush=True)
     keys = ("ms", "single_call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
@@ -5964,6 +6069,512 @@ def recurrent_only():
     flash_config(torch.cuda.get_device_name(0))
     recurrent_phase(torch.cuda.get_device_name(0), name_power)
     print("5e held", flush=True)
+
+
+WHISPER_ARCH = "whisper-base"
+LLAVA_ARCH = "llava-next-mistral-7b"
+# (b) whisper-base whole: LM_SLOTS requests of 30 s of audio each (whisper's
+# n_audio_ctx, 1500 encoder frames after its conv frontend, which the config
+# stubs: frames drawn 0.02 x normal from seed 0), the four start-of-transcript
+# ids (<|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>) and
+# WHISPER_NEW greedy tokens, so that prompt and output fill half of whisper's
+# 448-token text context
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+WHISPER_NEW = 220
+WHISPER_CAPACITY = len(WHISPER_PROMPT) + WHISPER_NEW
+WHISPER_CPU_STEPS = 8  # (b): decode steps held against the host CPU
+# (c) llava-next-mistral-7b: LM_SLOTS requests of one 672 x 672 image in
+# LLaVA-NeXT's anyres layout (a 576-row base image, then a 2 x 2 grid of 24 x
+# 24-row tiles with a newline row after each of its 48 rows: 576 + 2304 + 48
+# rows; stub embeddings 0.02 x normal, the embed table's scale) and 64 text
+# rows (embed_tokens of seeded ids); LLAVA_NEW new tokens
+LLAVA_IMAGE_ROWS = 576 + 4 * 576 + 48
+LLAVA_TEXT_ROWS = 64
+LLAVA_NEW = 32
+LLAVA_PATH_TOKENS = 512  # (c): inputs_embeds vs the token path
+LLAVA_LAYER_TOKENS = 128  # (c): one full-width layer on the host CPU in bf16 within seconds
+# (a) flash at the shapes (b) and (c) launch it: (label, arch, sq, sk,
+# batch, causal). Each request is prefilled alone (B 1); decode runs the
+# LM_SLOTS rows in lock-step.
+ENCDEC_FLASH_CASES = (
+    ("whisper_encoder", WHISPER_ARCH, WHISPER_FRAMES, WHISPER_FRAMES, 1, False),
+    ("whisper_self_prefill", WHISPER_ARCH, len(WHISPER_PROMPT), len(WHISPER_PROMPT), 1, True),
+    ("whisper_cross_prefill", WHISPER_ARCH, len(WHISPER_PROMPT), WHISPER_FRAMES, 1, False),
+    ("whisper_cross_decode", WHISPER_ARCH, 1, WHISPER_FRAMES, LM_SLOTS, False),
+    ("llava_prefill", LLAVA_ARCH, LLAVA_IMAGE_ROWS + LLAVA_TEXT_ROWS,
+     LLAVA_IMAGE_ROWS + LLAVA_TEXT_ROWS, 1, True),
+)
+# (b), (c) the card against the host CPU on the same bf16 weights and inputs,
+# by phase 4's two measures. A cache leaf (k or v of a layer) is one bf16
+# product of a residual stream that every layer before it rounds to bf16,
+# each product's f32 sums in another order on each side (an element a bf16
+# ulp or two apart, 2^-8 of it each), and on the card the flash kernel's bf16
+# probabilities (phase 4's 1e-2 a row): as MLA_Y_RTOL. The logits take the
+# whole chain (whisper: 6 encoder and 6 decoder layers, the cross caches and
+# the tied head), twice that.
+ENCDEC_CACHE_RTOL = 2.0**-5
+ENCDEC_LOGIT_RTOL = 2.0**-4
+
+
+def _serve_lockstep(model, params, cfg, batches, new, capacity, enc_seq=None):
+    """The Engine's loop for prefill batches that the Engine does not take
+    (it prefills token prompts only): each request prefilled alone, as the
+    Engine admits, and spliced (_splice_cache) into slot i of a zeroed cache
+    of LM_SLOTS rows, then new - 1 greedy decode steps in lock-step, the
+    tokens read to the host every step as the Engine reads them. Returns the
+    tokens per request and the host seconds of the prefills and the decode
+    steps (each ending in a device-to-host read) and the caches."""
+    assert len(batches) == LM_SLOTS
+    kw = {} if enc_seq is None else {"enc_seq": enc_seq}
+    caches = transformer.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device="cuda"),
+                                  model.cache_specs(LM_SLOTS, capacity, **kw))
+    toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device="cuda")
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        last, seq_cache = model.prefill(params, batch)
+        _splice_cache(caches, seq_cache, i)
+        toks[i, 0] = int(torch.argmax(last[0, -1, : cfg.vocab_size]))
+    out = [toks[:, 0].tolist()]
+    t1 = time.perf_counter()
+    pos = torch.tensor([_prompt_len(b) for b in batches], device="cuda")
+    for j in range(new - 1):
+        logits, caches = model.decode_step(params, toks, caches, pos + j)
+        toks = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
+        out.append(toks[:, 0].tolist())
+    t2 = time.perf_counter()
+    return [[step[i] for step in out] for i in range(LM_SLOTS)], t1 - t0, t2 - t1, caches
+
+
+@contextlib.contextmanager
+def _launches_by_site():
+    """Count the flash kernel's launches by the attention call that made them:
+    while active, attention.attn_forward and attn_decode (the functions the
+    layers call) are wrapped to add the change of LAUNCHES["flash_attention"]
+    across each call to the yielded dict, under "encoder" (attn_forward, no
+    mask, no kv_x), "self_prefill" (attn_forward, causal), "cross_prefill"
+    (attn_forward with kv_x), "self_decode" or "cross_decode"."""
+    from repro_torch.models import attention
+
+    sites = dict.fromkeys(("encoder", "self_prefill", "cross_prefill", "self_decode",
+                           "cross_decode"), 0)
+    fwd, dec = attention.attn_forward, attention.attn_decode
+
+    def counted(fn, site):
+        def call(*args, **kw):
+            before = sto_step.LAUNCHES["flash_attention"]
+            out = fn(*args, **kw)
+            sites[site(kw)] += sto_step.LAUNCHES["flash_attention"] - before
+            return out
+        return call
+
+    attention.attn_forward = counted(fwd, lambda kw: "cross_prefill" if kw.get(
+        "kv_x") is not None else "self_prefill" if kw.get("causal", True) else "encoder")
+    attention.attn_decode = counted(
+        dec, lambda kw: "cross_decode" if kw.get("cross") else "self_decode")
+    try:
+        yield sites
+    finally:
+        attention.attn_forward, attention.attn_decode = fwd, dec
+
+
+def _tree_bytes(tree_):
+    from repro_torch import tree
+
+    return sum(t.numel() * t.element_size() for t in tree.leaves(tree_))
+
+
+def whisper_bounds(cfg, params, name, s, se, rows, pos):
+    """whisper-base's bounds (ms, by): one request's prefill (s prompt
+    tokens, se frames) by operations (every product and attention pair of
+    the encoder and decoder, the head at the last position) or bytes (the
+    weights but dec_pos's unused rows, the frames, the caches written), and a
+    rows-row decode step at positions `pos` by bytes (the decoder's weights,
+    the tied head, the self k / v rows up to each position, the cross
+    caches) or operations."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    proj = 2 * d * hd + 2 * d * kvd  # q, o and k, v
+    enc = cfg.encoder_layers * (2 * se * (proj + 2 * d * f) + 4 * hd * se * se)
+    cross = 2 * s * 2 * d * hd + 2 * se * 2 * d * kvd + 4 * hd * s * se
+    dec = cfg.num_layers * (2 * s * (proj + 2 * d * f) + 4 * hd * unmasked_pairs(s, s, True, 0)
+                            + cross)
+    flops = enc + dec + 2 * d * cfg.padded_vocab
+    weights = _tree_bytes(params) - _tree_bytes(params["dec_pos"])
+    caches = 2 * cfg.num_layers * 2 * (s + se) * kvd
+    pre = bound_ms(name, flops, 0, weights + 2 * (s * d + se * d) + caches, True)
+    dec_weights = _tree_bytes(params["stack"]) + _tree_bytes(params["embed"])
+    kv = sum(2 * 2 * (int(q) + 1) * kvd for q in pos) * cfg.num_layers
+    cross_kv = 2 * 2 * rows * se * kvd * cfg.num_layers
+    step_flops = rows * (cfg.num_layers * 2 * (proj + 2 * d * hd + 2 * d * f)
+                         + 2 * d * cfg.padded_vocab)
+    return pre, bound_ms(name, step_flops, 0, dec_weights + kv + cross_kv, True)
+
+
+def llava_bounds(cfg, params, name, s, rows, pos):
+    """llava's bounds (ms, by): a prefill of s rows by operations (its
+    products, the causal attention pairs, the head at the last position) or
+    bytes (every weight once but the unused embed table, the caches written);
+    a rows-row decode step by bytes (every weight, the k / v rows up to each
+    position) or operations."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    layer = 2 * d * hd + 2 * d * kvd + 3 * d * f
+    flops = cfg.num_layers * (2 * s * layer + 4 * hd * unmasked_pairs(s, s, True, 0))
+    flops += 2 * d * cfg.padded_vocab
+    weights = _tree_bytes(params) - _tree_bytes(params["embed"])
+    pre = bound_ms(name, flops, 0, weights + 2 * s * d + 2 * cfg.num_layers * 2 * s * kvd, True)
+    kv = sum(2 * 2 * (int(q) + 1) * kvd for q in pos) * cfg.num_layers
+    step_flops = rows * (cfg.num_layers * 2 * layer + 2 * d * cfg.padded_vocab)
+    return pre, bound_ms(name, step_flops, 0, _tree_bytes(params) + kv, True)
+
+
+def _init_full(cfg, tag, name_power):
+    """cfg's model on the card, weights from seed 0; prints the init."""
+    from repro_torch import tree
+
+    model = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"{tag} {cfg.name}: {n_params} parameters (count_params {counting.count_params(cfg)}), "
+          f"bf16, init on the card {time.perf_counter() - t0:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({name_power})", flush=True)
+    return model, params
+
+
+def _serve_checks(tag, model, params, cfg, batches, new, capacity, want, enc_seq=None):
+    """Serve `batches` (_serve_lockstep) after a short warm-up: every request
+    `new` tokens in [0, vocab), exactly `want` flash launches and no STO
+    kernel; returns (tokens, prefill s, decode s, launches, peak bytes,
+    flash launches by call site)."""
+    warm = [{k: (v[:, :64] if k == "inputs_embeds" else v) for k, v in b.items()} for b in batches]
+    _serve_lockstep(model, params, cfg, warm, 2, capacity, enc_seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sto_step.reset_launches()
+    with _launches_by_site() as sites:
+        tokens, pre_s, dec_s, _ = _serve_lockstep(model, params, cfg, batches, new, capacity,
+                                                  enc_seq)
+    torch.cuda.synchronize()
+    launches = dict(sto_step.LAUNCHES)
+    assert sum(sites.values()) == launches["flash_attention"], (
+        f"{tag} flash launches outside the attention calls: {sites} vs {launches}")
+    for i, toks in enumerate(tokens):
+        assert len(toks) == new and all(0 <= t < cfg.vocab_size for t in toks), (tag, i, toks)
+    assert launches["flash_attention"] == want, f"{tag} flash launches {launches} != {want}"
+    assert not any(launches[k] for k in STO_KERNELS), f"{tag} STO kernels launched: {launches}"
+    return tokens, pre_s, dec_s, launches, torch.cuda.max_memory_allocated(), sites
+
+
+def _witness(tag, model, params, cfg, batches, tokens, capacity):
+    """Each request alone, teacher-forced in the 4-row geometry (phase 5's
+    witness): every step's gap must be 0."""
+    gaps = [gap for i, b in enumerate(batches) for gap in teacher_forced_margins(
+        model, params, cfg, i, tokens[i], LM_SLOTS, inputs=b, capacity=capacity)]
+    print(f"{tag} vs each request alone (teacher-forced, {LM_SLOTS}-row decode): worst logit "
+          f"margin {max(gaps):.4e} (must be 0), steps off the argmax {sum(g > 0 for g in gaps)} "
+          f"of {len(gaps)}", flush=True)
+    assert max(gaps) == 0.0, f"{tag}: lock-step run vs the 4-row rerun: margin {max(gaps)}"
+
+
+def _timed_steps(tag, model, params, cfg, batch, caches, pos, bounds, name_power):
+    """One prefill of `batch` and one decode step over `caches` at `pos`,
+    timed with CUDA events beside their bounds, each traced once (the
+    device's busy share). Returns (prefill ms, decode ms)."""
+    prefill_ms = time_ms(lambda: model.prefill(params, batch), 3)
+    (pre_b, pre_by), (dec_b, dec_by) = bounds
+    print(f"{tag} prefill of one request: {prefill_ms:.3f} ms (CUDA events, median of 3); "
+          f"{pre_by} bound {pre_b:.4f} ms ({100 * pre_b / prefill_ms:.1f} %) ({name_power})",
+          flush=True)
+    trace(f"{tag} prefill", lambda: model.prefill(params, batch), name_power)
+    tokens = torch.ones((LM_SLOTS, 1), dtype=torch.long, device="cuda")
+    decode_ms = time_ms(lambda: model.decode_step(params, tokens, caches, pos), 5)
+    print(f"{tag} decode step, batch {LM_SLOTS}: {decode_ms:.3f} ms (CUDA events, median of 5); "
+          f"{dec_by} bound {dec_b:.4f} ms ({100 * dec_b / decode_ms:.1f} %) ({name_power})",
+          flush=True)
+    trace(f"{tag} decode step batch {LM_SLOTS}",
+          lambda: model.decode_step(params, tokens, caches, pos), name_power)
+    return prefill_ms, decode_ms
+
+
+def whisper_vs_host(model, params, cfg, batch, tokens, name_power):
+    """5f(b): one request through the whole model on the card and on the
+    host CPU (the same bf16 weights and frames): the prefill's last logits,
+    every layer's self and cross k / v, then WHISPER_CPU_STEPS decode steps
+    teacher-forced on the card's tokens, each step's logits."""
+    from repro_torch import tree
+
+    p_host = transformer.tree_map(lambda t: t.cpu(), params)
+    m_host = build_model(cfg, device="cpu")
+    b_host = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    last_h, cache_h = m_host.prefill(p_host, b_host)
+    host_s = time.perf_counter() - t0
+    last_c, cache_c = model.prefill(params, batch)
+    out = {"prefill logits": _held("prefill logits", last_c, last_h, ENCDEC_LOGIT_RTOL, "5f(b)")}
+    for (path, a), b in zip(tree.leaves_with_path(cache_c), tree.leaves(cache_h)):
+        label = "/".join(map(str, path))
+        out[label] = _held(label, a, b, ENCDEC_CACHE_RTOL, "5f(b)")
+    cache_c = transformer.pad_caches(cfg, cache_c, WHISPER_CAPACITY)
+    cache_h = transformer.pad_caches(cfg, cache_h, WHISPER_CAPACITY)
+    n, steps = _prompt_len(batch), []
+    for j in range(WHISPER_CPU_STEPS):
+        tok = torch.tensor([[tokens[j]]])
+        pos = torch.tensor([n + j])
+        lg_c, cache_c = model.decode_step(params, tok.cuda(), cache_c, pos.cuda())
+        lg_h, cache_h = m_host.decode_step(p_host, tok, cache_h, pos)
+        steps.append(_held(f"decode step {j} logits", lg_c, lg_h, ENCDEC_LOGIT_RTOL, "5f(b)"))
+    worst = max(out.values(), key=lambda r: r["row_rel_err"] / r["rtol"])
+    print(f"5f(b) {cfg.name} whole, card vs the host CPU (one request; bf16 weights and frames): "
+          f"prefill logits {json.dumps(out['prefill logits'])}; {len(out) - 1} cache leaves, the "
+          f"worst by its share of the bound {json.dumps(worst)}; {WHISPER_CPU_STEPS} decode steps' "
+          f"logits, worst row error {max(r['row_rel_err'] for r in steps):.3e}, max abs error "
+          f"{max(r['max_abs_err'] for r in steps):.3e} (rtol {ENCDEC_LOGIT_RTOL}); the host CPU's "
+          f"prefill {host_s:.3f} s ({name_power})", flush=True)
+    del p_host, cache_h
+
+
+def whisper_serve(name_power):
+    """5f(b): whisper-base whole at full width, served by _serve_lockstep."""
+    cfg = get_config(WHISPER_ARCH)
+    clock = [time.perf_counter()]
+    model, params = _init_full(cfg, "5f(b)", name_power)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames = (0.02 * torch.randn((LM_SLOTS, WHISPER_FRAMES, cfg.d_model), generator=g,
+                                 device="cuda")).to(torch.bfloat16)
+    prompt = torch.tensor([WHISPER_PROMPT], device="cuda")
+    batches = [{"encoder_frames": frames[i:i + 1], "tokens": prompt} for i in range(LM_SLOTS)]
+    per_prefill = cfg.encoder_layers + 2 * cfg.num_layers
+    want = per_prefill * LM_SLOTS + cfg.num_layers * (WHISPER_NEW - 1)
+    tokens, pre_s, dec_s, launches, peak, sites = _serve_checks(
+        "5f(b)", model, params, cfg, batches, WHISPER_NEW, WHISPER_CAPACITY, want, WHISPER_FRAMES)
+    want_sites = dict(encoder=cfg.encoder_layers * LM_SLOTS, self_prefill=cfg.num_layers * LM_SLOTS,
+                      cross_prefill=cfg.num_layers * LM_SLOTS, self_decode=0,
+                      cross_decode=cfg.num_layers * (WHISPER_NEW - 1))
+    assert sites == want_sites, f"5f(b) flash launches by call site {sites} != {want_sites}"
+    pre_rows = LM_SLOTS * (WHISPER_FRAMES + len(WHISPER_PROMPT))
+    dec_tokens = LM_SLOTS * (WHISPER_NEW - 1)
+    print(f"5f(b) serve {cfg.name}: {LM_SLOTS} requests of {WHISPER_FRAMES} frames and "
+          f"{len(WHISPER_PROMPT)} prompt tokens, {WHISPER_NEW} new tokens each, {LM_SLOTS} slots "
+          f"(each prefilled alone and spliced, then lock-step decode); prefill {pre_rows} rows "
+          f"(frames and tokens) in {pre_s:.3f} s = {pre_rows / pre_s:.1f} rows/s "
+          f"({LM_SLOTS / pre_s:.2f} requests/s); decode {WHISPER_NEW - 1} steps, {dec_tokens} "
+          f"tokens in {dec_s:.3f} s = {dec_tokens / dec_s:.1f} tok/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches} ({per_prefill} a prefill: "
+          f"{cfg.encoder_layers} encoder, {cfg.num_layers} self, {cfg.num_layers} cross; "
+          f"{cfg.num_layers} a decode step: cross); flash launches by call site {sites} "
+          f"({name_power})", flush=True)
+    again = _serve_lockstep(model, params, cfg, batches, WHISPER_NEW, WHISPER_CAPACITY,
+                            WHISPER_FRAMES)
+    print(f"5f(b) a second run on the same requests bit-equal, token for token: "
+          f"{again[0] == tokens}", flush=True)
+    assert again[0] == tokens, "5f(b): the second run differs"
+    caches = again[3]
+    clock.append(time.perf_counter())
+    _witness("5f(b)", model, params, cfg, batches, tokens, WHISPER_CAPACITY)
+    clock.append(time.perf_counter())
+    whisper_vs_host(model, params, cfg, batches[0], tokens[0], name_power)
+    clock.append(time.perf_counter())
+    pos = torch.full((LM_SLOTS,), WHISPER_CAPACITY - 2, device="cuda")
+    bounds = whisper_bounds(cfg, params, torch.cuda.get_device_name(0), len(WHISPER_PROMPT),
+                            WHISPER_FRAMES, LM_SLOTS, pos.tolist())
+    prefill_ms, decode_ms = _timed_steps("5f(b)", model, params, cfg, batches[0], caches, pos,
+                                         bounds, name_power)
+    clock.append(time.perf_counter())
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = dict(zip(("init and both runs", "witness", "host CPU", "timed and traced"),
+                     (round(b - a, 1) for a, b in zip(clock, clock[1:]))))
+    return dict(launches={f"whisper_{k}": n for k, n in sites.items()}, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, parts=parts)
+
+
+def llava_layer_check(cfg, params, name_power):
+    """5f(c): the first decoder layer of llava at full width (bf16) on
+    LLAVA_LAYER_TOKENS normalised hidden states, the card against the host
+    CPU: the output and its k / v cache."""
+    lp = transformer.tree_map(lambda t: t[0], params["stack"][0])
+    lp_host = transformer.tree_map(lambda t: t.cpu(), lp)
+    spec = cfg.period[0]
+    x = _hidden(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")(1, LLAVA_LAYER_TOKENS)
+    pos = torch.arange(LLAVA_LAYER_TOKENS, device="cuda")[None]
+    sto_step.reset_launches()
+    y, _, cache = transformer._layer_forward(lp, cfg, spec, x, pos, mode="prefill")
+    assert sto_step.LAUNCHES["flash_attention"] == 1, dict(sto_step.LAUNCHES)
+    t0 = time.perf_counter()
+    y_h, _, cache_h = transformer._layer_forward(lp_host, cfg, spec, x.cpu(), pos.cpu(),
+                                                 mode="prefill")
+    host_s = time.perf_counter() - t0
+    out = {"y": _held("layer y", y, y_h, ENCDEC_CACHE_RTOL, "5f(c)")}
+    for k in ("k", "v"):
+        out[k] = _held(f"layer {k}", cache["self"][k], cache_h["self"][k], ENCDEC_CACHE_RTOL,
+                       "5f(c)")
+    print(f"5f(c) one {cfg.name} decoder layer at full width, card vs the host CPU over "
+          f"{LLAVA_LAYER_TOKENS} tokens (flash_bf16<{cfg.head_dim}> on the card): "
+          f"{json.dumps(out)}; the host CPU {host_s:.3f} s ({name_power})", flush=True)
+
+
+def llava_serve(name_power):
+    """5f(c): llava-next-mistral-7b at full width: the inputs_embeds path
+    against the token path, its layer against the host CPU, then
+    LM_SLOTS requests of image and text rows served by _serve_lockstep."""
+    from repro_torch import tree
+    from repro_torch.models import layers
+
+    cfg = get_config(LLAVA_ARCH)
+    clock = [time.perf_counter()]
+    model, params = _init_full(cfg, "5f(c)", name_power)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LLAVA_PATH_TOKENS))).cuda()
+    by_tokens = model.prefill(params, {"tokens": ids})
+    by_embeds = model.prefill(params, {"inputs_embeds": layers.embed_tokens(params["embed"], ids)})
+    leaves = list(zip(tree.leaves(list(by_tokens)), tree.leaves(list(by_embeds))))
+    same = all(torch.equal(a, b) for a, b in leaves)
+    print(f"5f(c) a {LLAVA_PATH_TOKENS}-token prefill from inputs_embeds = embed_tokens(tokens) "
+          f"bit-equal to the token prefill (logits and {len(leaves) - 1} cache leaves): {same}",
+          flush=True)
+    assert same, "5f(c): the inputs_embeds path differs from the token path"
+    del by_tokens, by_embeds, leaves
+    llava_layer_check(cfg, params, name_power)
+    clock.append(time.perf_counter())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    image = (0.02 * torch.randn((LM_SLOTS, LLAVA_IMAGE_ROWS, cfg.d_model), generator=g,
+                                device="cuda")).to(torch.bfloat16)
+    text = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, LLAVA_TEXT_ROWS))).cuda()
+    embeds = torch.cat([image, layers.embed_tokens(params["embed"], text)], dim=1)
+    batches = [{"inputs_embeds": embeds[i:i + 1]} for i in range(LM_SLOTS)]
+    rows = LLAVA_IMAGE_ROWS + LLAVA_TEXT_ROWS
+    capacity = rows + LLAVA_NEW
+    want = cfg.num_layers * LM_SLOTS
+    tokens, pre_s, dec_s, launches, peak, sites = _serve_checks(
+        "5f(c)", model, params, cfg, batches, LLAVA_NEW, capacity, want)
+    want_sites = dict.fromkeys(sites, 0)
+    want_sites["self_prefill"] = want
+    assert sites == want_sites, f"5f(c) flash launches by call site {sites} != {want_sites}"
+    dec_tokens = LM_SLOTS * (LLAVA_NEW - 1)
+    print(f"5f(c) serve {cfg.name}: {LM_SLOTS} requests of {LLAVA_IMAGE_ROWS} image rows (anyres "
+          f"672 x 672) and {LLAVA_TEXT_ROWS} text rows, {LLAVA_NEW} new tokens each, {LM_SLOTS} "
+          f"slots; prefill {LM_SLOTS * rows} rows in {pre_s:.3f} s = "
+          f"{LM_SLOTS * rows / pre_s:.1f} rows/s; decode {LLAVA_NEW - 1} steps, {dec_tokens} "
+          f"tokens in {dec_s:.3f} s = {dec_tokens / dec_s:.1f} tok/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches} ({cfg.num_layers} a prefill; decode "
+          f"attends through the einsum path); flash launches by call site {sites} "
+          f"({name_power})", flush=True)
+    clock.append(time.perf_counter())
+    _witness("5f(c)", model, params, cfg, batches, tokens, capacity)
+    clock.append(time.perf_counter())
+    caches = transformer.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device="cuda"),
+                                  model.cache_specs(LM_SLOTS, capacity))
+    pos = torch.full((LM_SLOTS,), capacity - 2, device="cuda")
+    bounds = llava_bounds(cfg, params, torch.cuda.get_device_name(0), rows, LM_SLOTS,
+                          pos.tolist())
+    prefill_ms, decode_ms = _timed_steps("5f(c)", model, params, cfg, batches[0], caches, pos,
+                                         bounds, name_power)
+    clock.append(time.perf_counter())
+    del params, caches, embeds, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = dict(zip(("init, path and layer checks", "serve", "witness", "timed and traced"),
+                     (round(b - a, 1) for a, b in zip(clock, clock[1:]))))
+    return dict(launches=sites["self_prefill"], prefill_ms=prefill_ms, decode_ms=decode_ms,
+                parts=parts)
+
+
+def encdec_train(name_power):
+    """5f(d): reduced whisper (remat on: the encoder's gradient through the
+    checkpointed period's cross-attention) and reduced llava (inputs_embeds),
+    head dim 64 (one the flash kernel takes), f32: the loss and every
+    gradient leaf on the card against the host CPU's within TRAIN_RTOL (a k
+    bias, whose gradient is 0 in exact arithmetic, against the tree's
+    largest magnitude), no flash launch under grad."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import reduce_config
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+
+    for arch in (WHISPER_ARCH, LLAVA_ARCH):
+        cfg = dataclasses.replace(reduce_config(get_config(arch)), head_dim=64, remat=True)
+        model, model_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+        params = model.init(0)
+        g = torch.Generator().manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=g)
+        batch = {"labels": torch.randint(0, cfg.vocab_size, (4, 64), generator=g)}
+        if cfg.encoder_layers:
+            batch.update(encoder_frames=0.02 * torch.randn(4, 96, cfg.d_model, generator=g),
+                         tokens=tokens)
+        else:
+            batch["inputs_embeds"] = layers.embed_tokens(params["embed"], tokens)
+        sto_step.reset_launches()
+        loss_gpu, g_gpu = steps.loss_and_grads(
+            model_gpu, tree.tree_map(lambda t: t.cuda(), params),
+            {k: v.cuda() for k, v in batch.items()})
+        launches = dict(sto_step.LAUNCHES)
+        loss_cpu, g_cpu = steps.loss_and_grads(model, params, batch)
+        scale = max(float(b.abs().max()) for b in tree.leaves(g_cpu))
+        worst, leaf = 0.0, None
+        for (path, b), a in zip(tree.leaves_with_path(g_cpu), tree.leaves(g_gpu)):
+            den = scale if path[-2:] == ("wk", "bias") else max(float(b.abs().max()), 1e-30)
+            rel = float((a.cpu().double() - b.double()).abs().max()) / den
+            if rel > worst:
+                worst, leaf = rel, tree.path_str(path)
+        loss_rel = _rel(loss_gpu, loss_cpu)
+        print(f"5f(d) reduced {cfg.name} (f32, head dim 64, remat), the card vs the host CPU "
+              f"from the same weights (relative, each at most {TRAIN_RTOL}): loss {loss_rel:.3e} "
+              f"(loss {float(loss_cpu):.4f}), worst gradient leaf {worst:.3e} ({leaf}); launches "
+              f"{launches} ({name_power})", flush=True)
+        assert loss_rel <= TRAIN_RTOL and worst <= TRAIN_RTOL, (cfg.name, loss_rel, worst, leaf)
+        assert not any(launches.values()), launches
+
+
+def encdec_phase(name, name_power):
+    """Phase 5f: whisper's encoder and cross-attention, and embedding input.
+    Returns the flash kernel's rows at this slice's shapes, with the
+    launches of the serving runs."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = {label: flash_case(name, arch, sq, sk, torch.bfloat16, 0, batch=b, causal=causal)
+             for label, arch, sq, sk, b, causal in ENCDEC_FLASH_CASES}
+    t1 = time.perf_counter()
+    wh = whisper_serve(name_power)
+    t2 = time.perf_counter()
+    ll = llava_serve(name_power)
+    t3 = time.perf_counter()
+    encdec_train(name_power)
+    seconds = time.perf_counter() - t0
+    print(f"phase 5f: {seconds:.1f} s ((a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s "
+          f"{json.dumps(wh['parts'])}, (c) {t3 - t2:.1f} s {json.dumps(ll['parts'])}, (d) "
+          f"{seconds - (t3 - t0):.1f} s); whisper-base prefill "
+          f"{wh['prefill_ms']:.3f} ms, decode step {wh['decode_ms']:.3f} ms; llava prefill "
+          f"{ll['prefill_ms']:.3f} ms, decode step {ll['decode_ms']:.3f} ms ({name_power})",
+          flush=True)
+    keys = ("ms", "single_call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+            "share_of_bound", "max_abs_err", "row_rel_err", "batch", "heads", "kv_heads",
+            "head_dim", "sq", "sk", "causal")
+    out = {label: {k: case[k] for k in keys} for label, case in flash.items()}
+    for label in out:
+        out[label]["launches"] = ll["launches"] if label.startswith("llava") else wh[
+            "launches"][label]
+    return out
+
+
+def encdec_only():
+    """`chip_smoke.py --encdec`: build the kernels and run phase 5f alone."""
+    name_power = card_line()
+    print(f"card: {name_power}", flush=True)
+    _build.load()
+    if _build.BUILD_LOG:
+        print(_build.BUILD_LOG.strip(), flush=True)
+    flash_config(torch.cuda.get_device_name(0))
+    encdec_phase(torch.cuda.get_device_name(0), name_power)
+    print("5f held", flush=True)
 
 
 def main():
@@ -6067,6 +6678,7 @@ def main():
     rows["flash_attention"]["qwen2_moe"] = moe_phase(name, name_power)
     rows["flash_attention"]["deepseek_v2_lite"] = mla_phase(name, name_power)
     rows["flash_attention"]["jamba"] = recurrent_phase(name, name_power)
+    rows["flash_attention"]["encdec"] = encdec_phase(name, name_power)
     train_phase(name_power)
 
     kernels = [
@@ -6100,6 +6712,8 @@ if __name__ == "__main__":
         mla_only()
     elif sys.argv[1:2] == ["--recurrent"]:
         recurrent_only()
+    elif sys.argv[1:2] == ["--encdec"]:
+        encdec_only()
     elif sys.argv[1:2] == ["--train-child"]:
         train_child()
     else:

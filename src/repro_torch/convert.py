@@ -194,10 +194,13 @@ def _tree_from_numpy(tree, dev):
 def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The port's LM parameters from the reference's `init_params` pytree with
     every leaf `np.asarray`'d. The two layouts are the same leaf for leaf:
-    the period-stacked "stack" leaves keep their leading num_periods axis."""
+    the period-stacked "stack" leaves keep their leading num_periods axis, an
+    encoder-decoder arch's "encoder" layers stay a list, and its decoder
+    layers carry "cross_norm" / "cross" beside their mixer."""
     transformer.check_supported(cfg)
     params = _tree_from_numpy(tree, resolve_device(device))
     want = ("embed", "final_norm") + (() if cfg.tie_embeddings else ("lm_head",))
+    want += ("encoder", "dec_pos") if cfg.encoder_layers else ()
     missing = [k for k in want if k not in params]
     if missing:
         raise ValueError(f"{cfg.name}: parameter tree lacks {missing}")

@@ -1,18 +1,23 @@
-"""Attention mixers: MHA/GQA/MQA, sliding-window attention and MLA.
+"""Attention mixers: MHA/GQA/MQA, sliding-window attention, cross-attention
+and MLA.
 
-The counterpart of the reference's models/attention.py (its cross-attention
-and encoder paths aside). Two execution modes share one math core:
-    train / prefill  full-sequence self-attention (prefill also returns
-                     the KV cache)
-    decode           one token against a cache of capacity S
+The counterpart of the reference's models/attention.py. Two execution modes
+share one math core:
+    train / prefill  full-sequence attention (self, bidirectional for an
+                     encoder, or cross-attention to `kv_x`); prefill also
+                     returns the KV cache
+    decode           one token against a cache of capacity S, or (cross)
+                     against the static cache of the encoder's k / v
 
 Layouts: activations (B, S, D); q/k/v (B, S, H, head_dim); caches
 (B, S, KVH, head_dim).
 
 On a CUDA tensor, `grouped_attend` sends every call inside the flash
 kernel's contract (a head dim in HEAD_DIMS, bf16 or f32, no kv_len, no
-softcap, scalar q_offset == Sk - Sq: every `attn_forward` call of a model
-whose head dim the kernel was built for) that needs no gradient to the
+softcap, and a q_offset that puts the last q row on the last k row, or any
+scalar q_offset where nothing is masked: no causal mask and no window;
+every `attn_forward` call of a model whose head dim the kernel was built
+for, and a cross-attention decode) that needs no gradient to the
 hand-written kernel (kernels/flash_attention.py). The kernel has no backward,
 as the reference's has none (its model always runs the einsum), so a call
 under grad mode whose q, k or v requires grad (a training step) runs the
@@ -72,16 +77,20 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(b, s, n_heads, head_dim)
 
 
-def _kernel_takes(q, k, v, q_offset, kv_len, softcap) -> bool:
+def _kernel_takes(q, k, v, q_offset, kv_len, softcap, causal=True, window=0) -> bool:
     """The flash kernel's contract, device aside: a head dim it was
     instantiated for (HEAD_DIMS), a dtype it takes (bf16 or f32, the same
-    for q, k and v), no kv_len, no softcap, and q_offset Sk - Sq."""
+    for q, k and v), no kv_len, no softcap, and q_offset Sk - Sq (the
+    kernel's alignment) or, with no causal mask and no window (an encoder,
+    a cross-attention prefill), any int: the mask is then all ones."""
     if q.shape[-1] not in HEAD_DIMS or q.dtype not in _DTYPES:
         return False
     if k.dtype != q.dtype or v.dtype != q.dtype or kv_len is not None or softcap != 0:
         return False
-    sq, sk = q.shape[1], k.shape[1]
-    return q_offset is None or (isinstance(q_offset, int) and q_offset == sk - sq)
+    if q_offset is None:
+        return True
+    unmasked = not causal and window == 0
+    return isinstance(q_offset, int) and (unmasked or q_offset == k.shape[1] - q.shape[1])
 
 
 def _on_card(q) -> bool:
@@ -105,7 +114,8 @@ def grouped_attend(
     softcap: float = 0.0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    if _on_card(q) and not _needs_grad(q, k, v) and _kernel_takes(q, k, v, q_offset, kv_len, softcap):
+    if _on_card(q) and not _needs_grad(q, k, v) and _kernel_takes(
+            q, k, v, q_offset, kv_len, softcap, causal, window):
         return flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
     return _grouped_attend_dense(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
@@ -158,19 +168,24 @@ def attn_forward(
     *,
     causal: bool = True,
     window: int = 0,
+    kv_x: Optional[torch.Tensor] = None,  # cross-attention source (B, Se, D)
     return_cache: bool = False,
 ):
-    """Full-sequence self-attention (train / prefill)."""
+    """Full-sequence attention (train / prefill / encoder / cross). With
+    `kv_x`, k and v come from it, no RoPE is applied and the mask is off:
+    every q row attends to every row of kv_x; the cache is kv_x's k / v."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = _split_heads(dense(p["wq"], x), h, hd)
-    k = _split_heads(dense(p["wk"], x), kvh, hd)
-    v = _split_heads(dense(p["wv"], x), kvh, hd)
-    if cfg.pos_type == "rope":
+    k = _split_heads(dense(p["wk"], src), kvh, hd)
+    v = _split_heads(dense(p["wv"], src), kvh, hd)
+    if cfg.pos_type == "rope" and kv_x is None:
         ang = rope_freqs(positions, hd, cfg.rope_theta)
         q = apply_rope(q, ang)
         k = apply_rope(k, ang)
     out = grouped_attend(
-        q, k, v, causal=causal, window=window, q_offset=0, softcap=cfg.attn_logit_softcap,
+        q, k, v, causal=causal and kv_x is None, window=window, q_offset=0,
+        softcap=cfg.attn_logit_softcap,
     )
     y = dense(p["wo"], out.reshape(*x.shape[:-1], h * hd))
     if return_cache:
@@ -186,12 +201,20 @@ def attn_decode(
     pos: torch.Tensor,  # (B,) index to write; attends to <= pos
     *,
     window: int = 0,
+    cross: bool = False,
 ) -> Tuple[torch.Tensor, dict]:
     """One-token attention step. Writes the new token's k/v into `cache` IN
-    PLACE and returns it (the reference returns a new cache)."""
+    PLACE and returns it (the reference returns a new cache). With `cross`,
+    `cache` is the static cross-attention cache (the encoder's k / v): the
+    step attends to all of it, with no RoPE and no kv_len, and writes
+    nothing."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
     q = _split_heads(dense(p["wq"], x), h, hd)  # (B, 1, H, D)
+    if cross:
+        out = grouped_attend(q, cache["k"], cache["v"], causal=False,
+                             softcap=cfg.attn_logit_softcap)
+        return dense(p["wo"], out.reshape(b, 1, h * hd)), cache
     k_new = _split_heads(dense(p["wk"], x), kvh, hd)
     v_new = _split_heads(dense(p["wv"], x), kvh, hd)
     if cfg.pos_type == "rope":

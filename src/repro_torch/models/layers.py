@@ -1,5 +1,5 @@
-"""Shared model layers: norms, MLPs, RoPE, embeddings, the LM head and the
-cross-entropy losses.
+"""Shared model layers: norms, MLPs, RoPE, sinusoidal positions, embeddings,
+the LM head and the cross-entropy losses.
 
 The counterpart of the reference's models/layers.py. Params are plain
 nested dicts of tensors with the reference's names and layouts:
@@ -131,6 +131,21 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     sin = torch.sin(angles)[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --- positional embeddings ----------------------------------------------------
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) f32 table: sin of pos / 10000^(2i / d) in the even columns,
+    cos in the odd ones (whisper's encoder)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10_000.0, dim / d)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
 
 
 # --- embeddings ----------------------------------------------------------------

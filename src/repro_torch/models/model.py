@@ -32,8 +32,8 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    """The model's functions for `cfg` on `device`. Raises
-    NotImplementedError for layers the port does not run yet."""
+    """The model's functions for `cfg` on `device`. Raises ValueError for a
+    layer kind the model does not know."""
     transformer.check_supported(cfg)
     dev = resolve_device(device)
 
@@ -68,36 +68,50 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     def decode_step(params, tokens, caches, pos):
         return transformer.decode_step(params, cfg, tokens, caches, pos)
 
-    def input_specs(cell: ShapeCell) -> Dict[str, Any]:
-        return make_input_specs(cfg, cell)
+    def input_specs(cell: ShapeCell, enc_seq: int = 4096) -> Dict[str, Any]:
+        return make_input_specs(cfg, cell, enc_seq)
 
-    def cache_specs(batch, seq):
-        return transformer.cache_specs(cfg, batch, seq)
+    def cache_specs(batch, seq, enc_seq: int = 4096):
+        return transformer.cache_specs(cfg, batch, seq, enc_seq)
 
     return Model(cfg, init, loss_fn, forward, prefill, decode_step, input_specs, cache_specs)
 
 
-def make_input_specs(cfg: ModelConfig, cell: ShapeCell):
+def make_input_specs(cfg: ModelConfig, cell: ShapeCell, enc_seq: int = 4096):
     """Batch pytree (TensorSpecs) for one (arch x shape) cell: train carries
-    tokens, labels and an f32 loss mask, prefill the full token sequence,
-    decode one token + cache + per-sequence positions."""
+    the inputs, labels and an f32 loss mask, prefill the full input
+    sequence, decode one token + cache + per-sequence positions. The inputs
+    are tokens; an embedding-input arch's are stubbed frontend outputs
+    inputs_embeds (B, S, d_model) in the model's dtype; an encoder-decoder
+    arch's are encoder_frames (train: (B, S, d_model); prefill: (B, min(S,
+    enc_seq), d_model)) beside its tokens, and its decode cache holds a
+    cross cache of enc_seq rows."""
     b, s = cell.global_batch, cell.seq_len
     tok = lambda *shape: TensorSpec(shape, torch.int32)  # noqa: E731
-    if cell.kind == "train":
-        return {"tokens": tok(b, s), "labels": tok(b, s),
-                "loss_mask": TensorSpec((b, s), torch.float32)}
-    if cell.kind == "prefill":
+    emb = lambda *shape: TensorSpec(shape, transformer._dtype_of(cfg))  # noqa: E731
+
+    def inputs(frames):
+        if cfg.encoder_layers:
+            return {"encoder_frames": emb(b, frames, cfg.d_model), "tokens": tok(b, s)}
+        if cfg.input_mode == "embeddings":
+            return {"inputs_embeds": emb(b, s, cfg.d_model)}
         return {"tokens": tok(b, s)}
+
+    if cell.kind == "train":
+        return dict(inputs(s), labels=tok(b, s), loss_mask=TensorSpec((b, s), torch.float32))
+    if cell.kind == "prefill":
+        return inputs(min(s, enc_seq))
     if cell.kind == "decode":
         return {
             "tokens": tok(b, 1),
-            "caches": transformer.cache_specs(cfg, b, s),
+            "caches": transformer.cache_specs(cfg, b, s, enc_seq),
             "pos": tok(b),
         }
     raise ValueError(cell.kind)
 
 
-def concrete_batch(cfg: ModelConfig, cell: ShapeCell, generator: torch.Generator):
+def concrete_batch(cfg: ModelConfig, cell: ShapeCell, generator: torch.Generator,
+                   enc_seq: int = 256):
     """A random batch matching make_input_specs, on the generator's device
     (smoke tests only): int leaves uniform in [0, vocab), float leaves
     0.02 x normal; the loss mask all ones, decode positions seq_len - 1. It
@@ -115,7 +129,7 @@ def concrete_batch(cfg: ModelConfig, cell: ShapeCell, generator: torch.Generator
         return 0.02 * torch.randn(spec.shape, generator=generator, device=dev,
                                   dtype=torch.float32).to(spec.dtype)
 
-    batch = mk(make_input_specs(cfg, cell))
+    batch = mk(make_input_specs(cfg, cell, enc_seq))
     if "loss_mask" in batch:
         batch["loss_mask"] = torch.ones_like(batch["loss_mask"])
     if "pos" in batch:

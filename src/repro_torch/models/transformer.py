@@ -1,5 +1,6 @@
-"""Model assembly: token input; `attn`, `swa`, `mla`, `mamba`, `mlstm` and
-`slstm` mixers; `mlp` and `moe` channel mixers; no encoder.
+"""Model assembly: token or embedding input; `attn`, `swa`, `mla`, `mamba`,
+`mlstm` and `slstm` mixers; `mlp` and `moe` channel mixers; an encoder with
+cross-attention (whisper).
 
 The counterpart of the reference's models/transformer.py. A config's layer
 plan is `prefix` (unstacked) + `period` x num_periods. As in the reference,
@@ -32,8 +33,21 @@ m, h} blocks (models/xlstm.py) take x itself and return x with their own
 residual (their configs use mlp="none"). Their decodes write the states in
 place too.
 
-Layers the port does not run yet (an encoder, embedding input) raise
-NotImplementedError naming their ROADMAP item.
+An embedding-input arch (`input_mode="embeddings"`: llava's stubbed vision
+tower) takes a batch's `inputs_embeds` (B, S, d) in place of tokens in the
+forward and prefill; without them it embeds tokens, and decode always
+embeds the new token, as in the reference. An encoder-decoder arch
+(whisper, `encoder_layers` > 0) runs `encode` over the batch's
+`encoder_frames` (B, Se, d: the stubbed conv frontend's output, plus
+sinusoidal positions; bidirectional layers as unstacked `p["encoder"]`
+layers), then its decoder over the tokens with learned positions
+(`p["dec_pos"]`) and a cross-attention block after each mixer. Prefill
+caches the encoder output's k / v per decoder layer under "cross" (B, Se,
+KVH, hd), which decode reads whole and never writes, and which `pad_caches`
+leaves as it is. A batch of an encoder-decoder arch without
+encoder_frames raises ValueError (the reference fails on it with a
+KeyError); so the entry points that feed token batches only (the LM Engine
+and the trainer) refuse whisper at their first prefill or step.
 """
 
 from __future__ import annotations
@@ -52,26 +66,14 @@ from repro_torch.tree import tree_map  # noqa: F401 (the package's name for it)
 _MIXERS = ("attn", "swa", "mla", "mamba", "mlstm", "slstm")
 _NORMED_MIXERS = ("attn", "swa", "mla", "mamba")  # xLSTM blocks norm their own input
 
-# what each refused feature waits for (ROADMAP queue 1, item 13)
-_TODO = {
-    "encoder": "the whisper encoder and cross-attention: ROADMAP queue 1 item 13g",
-    "embeddings": "embedding input (vlm/audio frontends): ROADMAP queue 1 item 13h",
-}
+_ENCODER_SPEC = LayerSpec("attn", "mlp")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError if the port cannot run `cfg` yet."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['encoder']}")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: {_TODO['embeddings']}")
+    """Raise ValueError for a layer kind the model does not know."""
     for spec in cfg.layer_kinds():
         if spec.mixer not in _MIXERS or spec.mlp not in ("mlp", "moe", "none"):
             raise ValueError(f"{cfg.name}: unknown layer {spec}")
-    if cfg.pos_type not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: pos_type {cfg.pos_type!r} ({_TODO['encoder']})"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +81,7 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype):
+def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype, cross=False):
     p: Dict[str, Any] = {}
     dev = generator.device
     if spec.mixer in _NORMED_MIXERS:
@@ -87,6 +89,9 @@ def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype):
     make = {"mla": attention.make_mla, "mamba": mamba.make_mamba, "mlstm": xlstm.make_mlstm,
             "slstm": xlstm.make_slstm}.get(spec.mixer, attention.make_attention)
     p["mixer"] = make(generator, cfg, dtype)
+    if cross:
+        p["cross_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
+        p["cross"] = attention.make_attention(generator, cfg, dtype)
     if spec.mlp == "mlp":
         p["mlp_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, dev)
         out_scale = cfg.d_ff**-0.5 / (2.0 * cfg.num_layers) ** 0.5
@@ -100,10 +105,13 @@ def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype):
     return p
 
 
-def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: str, causal=True):
+def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: str, causal=True,
+                   enc_out=None):
     """Full-sequence layer (mode "train" | "prefill"). Returns (x, aux,
     cache or None); aux is the MoE router's loss, None for other layers (the
-    reference's zero, which the sum skips)."""
+    reference's zero, which the sum skips). With `enc_out` and a "cross"
+    block, cross-attention to it runs after the mixer, and prefill caches
+    enc_out's k / v under "cross"."""
     aux = None
     want_cache = mode == "prefill"
     if spec.mixer in ("mlstm", "slstm"):  # x in, x (with the block's residual) out
@@ -134,6 +142,15 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
         return x + y + y_mlp, aux, cache
     else:
         x = x + y
+    if enc_out is not None and "cross" in p:
+        xn = layers.apply_norm(p["cross_norm"], x)
+        out = attention.attn_forward(p["cross"], cfg, xn, positions, kv_x=enc_out,
+                                     return_cache=want_cache)
+        if want_cache:
+            y, cache["cross"] = out
+        else:
+            y = out
+        x = x + y
     if spec.mlp in ("mlp", "moe"):
         xn = layers.apply_norm(p["mlp_norm"], x)
         if spec.mlp == "mlp":
@@ -161,6 +178,10 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
         if cfg.parallel_block and spec.mixer in ("attn", "swa") and "mlp" in p:
             y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
             return x + y + y_mlp, cache
+        x = x + y
+    if "cross" in cache:
+        xn = layers.apply_norm(p["cross_norm"], x)
+        y, _ = attention.attn_decode(p["cross"], cfg, xn, cache["cross"], pos, cross=True)
         x = x + y
     if "mlp" in p:
         xn = layers.apply_norm(p["mlp_norm"], x)
@@ -206,9 +227,11 @@ def _dtype_of(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator):
     """Random parameters drawn from `generator`, on the generator's device,
-    in the reference's pytree layout (period leaves stacked)."""
+    in the reference's pytree layout (period leaves stacked; an encoder's
+    layers a list, unstacked)."""
     check_supported(cfg)
     dtype = _dtype_of(cfg)
+    cross = cfg.encoder_layers > 0
     p: Dict[str, Any] = {}
     p["embed"] = layers.make_embedding(generator, cfg.padded_vocab, cfg.d_model, dtype)
     if not cfg.tie_embeddings:
@@ -217,7 +240,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
         )
     p["final_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, generator.device)
     if cfg.prefix:
-        p["prefix"] = [_init_layer(generator, cfg, spec, dtype) for spec in cfg.prefix]
+        p["prefix"] = [_init_layer(generator, cfg, spec, dtype, cross) for spec in cfg.prefix]
     if cfg.num_periods > 0:
         # [layer][...] leaves of (P, ...), filled as the layers are drawn (in
         # order, period by period): a layer's leaves are copied into row i and
@@ -227,12 +250,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
         stack = [None] * len(cfg.period)
         for i in range(p_count):
             for j, spec in enumerate(cfg.period):
-                layer = _init_layer(generator, cfg, spec, dtype)
+                layer = _init_layer(generator, cfg, spec, dtype, cross)
                 if stack[j] is None:
                     stack[j] = tree_map(lambda t: t.new_empty((p_count,) + tuple(t.shape)), layer)
                 tree_map(lambda dst, src: dst[i].copy_(src), stack[j], layer)
                 del layer
         p["stack"] = stack
+    if cross:
+        p["encoder"] = {
+            "layers": [_init_layer(generator, cfg, _ENCODER_SPEC, dtype)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": layers.make_norm(cfg.norm_type, cfg.d_model, dtype, generator.device),
+        }
+        # the decoder's learned positions (whisper's)
+        p["dec_pos"] = layers._normal(generator, (cfg.max_position_embeddings, cfg.d_model),
+                                      0.02, dtype)
     return p
 
 
@@ -256,36 +288,58 @@ def _stack_leaves(trees):
     return torch.stack(trees)
 
 
+def _positions(b, s, device):
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
 def _embed_inputs(p, cfg: ModelConfig, batch):
-    """Returns (x, positions) for a token batch."""
+    """Returns (x, positions) for a batch of inputs_embeds (B, S, d), or of
+    tokens where it has none; a sinusoidal arch adds its positions."""
     if "inputs_embeds" in batch:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['embeddings']}")
-    tokens = batch["tokens"]
-    x = layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale)
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    return x, positions
+        x = batch["inputs_embeds"]
+        b, s, _ = x.shape
+    else:
+        tokens = batch["tokens"]
+        x = layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale)
+        b, s = tokens.shape
+    if cfg.pos_type == "sinusoidal":
+        x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)
+    return x, _positions(b, s, x.device)
 
 
-def _period_forward(lp, cfg: ModelConfig, x, aux, positions, mode):
+def encode(p, cfg: ModelConfig, frames):
+    """The encoder over stubbed frame embeddings (B, Se, d): sinusoidal
+    positions, bidirectional attention layers, the final norm."""
+    b, se, _ = frames.shape
+    x = frames + layers.sinusoidal_positions(se, cfg.d_model, frames.device).to(frames.dtype)
+    positions = _positions(b, se, frames.device)
+    for lp in p["encoder"]["layers"]:
+        x, _, _ = _layer_forward(lp, cfg, _ENCODER_SPEC, x, positions, mode="train", causal=False)
+    return layers.apply_norm(p["encoder"]["final_norm"], x)
+
+
+def _period_forward(lp, cfg: ModelConfig, x, aux, positions, mode, enc_out=None):
     """One period's layers. Returns (x, aux plus the layers' aux, the
     layers' caches)."""
     cs = []
     for j, spec in enumerate(cfg.period):
-        x, a, c = _layer_forward(lp[j], cfg, spec, x, positions, mode=mode)
+        x, a, c = _layer_forward(lp[j], cfg, spec, x, positions, mode=mode, enc_out=enc_out)
         aux = aux if a is None else aux + a
         cs.append(c)
     return x, aux, cs
 
 
-def _run_stack(p, cfg: ModelConfig, x, positions, mode):
-    """prefix layers + the periods in order. Returns (x, aux, caches)."""
+def _run_stack(p, cfg: ModelConfig, x, positions, mode, enc_out=None):
+    """prefix layers + the periods in order. Returns (x, aux, caches).
+    enc_out is an input of each checkpointed period body, so that under
+    remat the gradient reaches the encoder through every period's
+    cross-attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
     if cfg.prefix:
         pc = []
         for lp, spec in zip(p["prefix"], cfg.prefix):
-            x, a, c = _layer_forward(lp, cfg, spec, x, positions, mode=mode)
+            x, a, c = _layer_forward(lp, cfg, spec, x, positions, mode=mode, enc_out=enc_out)
             aux = aux if a is None else aux + a
             pc.append(c)
         if mode == "prefill":
@@ -297,7 +351,7 @@ def _run_stack(p, cfg: ModelConfig, x, positions, mode):
                                      preserve_rng_state=False)
         per_period = []
         for i in range(cfg.num_periods):
-            x, aux, cs = body(_period(p["stack"], i), cfg, x, aux, positions, mode)
+            x, aux, cs = body(_period(p["stack"], i), cfg, x, aux, positions, mode, enc_out)
             per_period.append(cs)
         if mode == "prefill":
             caches["stack"] = [
@@ -315,8 +369,21 @@ def forward_logits(p, cfg: ModelConfig, batch, mode="train"):
     if mode not in ("train", "prefill", "features"):
         raise ValueError(f"forward_logits mode {mode!r}")
     check_supported(cfg)
-    x, positions = _embed_inputs(p, cfg, batch)
-    x, aux, caches = _run_stack(p, cfg, x, positions, "train" if mode == "features" else mode)
+    enc_out = None
+    if cfg.encoder_layers:
+        if "encoder_frames" not in batch:
+            raise ValueError(f"{cfg.name}: an encoder-decoder batch needs encoder_frames "
+                             f"(B, Se, d_model) beside its tokens; got {sorted(batch)}")
+        enc_out = encode(p, cfg, batch["encoder_frames"])
+        tokens = batch["tokens"]
+        x = layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale)
+        b, s = tokens.shape
+        x = x + p["dec_pos"][:s][None].to(x.dtype)
+        positions = _positions(b, s, x.device)
+    else:
+        x, positions = _embed_inputs(p, cfg, batch)
+    x, aux, caches = _run_stack(p, cfg, x, positions, "train" if mode == "features" else mode,
+                                enc_out=enc_out)
     x = layers.apply_norm(p["final_norm"], x)
     if mode == "features":
         return x, aux, caches
@@ -334,6 +401,8 @@ def decode_step(p, cfg: ModelConfig, tokens, caches, pos):
     Updates `caches` in place; returns (logits, caches)."""
     check_supported(cfg)
     x = layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale)
+    if cfg.encoder_layers:
+        x = x + p["dec_pos"][pos.long()][:, None].to(x.dtype)
     if cfg.prefix:
         for lp, spec, c in zip(p["prefix"], cfg.prefix, caches["prefix"]):
             x, _ = _layer_decode(lp, cfg, spec, x, c, pos)
@@ -357,11 +426,16 @@ def pad_caches(cfg: ModelConfig, caches, capacity: int):
     """Grow prefill caches (seq axis) to `capacity` with zeros so decode can
     append: attention k / v (B, S, KVH, D) and MLA latents c_kv (B, S, r) /
     k_rope (B, S, dr). Self caches in the period stack carry a leading
-    num_periods axis (seq axis 2); prefix-layer caches have it at axis 1."""
+    num_periods axis (seq axis 2); prefix-layer caches have it at axis 1.
+    A "cross" cache (the encoder's k / v) passes through as it is: decode
+    reads every row of it, so a padded zero key would change the result."""
 
     def pad_layer(c, stacked):
         out = {}
         for part, sub in c.items():
+            if part == "cross":
+                out[part] = sub
+                continue
             o = {}
             for k, v in sub.items():
                 if k in _SEQ_CACHE_KEYS:
@@ -381,15 +455,24 @@ def pad_caches(cfg: ModelConfig, caches, capacity: int):
     return out
 
 
-def cache_specs(cfg: ModelConfig, batch: int, seq: int):
-    """TensorSpec pytree of a decode cache of capacity `seq`."""
+def cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 4096):
+    """TensorSpec pytree of a decode cache of capacity `seq`; `enc_seq` sizes
+    an encoder-decoder arch's static cross cache (the encoder's length)."""
     check_supported(cfg)
     dtype = _dtype_of(cfg)
+
+    def spec_for(layer_spec):
+        s = _layer_cache_spec(cfg, layer_spec, batch, seq, dtype)
+        if cfg.encoder_layers:
+            sd = TensorSpec((batch, enc_seq, cfg.num_kv_heads, cfg.head_dim), dtype)
+            s["cross"] = {"k": sd, "v": sd}
+        return s
+
     out: Dict[str, Any] = {}
     if cfg.prefix:
-        out["prefix"] = [_layer_cache_spec(cfg, spec, batch, seq, dtype) for spec in cfg.prefix]
+        out["prefix"] = [spec_for(spec) for spec in cfg.prefix]
     if cfg.num_periods > 0:
-        per = [_layer_cache_spec(cfg, spec, batch, seq, dtype) for spec in cfg.period]
+        per = [spec_for(spec) for spec in cfg.period]
         out["stack"] = [
             {part: {k: TensorSpec((cfg.num_periods,) + s.shape, s.dtype) for k, s in sub.items()}
              for part, sub in layer.items()}

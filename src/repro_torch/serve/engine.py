@@ -31,6 +31,12 @@ Idle slots decode too, so they take capacity as well. That is the
 reference's behaviour and the port keeps it (no row is masked from the
 router); a request's tokens then agree with it run alone only where no
 drop moved them, and the contract above holds for a dropless config.
+
+The Engine prefills token prompts only, as the reference's does: an
+embedding-input arch (llava) is served on tokens, and an encoder-decoder
+arch (whisper), whose prefill needs encoder frames, is refused with a
+ValueError at its first prefill (the reference's fails on it with a
+KeyError).
 """
 
 from __future__ import annotations

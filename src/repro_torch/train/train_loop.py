@@ -166,7 +166,9 @@ def train(cfg: ModelConfig, loop: LoopConfig, mesh=None, device=None) -> List[Di
     """Train `cfg` for loop.total_steps (resuming from loop.ckpt_dir's
     latest checkpoint) on `device` ("cuda" by default; raises without a card
     unless device="cpu"); returns [{"step", "loss", "grad_norm"}] for the
-    steps this call ran."""
+    steps this call ran. The batches are SyntheticTokens, so an
+    encoder-decoder arch (whisper: no encoder frames) raises ValueError at
+    its first step."""
     dev = resolve_device(device)
     dp = None if mesh is None else DataParallel(mesh, loop.global_batch, loop.microbatch)
     train_step, opt, model = steps_mod.make_train_step(

@@ -8,7 +8,9 @@ zero-padded v, a reduced deepseek-v2-lite at the full MLA dims served as on
 the CPU through the kernel, and its gradients against the CPU's; and the
 recurrent mixers: reduced jamba (its attention through the kernel at a GQA
 group of 8) and xlstm-125m served as on the CPU, each Mamba / mLSTM / sLSTM
-block and the gradients against the CPU's.
+block and the gradients against the CPU's; and whisper's bidirectional and
+cross-attention shapes of the kernel, their routing, reduced whisper and
+llava (inputs_embeds) served as on the CPU and their gradients.
 
 Every test is marked `cuda` and skips without one. The file imports only
 torch and repro_torch, so it runs where the reference (and jax) is not
@@ -381,6 +383,10 @@ def _plain_bshd(q, k, v, causal, window):
         ((2, 8, 1, 150, 150, 128), True, 0),  # MQA (G = 8), batch 2
         ((1, 4, 4, 1, 129, 80), True, 0),  # one query row
         ((1, 258, 2, 40, 40, 32), True, 0),  # G = 129: two chunks of 65 heads, one past the group
+        ((1, 8, 8, 7, 1500, 64), False, 0),  # whisper's cross prefill: 7 tokens, 1500 frames
+        ((4, 8, 8, 1, 1500, 64), False, 0),  # whisper's cross decode, 4 rows
+        ((2, 8, 8, 300, 100, 64), False, 0),  # bidirectional, Sq > Sk
+        ((1, 8, 8, 1500, 1500, 64), False, 0),  # whisper's encoder
     ],
 )
 def test_flash_matches_plain(cuda, dtype, shape, causal, window):
@@ -1457,6 +1463,149 @@ def test_reduced_recurrent_grads_on_the_card_match_the_cpu(cuda, arch):
     assert rel(loss_gpu, loss_cpu) <= TRAIN_RTOL
     for a, b in zip(tree.leaves(g_gpu), tree.leaves(g_cpu)):
         assert rel(a, b) <= RECURRENT_GRAD_RTOL
+
+
+def _encdec_cfg(arch, dtype="float32"):
+    """Reduced whisper (2 encoder layers, one decoder layer) or llava, with
+    head dim 64, one the flash kernel takes, so that the kernel is on the
+    path (the reduced configs' 16 is not)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+
+    return dataclasses.replace(reduce_config(get_config(arch)), head_dim=64, dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_cross_attention_routes_to_the_kernel(cuda):
+    """A cross-attention prefill (q_offset 0, 7 queries against 1500 keys,
+    no mask) launches the kernel, as does a cross decode step; whisper's
+    prefill launches it once a layer (encoder, decoder self, cross), a
+    decode step once a decoder layer (cross; self attention decodes through
+    the einsum path)."""
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import attention, build_model, transformer
+
+    q, k, v = _qkv(cuda, 1, 8, 8, 7, 1500, 64, torch.bfloat16)
+    LAUNCHES["flash_attention"] = 0
+    out = attention.grouped_attend(q, k, v, causal=False, q_offset=0)
+    assert LAUNCHES["flash_attention"] == 1
+    ref = attention._grouped_attend_dense(q, k, v, causal=False, q_offset=0)
+    assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL[torch.bfloat16]
+    cfg = _encdec_cfg("whisper-base", "bfloat16")
+    m = build_model(cfg, device=cuda)
+    p = m.init(0)
+    frames = 0.02 * torch.randn(2, 50, cfg.d_model, device=cuda, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda)
+    sto_step.reset_launches()
+    _, caches = m.prefill(p, {"encoder_frames": frames, "tokens": tokens})
+    assert sto_step.LAUNCHES["flash_attention"] == cfg.encoder_layers + 2 * cfg.num_layers
+    caches = transformer.pad_caches(cfg, caches, 16)
+    sto_step.reset_launches()
+    m.decode_step(p, tokens[:, :1], caches, torch.tensor([9, 9], device=cuda))
+    assert sto_step.LAUNCHES["flash_attention"] == cfg.num_layers
+
+
+def _greedy(m, params, batch, steps, capacity, cfg):
+    """Prefill `batch`, then `steps` greedy decode steps; the tokens and the
+    prefill's last logits."""
+    from repro_torch.models import transformer
+
+    last, caches = m.prefill(params, batch)
+    caches = transformer.pad_caches(cfg, caches, capacity)
+    tok = last[:, -1, : cfg.vocab_size].argmax(-1)[:, None]
+    n = (batch["tokens"] if "tokens" in batch else batch["inputs_embeds"]).shape[1]
+    out = [tok]
+    for i in range(steps):
+        pos = torch.full((tok.shape[0],), n + i, device=tok.device)
+        lg, caches = m.decode_step(params, tok, caches, pos)
+        tok = lg[:, -1, : cfg.vocab_size].argmax(-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, 1).cpu(), last.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_reduced_encdec_and_embedding_input_serve_on_cuda(cuda, arch):
+    """Reduced whisper (frames and a token prompt) and llava (inputs_embeds)
+    at head dim 64, f32: prefill through the flash kernel (one launch a
+    layer and, for whisper, an encoder layer and a cross block each) and 8
+    greedy decode steps generate the CPU's tokens, the prefill's logits
+    within 1e-4; llava's Engine on token prompts serves the CPU's tokens."""
+    from repro_torch.models import build_model, layers, transformer
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = _encdec_cfg(arch)
+    params = build_model(cfg, device="cpu").init(0)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    if cfg.encoder_layers:
+        batch = {"encoder_frames": 0.02 * torch.randn(2, 30, cfg.d_model, generator=g),
+                 "tokens": tokens}
+        want = cfg.encoder_layers + 2 * cfg.num_layers
+    else:
+        batch = {"inputs_embeds": layers.embed_tokens(params["embed"], tokens)}
+        want = cfg.num_layers
+    out = {}
+    for dev in ("cpu", cuda):
+        p = transformer.tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        sto_step.reset_launches()
+        m = build_model(cfg, device=dev)
+        out[str(dev)] = _greedy(m, p, b, 8, 24, cfg)
+        launches = sto_step.LAUNCHES["flash_attention"]
+        if dev != "cpu":
+            cross = cfg.num_layers * 8 if cfg.encoder_layers else 0  # a cross block a step
+            assert launches == want + cross, (launches, want + cross)
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    assert (out["cpu"][1] - out["cuda"][1]).abs().max() <= 1e-4
+    if not cfg.encoder_layers:
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 19, 24, 17)]
+        served = {}
+        for dev in ("cpu", cuda):
+            p = transformer.tree_map(lambda t: t.to(dev), params)
+            reqs = [Request(i, torch.from_numpy(x), 6) for i, x in enumerate(prompts)]
+            served[str(dev)] = Engine(cfg, p, num_slots=2, capacity=32, device=dev).run(reqs)
+        assert served["cpu"] == served["cuda"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_reduced_encdec_grads_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced whisper (with remat: the encoder's gradient through the
+    checkpointed period's cross-attention) and llava at head dim 64, f32:
+    the loss and every gradient leaf on the card against the CPU's within
+    TRAIN_RTOL (a k bias, whose gradient is 0 in exact arithmetic, against
+    the tree's largest magnitude), no flash launch under grad."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, layers
+
+    cfg = dataclasses.replace(_encdec_cfg(arch), remat=True)
+    model, model_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params = model.init(0)
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+    batch = {"labels": torch.randint(0, cfg.vocab_size, (2, 24), generator=g)}
+    if cfg.encoder_layers:
+        batch.update(encoder_frames=0.02 * torch.randn(2, 30, cfg.d_model, generator=g),
+                     tokens=tokens)
+    else:
+        batch["inputs_embeds"] = layers.embed_tokens(params["embed"], tokens)
+    sto_step.reset_launches()
+    loss_gpu, g_gpu = steps.loss_and_grads(model_gpu, _tree_to(params, cuda),
+                                           {k: v.to(cuda) for k, v in batch.items()})
+    assert sto_step.LAUNCHES["flash_attention"] == 0
+    loss_cpu, g_cpu = steps.loss_and_grads(model, params, batch)
+    scale = max(float(b.abs().max()) for b in tree.leaves(g_cpu))
+    assert abs(float(loss_gpu) - float(loss_cpu)) <= TRAIN_RTOL * abs(float(loss_cpu))
+    for (path, b), a in zip(tree.leaves_with_path(g_cpu), tree.leaves(g_gpu)):
+        diff = float((a.cpu().double() - b.double()).abs().max())
+        ref = scale if path[-2:] == ("wk", "bias") else float(b.abs().max())
+        assert diff <= TRAIN_RTOL * max(ref, 1e-30), (path, diff, ref)
 
 
 @pytest.mark.cuda

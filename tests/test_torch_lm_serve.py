@@ -23,7 +23,9 @@ is held in the reference engine's own batch geometry: its logits recorded at
 the step that chose the token. The recurrent archs (reduced jamba: Mamba
 layers, one attention layer, MoE; xlstm-125m: mLSTM and sLSTM blocks) splice
 O(1) states whole; in the engine's own 4-row decode geometry a request
-rerun alone is exact.
+rerun alone is exact. llava-next-mistral-7b (embedding input) is served on
+token prompts, as the reference's Engine serves it; whisper-base (encoder
+frames) is refused by both (tests/test_torch_encdec.py).
 """
 
 import dataclasses
@@ -201,7 +203,8 @@ def _batch_margin_at(steps, rid, j, tok):
 @pytest.mark.parametrize("variant", ["h2o-danube-1.8b", "h2o-danube-1.8b+gqa", "gemma-7b",
                                      "qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap",
                                      "deepseek-v2-lite-16b", "deepseek-v2-lite-16b+cap",
-                                     "jamba-1.5-large-398b", "xlstm-125m"])
+                                     "jamba-1.5-large-398b", "xlstm-125m",
+                                     "llava-next-mistral-7b"])
 def test_engine_matches_reference_engine(variant):
     jcfg, cfg = _cfg(variant, jax_side=True), _cfg(variant)
     jm = jax_build_model(jcfg)
@@ -354,6 +357,21 @@ def test_launcher_trains_reduced_mla_on_cpu(tmp_path, capsys):
 def test_launcher_serves_and_trains_reduced_recurrent_on_cpu(arch, tmp_path, capsys):
     from repro_torch.launch import train as launch_train
 
+    launch_serve.main(["--arch", arch, "--reduced", "--requests", "3", "--slots", "2",
+                       "--gen", "4", "--prompt-len", "20", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 12 tokens" in out and "on cpu" in out
+    launch_train.main(["--arch", arch, "--reduced", "--steps", "3", "--batch", "2",
+                       "--seq", "16", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert "done: final loss" in capsys.readouterr().out
+    assert (tmp_path / "step_00000002").is_dir()
+
+
+def test_launcher_serves_and_trains_reduced_llava_on_cpu(tmp_path, capsys):
+    """The embedding-input arch through both launchers on token batches."""
+    from repro_torch.launch import train as launch_train
+
+    arch = "llava-next-mistral-7b"
     launch_serve.main(["--arch", arch, "--reduced", "--requests", "3", "--slots", "2",
                        "--gen", "4", "--prompt-len", "20", "--device", "cpu"])
     out = capsys.readouterr().out

@@ -13,7 +13,11 @@ latent cache, then MoE periods), each at reduce_config's dropless capacity
 and, as "+cap", at its published capacity factor 1.25, where decode rows
 compete for an expert's slots, and the recurrent archs: jamba (Mamba layers
 around one attention layer, MoE on every second layer) and xlstm-125m (three
-mLSTM blocks and an sLSTM block, no MLP). The qwen2-moe variants draw their q/k/v biases from a seed (the
+mLSTM blocks and an sLSTM block, no MLP), and the archs with other inputs:
+whisper-base (2 encoder layers, one decoder layer with cross-attention;
+its batches carry encoder frames, 0.02 x normal) and llava-next-mistral-7b
+(embedding input, served here on tokens as the reference's Engine serves it;
+tests/test_torch_encdec.py holds its inputs_embeds). The qwen2-moe variants draw their q/k/v biases from a seed (the
 reference's init leaves them zero), so the bias path is held too. Prompts
 are longer than the window and decode runs past it, so the band bites.
 
@@ -47,13 +51,12 @@ from repro_torch.models.model import make_input_specs
 LOGIT_ATOL = 1e-4
 LAYER_ATOL = 1e-5
 DENSE_ARCHS = ["h2o-danube-1.8b", "phi4-mini-3.8b", "gemma-7b", "command-r-plus-104b"]
-REFUSED_ARCHS = ["whisper-base", "llava-next-mistral-7b"]
-REFUSED_ITEMS = {"whisper-base": "13g", "llava-next-mistral-7b": "13h"}
+INPUT_ARCHS = ["whisper-base", "llava-next-mistral-7b"]  # encoder frames; embedding input
 MOE_VARIANTS = ["qwen2-moe-a2.7b", "qwen2-moe-a2.7b+cap"]
 MLA_VARIANTS = ["deepseek-v2-lite-16b", "deepseek-v2-lite-16b+cap"]
 RECURRENT_ARCHS = ["jamba-1.5-large-398b", "xlstm-125m"]
 VARIANTS = (DENSE_ARCHS + ["h2o-danube-1.8b+gqa"] + MOE_VARIANTS + MLA_VARIANTS
-            + RECURRENT_ARCHS)
+            + RECURRENT_ARCHS + INPUT_ARCHS)
 
 
 def _cfgs(variant):
@@ -103,6 +106,17 @@ def _tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _batches(cfg, toks, seed=0):
+    """(reference batch, port batch) of `toks`; an encoder-decoder arch's
+    also carries 16 encoder frames a row, 0.02 x normal."""
+    batch = {"tokens": toks}
+    if cfg.encoder_layers:
+        frames = 0.02 * np.random.default_rng(seed).standard_normal((len(toks), 16, cfg.d_model))
+        batch["encoder_frames"] = frames.astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
 def _close(a, b, atol):
     np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32), atol=atol)
 
@@ -147,16 +161,6 @@ def test_count_params_matches(arch):
     )
     assert counting.decode_step_flops(cfg, 4, 4640) == jax_counting.decode_step_flops(jcfg, 4, 4640)
     assert counting.train_step_flops(cfg, 8, 4096) == jax_counting.train_step_flops(jcfg, 8, 4096)
-
-
-@pytest.mark.parametrize("arch", REFUSED_ARCHS)
-def test_build_model_refuses_unported_layers(arch):
-    """The archs still to port are refused, naming their ROADMAP item."""
-    item = REFUSED_ITEMS[arch]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        build_model(get_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        build_model(reduce_config(get_config(arch)), device="cpu")
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -367,9 +371,9 @@ def _mla_forward_and_decode(cfg, jcfg, lp_t, lp_j, rng, x, posn):
 
 
 def test_forward_logits_train(pair):
-    toks = _tokens(pair["cfg"], 2, 24)
-    jl, _, _ = jax_transformer.forward_logits(pair["jp"], pair["jcfg"], {"tokens": jnp.asarray(toks)})
-    tl = pair["m"].forward(pair["p"], {"tokens": torch.from_numpy(toks)})
+    jb, tb = _batches(pair["cfg"], _tokens(pair["cfg"], 2, 24))
+    jl, _, _ = jax_transformer.forward_logits(pair["jp"], pair["jcfg"], jb)
+    tl = pair["m"].forward(pair["p"], tb)
     assert tl.shape == (2, 24, pair["cfg"].padded_vocab) and tl.dtype == torch.float32
     _close(tl.numpy(), jl, LOGIT_ATOL)
 
@@ -378,9 +382,9 @@ def test_prefill_then_decode(pair):
     """prefill (last logits and caches), pad_caches, then 12 decode steps
     from the one cache, rows at different positions, past the window."""
     cfg, jcfg, jm, m = pair["cfg"], pair["jcfg"], pair["jm"], pair["m"]
-    toks = _tokens(cfg, 2, 24, seed=1)
-    jl, jc = jm.prefill(pair["jp"], {"tokens": jnp.asarray(toks)})
-    tl, tc = m.prefill(pair["p"], {"tokens": torch.from_numpy(toks)})
+    jb, tb = _batches(cfg, _tokens(cfg, 2, 24, seed=1), seed=1)
+    jl, jc = jm.prefill(pair["jp"], jb)
+    tl, tc = m.prefill(pair["p"], tb)
     _close(tl.numpy(), jl, LOGIT_ATOL)
     _cache_close(jc, tc, LOGIT_ATOL)
     jc = jax_transformer.pad_caches(jcfg, jc, 40)
@@ -402,7 +406,8 @@ def test_cache_and_input_specs():
     """Shapes and dtypes of the cache specs (bf16 k / v and latents; the
     recurrent mixers' f32 states and bf16 conv tails) and of the input specs,
     against the reference's."""
-    for arch in DENSE_ARCHS + ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"] + RECURRENT_ARCHS:
+    for arch in DENSE_ARCHS + ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"] + RECURRENT_ARCHS + \
+            INPUT_ARCHS:
         cfg, jcfg = get_config(arch), jax_get_config(arch)
         ours = transformer.cache_specs(cfg, 4, 4640)
         ref = jax_transformer.cache_specs(jcfg, 4, 4640)

@@ -686,6 +686,9 @@ LAYOUT_ARCHS = DENSE_ARCHS + ["deepseek-v2-lite-16b"]
 # down projections, w_if, r_gates) and their recurrent caches (h, conv_tail;
 # c, n, m)
 LAYOUT_ARCHS += ["jamba-1.5-large-398b", "xlstm-125m"]
+# whisper: the unstacked encoder layers, dec_pos, each decoder layer's cross
+# block and cross cache, encoder_frames; llava: inputs_embeds
+LAYOUT_ARCHS += ["whisper-base", "llava-next-mistral-7b"]
 
 
 def _specs_equal(ours, ref_shardings):
