@@ -10,6 +10,7 @@
     python3 chip_smoke.py --mla          # phase 5d alone
     python3 chip_smoke.py --recurrent    # phase 5e alone
     python3 chip_smoke.py --encdec       # phase 5f alone
+    python3 chip_smoke.py --dryrun       # phase 5g alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -442,6 +443,29 @@ on failure:
    dim 64, f32, the loss and every gradient leaf on the card against the
    host CPU within TRAIN_RTOL, no flash launch under grad. Prints the
    phase's seconds by part. `python3 chip_smoke.py --encdec` runs it alone.
+5g. The dry run and the roofline (launch/dryrun.py, launch/costs.py,
+   launch/roofline.py on launch/mesh.HW), held against the card where phases
+   5 and 5b run: (b), inside phase 5, its 4608-token prefill dry-run on fake
+   CUDA tensors (the flash wrapper reports its launches and the band's FLOPs
+   and launches nothing): as many flash launches as one real prefill's
+   LAUNCHES, and the roofline's terms beside the measured prefill; (a),
+   inside 5b(b), 5b's training cell (full width, bf16, remat, AdamW, batch 4
+   x 512) dry-run on fake CUDA tensors against one more real step under
+   FlopCounterMode after reset_peak_memory_stats(): FLOPs equal, argument
+   bytes equal to the parameters, state, batch and step index held, no
+   all-reduce on either side, the predicted peak (argument bytes + the
+   counted temp peak) within PEAK_RTOL of max_memory_allocated() less what
+   was allocated before the step outside its arguments; the roofline's
+   terms, 5b's median step over the dominant term and model FLOPs / bf16
+   peak / the median step; (c), beside 5b(c), two children: `python -m
+   repro_torch.launch.dryrun --reservoir` (256 fake ranks of the (32, 8)
+   production mesh, N = 16 384, E = 8 192, 100 RK4 steps; its record and
+   terms printed, 402 all-gathers, the global state's bytes on every rank)
+   and `chip_smoke.py --dryrun-child` (an NCCL world of one: a sharded
+   tick_chunk at 3i's shapes and a data-parallel train step at 1 layer on a
+   (1, 1) mesh on the card, then the same calls dry-run over a fake group of
+   one: as many all-gathers and all-reduces). `python3 chip_smoke.py
+   --dryrun` runs it alone (training and serving h2o-danube-1.8b itself).
 6. Print the kernels line (the STO kernels, tm_delay_line and flash, whose
    row carries its qwen2_moe, deepseek_v2_lite, jamba and encdec entries),
    the card line and, last, the contract line {"ok": true, "device": {...}}.
@@ -489,6 +513,7 @@ from repro_torch.kernels import _build, ops, sto_step  # noqa: E402
 from repro_torch.kernels import rls as krls  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.models import build_model, counting, transformer  # noqa: E402
 from repro_torch.serve.engine import Engine, Request, _splice_cache  # noqa: E402
 from repro_torch.serve.reservoir import ReservoirEngine, StreamSession  # noqa: E402
@@ -619,13 +644,13 @@ LOGIT_MARGIN = 0.05
 # H100's 1.98 GHz, longer than the host takes to queue the timed calls
 SLEEP_CYCLES = 40_000_000
 # LLG epilogue + stage algebra, FLOPs per (oscillator, lane, stage)
-EPILOGUE_FLOPS = 60
-# published peaks (NVIDIA H100 data sheet, dense): FP32 outside the tensor
-# cores, bf16 tensor cores, HBM bandwidth
+EPILOGUE_FLOPS = sto_step.EPILOGUE_FLOPS
+# published peaks (NVIDIA H100 data sheet, dense; launch/mesh.HW_VARIANTS,
+# which the roofline reads): FP32 outside the tensor cores, bf16 tensor
+# cores, HBM bandwidth
 PEAKS = {  # name fragment -> (fp32 FLOP/s, bf16 tensor FLOP/s, bytes/s)
-    "PCIe": (51.2e12, 756e12, 2.0e12),
-    "NVL": (60e12, 835e12, 3.9e12),
-    "": (67e12, 989e12, 3.35e12),  # SXM
+    frag: (hw["peak_flops_f32"], hw["peak_flops_bf16"], hw["hbm_bw"])
+    for frag, hw in mesh_mod.HW_VARIANTS.items()
 }
 
 
@@ -1126,14 +1151,6 @@ def round_row(name, x):
     return row
 
 
-def unmasked_pairs(sq, sk, causal, window):
-    """(q, k) pairs the causal/window band leaves unmasked (last q on last k)."""
-    p = np.arange(sq, dtype=np.int64) + (sk - sq)
-    hi = np.minimum(p, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def plain_bshd(q, k, v, window, causal=True):
     t = lambda x: x.transpose(1, 2)  # noqa: E731
     return t(fa.flash_attention_plain(t(q), t(k), t(v), causal, window))
@@ -1288,7 +1305,7 @@ def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None, bat
     faults = None
     if sq > window > 0:  # the band bites
         faults = check_planted_faults(q, k, v, ref, window, dtype)
-    flops = 4.0 * batch * h * d * unmasked_pairs(sq, sk, causal, window)
+    flops = 4.0 * batch * h * d * fa.band_pairs(sq, sk, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     rate = tensor if dtype == torch.bfloat16 else fp32
     t_ops, t_bytes = flops / rate, nbytes / bw
@@ -1329,7 +1346,7 @@ def flash_case(name, arch, sq, sk, dtype, window, head_dim=None, v_dim=None, bat
     case["share_of_bound"] = case["bound_ms"] / case["ms"]
     case["vs_library"] = case["ms"] / case["library_ms"]
     if v_dim is not None:  # the FLOPs of P.V at v's own width, no padded columns
-        pairs = batch * unmasked_pairs(sq, sk, causal, window)
+        pairs = batch * fa.band_pairs(sq, sk, causal, window)
         case["v_dim"] = v_dim
         case["gflop_as_launched"] = flops / 1e9
         case["gflop_v_own_width"] = 2.0 * h * pairs * (d + v_dim) / 1e9
@@ -1487,6 +1504,7 @@ def serve_lm(name_power):
     batch = {"tokens": reqs[0].prompt[None].cuda()}
     prefill_ms = time_ms(lambda: model.prefill(params, batch), 3)
     print(f"prefill {len(reqs[0].prompt)} tokens: {prefill_ms:.3f} ms ({name_power})", flush=True)
+    dryrun_prefill_check(cfg, model, params, reqs[0].prompt, prefill_ms, name_power)
     busy_us, flash_us = trace("prefill 4608 tokens", lambda: model.prefill(params, batch),
                               name_power, match="flash")
     print(
@@ -2596,7 +2614,7 @@ CHAIN_OPS = 4 * 14 + 3 * 2 + 3
 FP32_LATENCY_CYCLES = 4
 # the ops of one RK4 step of one lane in the kernel (4 x 51 in the field, 18 in
 # the stage updates, 21 in the combination), for the roofline bound
-STEP_OPS = 4 * 51 + 18 + 21
+STEP_OPS = sto_step.STEP_OPS
 # the family engines' expected kernels: (topology, impl, precision) -> kernels
 FAMILY_RUNS = (
     ("time_multiplexed", "chunk", None, ("tm_delay_line",)),
@@ -3894,7 +3912,7 @@ ROUTING_RTOL = 5e-3
 # the AdamW walk's bytes a parameter: read p and g (bf16), mu and nu (f32),
 # write p, mu and nu
 ADAMW_BYTES = 2 + 2 + 4 + 4 + 2 + 4 + 4
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = mesh_mod.HW["hbm_bw"]
 
 
 def _train_cfg(layers=None):
@@ -4132,6 +4150,7 @@ def train_full_width(name_power):
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {100 * bound / update:.1f} %) ({name_power})",
           flush=True)
     counter = [TRAIN_STEPS + TRAIN_SPLIT_STEPS]
+    dryrun_train_check(cfg, train_step, params, state, data, counter, med, name_power)
 
     def one_step():
         nonlocal params, state
@@ -4401,12 +4420,17 @@ def train_phase(name_power):
     try:
         finish_dp = train_dp_phase()
         try:
-            train_resume(name_power)
+            finish_dryrun = dryrun_children(name_power)
+            try:
+                train_resume(name_power)
+            finally:
+                finish_dryrun()
         finally:
             finish_dp()
     finally:
         finish_launcher()
-    print(f"phase 5b: {time.perf_counter() - t0:.1f} s ({name_power})", flush=True)
+    print(f"phase 5b (with 5g(a) and 5g(c)): {time.perf_counter() - t0:.1f} s ({name_power})",
+          flush=True)
 
 
 def train_only():
@@ -4416,6 +4440,300 @@ def train_only():
     _build.load()
     train_phase(name_power)
     print("5b held", flush=True)
+
+
+# -- phase 5g: the dry run and the roofline against the card -------------------------
+
+# (a) the dry run's predicted peak (its argument bytes plus its temp peak, the
+# live storages the step allocates at once) against the step's
+# max_memory_allocated(), on the basis dryrun_train_check prints
+PEAK_RTOL = 0.10
+
+
+def _dry_record(rec, arch, cell):
+    """A one-rank dry-run record as launch/roofline.roofline reads it."""
+    return dict(rec, arch=arch, shape=cell.name, mesh="card", devices=1)
+
+
+def _roofline_line(rf, measured_ms, what):
+    bound_ms = 1e3 * max(rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"])
+    return (f"roofline on the card's HW: compute {1e3 * rf['t_compute_s']:.3f} ms, memory "
+            f"{1e3 * rf['t_memory_s']:.3f} ms, collective {1e3 * rf['t_collective_s']:.3f} ms, "
+            f"dominant {rf['dominant']}; {what} {measured_ms:.3f} ms = "
+            f"{measured_ms / bound_ms:.2f}x the dominant term; useful FLOPs (model / counted) "
+            f"{rf['useful_ratio']:.3f}")
+
+
+def dryrun_train_check(cfg, train_step, params, state, data, counter, step_ms, name_power):
+    """5g(a): 5b's training cell (full width, bf16, remat, AdamW, batch
+    TRAIN_BATCH x TRAIN_SEQ) dry-run on fake CUDA tensors, against one more
+    real step (batch counter[0], which it advances) run under
+    FlopCounterMode after reset_peak_memory_stats(): FLOPs equal, argument
+    bytes equal to the bytes of the parameters, AdamW state, batch and step
+    index held, no all-reduce on either side (no mesh; the (1, 1) mesh's
+    are held in --dryrun-child), and the predicted peak within PEAK_RTOL of
+    the measured one. Then the roofline on the card's HW beside 5b's
+    median step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data import to_device
+    from repro_torch.launch import costs, dryrun, roofline
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    cell = ShapeCell("5b", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.lower_step(cfg, cell, device="cuda")
+    dry_s = time.perf_counter() - t0
+    batch = to_device(data.batch(counter[0]), "cuda")
+    step_t = torch.tensor(counter[0], device="cuda")
+    held = costs.storage_bytes((params, state, batch, step_t))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reduces = train_loop.COLLECTIVES["all_reduce"]
+    with FlopCounterMode(display=False) as counter_mode:
+        train_step(params, state, batch, step_t)
+    torch.cuda.synchronize()
+    counter[0] += 1
+    peak = torch.cuda.max_memory_allocated()
+    reduces = train_loop.COLLECTIVES["all_reduce"] - reduces
+    # basis: the step's peak above what was allocated before it that is not
+    # its arguments (the allocator's rounding to 512-byte blocks and the
+    # cuBLAS workspaces included)
+    measured = peak - (before - held)
+    predicted = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+    card_flops = counter_mode.get_total_flops()
+    dry_reduces = rec["collectives"]["all-reduce"]["count"]
+    gap = abs(predicted - measured) / measured
+    print(f"5g(a) {LM_ARCH} train step ({TRAIN_BATCH} x {TRAIN_SEQ}, remat, AdamW) dry-run on "
+          f"fake CUDA tensors in {dry_s:.1f} s: FLOPs {rec['hlo_flops']:.6e} (bf16 "
+          f"{rec['flops']['bf16']:.6e}, f32 {rec['flops']['f32']:.6e}) against "
+          f"FlopCounterMode's {card_flops:.6e} on the card's step; argument bytes "
+          f"{rec['argument_size_in_bytes']} against {held} held; all-reduces {dry_reduces} "
+          f"against train_loop.COLLECTIVES' {reduces}; predicted peak {predicted / 2**30:.3f} GiB "
+          f"(arguments {rec['argument_size_in_bytes'] / 2**30:.3f} + temp "
+          f"{rec['temp_size_in_bytes'] / 2**30:.3f}) against the step's "
+          f"{measured / 2**30:.3f} GiB (max_memory_allocated {peak / 2**30:.3f} GiB less the "
+          f"{(before - held) / 2**30:.3f} GiB allocated before the step outside its arguments): "
+          f"{measured - predicted} bytes, {100 * gap:.4f} % apart (at most "
+          f"{100 * PEAK_RTOL:.0f} %); eager bytes {rec['hlo_bytes']:.6e}, the most by "
+          f"{ {k: f'{v:.4e}' for k, v in rec['top_bytes'].items()} } ({name_power})", flush=True)
+    assert rec["hlo_flops"] == card_flops, (rec["hlo_flops"], card_flops)
+    assert rec["argument_size_in_bytes"] == held, (rec["argument_size_in_bytes"], held)
+    assert dry_reduces == reduces == 0, (dry_reduces, reduces)
+    assert gap <= PEAK_RTOL, (predicted, measured)
+    hw = mesh_mod.hw_for(torch.cuda.get_device_name(0))
+    rf = roofline.roofline(_dry_record(rec, LM_ARCH, cell), cfg, cell, hw)
+    mfu = rf["model_flops_dev"] / hw["peak_flops_bf16"] / (step_ms / 1e3)
+    print(f"5g(a) {_roofline_line(rf, step_ms, '5b median step')}; model FLOPs "
+          f"{rf['model_flops_dev']:.6e} / bf16 peak / the median step = {100 * mfu:.2f} % "
+          f"({name_power}); 5g(a) {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def dryrun_prefill_check(cfg, model, params, prompt, prefill_ms, name_power):
+    """5g(b): phase 5's 4608-token prefill dry-run on fake CUDA tensors: its
+    flash launches equal to one real prefill's LAUNCHES (one a layer), its
+    roofline beside the measured ms."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    cell = ShapeCell("5", len(prompt), 1, "prefill")
+    rec = dryrun.lower_step(cfg, cell, device="cuda")
+    dry_s = time.perf_counter() - t0
+    batch = {"tokens": prompt[None].to("cuda", torch.int32)}
+    n0 = fa.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        model.prefill(params, batch)
+    torch.cuda.synchronize()
+    real = fa.LAUNCHES["flash_attention"] - n0
+    flash = rec["kernels"]["flash_attention"]
+    rf = roofline.roofline(_dry_record(rec, LM_ARCH, cell), cfg, cell,
+                           mesh_mod.hw_for(torch.cuda.get_device_name(0)))
+    print(f"5g(b) prefill {len(prompt)} tokens dry-run on fake CUDA tensors in {dry_s:.1f} s: "
+          f"flash launches {flash['launches']} (FLOPs {flash['flops']:.6e}) against the card's "
+          f"{real}; FLOPs {rec['hlo_flops']:.6e}, eager bytes {rec['hlo_bytes']:.6e}; "
+          f"{_roofline_line(rf, prefill_ms, 'phase 5 prefill')} ({name_power}); 5g(b) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert flash["launches"] == real == cfg.num_layers, (flash, real)
+
+
+def dryrun_child():
+    """5g(c) and 5g(a)'s collectives in a process of its own (`chip_smoke.py
+    --dryrun-child`, rank 0 of an NCCL world of one over a FileStore, as 3i
+    and 5b(e)): a sharded tick_chunk at 3i's shapes and a data-parallel
+    train step at RESUME_LAYERS layers on a (1, 1) mesh on the card, their
+    all-gathers (api.sharded.GATHERS) and all-reduces
+    (train_loop.COLLECTIVES) counted; then, the NCCL group destroyed, the
+    same two calls on fake CUDA tensors over a fake group of one, whose
+    counted collectives must be as many."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.api import sharded
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core.constants import STOParams
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import costs, dryrun, steps
+    from repro_torch.train import train_loop
+
+    rank, world, local = (int(os.environ[k]) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+    torch.cuda.set_device(local)
+    name_power = card_line()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dryrun-store-")
+    cfg = _train_cfg(RESUME_LAYERS)
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), world),
+                                rank=rank, world_size=world)
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        spec = make_spec(N, n_in=1, seed=0, hold_steps=HOLD, device="cuda")
+        sim = compile_plan(spec, _sharded_plan(mesh), device="cuda")
+        u = torch.full((K, E, 1), 0.25, device="cuda")
+        mask = torch.ones((K, E), dtype=torch.bool, device="cuda")
+        m0 = ops.to_planes(spec.m0.expand(E, N, 3)).contiguous()
+        g0 = sharded.GATHERS["all_gather"]
+        sim.tick_chunk(m0, u, mask)
+        torch.cuda.synchronize()
+        gathers = sharded.GATHERS["all_gather"] - g0
+        del sim, m0
+        dp = train_loop.DataParallel(mesh, TRAIN_BATCH)
+        step, opt, model = steps.make_train_step(cfg, device="cuda", grad_sync=dp.sync)
+        params = model.init(0)
+        state = opt.init(params, device="cuda")
+        batch = to_device(SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+                          .batch(0), "cuda", dp.batch_slice)
+        r0 = train_loop.COLLECTIVES["all_reduce"]
+        step(params, state, batch, torch.tensor(0, device="cuda"))
+        torch.cuda.synchronize()
+        reduces = train_loop.COLLECTIVES["all_reduce"] - r0
+        del params, state, batch, model, opt, step
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        fmesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        with dryrun.fake_mode():
+            f32 = dict(dtype=torch.float32, device="cuda")
+            args = (STOParams(*(torch.empty((E, 1), **f32) for _ in STOParams._fields)),
+                    torch.empty((N, N), **f32), torch.empty((N, 1), **f32),
+                    torch.empty((E, N, 3), **f32), torch.empty((K, E, 1), **f32),
+                    torch.ones((K, E), dtype=torch.bool, device="cuda"), DT, HOLD)
+            _, chunk = costs.measure(sharded.tick_chunk_sharded, fmesh, *args, mesh=fmesh)
+        train = dryrun.lower_step(cfg, ShapeCell("5b(e)", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                                  fmesh, "cuda")
+    dry_gathers = chunk["collectives"]["all-gather"]["count"]
+    dry_reduces = train["collectives"]["all-reduce"]["count"]
+    print(f"5g(c) (1, 1) mesh, NCCL world of one: a sharded tick_chunk at N={N}, E={E}, K={K}, "
+          f"hold {HOLD} ran {gathers} all-gathers on the card, its dry run counts {dry_gathers} "
+          f"({chunk['collectives']['all-gather']['bytes']} bytes); a data-parallel train step at "
+          f"{RESUME_LAYERS} layer(s), full width, ran {reduces} all-reduces, its dry run counts "
+          f"{dry_reduces} ({train['collectives']['all-reduce']['bytes']} bytes); dry runs "
+          f"{time.perf_counter() - t0:.1f} s ({name_power})", flush=True)
+    assert dry_gathers == gathers == K * HOLD * 4, (dry_gathers, gathers)
+    assert dry_reduces == reduces > 0, (dry_reduces, reduces)
+    print(f"5g child: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def dryrun_children(name_power):
+    """Start 5g(c)'s children beside the caller's work: the production
+    reservoir dry run (`python -m repro_torch.launch.dryrun --reservoir`:
+    256 fake ranks, N = 16 384, E = 8 192, the reference's 100 RK4 steps)
+    and --dryrun-child. Returns finish(), which waits for both, prints
+    their output and the reservoir record's roofline on the card's HW, and
+    raises if either failed or miscounted."""
+    from repro_torch.launch import roofline
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    wait_res = _run_beside(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--reservoir"],
+        timeout=600, cwd=here, env=dict(os.environ, PYTHONPATH=os.path.join(here, "src")))
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1")
+    wait_child = _run_beside([sys.executable, os.path.abspath(__file__), "--dryrun-child"],
+                             timeout=600, env=env)
+
+    def finish():
+        proc, seconds = wait_child()
+        res, res_s = wait_res()
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"dry-run child failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+        if res.returncode != 0:
+            raise RuntimeError(f"the reservoir dry run failed ({res.returncode}):\n"
+                               f"{res.stderr[-6000:]}")
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        n, e = 16_384, 8_192
+        state = 4 * (len(constants.STOParams._fields) * e + n * n + e * n * 3)
+        t = roofline.terms(rec, mesh_mod.hw_for(torch.cuda.get_device_name(0)))
+        print(f"5g(c) python -m repro_torch.launch.dryrun --reservoir ({res_s:.1f} s, "
+              f"{rec['run_s']} s in the run): {json.dumps(rec)}", flush=True)
+        print(f"5g(c) reservoir on the production mesh {rec['mesh']} ({rec['devices']} ranks), "
+              f"{rec['n_steps']} steps, per rank: {rec['flops']['f32']:.6e} f32 FLOPs, "
+              f"{rec['hlo_bytes']:.6e} eager bytes, all-gathers "
+              f"{rec['collectives']['all-gather']['count']} "
+              f"({rec['collectives']['all-gather']['bytes'] / 2**30:.3f} GiB; by mesh dim "
+              f"{rec['collective_bytes_by_dim']}), arguments "
+              f"{rec['argument_size_in_bytes'] / 2**30:.3f} GiB (the global state on every rank), "
+              f"temp {rec['temp_size_in_bytes'] / 2**30:.3f} GiB; terms on the card's HW: compute "
+              f"{1e3 * t['compute']:.3f} ms, memory {1e3 * t['memory']:.3f} ms, collective "
+              f"{1e3 * t['collective']:.3f} ms ({name_power}); the child {seconds:.1f} s",
+              flush=True)
+        assert rec["devices"] == 256 and rec["mesh"] == "pod32x8", rec["mesh"]
+        assert rec["collectives"]["all-gather"]["count"] == 4 * 100 + 2
+        assert rec["argument_size_in_bytes"] == state, (rec["argument_size_in_bytes"], state)
+
+    return finish
+
+
+def dryrun_only():
+    """`chip_smoke.py --dryrun`: build the kernels and run phase 5g alone,
+    with h2o-danube-1.8b trained and served here instead of in 5b and 5
+    (5b's median over steps 1-3 of 4)."""
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import steps
+
+    name_power = card_line()
+    print(f"card: {name_power}", flush=True)
+    _build.load()
+    finish = dryrun_children(name_power)
+    try:
+        cfg = _train_cfg()
+        train_step, opt, model = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                                       total_steps=100, device="cuda")
+        params = model.init(0)
+        state = opt.init(params, device="cuda")
+        data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+        step_ms = []
+        for step in range(4):
+            batch = to_device(data.batch(step), "cuda")
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            train_step(params, state, batch, torch.tensor(step, device="cuda"))
+            stop.record()
+            stop.synchronize()
+            step_ms.append(start.elapsed_time(stop))
+        dryrun_train_check(cfg, train_step, params, state, data, [4], sorted(step_ms[1:])[1],
+                           name_power)
+        del params, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_params = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                    PROMPTS[0]))
+        batch = {"tokens": prompt[None].cuda()}
+        prefill_ms = time_ms(lambda: model.prefill(serve_params, batch), 3)
+        dryrun_prefill_check(cfg, model, serve_params, prompt, prefill_ms, name_power)
+    finally:
+        finish()
+    print("5g held", flush=True)
 
 
 # -- phase 5c: MoE, qwen2-moe-a2.7b at full width ----------------------------------
@@ -4688,7 +5006,7 @@ def moe_prefill_bounds(cfg, prompt, kept):
         f32 += 2 * t * d * e
     need = 3 * 2 * kept * d * f / cfg.num_layers
     common = (3 * 2 * prompt * d * fs + 2 * prompt * d * (h + 2 * kvh) * hd
-              + 2 * prompt * h * hd * d + 4 * h * hd * unmasked_pairs(prompt, prompt, True, 0))
+              + 2 * prompt * h * hd * d + 4 * h * hd * fa.band_pairs(prompt, prompt, True, 0))
     ms = lambda bf16: 1e3 * cfg.num_layers * (bf16 / tensor + f32 / fp32)  # noqa: E731
     return ms(algo + common), ms(need + common), cfg.num_layers * (algo + common + f32) / 1e12
 
@@ -5261,7 +5579,7 @@ def mla_prefill_bounds(cfg, prompt, kept):
     m, d, h, t = cfg.moe, cfg.d_model, cfg.num_heads, prompt
     r, dn, dr, dv = (cfg.mla.kv_lora_rank, cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim,
                      cfg.mla.v_head_dim)
-    pairs = unmasked_pairs(t, t, True, 0)
+    pairs = fa.band_pairs(t, t, True, 0)
     attn, attn_own = 4 * h * (dn + dr) * pairs, 2 * h * pairs * (dn + dr + dv)
     mla = (2 * t * d * h * (dn + dr) + 2 * t * d * (r + dr) + 2 * t * r * h * (dn + dv)
            + 2 * t * h * dv * d + attn)
@@ -5702,7 +6020,7 @@ def jamba_prefill_bound(cfg, t):
     layer_bf16 = {
         "mamba": 2 * t * (d * 2 * di + di * (dtr + 2 * ds) + dtr * di + di * d),
         "attn": 2 * t * d * (h + 2 * kvh) * hd + 2 * t * h * hd * d
-                + 4 * h * hd * unmasked_pairs(t, t, True, 0),
+                + 4 * h * hd * fa.band_pairs(t, t, True, 0),
         "mlp": 3 * 2 * t * d * cfg.d_ff,
         "moe": 0.0,
     }
@@ -6197,7 +6515,7 @@ def whisper_bounds(cfg, params, name, s, se, rows, pos):
     proj = 2 * d * hd + 2 * d * kvd  # q, o and k, v
     enc = cfg.encoder_layers * (2 * se * (proj + 2 * d * f) + 4 * hd * se * se)
     cross = 2 * s * 2 * d * hd + 2 * se * 2 * d * kvd + 4 * hd * s * se
-    dec = cfg.num_layers * (2 * s * (proj + 2 * d * f) + 4 * hd * unmasked_pairs(s, s, True, 0)
+    dec = cfg.num_layers * (2 * s * (proj + 2 * d * f) + 4 * hd * fa.band_pairs(s, s, True, 0)
                             + cross)
     flops = enc + dec + 2 * d * cfg.padded_vocab
     weights = _tree_bytes(params) - _tree_bytes(params["dec_pos"])
@@ -6220,7 +6538,7 @@ def llava_bounds(cfg, params, name, s, rows, pos):
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim
     kvd = cfg.num_kv_heads * cfg.head_dim
     layer = 2 * d * hd + 2 * d * kvd + 3 * d * f
-    flops = cfg.num_layers * (2 * s * layer + 4 * hd * unmasked_pairs(s, s, True, 0))
+    flops = cfg.num_layers * (2 * s * layer + 4 * hd * fa.band_pairs(s, s, True, 0))
     flops += 2 * d * cfg.padded_vocab
     weights = _tree_bytes(params) - _tree_bytes(params["embed"])
     pre = bound_ms(name, flops, 0, weights + 2 * s * d + 2 * cfg.num_layers * 2 * s * kvd, True)
@@ -6716,5 +7034,9 @@ if __name__ == "__main__":
         encdec_only()
     elif sys.argv[1:2] == ["--train-child"]:
         train_child()
+    elif sys.argv[1:2] == ["--dryrun"]:
+        dryrun_only()
+    elif sys.argv[1:2] == ["--dryrun-child"]:
+        dryrun_child()
     else:
         main()

@@ -116,16 +116,21 @@ _ORDERS: dict = {}
 def _coordinate_order(mesh, name: str):
     """The group ranks of mesh dim `name` in the order of their coordinates
     along it, or None where the two orders agree (init_device_mesh's
-    meshes). Computed once a mesh object."""
+    meshes). Computed once a mesh object, from the mesh's layout on the
+    host, outside any dispatch mode (a dry run's fake tensors,
+    launch/dryrun.py, describe the device and not the layout)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
     hit = _ORDERS.get((id(mesh), name))
     if hit is not None and hit[0]() is mesh:
         return hit[1]
     ranks = dist.get_process_group_ranks(mesh.get_group(name))
     d = _dim(mesh, name)
-    layout = mesh.mesh.cpu()
-    coords = [int((layout == r).nonzero()[0][d]) for r in ranks]
+    with _disable_current_modes():
+        layout = np.asarray(mesh.mesh.tolist())
+    coords = [int(np.argwhere(layout == r)[0][d]) for r in ranks]
     order = np.argsort(coords)
-    order = None if (order == np.arange(len(order))).all() else torch.as_tensor(order)
+    order = None if (order == np.arange(len(order))).all() else tuple(int(i) for i in order)
     _ORDERS[(id(mesh), name)] = (weakref.ref(mesh), order)
     return order
 
@@ -143,7 +148,8 @@ def _all_gather_dim(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     GATHERS["all_gather"] += 1
     order = _coordinate_order(mesh, name)
     if order is not None:
-        out = out.view(n, *xt.shape)[order.to(out.device)].reshape(out.shape)
+        blocks = out.view(n, *xt.shape)
+        out = torch.cat([blocks[j] for j in order])
     return out.movedim(0, dim).contiguous()
 
 

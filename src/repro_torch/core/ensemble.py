@@ -4,12 +4,14 @@ sharded ensemble drive.
 Of the reference's module, the deprecated shims `integrate_ensemble`,
 `integrate_ensemble_sharded` and `fit_ridge_ensemble` are left out by
 design (`compile_plan(spec, ExecPlan(...)).integrate` / `drive_batch` do
-their work), and `lower_sharded_ensemble`, which lowers XLA from
-ShapeDtypeStructs, has no torch counterpart.
+their work). `lower_sharded_ensemble`, which lowers XLA from
+ShapeDtypeStructs there, binds the sharded integrator to arguments made
+from shapes here, for a dry run to run on fake tensors (launch/dryrun.py).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -62,4 +64,35 @@ def drive_ensemble_sharded(
         mesh, params, w_cp, w_in, m0, u_seq, dt, hold_steps,
         ensemble_axes=ensemble_axes, model_axis=model_axis,
         tableau_name=tableau_name, gather_dtype=gather_dtype,
+    )
+
+
+def lower_sharded_ensemble(
+    mesh,
+    n: int,
+    e: int,
+    dt: float,
+    n_steps: int,
+    ensemble_axes: Sequence[str] = ("data",),
+    model_axis: Optional[str] = "model",
+    dtype=torch.bfloat16,
+    gather_dtype=None,
+    device="cuda",
+):
+    """Dry-run entry: `api.sharded.integrate_sharded` bound (a
+    functools.partial) to uninitialised global arguments made on `device`
+    (params (E, 1) a field, W (N, N), m0 (E, N, 3) in `dtype`): fake tensors,
+    nothing allocated, when called inside a dry run's FakeTensorMode. Where
+    the reference returns an XLA `Lowered`, launch/dryrun.py runs this call
+    under its cost counters as one rank of `mesh`. The sharded path takes
+    global tensors on every rank, so the arguments are the whole state."""
+    from repro_torch.api import sharded  # deferred: api imports core
+
+    dev = torch.device(device)
+    params = STOParams(*(torch.empty((e, 1), dtype=dtype, device=dev) for _ in STOParams._fields))
+    w = torch.empty((n, n), dtype=dtype, device=dev)
+    m0 = torch.empty((e, n, 3), dtype=dtype, device=dev)
+    return functools.partial(
+        sharded.integrate_sharded, mesh, params, w, m0, dt, n_steps,
+        ensemble_axes=tuple(ensemble_axes), model_axis=model_axis, gather_dtype=gather_dtype,
     )

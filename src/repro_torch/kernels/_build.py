@@ -25,6 +25,8 @@ import shutil
 import subprocess
 import threading
 
+from torch._subclasses.fake_tensor import FakeTensor
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sto_rk4.cu", "flash_attention.cu", "sto_delay_line.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -97,6 +99,27 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def is_fake(*tensors) -> bool:
+    """True when one of `tensors` is a FakeTensor: a dry run's
+    (launch/dryrun.py), with a shape, a dtype and a device but no memory."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def fake_launch(name: str, flops: dict, nbytes: float) -> None:
+    """A wrapper's stand-in for a launch on fake tensors: nothing is built,
+    loaded or launched, and LAUNCHES (launches on the card) is left as it
+    is. Every cost counter on the dispatch mode stack (launch/costs.py)
+    records the launch, its FLOPs by operand kind ({"bf16": tensor-core
+    FLOPs, "f32": the rest}) and the bytes it reads and writes, which no
+    aten op shows it."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        record = getattr(mode, "record_kernel", None)
+        if record is not None:
+            record(name, flops, nbytes)
 
 
 def _nvcc() -> str:

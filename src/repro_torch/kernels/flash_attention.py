@@ -35,6 +35,7 @@ import ctypes
 import dataclasses
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -155,6 +156,26 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0, scale=N
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the causal / window band leaves unmasked, the last q row
+    on the last k row: the pairs the kernel computes."""
+    p = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(p, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def launch_cost(q, k, v, dims, causal: bool, window: int):
+    """(FLOPs, bytes) of one launch: q k^T and p v over the band's pairs,
+    2 FLOPs a multiply-add each; q, k and v read once and o (q's shape)
+    written once."""
+    b, h, sq, d = (q.shape[i] for i in (dims[0], dims[2], dims[1], 3))
+    sk = k.shape[dims[1]]
+    flops = 4.0 * b * h * d * band_pairs(sq, sk, causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return flops, nbytes
+
+
 def _on_cpu(*tensors) -> bool:
     devs = {t.device for t in tensors}
     if len(devs) != 1:
@@ -177,11 +198,12 @@ def _launch(q, k, v, o, dims, causal, window, scale):
         raise NotImplementedError(
             f"flash_attention: head dim {d} is not one of the kernel's {HEAD_DIMS}"
         )
+    fake = _build.is_fake(q, k, v)  # a dry run: shapes only, no memory
     align = 16 // q.element_size()  # elements per 16-byte row alignment
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim must be contiguous")
-        if t.data_ptr() % 16 or any(t.stride(i) % align for i in dims):
+        if (not fake and t.data_ptr() % 16) or any(t.stride(i) % align for i in dims):
             raise ValueError(
                 f"flash_attention: {name}'s rows must be 16-byte aligned (strides "
                 f"{t.stride()} in elements)"
@@ -189,6 +211,10 @@ def _launch(q, k, v, o, dims, causal, window, scale):
     bf16 = q.dtype == torch.bfloat16
     if not bf16 and b * kvh > 65535:
         raise ValueError(f"flash_attention: batch x kv heads = {b * kvh} exceeds 65535")
+    if fake:  # nothing to build or launch
+        flops, nbytes = launch_cost(q, k, v, dims, causal, window)
+        _build.fake_launch("flash_attention", {"bf16" if bf16 else "f32": flops}, nbytes)
+        return o
     plan = tile_plan(h // kvh, sq, d)
     err = _build.load().flash_attention_fwd(
         int(bf16),

@@ -33,9 +33,12 @@ into one device loop on the TPU, and gives its plain version's bits.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with torch.empty, launches on the current stream,
 raises if the launch reports a CUDA error, and adds one to its entry of
-LAUNCHES after a launch. Tensors on the CPU take the plain version
-(kernels/ref.py, or the plain function beside the wrapper) — only because
-they are on the CPU; there is no fallback for a CUDA tensor.
+LAUNCHES after a launch. On fake tensors (a dry run, launch/dryrun.py) it
+launches nothing and reports the launch's FLOPs and bytes instead
+(`_build.fake_launch`; the formulas of chip_smoke.py's bounds). Tensors on
+the CPU take the plain version (kernels/ref.py, or the plain function
+beside the wrapper) — only because they are on the CPU; there is no
+fallback for a CUDA tensor.
 
 The CUDA path takes an f32 state with W in f32 or bf16. The RK4 stage
 coefficients dt/2, dt and dt/6 are computed in double on the host and
@@ -68,6 +71,12 @@ COOP_ROWS = {torch.float32: 64, torch.bfloat16: 128}
 SLICE = 64
 COOP_LANES = 256
 MAX_CLUSTER = 8
+# FLOPs of the LLG epilogue and the stage algebra per (oscillator, lane,
+# stage), and of one RK4 step of one lane in the delay-line kernel (4 x 51 in
+# the field, 18 in the stage updates, 21 in the combination): the bounds'
+# operation counts
+EPILOGUE_FLOPS = 60
+STEP_OPS = 4 * 51 + 18 + 21
 
 
 def _field_planes(mx, my, mz, hx, p):
@@ -155,6 +164,19 @@ def _lib():
             f"COOP_ROWS f32/bf16, SLICE, COOP_LANES, MAX_CLUSTER) {ours}"
         )
     return lib
+
+
+def _fake_launch(name, tensors, gemm_flops, gemm_kind, other_flops) -> None:
+    """A dry run's launch: `gemm_flops` at the rate of `gemm_kind`, the rest
+    as FP32; each operand (None skipped) read or written once."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    flops = {"bf16": 0.0, "f32": float(other_flops)}
+    flops[gemm_kind] += float(gemm_flops)
+    _build.fake_launch(name, flops, nbytes)
+
+
+def _gemm_kind(w_cp) -> str:
+    return "bf16" if w_cp.dtype == torch.bfloat16 else "f32"
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -366,11 +388,15 @@ def field_smem_bytes(w_dtype: torch.dtype) -> int:
 def _coop_launch(name, m, w_cp, params, dt, steps, h, h_stride, mask, states):
     """One cooperative launch of the shared chunk/fused body; returns m'."""
     _, n, e = m.shape
-    m_out = torch.empty_like(m)
-    m_out.copy_(m)
+    m_out = m.clone()  # the kernel advances it in place
     bf16 = w_cp.dtype == torch.bfloat16
     # f32 planes: stage x-plane x2 (a bf16 W: one f32 + two bf16), y/z, accumulator x3
     scratch = torch.empty((7, n, e), dtype=m.dtype, device=m.device)
+    if _build.is_fake(m):
+        evals = 4 * steps * (h.shape[0] if h_stride else 1)  # stages of the launch
+        _fake_launch(name, (m, m_out, w_cp, params, h, mask, states), 2.0 * n * n * e * evals,
+                     _gemm_kind(w_cp), EPILOGUE_FLOPS * n * e * evals)
+        return m_out
     split = coop_launch_config(n, e, w_cp.dtype, m.device)
     dt = float(dt)
     lib = _lib()
@@ -430,6 +456,9 @@ def field_tiled_plain(m, yx_full, k_prev, w_cp, params, stage_coef, h_in):
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x (f32, contiguous, on the card) rounded to bf16 by round_bf16_kernel."""
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    if _build.is_fake(x):
+        _fake_launch("round_bf16", (x, out), 0.0, "f32", x.numel())
+        return out
     _raise_on(_lib().sto_round_bf16(_ptr(x), _ptr(out), x.numel(), _stream(x.device)), "round_bf16")
     _build.count_launch("round_bf16")
     return out
@@ -442,6 +471,11 @@ def _field_launch(
     """One field_stage_kernel launch (csrc/sto_rk4.cu FieldArgs); x and x_next
     are in W's dtype, every other plane f32."""
     _, n, e = m.shape
+    if _build.is_fake(m):
+        _fake_launch("field_tiled", (m, x, w_cp, params, h_in, kprev, acc_in, k, x_next, acc_out,
+                                     m_out), 2.0 * n * n * e, _gemm_kind(w_cp),
+                     EPILOGUE_FLOPS * n * e)
+        return
     split = field_launch_config(n, e, w_cp.dtype, m.device)
     opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
     err = _lib().sto_field_stage(
@@ -573,6 +607,10 @@ def tm_delay_line(
     if h_t.shape != (n, e) or params.shape != (NP, e) or (mask is not None and mask.shape != (e,)):
         raise ValueError("tm_delay_line: h_t (N, E), params (NP, E), mask (E,) expected")
     out = torch.empty_like(m)
+    if _build.is_fake(m):
+        _fake_launch("tm_delay_line", (m, h_t, params, mask, out), 0.0, "f32",
+                     STEP_OPS * n * hold_steps * e)
+        return out
     dt32, half, sixth = tm_coefficients(dt)
     err = _lib().sto_tm_delay_line(
         _ptr(m), _ptr(h_t), _ptr(params), None if mask is None else _ptr(mask), _ptr(out),

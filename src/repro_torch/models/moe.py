@@ -91,10 +91,21 @@ def route(p, moe, x) -> Routing:
     top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
     top_p = torch.gather(probs, 1, top_e)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-    flat = F.one_hot(top_e, e).reshape(t * k, e)
+    flat = _one_hot(top_e, e).reshape(t * k, e)
     pos_in_e = torch.cumsum(flat, dim=0) - flat  # exclusive, token-major
     pos = (pos_in_e * flat).sum(dim=-1).reshape(t, k)
     return Routing(probs, top_p, top_e, pos, pos < cap, cap)
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """F.one_hot(idx, n) (int64) as the zeros and scatter_ it runs on the
+    card, on every device: F.one_hot takes another decomposition on fake
+    tensors, so a dry run (launch/dryrun.py) would count other bytes than
+    the real step moves. idx is in range by construction (top-k indices,
+    capacity positions), so F.one_hot's host-side range check on the CPU
+    has nothing to catch."""
+    out = torch.zeros((*idx.shape, n), dtype=torch.int64, device=idx.device)
+    return out.scatter_(-1, idx.unsqueeze(-1), 1)
 
 
 def _route_chunk(p, moe, x):
@@ -103,8 +114,8 @@ def _route_chunk(p, moe, x):
     e = moe.num_experts
     r = route(p, moe, x)
     cap, dt = r.cap, x.dtype
-    onehot = F.one_hot(r.top_e, e).to(dt)  # (T, K, E)
-    slot = F.one_hot(torch.where(r.keep, r.pos, cap), cap + 1).to(dt)  # (T, K, C+1)
+    onehot = _one_hot(r.top_e, e).to(dt)  # (T, K, E)
+    slot = _one_hot(torch.where(r.keep, r.pos, cap), cap + 1).to(dt)  # (T, K, C+1)
     disp = (onehot[..., None] * slot[..., None, :])[..., :cap].sum(dim=1)  # (T, E, C)
     comb = disp * torch.einsum("tk,tke->te", r.top_p.to(dt), onehot)[..., None]
 
@@ -116,7 +127,7 @@ def _route_chunk(p, moe, x):
     y = torch.einsum("tec,ecd->td", comb, ye)
 
     # switch-style aux loss: E * sum_e frac_e * prob_e, frac over the top-1
-    frac = F.one_hot(r.top_e[:, 0], e).float().mean(dim=0)
+    frac = _one_hot(r.top_e[:, 0], e).float().mean(dim=0)
     aux = e * (frac * r.probs.mean(dim=0)).sum()
     return y, aux
 

@@ -2069,3 +2069,88 @@ def test_training_resumes_after_a_crash_on_the_card(cuda, tmp_path):
     ref_loss = {h["step"]: h["loss"] for h in ref}
     for h in hist:
         assert abs(h["loss"] - ref_loss[h["step"]]) <= RESUME_RTOL * abs(ref_loss[h["step"]])
+
+
+# -- the dry run on fake CUDA tensors (launch/dryrun.py) -----------------------------
+#
+# A whole model on fake CUDA tensors needs PyTorch built for CUDA (the CPU
+# build's indexing asks for a CUDA device guard), so these run here;
+# tests/test_torch_dryrun.py holds the rest of the dry run on the CPU.
+
+
+def _dryrun_cfg():
+    from repro_torch.configs import get_config, reduce_config
+
+    return reduce_config(get_config("h2o-danube-1.8b"), d_model=128, n_heads=4)  # head dim 32
+
+
+@pytest.mark.cuda
+def test_dry_run_prefill_counts_flash_launches(cuda, monkeypatch):
+    """A reduced h2o-danube prefill on fake CUDA tensors: one flash launch a
+    layer at the band formula's FLOPs, the kernel library never loaded and
+    the card's counters unchanged; the same prefill on the card launches the
+    kernel as often."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+
+    cfg = _dryrun_cfg()
+    b, s = 2, 96
+
+    def refuse():
+        raise AssertionError("the kernel library was loaded in a dry run")
+
+    with monkeypatch.context() as patch:
+        patch.setattr(_build, "load", refuse)
+        before = dict(_build.LAUNCHES)
+        rec = dryrun.lower_step(cfg, ShapeCell("prefill", s, b, "prefill"), device="cuda")
+        assert _build.LAUNCHES == before
+    flash = rec["kernels"]["flash_attention"]
+    per_layer = 4.0 * b * cfg.num_heads * cfg.head_dim * fa.band_pairs(s, s, True,
+                                                                        cfg.sliding_window)
+    assert flash["launches"] == cfg.num_layers
+    assert flash["flops"] == cfg.num_layers * per_layer
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, device=cuda)
+    n0 = _build.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] - n0 == flash["launches"]
+
+
+@pytest.mark.cuda
+def test_dry_run_train_step_counts_the_card_step(cuda):
+    """A reduced h2o-danube train step (AdamW) on fake CUDA tensors against
+    the same step on the card: FLOPs equal FlopCounterMode's, argument bytes
+    the trees held, and the temp peak the cost counter's reading there."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import costs, dryrun, steps
+
+    cfg = _dryrun_cfg()
+    cell = ShapeCell("train", 64, 2, "train")
+    rec = dryrun.lower_step(cfg, cell, device="cuda")
+
+    def real():
+        step, opt, model = steps.make_train_step(cfg, device="cuda")
+        params = model.init(0)
+        batch = to_device(SyntheticTokens(DataConfig(cfg.vocab_size, 64, 2)).batch(0), "cuda")
+        return step, (params, opt.init(params, device="cuda"), batch,
+                      torch.zeros((), dtype=torch.int64, device=cuda))
+
+    step, args = real()
+    with FlopCounterMode(display=False) as counter:
+        step(*args)
+    step, args = real()
+    _, got = costs.measure(step, *args)
+    held = sum(t.numel() * t.element_size() for a in args for t in tree.leaves(a))
+    assert rec["hlo_flops"] == counter.get_total_flops() == got["hlo_flops"]
+    assert rec["argument_size_in_bytes"] == held == got["argument_size_in_bytes"]
+    assert rec["temp_size_in_bytes"] == got["temp_size_in_bytes"]

@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.api.sharded, repro_torch.distributed, repro_torch.distributed.collectives, "
         "repro_torch.optim, repro_torch.data, repro_torch.train, repro_torch.train.watchdog, "
         "repro_torch.launch.train, repro_torch.launch.steps, repro_torch.launch.mesh, "
+        "repro_torch.launch.dryrun, repro_torch.launch.roofline, repro_torch.launch.costs, "
         "repro_torch.tree; "
         "assert len(repro_torch.configs.list_configs()) == 10; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
