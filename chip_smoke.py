@@ -11,6 +11,7 @@
     python3 chip_smoke.py --recurrent    # phase 5e alone
     python3 chip_smoke.py --encdec       # phase 5f alone
     python3 chip_smoke.py --dryrun       # phase 5g alone
+    python3 chip_smoke.py --tp           # phase 5h alone
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which raises (and so exits non-zero)
@@ -466,6 +467,32 @@ on failure:
    (1, 1) mesh on the card, then the same calls dry-run over a fake group of
    one: as many all-gathers and all-reduces). `python3 chip_smoke.py
    --dryrun` runs it alone (training and serving h2o-danube-1.8b itself).
+5h. Tensor parallelism (distributed/tensor_parallel.py) on two ranks of card
+   0 (`chip_smoke.py --tp-child DIR`, a gloo world of two over a FileStore:
+   NCCL runs no two ranks on one card; gloo stages CUDA tensors through the
+   host, so its times are printed as such and claim no speed), beside 5b(c)
+   with 5g(c)'s children. The ranks first compute the one-rank references
+   (rank 0 (a) and (d), rank 1 (b)), then each runs a (1, 2) ("data",
+   "model") mesh from the same init(0) draws, holding its blocks against
+   their slices: (a) h2o-danube-1.8b whole, a TP_PROMPT-token prefill at
+   TP_ROWS rows and TP_NEW teacher-fed decode steps through
+   make_serve_steps: the flash kernel launched once a layer a prefill on
+   each rank's heads (H 16, KVH 4; also against its plain version there),
+   every call's last-position logits within TP_LOGIT_RTOL, greedy tokens off
+   one rank's argmax counted, each within TP_FLIP_GAP there; (b) 3 AdamW
+   steps at 2 layers of 5b's cell: losses and grad norms within
+   TP_LOSS_RTOL, init(0) blocks equal to the one-rank draws' slices, every
+   leaf's update within TP_UPDATE_RTOL of one rank's, replicated leaves
+   bit-equal across the ranks; (c) each call's all-reduces on "model" read
+   with costs.CostMode equal on both ranks and to the dry run's over a fake
+   (1, 2) group; (d) qwen2-moe-a2.7b at 2 layers (30 experts a rank), bf16,
+   served as (a) with TP_MOE_NEW steps: flash also against its plain version
+   at the rank's heads (H 8, KVH 8); the routing the same on both ranks,
+   its router logits within TP_ROUTE_RTOL of one rank's, tokens routed
+   otherwise counted per layer and each a near-tie; the logits within
+   TP_LOGIT_RTOL of one rank run with the mesh's routing; peak memory a
+   rank beside one rank's.
+   `python3 chip_smoke.py --tp` runs it alone.
 6. Print the kernels line (the STO kernels, tm_delay_line and flash, whose
    row carries its qwen2_moe, deepseek_v2_lite, jamba and encdec entries),
    the card line and, last, the contract line {"ok": true, "device": {...}}.
@@ -4410,7 +4437,9 @@ def train_launcher(name_power):
 
 def train_phase(name_power):
     """Phase 5b: training on the card. 5b(e)'s child and 5b(f)'s process
-    tree, which spend most of their time starting up, run beside 5b(c)."""
+    tree, which spend most of their time starting up, run beside 5b(c), as
+    do 5g(c)'s two children and phase 5h's two ranks (5b(c) holds a resumed
+    run's losses: a correctness check, whose seconds only inform)."""
     t0 = time.perf_counter()
     train_card_vs_cpu(name_power)
     train_full_width(name_power)
@@ -4422,15 +4451,19 @@ def train_phase(name_power):
         try:
             finish_dryrun = dryrun_children(name_power)
             try:
-                train_resume(name_power)
+                finish_tp = tp_children(name_power)
+                try:
+                    train_resume(name_power)
+                finally:
+                    finish_tp()
             finally:
                 finish_dryrun()
         finally:
             finish_dp()
     finally:
         finish_launcher()
-    print(f"phase 5b (with 5g(a) and 5g(c)): {time.perf_counter() - t0:.1f} s ({name_power})",
-          flush=True)
+    print(f"phase 5b (with 5g(a), 5g(c) and 5h): {time.perf_counter() - t0:.1f} s "
+          f"({name_power})", flush=True)
 
 
 def train_only():
@@ -4734,6 +4767,485 @@ def dryrun_only():
     finally:
         finish()
     print("5g held", flush=True)
+
+
+# -- phase 5h: tensor parallelism, two ranks on one card over gloo -----------------
+
+# (a) h2o-danube-1.8b whole: a TP_PROMPT-token prefill at TP_ROWS rows, then
+# TP_NEW decode steps fed teacher tokens; (b) its TP_TRAIN_STEPS AdamW steps
+# at TP_TRAIN_LAYERS layers (5b's batch, sequence, lr, warmup and remat);
+# (d) qwen2-moe-a2.7b cut to TP_MOE_LAYERS layers, in its config's bf16, the
+# same prefill and TP_MOE_NEW decode steps
+TP_PROMPT, TP_ROWS, TP_NEW = 512, 4, 16
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS = 2, 3
+TP_MOE_LAYERS, TP_MOE_NEW = 2, 8
+# the two ranks against one rank, bf16 on both sides. A row-parallel product
+# is two bf16 GEMMs (each rounded to bf16) summed in f32 and rounded once
+# more, where one rank rounds one GEMM once, so the residual stream and what
+# follows carry one bf16 rounding more a row-parallel layer.
+# Read on an H100 80GB HBM3 at 700 W: (a) 1.82e-2 and 1.85e-2 on the two
+# ranks' blocks, one greedy token of 64 off one rank's argmax at a gap of
+# 1.49e-2; (d) 1.09e-2 and 1.05e-2; (b) losses 1.38e-5, grad norms 1.11e-4.
+TP_LOGIT_RTOL = 5e-2  # max |logit - one rank's| / max |one rank's|, bf16, ~2.7x the reading
+TP_FLIP_GAP = LOGIT_MARGIN  # a greedy token off one rank's argmax: its gap there (phase 5's)
+TP_LOSS_RTOL = 1e-3  # losses and grad norms, relative, ~9x the reading
+# (b) every leaf's update, ||(leaf - init) - one rank's|| / ||one rank's||
+# over the rank's block: a step that skipped the update reads 1, one that
+# took a fourth step 1.02 (a CPU run at reduced width, f32, whose sound
+# reading is 5e-6). In bf16 an update of a few ulps of a leaf rounds either
+# way: read 7.79e-2 and 7.43e-2 (the embedding), ~3.2x below the limit
+TP_UPDATE_RTOL = 0.25
+# (d): two bf16 runs whose router inputs are roundings apart can send a
+# token to another top-4 of 60 experts where its 4th and 5th router logits
+# nearly tie, and that token's output then differs by more than a rounding.
+# So (d) runs one rank with the mesh's experts (moe.assign), its sums
+# otherwise its own, and holds against it the mesh's logits at
+# TP_LOGIT_RTOL and every moe.route call: the router logits' drift (the
+# most a difference of two of a token's logits moved, over every token)
+# against the largest spread of a token's logits, a relative measure as
+# TP_LOGIT_RTOL's; and a token whose top-4 on one rank would have differed
+# must have its 4th-5th gap there within the same share of the spread (a
+# near-tie). Read: a drift of 8.36e-3 of the spread (about two bf16
+# roundings, 2^-8 each); 106 of 4096 prefill tokens and 2 of 32 decode
+# tokens whose own top-4 would differ, gaps up to 2.0e-2 (2.8e-3 of the
+# spread); against one rank's own routing the logits read 6.74e-2 and
+# 6.93e-2. The limit, eight roundings, is ~3.7x the drift read.
+TP_ROUTE_RTOL = 2**-5
+TP_DEVICE = "cuda"
+
+
+def _tp_cfgs():
+    """(a)'s, (b)'s and (d)'s configs."""
+    import dataclasses
+
+    return (get_config(LM_ARCH), _train_cfg(TP_TRAIN_LAYERS),
+            dataclasses.replace(get_config(MOE_ARCH), num_layers=TP_MOE_LAYERS))
+
+
+def _tp_sync(dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_peak_reset(dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _tp_peak(dev):
+    return torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+
+
+@contextlib.contextmanager
+def _tp_routing(force=None):
+    """Record every moe.route call: (log probs (T, E) f32, its own top-k
+    experts (T, K)) on the host, in call order. With `force` (another run's
+    records) each call then takes that run's experts (moe.assign)."""
+    from repro_torch.models import moe
+
+    real, calls = moe.route, []
+
+    def spy(p, cfg_moe, x):
+        r = real(p, cfg_moe, x)
+        calls.append((r.probs.log().cpu(), r.top_e.cpu()))
+        if force is not None:
+            r = moe.assign(r.probs, force[len(calls) - 1][1].to(x.device), r.cap)
+        return r
+
+    moe.route = spy
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def _tp_serve_run(cfg, mesh, dev, force=None):
+    """One prefill of TP_PROMPT tokens at TP_ROWS rows and the decode steps
+    (teacher tokens, make_serve_steps' greedy token beside each), on one
+    rank (mesh None) or on the mesh; every input from numpy seed 0, weights
+    init(0); MoE routing replayed from `force` where given. Returns the
+    last-position logits of each call (f32, on the host; the rank's vocab
+    block on the mesh), the greedy tokens, the flash launches of the prefill
+    and the (H, KVH) of each, the route calls (MoE) and how many the
+    prefill made, host ms (gloo-staged on the mesh), peak bytes and, on the
+    mesh, each call's all-reduces on "model" under costs.CostMode."""
+    from repro_torch.launch import costs, steps
+    from repro_torch.models import attention
+
+    new = TP_NEW if cfg.moe is None else TP_MOE_NEW
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_ROWS, TP_PROMPT))).to(dev)
+    teacher = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_ROWS, new))).to(dev)
+    _tp_peak_reset(dev)
+    params = build_model(cfg, dev, mesh).init(0)
+    prefill, decode = steps.make_serve_steps(cfg, dev, mesh)
+    heads = []
+    launch = attention.flash_attention_bshd
+
+    def spy(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return launch(q, k, v, **kw)
+
+    with _tp_routing(force) as routes:
+        attention.flash_attention_bshd = spy
+        try:
+            sto_step.reset_launches()
+            t0 = time.perf_counter()
+            last, caches = prefill(params, {"tokens": tokens})
+            _tp_sync(dev)
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            launches = sto_step.LAUNCHES["flash_attention"]
+        finally:
+            attention.flash_attention_bshd = launch
+        n_prefill_routes = len(routes)
+        caches = transformer.pad_caches(cfg, caches, TP_PROMPT + new)
+        logits, toks = [last[:, -1].float().cpu()], []
+        t0 = time.perf_counter()
+        for i in range(new):
+            pos = torch.full((TP_ROWS,), TP_PROMPT + i, dtype=torch.int32, device=dev)
+            tok, lg, caches = decode(params, {"tokens": teacher[:, i:i + 1], "caches": caches,
+                                              "pos": pos})
+            logits.append(lg[:, -1].float().cpu())
+            toks.append(tok.cpu())
+        _tp_sync(dev)
+    rec = dict(logits=torch.stack(logits), toks=torch.stack(toks), launches=launches, heads=heads,
+               prefill_ms=prefill_ms, decode_ms=1e3 * (time.perf_counter() - t0) / new,
+               peak=_tp_peak(dev), routes=routes, n_prefill_routes=n_prefill_routes)
+    if mesh is not None:
+        _, c = costs.measure(prefill, params, {"tokens": tokens}, mesh=mesh)
+        rec["prefill_reduces"] = c["collective_counts_by_dim"].get("model", 0)
+        pos = torch.full((TP_ROWS,), TP_PROMPT + new - 1, dtype=torch.int32, device=dev)
+        _, c = costs.measure(decode, params, {"tokens": teacher[:, :1], "caches": caches,
+                                              "pos": pos}, mesh=mesh)
+        rec["decode_reduces"] = c["collective_counts_by_dim"].get("model", 0)
+    return rec
+
+
+def _tp_train_run(cfg, mesh, dev):
+    """TP_TRAIN_STEPS AdamW steps of 5b's cell from init(0) on one rank or on
+    the mesh. Returns the losses, grad norms, host ms a step, peak bytes and
+    every leaf after the last step (on the host; the rank's blocks on the
+    mesh), and on the mesh the init(0) blocks and one more step's
+    all-reduces on "model"."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import costs, steps
+
+    step, opt, model = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                             total_steps=100, device=dev, mesh=mesh)
+    _tp_peak_reset(dev)
+    params = model.init(0)
+    init = [t.to("cpu", copy=True) for t in tree.leaves(params)] if mesh is not None else None
+    state = opt.init(params, device=dev)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    losses, norms, ms = [], [], []
+    for s in range(TP_TRAIN_STEPS):
+        batch = to_device(data.batch(s), dev)
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch, torch.tensor(s, device=dev))
+        _tp_sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    rec = dict(losses=losses, norms=norms, ms=ms, peak=_tp_peak(dev), init=init,
+               leaves=[t.to("cpu", copy=True) for t in tree.leaves(params)])
+    if mesh is not None:
+        _, c = costs.measure(step, params, state, batch, torch.tensor(TP_TRAIN_STEPS, device=dev),
+                             mesh=mesh)
+        rec["train_reduces"] = c["collective_counts_by_dim"].get("model", 0)
+    return rec
+
+
+def _tp_hold_serve(tag, cfg, got, want, rank, name_power, against="one rank"):
+    """A rank's serving run against one rank's: its vocab block of every
+    call's last-position logits, its greedy tokens (flips and their gaps in
+    one rank's logits), the flash launches and heads a prefill."""
+    n = got["logits"].shape[-1]
+    ref = want["logits"][..., rank * n:(rank + 1) * n]
+    err = float((got["logits"] - ref).abs().max() / ref.abs().max())
+    ref_tok = want["logits"][1:].argmax(dim=-1)
+    flips = (got["toks"] != ref_tok).nonzero().tolist()
+    full = want["logits"][1:]
+    gaps = [float(full[s, r].max() - full[s, r, got["toks"][s, r]]) for s, r in flips]
+    local = (cfg.num_heads // 2, cfg.num_kv_heads // 2)
+    print(f"5h{tag} rank {rank}, {cfg.name} ({cfg.num_layers} layers, full width, {cfg.dtype}) "
+          f"on a (1, 2) mesh over gloo against {against}: prefill {TP_PROMPT} tokens x "
+          f"{TP_ROWS} rows and {got['toks'].shape[0]} teacher-fed decode steps; logits (vocab "
+          f"block {n} of {cfg.padded_vocab}) max |diff| / max |one rank's| {err:.3e} (at most "
+          f"{TP_LOGIT_RTOL}); greedy tokens off one rank's argmax {len(flips)} of "
+          f"{got['toks'].numel()}, gaps {[f'{g:.3e}' for g in gaps]} (at most {TP_FLIP_GAP}); "
+          f"flash launches a prefill "
+          f"{got['launches']} (layers {cfg.num_layers}) on (H, KVH) {sorted(set(got['heads']))}; "
+          f"host ms, gloo staging the all-reduces through the host (no speed claim): prefill "
+          f"{got['prefill_ms']:.1f} (one rank {want['prefill_ms']:.1f}), a decode step "
+          f"{got['decode_ms']:.1f} (one rank {want['decode_ms']:.1f}); peak "
+          f"{got['peak'] / 2**30:.3f} GiB, one rank {want['peak'] / 2**30:.3f} GiB "
+          f"({name_power})", flush=True)
+    assert got["launches"] == cfg.num_layers, (got["launches"], cfg.num_layers)
+    assert set(got["heads"]) == {local}, (got["heads"], local)
+    assert err <= TP_LOGIT_RTOL, (tag, err)
+    assert all(g <= TP_FLIP_GAP for g in gaps), (tag, gaps)
+
+
+def _tp_hold_routing(cfg, got, want, rank, mesh):
+    """(d)'s routing on the mesh against one rank's run with the mesh's
+    routing (`want`, whose calls hold what the rank's own top-k would have
+    been), call by call: the same on both ranks; the router logits' drift
+    within TP_ROUTE_RTOL of the largest spread; per layer the tokens whose
+    own top-k differs, each a near-tie in the one-rank run."""
+    import torch.distributed as dist
+
+    assert (len(got["routes"]), got["n_prefill_routes"]) == (
+        len(want["routes"]), want["n_prefill_routes"]), (len(got["routes"]), len(want["routes"]))
+    experts = torch.cat([e.reshape(-1) for _, e in got["routes"]]).to(TP_DEVICE)
+    lo, hi = experts.clone(), experts.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.get_group("model"))
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.get_group("model"))
+    assert torch.equal(lo, hi), "the two ranks routed differently"
+    k, n_layers, n_pre = cfg.moe.top_k, cfg.num_layers, got["n_prefill_routes"]
+    drift, spread = 0.0, 0.0
+    off = {(kind, layer): [] for kind in ("prefill", "decode") for layer in range(n_layers)}
+    for i, ((lp, e), (lp1, e1)) in enumerate(zip(got["routes"], want["routes"])):
+        where = (("prefill", i // (n_pre // n_layers)) if i < n_pre
+                 else ("decode", (i - n_pre) % n_layers))
+        d = lp - lp1
+        drift = max(drift, float((d.amax(-1) - d.amin(-1)).max()))
+        spread = max(spread, float((lp1.amax(-1) - lp1.amin(-1)).max()))
+        ranked = lp1.sort(dim=-1, descending=True).values
+        for t in (e.sort(-1).values != e1.sort(-1).values).any(-1).nonzero()[:, 0].tolist():
+            off[where].append(float(ranked[t, k - 1] - ranked[t, k]))
+    gaps = sorted(g for v in off.values() for g in v)
+    tokens = sum(int(e.shape[0]) for _, e in want["routes"][:n_pre // n_layers])
+    print(f"5h(d) rank {rank}, routing on the mesh against one rank with the mesh's routing: "
+          f"the same on both ranks; "
+          f"router logits' drift {drift:.3e} of the largest spread {spread:.3e} "
+          f"({drift / spread:.3e}, at most {TP_ROUTE_RTOL:.3e}); tokens whose top-{k} experts "
+          f"on one rank would differ, per layer (of {tokens} a prefill layer, {TP_ROWS} a decode "
+          f"step's): "
+          + "; ".join(f"{kind} layer {layer} {len(v)}" for (kind, layer), v in off.items())
+          + f"; their gaps between the {k}th and {k + 1}th logit there "
+          f"{[f'{g:.3e}' for g in gaps]} "
+          f"(each at most {TP_ROUTE_RTOL:.3e} of the spread, {TP_ROUTE_RTOL * spread:.3e})",
+          flush=True)
+    assert drift <= TP_ROUTE_RTOL * spread, (drift, spread)
+    assert all(g <= TP_ROUTE_RTOL * spread for g in gaps), (gaps, spread)
+
+
+def _tp_dry_counts(dev):
+    """(a), (b) and (d)'s calls dry-run over a fake (1, 2) group on fake
+    tensors: {call: all-reduces on "model"}."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+
+    serve_cfg, train_cfg, moe_cfg = _tp_cfgs()
+    cells = {
+        "prefill": (serve_cfg, ShapeCell("5h", TP_PROMPT, TP_ROWS, "prefill")),
+        "decode": (serve_cfg, ShapeCell("5h", TP_PROMPT + TP_NEW, TP_ROWS, "decode")),
+        "train": (train_cfg, ShapeCell("5h", TRAIN_SEQ, TRAIN_BATCH, "train")),
+        "moe_prefill": (moe_cfg, ShapeCell("5h", TP_PROMPT, TP_ROWS, "prefill")),
+        "moe_decode": (moe_cfg, ShapeCell("5h", TP_PROMPT + TP_MOE_NEW, TP_ROWS, "decode")),
+    }
+    with dryrun.fake_world(2):
+        fmesh = init_device_mesh(dev, (1, 2), mesh_dim_names=("data", "model"))
+        return {tag: dryrun.lower_step(cfg, cell, fmesh, dev)["collective_counts_by_dim"].get(
+            "model", 0) for tag, (cfg, cell) in cells.items()}
+
+
+def _tp_hold_updates(cfg, b, want, mesh, dev):
+    """(b)'s leaves on the mesh against one rank's: the init(0) blocks equal
+    to the one-rank draws' slices and replicated leaves bit-equal across the
+    ranks (asserted); returns the worst leaf update's (||diff|| / ||one
+    rank's||, its leaf)."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+
+    template = transformer.param_template(cfg)
+    specs = tree.leaves(shd.param_specs(mesh, template))
+    whole_init = [t.cpu() for t in tree.leaves(build_model(cfg, dev).init(0))]
+    errs = []
+    for (path, _), got, init, whole, w0, s in zip(tree.leaves_with_path(template), b["leaves"],
+                                                  b["init"], want["leaves"], whole_init, specs):
+        name = tree.keystr(path)
+        assert torch.equal(init, tp.block(w0, s, mesh)), name
+        ref = tp.block(whole, s, mesh).double() - init.double()
+        diff, scale = float((got.double() - init.double() - ref).norm()), float(ref.norm())
+        errs.append((diff / scale if scale else (0.0 if diff == 0 else math.inf), name))
+        if tp.model_dim(s) is None:  # replicated: bit-equal across the ranks
+            x = got.to(dev).float()
+            lo, hi = x.clone(), x.clone()
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.get_group("model"))
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.get_group("model"))
+            assert torch.equal(lo, x) and torch.equal(hi, x), f"{name} differs across the ranks"
+    return max(errs)
+
+
+def tp_child(out_dir):
+    """Phase 5h's ranks (`chip_smoke.py --tp-child DIR`, RANK 0 or 1 of a gloo
+    world of two over a FileStore in DIR, both on card 0: NCCL runs no two
+    ranks on one card). Before the group exists, the one-rank references,
+    split over the two (rank 0: (a), (d) and (c)'s dry runs over a fake
+    group; rank 1: (b)), saved in DIR; then on a (1, 2) ("data", "model")
+    mesh (a) to (d), each rank held against the slices of the references
+    ((d)'s logits against one rank run with the mesh's routing); the
+    collective counts go to DIR/rank{r}.json."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    rank, dev = int(os.environ["RANK"]), TP_DEVICE
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    name_power = card_line()
+    t_child = time.perf_counter()
+    serve_cfg, train_cfg, moe_cfg = _tp_cfgs()
+    t0 = time.perf_counter()
+    if rank == 0:
+        t1 = time.perf_counter()
+        dry = _tp_dry_counts(dev)
+        with open(os.path.join(out_dir, "dry.json"), "w") as f:
+            json.dump(dry, f)
+        t_dry = time.perf_counter() - t1
+        ref = {"a": _tp_serve_run(serve_cfg, None, dev), "d": _tp_serve_run(moe_cfg, None, dev)}
+    else:
+        ref = {"b": _tp_train_run(train_cfg, None, dev)}
+    torch.save(ref, os.path.join(out_dir, f"ref{rank}.pt"))
+    del ref
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out_dir, "store"), 2),
+                            rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh(dev, (1, 2), mesh_dim_names=("data", "model"))
+        dist.barrier()
+        ref = {}
+        for r in (0, 1):
+            ref.update(torch.load(os.path.join(out_dir, f"ref{r}.pt")))
+
+        # the kernel at the heads a rank launches it on, against its plain version
+        for cfg in (serve_cfg, moe_cfg) if dev == "cuda" else ():
+            g = torch.Generator(device="cuda").manual_seed(rank)
+            h, kvh, d = cfg.num_heads // 2, cfg.num_kv_heads // 2, cfg.head_dim
+            q, k, v = (torch.randn((TP_ROWS, TP_PROMPT, n, d), generator=g, device="cuda")
+                       .to(torch.bfloat16) for n in (h, kvh, kvh))
+            err = float((fa.flash_attention_bshd(q, k, v, causal=True,
+                                                 window=cfg.sliding_window).float()
+                         - plain_bshd(q, k, v, cfg.sliding_window).float()).abs().max())
+            print(f"5h rank {rank}: flash_bf16<{d}> at {cfg.name}'s H {h}, KVH {kvh}, "
+                  f"B {TP_ROWS}, {TP_PROMPT} tokens, window {cfg.sliding_window}, against its "
+                  f"plain version: max |err| {err:.3e} (at most {FLASH_ATOL[torch.bfloat16]})",
+                  flush=True)
+            assert err <= FLASH_ATOL[torch.bfloat16], err
+            del q, k, v
+
+        t0 = time.perf_counter()
+        a = _tp_serve_run(serve_cfg, mesh, dev)
+        _tp_hold_serve("(a)", serve_cfg, a, ref["a"], rank, name_power)
+        del a["logits"]
+        gc.collect()
+        d_run = _tp_serve_run(moe_cfg, mesh, dev)
+        forced = _tp_serve_run(moe_cfg, None, dev, force=d_run["routes"])
+        _tp_hold_routing(moe_cfg, d_run, forced, rank, mesh)
+        n = d_run["logits"].shape[-1]
+        own = ref["d"]["logits"][..., rank * n:(rank + 1) * n]
+        print(f"5h(d) rank {rank}: logits against one rank with its own routing "
+              f"{float((d_run['logits'] - own).abs().max() / own.abs().max()):.3e} (not held: "
+              f"a token routed otherwise changes the tokens after it)", flush=True)
+        forced.update(prefill_ms=ref["d"]["prefill_ms"], decode_ms=ref["d"]["decode_ms"],
+                      peak=ref["d"]["peak"])
+        _tp_hold_serve("(d)", moe_cfg, d_run, forced, rank, name_power,
+                       against="one rank with the mesh's routing")
+        del forced
+        gc.collect()
+        b = _tp_train_run(train_cfg, mesh, dev)
+        want = ref["b"]
+        worst = _tp_hold_updates(train_cfg, b, want, mesh, dev)
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], want["losses"]))
+        norm_err = max(abs(x - y) / abs(y) for x, y in zip(b["norms"], want["norms"]))
+        print(f"5h(b) rank {rank}, {train_cfg.name} at {TP_TRAIN_LAYERS} layers, full width, "
+              f"{TP_TRAIN_STEPS} AdamW steps (batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat) on the "
+              f"mesh against one rank: losses {' '.join(f'{x:.6f}' for x in b['losses'])} "
+              f"against {' '.join(f'{x:.6f}' for x in want['losses'])} (largest relative gap "
+              f"{loss_err:.3e}), grad norms largest relative gap {norm_err:.3e} (at most "
+              f"{TP_LOSS_RTOL}); init(0) blocks equal to the one-rank draws' slices; every "
+              f"leaf's update after step {TP_TRAIN_STEPS}, ||diff|| / ||one rank's||: worst "
+              f"{worst[0]:.3e} ({worst[1]}; at most {TP_UPDATE_RTOL}; a skipped update reads "
+              f"1); replicated leaves bit-equal across the ranks; host ms a step, gloo-staged "
+              f"(no speed claim) {' '.join(f'{x:.1f}' for x in b['ms'])} (one rank "
+              f"{' '.join(f'{x:.1f}' for x in want['ms'])}); peak {b['peak'] / 2**30:.3f} GiB, "
+              f"one rank {want['peak'] / 2**30:.3f} GiB ({name_power})", flush=True)
+        assert loss_err <= TP_LOSS_RTOL and norm_err <= TP_LOSS_RTOL, (loss_err, norm_err)
+        assert worst[0] <= TP_UPDATE_RTOL, worst
+        counts = {"prefill": a["prefill_reduces"], "decode": a["decode_reduces"],
+                  "train": b["train_reduces"], "moe_prefill": d_run["prefill_reduces"],
+                  "moe_decode": d_run["decode_reduces"]}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(counts, f)
+        print(f"5h rank {rank}: references {t_ref:.1f} s"
+              + (f" (the dry runs {t_dry:.1f} s of them)" if rank == 0 else "")
+              + f", the mesh's runs "
+              f"{time.perf_counter() - t0:.1f} s, the child {time.perf_counter() - t_child:.1f} s "
+              f"({name_power})", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_children(name_power):
+    """Start phase 5h's two ranks (tp_child) beside the caller's work;
+    returns finish(), which waits for them, prints their output and holds
+    the ranks' all-reduces on "model" (costs.CostMode on the card) equal to
+    the dry run's (rank 0's, over a fake (1, 2) group on fake tensors)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="tp-")
+    t0 = time.perf_counter()
+    waits = [_run_beside([sys.executable, os.path.abspath(__file__), "--tp-child", root],
+                         timeout=900, env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                                               LOCAL_RANK="0"))
+             for r in (0, 1)]
+
+    def finish():
+        try:
+            procs = [w() for w in waits]
+            for r, (proc, seconds) in enumerate(procs):
+                sys.stdout.write(proc.stdout)
+                sys.stdout.flush()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"5h rank {r} failed ({proc.returncode}):\n"
+                                       f"{proc.stderr[-6000:]}")
+            counts = []
+            for name in ("rank0", "rank1", "dry"):
+                with open(os.path.join(root, f"{name}.json")) as f:
+                    counts.append(json.load(f))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        dry = counts.pop()
+        print(f"5h(c) all-reduces on \"model\" a call, costs.CostMode on the card (rank 0 / "
+              f"rank 1) against the dry run over a fake (1, 2) group: "
+              + "; ".join(f"{t} {counts[0][t]} / {counts[1][t]} vs {dry[t]}" for t in dry),
+              flush=True)
+        for t in dry:
+            assert counts[0][t] == counts[1][t] == dry[t] > 0, (t, counts, dry)
+        print(f"phase 5h: {time.perf_counter() - t0:.1f} s, its two ranks "
+              f"{max(s for _, s in procs):.1f} s ({name_power})", flush=True)
+
+    return finish
+
+
+def tp_only():
+    """`chip_smoke.py --tp`: build the kernels and run phase 5h alone."""
+    name_power = card_line()
+    print(f"card: {name_power}", flush=True)
+    _build.load()
+    tp_children(name_power)()
+    print("5h held", flush=True)
 
 
 # -- phase 5c: MoE, qwen2-moe-a2.7b at full width ----------------------------------
@@ -7038,5 +7550,9 @@ if __name__ == "__main__":
         dryrun_only()
     elif sys.argv[1:2] == ["--dryrun-child"]:
         dryrun_child()
+    elif sys.argv[1:2] == ["--tp"]:
+        tp_only()
+    elif sys.argv[1:2] == ["--tp-child"]:
+        tp_child(sys.argv[2])
     else:
         main()

@@ -24,9 +24,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.constants import STOParams
 from repro_torch.core.reservoir import Readout
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import transformer
 from repro_torch.serve.reservoir import SessionCheckpoint
 from repro_torch.serve.state_store import _host
+from repro_torch.tree import leaves_with_path, path_str, tree_map, unflatten
 
 
 def _tensor(x, dev, dtype=None) -> torch.Tensor:
@@ -191,14 +194,23 @@ def _tree_from_numpy(tree, dev):
     return torch.from_numpy(a.copy()).to(dev)
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+def _blocks(t, layouts, mesh, dev):
+    """Every leaf's block under its layout, sliced on the host, on `dev`."""
+    return tree_map(lambda x, s: tp.block(x, s, mesh).contiguous().to(dev), t, layouts)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda", mesh=None):
     """The port's LM parameters from the reference's `init_params` pytree with
     every leaf `np.asarray`'d. The two layouts are the same leaf for leaf:
     the period-stacked "stack" leaves keep their leading num_periods axis, an
     encoder-decoder arch's "encoder" layers stay a list, and its decoder
-    layers carry "cross_norm" / "cross" beside their mixer."""
+    layers carry "cross_norm" / "cross" beside their mixer. With a mesh, the
+    rank's blocks (sharding.param_specs)."""
     transformer.check_supported(cfg)
-    params = _tree_from_numpy(tree, resolve_device(device))
+    dev = resolve_device(device)
+    params = _tree_from_numpy(tree, "cpu" if mesh is not None else dev)
+    if mesh is not None:
+        params = _blocks(params, shd.param_specs(mesh, params), mesh, dev)
     want = ("embed", "final_norm") + (() if cfg.tie_embeddings else ("lm_head",))
     want += ("encoder", "dec_pos") if cfg.encoder_layers else ()
     missing = [k for k in want if k not in params]
@@ -207,11 +219,18 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     return params
 
 
-def lm_caches_from_numpy(tree, device="cuda"):
+def lm_caches_from_numpy(tree, device="cuda", mesh=None):
     """The port's KV caches from the reference's cache pytree (prefill's or
     decode's, numpy leaves); period-stacked caches keep their leading
-    num_periods axis."""
-    return _tree_from_numpy(tree, resolve_device(device))
+    num_periods axis. With a mesh, the rank's blocks
+    (sharding.cache_spec_for)."""
+    dev = resolve_device(device)
+    caches = _tree_from_numpy(tree, "cpu" if mesh is not None else dev)
+    if mesh is None:
+        return caches
+    flat = leaves_with_path(caches)
+    layouts = unflatten(caches, [shd.cache_spec_for(path_str(p), t, mesh) for p, t in flat])
+    return _blocks(caches, layouts, mesh, dev)
 
 
 # the reference optimizers' state keys: a tree per key (AdamW, SGD), or one

@@ -16,11 +16,12 @@ or None (replicated); () replicates every dim.
   cache_spec_for    a KV-cache leaf's layout (kv_seq_mode's policy)
 
 A mesh here is anything with `mesh_dim_names` and `shape` (a DeviceMesh, or
-an AbstractMesh for layouts alone). The port trains data-parallel only
-(train/train_loop.py): it reads batch_specs to slice a batch, and a model
-axis wider than 1 is refused (enable_constraints, constrain), ROADMAP queue
-1 item 13b (tensor-parallel training). param_specs and cache_spec_for give
-the layouts such a run would take.
+an AbstractMesh for layouts alone). The trainer (train/train_loop.py) reads
+batch_specs to slice a batch over the batch axes; on a model axis wider than
+1 every rank holds its blocks of the parameters under param_specs and of the
+caches under cache_spec_for, and the model code runs the explicit
+collectives of distributed/tensor_parallel.py where the reference's GSPMD
+inserts its own.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ import re
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch import tree
-
-TP_TODO = "a model axis wider than 1: ROADMAP queue 1 item 13b (tensor-parallel training)"
 
 
 class AbstractMesh(NamedTuple):
@@ -111,8 +110,8 @@ def reservoir_specs(
 
 # ---------------------------------------------------------------------------
 # activation constraints (the reference registers a mesh and model code
-# calls constrain(x, BATCH, None, MODEL); the port's model code does not,
-# and a registered mesh must leave activations where they are)
+# calls constrain(x, BATCH, None, MODEL) for GSPMD; the port's model code
+# places its collectives itself, distributed/tensor_parallel.py)
 # ---------------------------------------------------------------------------
 
 BATCH = "__batch__"  # placeholder resolved to ("pod", "data") / ("data",)
@@ -154,24 +153,18 @@ def want_kv_seq_shard(kv_heads: int, mesh=None) -> bool:
     return kv_heads == 0 or kv_heads % axis_sizes(mesh)["model"] != 0
 
 
-def _refuse_model_axis(mesh) -> None:
-    if mesh is not None and axis_sizes(mesh).get("model", 1) > 1:
-        raise NotImplementedError(TP_TODO)
-
-
 def enable_constraints(mesh) -> None:
-    """Register the mesh `constrain` resolves against (None disables).
-    Raises NotImplementedError for a model axis wider than 1."""
+    """Register the mesh `constrain` and want_kv_seq_shard resolve against
+    (None disables)."""
     global _ACTIVE_MESH
-    _refuse_model_axis(mesh)
     _ACTIVE_MESH = mesh
 
 
 def constrain(x, *spec):
-    """The reference's with_sharding_constraint: the identity without a
-    registered mesh or with a model axis of 1 (activations stay whole on
-    their rank); NotImplementedError for a wider model axis."""
-    _refuse_model_axis(_ACTIVE_MESH)
+    """The reference's with_sharding_constraint: the identity. A rank's
+    activations are what its blocks give (whole, or its heads, columns or
+    vocab rows), and the collectives that move them are explicit
+    (distributed/tensor_parallel.py)."""
     return x
 
 

@@ -19,8 +19,8 @@ and counts
     storages of the arguments, output_size_in_bytes those of the result;
   - collectives: count and result bytes per kind (the c10d ops behind
     torch.distributed's calls; a point-to-point receive, as ring_allgather
-    makes, is a "collective-permute"), and bytes per mesh dim of the group
-    (`mesh` names the dims; any other group is "world").
+    makes, is a "collective-permute"), and bytes and counts per mesh dim of
+    the group (`mesh` names the dims; any other group is "world").
 
 A hand-written kernel's wrapper, called on fake tensors, launches nothing
 (kernels/_build.fake_launch); it reports its launch, FLOPs and bytes to
@@ -116,6 +116,7 @@ class CostMode(TorchDispatchMode):
         self.bytes_by_op = collections.Counter()
         self.collectives = {k: {"count": 0, "bytes": 0} for k in KINDS}
         self.by_dim = {}
+        self.count_by_dim = {}
         self.kernels = {}
         self.live = 0
         self.peak = 0
@@ -166,6 +167,7 @@ class CostMode(TorchDispatchMode):
         name = _group_name(args)
         dim = self._dims.get(name, "world")
         self.by_dim[dim] = self.by_dim.get(dim, 0) + nbytes
+        self.count_by_dim[dim] = self.count_by_dim.get(dim, 0) + 1
 
     # -- every op -----------------------------------------------------------------
 
@@ -209,7 +211,8 @@ def measure(fn, *args, mesh=None, **kwargs):
     costs holds hlo_flops (every FLOP: the aten ops' and the fake kernel
     launches'), flops (by operand kind), hlo_bytes, argument_size_in_bytes,
     output_size_in_bytes, temp_size_in_bytes, collectives (per kind),
-    collective_bytes_by_dim, kernels (per fake-launched kernel) and
+    collective_bytes_by_dim, collective_counts_by_dim, kernels (per
+    fake-launched kernel) and
     top_bytes (the TOP_OPS aten ops that move the most, and their bytes)."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -234,6 +237,7 @@ def measure(fn, *args, mesh=None, **kwargs):
         "temp_size_in_bytes": mode.peak,
         "collectives": mode.collectives,
         "collective_bytes_by_dim": mode.by_dim,
+        "collective_counts_by_dim": mode.count_by_dim,
         "kernels": mode.kernels,
         "top_bytes": dict(mode.bytes_by_op.most_common(TOP_OPS)),
     }

@@ -22,15 +22,18 @@ reference's keys where the quantity exists in the port: argument / output /
 temp bytes, hlo_flops and hlo_bytes (eager aten counts, not HLO), and the
 collectives per kind.
 
-The port's layouts are its own: a mesh's "model" axis wider than 1 raises
-NotImplementedError (ROADMAP queue 1 item 13b, tensor-parallel training), so
-an LM cell runs on the production mesh only once 13b lands and today runs on
-a mesh whose model axis is 1 (`mesh_override`). Parameters and optimizer
-state are whole on every rank (data parallelism), the batch's rows split
-over ("pod", "data") as `distributed.sharding.batch_specs` lays them out.
-The reservoir runs on the production mesh: its sharded plans split N over
-"model" (api/sharded.py), and take global tensors on every rank, which its
-argument bytes show.
+The port's layouts are the reference's: on the production mesh an LM cell of
+the dense and MoE families runs tensor parallel over "model" (distributed/
+tensor_parallel.py): a rank's parameters, optimizer state and caches are
+its blocks under `distributed.sharding.param_specs`, the optimizer's
+state_specs and `cache_spec_for`, its collectives on the model group are
+the step's explicit ones, and the batch's rows split over ("pod", "data") as
+`batch_specs` lays them out. MLA, Mamba, xLSTM and encoder-decoder archs
+(and a KV cache over the sequence) raise NotImplementedError naming item
+13j before any collective; `mesh_override` with a model axis of 1 runs them
+data parallel. The reservoir runs on the production mesh: its sharded plans
+split N over "model" (api/sharded.py), and take global tensors on every
+rank, which its argument bytes show.
 
 Entry points default to device="cuda": fake CUDA tensors, the card's path
 (the flash kernel's wrapper reports its launches and FLOPs, never building
@@ -56,6 +59,7 @@ from repro_torch.configs import SHAPES, ShapeCell, cells_for, get_config, list_c
 from repro_torch.core.ensemble import lower_sharded_ensemble
 from repro_torch.device import dry_run_mode
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch import costs as costs_mod
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
@@ -123,17 +127,6 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _local_shape(shape, layout, mesh):
-    """A rank's block shape of a global `shape` under a layout tuple."""
-    if mesh is None:
-        return tuple(shape)
-    out = list(shape)
-    for i, axes in enumerate(layout):
-        if axes is not None:
-            out[i] //= shd.axis_size(mesh, axes)
-    return tuple(out)
-
-
 def _empty(specs, device, mesh=None):
     """Tensors of a TensorSpec tree's shapes on `device` (fake inside
     fake_mode), each rank's rows where a mesh is given. Integer leaves are
@@ -141,7 +134,7 @@ def _empty(specs, device, mesh=None):
     layouts = None if mesh is None else shd.batch_specs(mesh, specs)
 
     def make(spec, layout):
-        shape = _local_shape(spec.shape, layout, mesh)
+        shape = spec.shape if mesh is None else tp.block_shape(spec.shape, layout, mesh)
         if spec.dtype.is_floating_point:
             return torch.empty(shape, dtype=spec.dtype, device=device)
         return torch.zeros(shape, dtype=spec.dtype, device=device)
@@ -156,19 +149,24 @@ def _empty(specs, device, mesh=None):
     return walk(specs, layouts)
 
 
-def fake_params(cfg, device):
+def fake_params(cfg, device, mesh=None):
     """The parameter tree (transformer.param_template's shapes and dtypes)
-    as empty tensors on `device`: fake inside fake_mode."""
-    return tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device),
-                         transformer.param_template(cfg))
+    as empty tensors on `device`: fake inside fake_mode; with a mesh whose
+    model axis is wider than 1, the rank's blocks (sharding.param_specs)."""
+    template = transformer.param_template(cfg)
+    specs = tree.tree_map(lambda t: (), template) if tp.axis_of(mesh) is None else (
+        shd.param_specs(mesh, template))
+    return tree.tree_map(lambda t, s: torch.empty(tp.block_shape(t.shape, s, mesh),
+                                                  dtype=t.dtype, device=device),
+                         template, specs)
 
 
 def lower_step(cfg, cell: ShapeCell, mesh=None, device="cuda", microbatch: int = 0,
                enc_seq: int = 4096):
     """Run one step of `cfg` at `cell`'s shapes on fake tensors and return
     its counts (costs.measure's record, plus n_micro for a train step). A
-    mesh must span a fake process group (`fake_world`); its model axis must
-    be 1.
+    mesh must span a fake process group (`fake_world`); a model axis wider
+    than 1 runs the step on the rank's blocks (tensor parallel).
 
     A train step is launch/steps.make_train_step's with cfg's optimizer and
     remat; `microbatch` (global rows a microbatch, 0 for none) splits it
@@ -176,7 +174,8 @@ def lower_step(cfg, cell: ShapeCell, mesh=None, device="cuda", microbatch: int =
     parallel gradient reduction of train/train_loop.DataParallel. Prefill
     and decode are make_serve_steps'."""
     dev = _device(device)
-    shd.enable_constraints(mesh)  # NotImplementedError for a model axis wider than 1
+    tp.check_supported(cfg, mesh, serving=cell.kind != "train")
+    shd.enable_constraints(mesh)
     try:
         if cell.kind == "train" and dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -193,17 +192,17 @@ def lower_step(cfg, cell: ShapeCell, mesh=None, device="cuda", microbatch: int =
                 dp = None if mesh is None else DataParallel(mesh, cell.global_batch, local_mb)
                 step_fn, opt, _ = steps_mod.make_train_step(
                     cfg, microbatch=local_mb, device=dev,
-                    grad_sync=None if dp is None else dp.sync,
+                    grad_sync=None if dp is None else dp.sync, mesh=mesh,
                 )
-                params = fake_params(cfg, dev)
+                params = fake_params(cfg, dev, mesh)
                 state = opt.init(params, device=dev)
                 batch = _empty(make_input_specs(cfg, cell, enc_seq), dev, mesh)
                 step = torch.zeros((), dtype=torch.int64, device=dev)
                 _, rec = costs_mod.measure(step_fn, params, state, batch, step, mesh=mesh)
                 rec["n_micro"] = n_micro
             else:
-                prefill_step, decode_step = steps_mod.make_serve_steps(cfg, device=dev)
-                params = fake_params(cfg, dev)
+                prefill_step, decode_step = steps_mod.make_serve_steps(cfg, device=dev, mesh=mesh)
+                params = fake_params(cfg, dev, mesh)
                 batch = _empty(make_input_specs(cfg, cell, enc_seq), dev, mesh)
                 fn = prefill_step if cell.kind == "prefill" else decode_step
                 _, rec = costs_mod.measure(fn, params, batch, mesh=mesh)
@@ -228,6 +227,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool, mesh_override=None, devic
         "mesh": mesh_tag(shape_axes[0]) if mesh_override else _mesh_tag(multi_pod),
         "devices": size, "kind": cell.kind, "device": dev.type,
     }
+    tp.check_supported(cfg, shd.AbstractMesh(*shape_axes), serving=cell.kind != "train")
     t0 = time.time()
     with fake_world(size):
         mesh = mesh_mod.make_mesh(*shape_axes, device_type=dev.type)
@@ -299,7 +299,7 @@ def main(argv=None):
     ap.add_argument("--variant", default="base", choices=["base", "bf16gather", "eonly"])
     ap.add_argument("--mesh-shape", default=None, metavar="DATAxMODEL",
                     help="an LM cell's mesh over (data, model) in place of the production "
-                         "mesh, e.g. 4x1 (a model axis above 1 waits on ROADMAP item 13b)")
+                         "mesh, e.g. 4x1 or 1x2")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)

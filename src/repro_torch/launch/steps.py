@@ -10,6 +10,12 @@ forward keeps only each period's input (models/transformer.py). The
 attention of a step always runs the einsum path: the flash kernel has no
 backward (models/attention.py), as the reference's model never reaches its
 Pallas kernel in training.
+
+With a mesh whose "model" axis is wider than 1 (distributed/
+tensor_parallel.py) the steps run on a rank's blocks with the axis active
+for the whole step (forward, backward, norm, compression and update), and
+the optimizer is told which leaves are split (`model_dims`); the decode
+step's greedy token is the argmax over every rank's vocab block.
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import build_model
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models import build_model, transformer
 from repro_torch.optim import optimizer as opt_mod
 
 
@@ -35,6 +43,7 @@ def make_train_step(
     total_steps: int = 10_000,
     device=None,
     grad_sync: Optional[Callable] = None,
+    mesh=None,
 ):
     """Returns (train_step, opt, model) on `device` ("cuda" by default;
     raises without a card unless device="cpu").
@@ -52,8 +61,12 @@ def make_train_step(
     the backward and the compression: the data-parallel reduction
     (train_loop.DataParallel.sync) turns a rank's local loss and gradients
     into the global batch's.
+    mesh: on a model axis wider than 1, params and opt_state are the rank's
+    blocks (build_model(cfg, device, mesh).init, or shard_params of whole
+    leaves) and the step computes the rank's share.
     """
-    model = build_model(cfg, device)
+    model = build_model(cfg, device, mesh)
+    dims = model_dims(cfg, mesh)
     optimizer = optimizer or default_optimizer(cfg)
     lr_fn = functools.partial(opt_mod.cosine_schedule, base_lr=lr, warmup=warmup, total=total_steps)
     opt = opt_mod.make_optimizer(optimizer, cfg, lr_fn=lr_fn)
@@ -77,16 +90,26 @@ def make_train_step(
         return loss_and_grads(model, params, batch)
 
     def train_step(params, opt_state, batch, step):
-        loss, grads = compute_grads(params, batch)
-        if grad_sync is not None:
-            loss, grads = grad_sync(loss, grads, batch)
-        grads = compress(grads)
-        gnorm = opt_mod.global_norm(grads)
-        grads = opt_mod.clip_by_global_norm(grads, 1.0, gnorm)
-        params, opt_state = opt.update(params, grads, opt_state, step)
+        with tp.using(mesh):
+            loss, grads = compute_grads(params, batch)
+            if grad_sync is not None:
+                loss, grads = grad_sync(loss, grads, batch)
+            grads = compress(grads, dims)
+            gnorm = opt_mod.global_norm(grads, dims)
+            grads = opt_mod.clip_by_global_norm(grads, 1.0, gnorm)
+            params, opt_state = opt.update(params, grads, opt_state, step, dims)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step, opt, model
+
+
+def model_dims(cfg: ModelConfig, mesh):
+    """Per parameter leaf (jax's order) the dim its block splits over an
+    active model axis, or None; None for the whole list without one."""
+    if tp.axis_of(mesh) is None:
+        return None
+    specs = shd.param_specs(mesh, transformer.param_template(cfg))
+    return [tp.model_dim(s) for s in tree.leaves(specs)]
 
 
 def loss_and_grads(model, params, batch):
@@ -117,9 +140,11 @@ def _batch_size(batch) -> int:
     return tree.leaves(batch)[0].shape[0]
 
 
-def make_serve_steps(cfg: ModelConfig, device=None):
-    """(prefill_step, decode_step) closures over the model on `device`."""
-    model = build_model(cfg, device)
+def make_serve_steps(cfg: ModelConfig, device=None, mesh=None):
+    """(prefill_step, decode_step) closures over the model on `device` (on
+    a rank's blocks with a mesh: the logits they return are the rank's
+    vocab block, the caches its blocks)."""
+    model = build_model(cfg, device, mesh)
 
     def prefill_step(params, batch):
         last_logits, caches = model.prefill(params, batch)
@@ -127,7 +152,12 @@ def make_serve_steps(cfg: ModelConfig, device=None):
 
     def decode_step(params, batch):
         logits, caches = model.decode_step(params, batch["tokens"], batch["caches"], batch["pos"])
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)  # greedy
-        return next_tok, logits, caches
+        last = logits[:, -1]
+        with tp.using(mesh):
+            if last.shape[-1] < cfg.padded_vocab:  # the rank's vocab block
+                next_tok = tp.argmax_over_model(last)
+            else:
+                next_tok = torch.argmax(last, dim=-1)
+        return next_tok.to(torch.int32), logits, caches  # greedy
 
     return prefill_step, decode_step

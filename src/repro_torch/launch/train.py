@@ -10,18 +10,20 @@ runs under the watchdog as it is (python -m repro_torch.train.watchdog
 --heartbeat CKPT_DIR/heartbeat.json -- python -m repro_torch.launch.train
 ...).
 
-`--mesh DxM` trains data-parallel on a ("data", "model") mesh (`PxDxM`:
-("pod", "data", "model")), one process a rank under torchrun, which sets
-RANK, WORLD_SIZE, LOCAL_RANK and the rendezvous address:
+`--mesh DxM` trains on a ("data", "model") mesh (`PxDxM`: ("pod", "data",
+"model")): data parallel over D, tensor parallel over M (the dense and MoE
+families; other archs are refused with item 13j), one process a rank under
+torchrun, which sets RANK, WORLD_SIZE, LOCAL_RANK and the rendezvous
+address:
 
     torchrun --standalone --nproc-per-node=4 -m repro_torch.launch.train \\
-        --arch h2o-danube-1.8b --mesh 4x1 --batch 16 --seq 512
+        --arch h2o-danube-1.8b --mesh 2x2 --batch 16 --seq 512
+    torchrun --standalone --nproc-per-node=2 -m repro_torch.launch.train \\
+        --arch h2o-danube-1.8b --reduced --mesh 1x2 --device cpu
 
 Each rank takes the card of its LOCAL_RANK and NCCL (gloo with --device
-cpu). A model axis wider than 1 is refused (ROADMAP queue 1 item 13b,
-tensor-parallel training). The reference's --virtual-devices (an XLA flag
-that splits the host into virtual devices) has no torch counterpart and is
-refused.
+cpu). The reference's --virtual-devices (an XLA flag that splits the host
+into virtual devices) has no torch counterpart and is refused.
 """
 
 import argparse
@@ -64,10 +66,6 @@ def main(argv=None):
         if missing:
             ap.error(f"--mesh needs torchrun's environment ({', '.join(missing)} unset): "
                      f"torchrun --nproc-per-node={math.prod(dims)} -m repro_torch.launch.train ...")
-        if dict(zip(_mesh_axes(dims), dims)).get("model", 1) > 1:
-            from repro_torch.distributed.sharding import TP_TODO
-
-            ap.error(f"--mesh {args.mesh}: {TP_TODO}")
 
     import torch
     import torch.distributed as dist
@@ -79,6 +77,14 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if dims is not None:
+        from repro_torch.distributed.sharding import AbstractMesh
+        from repro_torch.distributed.tensor_parallel import check_supported
+
+        try:
+            check_supported(cfg, AbstractMesh(dims, _mesh_axes(dims)))
+        except NotImplementedError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
 
     device = torch.device(args.device)
     mesh = None

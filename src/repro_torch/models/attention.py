@@ -51,10 +51,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_full_f32_matmul
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import BATCH, MODEL, constrain
 from repro_torch.kernels.flash_attention import _DTYPES, HEAD_DIMS, flash_attention_bshd
 from repro_torch.models.layers import (
-    _normal, apply_norm, apply_rope, dense, make_dense, make_norm, rope_freqs,
+    _normal, apply_norm, apply_rope, col_dense, dense, make_dense, make_norm, rope_freqs,
+    row_dense,
 )
 
 NEG_INF = -1e30
@@ -160,6 +162,45 @@ def _grouped_attend_dense(
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _heads(t, n_heads, head_dim):
+    """(B, S, columns) -> ((B, S, heads, head_dim), the first head's global
+    index, gathered). On a model axis a rank's columns are whole heads where
+    the axis divides n_heads (its heads, in rank order); where it does not,
+    the columns split a head, and they are gathered over the axis into every
+    head (gathered True: the result is replicated)."""
+    cols = t.shape[-1]
+    if cols == n_heads * head_dim:
+        return _split_heads(t, n_heads, head_dim), 0, False
+    if n_heads % tp.size() == 0:
+        local = cols // head_dim
+        return _split_heads(t, local, head_dim), tp.rank() * local, False
+    return _split_heads(tp.gather_from_model(t, -1), n_heads, head_dim), 0, True
+
+
+def _kv_for_q(t, first, gathered, q0, hq, group):
+    """The kv heads a rank's q heads q0 .. q0 + hq read (GQA: q head i reads
+    kv head i // group) out of t (B, S, heads, D) whose first head is
+    `first`; a gathered (replicated) t goes through copy_to_model, since the
+    rank's heads consume it in part."""
+    lo, hi = q0 // group, (q0 + hq - 1) // group + 1
+    if gathered:
+        t = tp.copy_to_model(t)
+    if lo == first and hi - lo == t.shape[2]:
+        return t
+    return t[:, :, lo - first:hi - first]
+
+
+def _cache_block(t, width: int):
+    """A rank's cache block of k or v (B, S, heads, D) under cache_spec_for's
+    layout, `width` its head_dim columns: t itself (whole, or the rank's kv
+    heads), or, where the axis does not divide the kv heads
+    (REPRO_KV_SEQ_SHARD=0), the rank's block of head_dim columns of every
+    head (t gathered)."""
+    if width == t.shape[-1]:
+        return t
+    return t[..., tp.rank() * width:(tp.rank() + 1) * width]
+
+
 def attn_forward(
     p,
     cfg: ModelConfig,
@@ -170,26 +211,40 @@ def attn_forward(
     window: int = 0,
     kv_x: Optional[torch.Tensor] = None,  # cross-attention source (B, Se, D)
     return_cache: bool = False,
+    reduce: bool = True,
 ):
     """Full-sequence attention (train / prefill / encoder / cross). With
     `kv_x`, k and v come from it, no RoPE is applied and the mask is off:
-    every q row attends to every row of kv_x; the cache is kv_x's k / v."""
+    every q row attends to every row of kv_x; the cache is kv_x's k / v.
+
+    On a model axis the rank computes its q heads against their kv heads
+    (column-parallel wq / wk / wv, row-parallel wo: one all-reduce of the
+    output; reduce=False returns the rank's partial output without wo's
+    bias), and its cache is its block of the kv heads; where the axis does
+    not divide the kv heads, k and v are gathered over it first, and the
+    cache is its block of head_dim columns of every head."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    src = x if kv_x is None else kv_x
-    q = _split_heads(dense(p["wq"], x), h, hd)
-    k = _split_heads(dense(p["wk"], src), kvh, hd)
-    v = _split_heads(dense(p["wv"], src), kvh, hd)
+    x = tp.copy_to_model(x)
+    src = x if kv_x is None else tp.copy_to_model(kv_x)
+    q, q0, _ = _heads(col_dense(p["wq"], x), h, hd)
+    k, k0, gathered = _heads(col_dense(p["wk"], src), kvh, hd)
+    v, _, _ = _heads(col_dense(p["wv"], src), kvh, hd)
     if cfg.pos_type == "rope" and kv_x is None:
         ang = rope_freqs(positions, hd, cfg.rope_theta)
         q = apply_rope(q, ang)
         k = apply_rope(k, ang)
+    hq = q.shape[2]
+    kq = _kv_for_q(k, k0, gathered, q0, hq, h // kvh)
+    vq = _kv_for_q(v, k0, gathered, q0, hq, h // kvh)
     out = grouped_attend(
-        q, k, v, causal=causal and kv_x is None, window=window, q_offset=0,
+        q, kq, vq, causal=causal and kv_x is None, window=window, q_offset=0,
         softcap=cfg.attn_logit_softcap,
     )
-    y = dense(p["wo"], out.reshape(*x.shape[:-1], h * hd))
+    y = row_dense(p["wo"], out.reshape(*x.shape[:-1], hq * hd), reduce)
     if return_cache:
-        return y, {"k": k, "v": v}
+        m = tp.size()
+        width = hd // m if gathered and hd % m == 0 else hd
+        return y, {"k": _cache_block(k, width), "v": _cache_block(v, width)}
     return y
 
 
@@ -202,33 +257,46 @@ def attn_decode(
     *,
     window: int = 0,
     cross: bool = False,
+    reduce: bool = True,
 ) -> Tuple[torch.Tensor, dict]:
     """One-token attention step. Writes the new token's k/v into `cache` IN
     PLACE and returns it (the reference returns a new cache). With `cross`,
     `cache` is the static cross-attention cache (the encoder's k / v): the
     step attends to all of it, with no RoPE and no kv_len, and writes
-    nothing."""
+    nothing.
+
+    On a model axis, as attn_forward: the rank's q heads against its cache
+    block (its kv heads, or its head_dim columns of every head, which are
+    gathered over the axis before the step attends)."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
-    q = _split_heads(dense(p["wq"], x), h, hd)  # (B, 1, H, D)
+    x = tp.copy_to_model(x)
+    q, q0, _ = _heads(col_dense(p["wq"], x), h, hd)  # (B, 1, H, D)
+    hq = q.shape[2]
+    if not cross:
+        k_new, _, _ = _heads(col_dense(p["wk"], x), kvh, hd)
+        v_new, _, _ = _heads(col_dense(p["wv"], x), kvh, hd)
+        if cfg.pos_type == "rope":
+            ang = rope_freqs(pos[:, None], hd, cfg.rope_theta)  # (B, 1, hd/2)
+            q = apply_rope(q, ang)
+            k_new = apply_rope(k_new, ang)
+        bidx = torch.arange(b, device=x.device)
+        cache["k"][bidx, pos.long()] = _cache_block(k_new, cache["k"].shape[-1])[:, 0]
+        cache["v"][bidx, pos.long()] = _cache_block(v_new, cache["v"].shape[-1])[:, 0]
+    kc, vc = cache["k"], cache["v"]
+    if kc.shape[-1] < hd:  # head_dim columns: every head, gathered
+        kc, vc = tp.gather_from_model(kc, -1), tp.gather_from_model(vc, -1)
+    first = 0 if kc.shape[2] == kvh else tp.rank() * kc.shape[2]
+    kc = _kv_for_q(kc, first, False, q0, hq, h // kvh)
+    vc = _kv_for_q(vc, first, False, q0, hq, h // kvh)
     if cross:
-        out = grouped_attend(q, cache["k"], cache["v"], causal=False,
-                             softcap=cfg.attn_logit_softcap)
-        return dense(p["wo"], out.reshape(b, 1, h * hd)), cache
-    k_new = _split_heads(dense(p["wk"], x), kvh, hd)
-    v_new = _split_heads(dense(p["wv"], x), kvh, hd)
-    if cfg.pos_type == "rope":
-        ang = rope_freqs(pos[:, None], hd, cfg.rope_theta)  # (B, 1, hd/2)
-        q = apply_rope(q, ang)
-        k_new = apply_rope(k_new, ang)
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, pos.long()] = k_new[:, 0]
-    cache["v"][bidx, pos.long()] = v_new[:, 0]
-    out = grouped_attend(
-        q, cache["k"], cache["v"], causal=True, window=window,
-        q_offset=pos, kv_len=pos + 1, softcap=cfg.attn_logit_softcap,
-    )
-    y = dense(p["wo"], out.reshape(b, 1, h * hd))
+        out = grouped_attend(q, kc, vc, causal=False, softcap=cfg.attn_logit_softcap)
+    else:
+        out = grouped_attend(
+            q, kc, vc, causal=True, window=window,
+            q_offset=pos, kv_len=pos + 1, softcap=cfg.attn_logit_softcap,
+        )
+    y = row_dense(p["wo"], out.reshape(b, 1, hq * hd), reduce)
     return y, cache
 
 

@@ -13,9 +13,18 @@ jax.random draws (tests carry the reference's weights across instead,
 convert.lm_params_from_numpy). Casts follow the reference op for op: `dense`
 multiplies in the parameter dtype, norms and RoPE compute in f32 and cast
 back, `lm_logits` and the cross-entropy functions multiply f32-cast operands
-(full f32 on the card: TF32 off). The reference's `constrain` calls on the
-logits are not carried: they are inert without a model axis, and the port
-trains data-parallel only (distributed/sharding.py).
+(full f32 on the card: TF32 off).
+
+On a model axis wider than 1 (distributed/tensor_parallel.py) a rank holds
+its blocks and these functions compute its share, in the Megatron pattern:
+`apply_mlp` is column then row parallel (its input through copy_to_model,
+its output through one reduce_from_model); `embed_tokens` looks up the
+rank's vocab rows (other rows zero) and sums over the axis, or gathers the
+d_model columns where the layout falls back to them; `lm_logits` gives the
+rank's vocab block of the logits; the cross-entropy functions take the max,
+the sum of exponentials and the gold logit over the axis (the vocab-parallel
+CE), masking the padded vocab by the block's offset. Without a model axis
+they compute what the reference does, op for op.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import require_full_f32_matmul
+from repro_torch.distributed import tensor_parallel as tp
 
 
 class TensorSpec(NamedTuple):
@@ -58,6 +68,33 @@ def dense(p, x):
     if "bias" in p:
         y = y + p["bias"]
     return y
+
+
+def col_dense(p, x):
+    """A column-parallel projection: x (replicated, after copy_to_model) by
+    the rank's columns of the kernel, plus its slice of the replicated bias."""
+    y = x @ p["kernel"]
+    if "bias" in p:
+        y = y + tp.local_slice(p["bias"], y.shape[-1])
+    return y
+
+
+def row_dense(p, x, reduce: bool = True):
+    """A row-parallel projection: the rank's partial product, summed over the
+    model axis, plus the bias once. reduce=False returns the partial alone
+    (no bias: the caller sums partials, reduces them and adds `out_bias`)."""
+    y = x @ p["kernel"]
+    if not reduce:
+        return y
+    y = tp.reduce_from_model(y)
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+def out_bias(*ps):
+    """The sum of the row-parallel projections' biases (0 where none has one)."""
+    return sum((p["bias"] for p in ps if "bias" in p), 0)
 
 
 # --- norms -----------------------------------------------------------------
@@ -98,16 +135,20 @@ def make_mlp(generator, d_model, d_ff, mlp_type, dtype, bias=False, out_scale=No
     return p
 
 
-def apply_mlp(p, x, mlp_type):
+def apply_mlp(p, x, mlp_type, reduce: bool = True):
+    """The MLP, column then row parallel over the model axis (the rank's
+    d_ff columns); reduce=False returns the rank's partial output without
+    w_out's bias (row_dense)."""
+    x = tp.copy_to_model(x)
     if mlp_type == "swiglu":
-        h = F.silu(dense(p["w_gate"], x)) * dense(p["w_in"], x)
+        h = F.silu(col_dense(p["w_gate"], x)) * col_dense(p["w_in"], x)
     elif mlp_type == "geglu":
-        h = F.gelu(dense(p["w_gate"], x), approximate="tanh") * dense(p["w_in"], x)
+        h = F.gelu(col_dense(p["w_gate"], x), approximate="tanh") * col_dense(p["w_in"], x)
     elif mlp_type == "gelu":
-        h = F.gelu(dense(p["w_in"], x), approximate="tanh")
+        h = F.gelu(col_dense(p["w_in"], x), approximate="tanh")
     else:
         raise ValueError(mlp_type)
-    return dense(p["w_out"], h)
+    return row_dense(p["w_out"], h, reduce)
 
 
 # --- rotary embeddings -------------------------------------------------------
@@ -155,17 +196,46 @@ def make_embedding(generator, vocab_padded: int, d: int, dtype):
     return {"embed": _normal(generator, (vocab_padded, d), 0.02, dtype)}
 
 
-def embed_tokens(p, tokens: torch.Tensor, scale: bool = False):
-    x = p["embed"][tokens]
+def embed_tokens(p, tokens: torch.Tensor, scale: bool = False, vocab: int = 0, d_model: int = 0):
+    """The token rows of the embedding. On a model axis, `vocab` (the padded
+    vocab) and `d_model` tell the rank's block apart from the whole table: a
+    block of vocab rows looks its tokens up (zeros for tokens outside it) and
+    sums over the axis; a block of d_model columns gathers them."""
+    table = p["embed"]
+    rows = table.shape[0]
+    if vocab and rows < vocab:  # vocab-parallel
+        local = tokens.long() - tp.rank() * rows
+        inside = (local >= 0) & (local < rows)
+        x = table[local.clamp(0, rows - 1)]
+        x = tp.reduce_from_model(torch.where(inside[..., None], x, torch.zeros_like(x)))
+    else:
+        x = table[tokens]
+        if d_model and table.shape[1] < d_model:
+            x = tp.gather_from_model(x, -1)
     if scale:
         x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype, device=x.device)
     return x
 
 
-def lm_logits(p_head, x, tied_embed=None, softcap: float = 0.0):
-    """Project to (padded) vocab logits in f32 (f32-cast operands)."""
+def _head_product(x, w, padded_vocab: int = 0):
+    """x (replicated) by the head w (d, V) in f32. On a model axis: where w
+    is the rank's vocab block (padded_vocab more than its columns), the
+    rank's block of the logits, x through copy_to_model; where w holds a
+    block of d_model rows (a tied embedding that fell back to them), the
+    partial products summed over the axis (whole logits)."""
+    if w.shape[0] < x.shape[-1]:
+        return tp.reduce_from_model(tp.local_slice(x, w.shape[0]).float() @ w.float())
+    if padded_vocab and w.shape[-1] < padded_vocab:
+        x = tp.copy_to_model(x)
+    return x.float() @ w.float()
+
+
+def lm_logits(p_head, x, tied_embed=None, softcap: float = 0.0, padded_vocab: int = 0):
+    """Project to (padded) vocab logits in f32 (f32-cast operands): the
+    rank's vocab block where a model axis shards the head (padded_vocab,
+    the whole padded vocab, tells a block from the whole)."""
     w = tied_embed["embed"].T if tied_embed is not None else p_head["kernel"]
-    logits = x.float() @ w.float()
+    logits = _head_product(x, w, padded_vocab)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
@@ -176,11 +246,12 @@ def lm_logits(p_head, x, tied_embed=None, softcap: float = 0.0):
 NEG_INF = -1e30  # the padded vocab's logits (the reference's fill)
 
 
-def _mask_padded_vocab(logits, vocab_size: int):
-    """Set the padded vocab columns (index >= vocab_size) to NEG_INF."""
-    if logits.shape[-1] <= vocab_size:
+def _mask_padded_vocab(logits, vocab_size: int, offset: int = 0):
+    """Set the padded vocab columns (global index >= vocab_size; the block's
+    columns start at `offset`) to NEG_INF."""
+    if offset + logits.shape[-1] <= vocab_size:
         return logits
-    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+    pad = torch.arange(offset, offset + logits.shape[-1], device=logits.device) >= vocab_size
     return logits.masked_fill(pad, NEG_INF)
 
 
@@ -191,9 +262,34 @@ def _nll(logits, labels):
     return logz - gold
 
 
-def cross_entropy_from_features(x, w, labels, vocab_size: int, mask=None, chunk: int = 1024):
+def _nll_vocab_parallel(logits, labels, offset: int):
+    """_nll from the rank's vocab block of the logits (columns offset ...):
+    the max over the axis (no gradient), the sum of exponentials and the
+    gold logit (its block's rank alone holds it) summed over the axis."""
+    n = logits.shape[-1]
+    top = tp.max_over_model(logits.detach().amax(dim=-1))
+    z = tp.reduce_from_model(torch.exp(logits - top[..., None]).sum(dim=-1))
+    local = labels.long() - offset
+    inside = (local >= 0) & (local < n)
+    gold = torch.take_along_dim(logits, local.clamp(0, n - 1)[..., None], dim=-1)[..., 0]
+    gold = tp.reduce_from_model(torch.where(inside, gold, torch.zeros_like(gold)))
+    return top + torch.log(z) - gold
+
+
+def _vocab_nll(logits, labels, vocab_size: int, padded_vocab: int):
+    """-log p(label) from whole logits, or (a model axis that shards the
+    vocab) from the rank's block of them."""
+    if padded_vocab and logits.shape[-1] < padded_vocab:
+        offset = tp.rank() * logits.shape[-1]
+        return _nll_vocab_parallel(_mask_padded_vocab(logits, vocab_size, offset), labels, offset)
+    return _nll(_mask_padded_vocab(logits, vocab_size), labels)
+
+
+def cross_entropy_from_features(x, w, labels, vocab_size: int, mask=None, chunk: int = 1024,
+                                padded_vocab: int = 0):
     """Sequence-chunked CE from final features x (B, S, d) and the head w
-    (d, V_pad): logits for `chunk` positions at a time, so memory is
+    (d, V_pad, or the rank's vocab block of it where padded_vocab is more
+    than its columns): logits for `chunk` positions at a time, so memory is
     O(B * chunk * V) instead of O(B * S * V). The chunks run in order as a
     Python loop where the reference scans, then the remainder; the mean is
     over unmasked positions (a mask sum below 1 counts as 1)."""
@@ -205,11 +301,18 @@ def cross_entropy_from_features(x, w, labels, vocab_size: int, mask=None, chunk:
     chunk = min(chunk, s)
     n = s // chunk
     wf = w.float()
+    if w.shape[0] < x.shape[-1]:  # a tied embedding's block of d_model rows
+        x = tp.local_slice(x, w.shape[0])
+        head = lambda xc: tp.reduce_from_model(xc.float() @ wf)  # noqa: E731
+    else:
+        if padded_vocab and w.shape[-1] < padded_vocab:  # the rank's vocab block
+            x = tp.copy_to_model(x)
+        head = lambda xc: xc.float() @ wf  # noqa: E731
 
     def ce_sum(xc, lc, mc):
-        logits = _mask_padded_vocab(xc.float() @ wf, vocab_size)
+        nll = _vocab_nll(head(xc), lc, vocab_size, padded_vocab)
         mc = mc.float()
-        return (_nll(logits, lc) * mc).sum(), mc.sum()
+        return (nll * mc).sum(), mc.sum()
 
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -223,10 +326,12 @@ def cross_entropy_from_features(x, w, labels, vocab_size: int, mask=None, chunk:
     return loss_sum / torch.clamp(m_sum, min=1.0)
 
 
-def cross_entropy_loss(logits, labels, vocab_size: int, mask=None):
+def cross_entropy_loss(logits, labels, vocab_size: int, mask=None, padded_vocab: int = 0):
     """Mean CE over valid tokens; padded-vocab columns are excluded by
-    masking them to NEG_INF before the softmax."""
-    nll = _nll(_mask_padded_vocab(logits, vocab_size), labels)
+    masking them to NEG_INF before the softmax. Logits that are the rank's
+    vocab block (padded_vocab more than their columns) take the
+    vocab-parallel CE."""
+    nll = _vocab_nll(logits, labels, vocab_size, padded_vocab)
     if mask is None:
         return nll.mean()
     mask = mask.to(nll.dtype)

@@ -6,6 +6,14 @@ The counterpart of the reference's models/model.py (see
 models/transformer.py for the layers the port runs). `init` draws from
 an explicit torch.Generator; parameters and caches live on `device`
 ("cuda" by default; raises without a card unless device="cpu").
+
+`build_model(cfg, device, mesh)` on a mesh whose "model" axis is wider than 1
+(the dense and MoE families; distributed/tensor_parallel.py) runs on a
+rank's blocks: `init` gives the blocks of the one-rank init, `loss_fn`,
+`forward`, `prefill` and `decode_step` compute the rank's share with the
+mesh's model axis active (prefill's logits and the caches are the rank's
+blocks), and `cache_specs` gives the blocks' shapes. Other archs, and a KV
+cache laid out over the sequence, raise NotImplementedError (item 13j).
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers, transformer
 from repro_torch.models.transformer import TensorSpec
 
@@ -31,10 +40,12 @@ class Model(NamedTuple):
     cache_specs: Callable  # (batch, seq) -> cache pytree of TensorSpec
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
-    """The model's functions for `cfg` on `device`. Raises ValueError for a
-    layer kind the model does not know."""
+def build_model(cfg: ModelConfig, device=None, mesh=None) -> Model:
+    """The model's functions for `cfg` on `device` (on a rank's blocks with
+    a mesh). Raises ValueError for a layer kind the model does not know, and
+    NotImplementedError for what a model axis does not run yet."""
     transformer.check_supported(cfg)
+    tp.check_supported(cfg, mesh)
     dev = resolve_device(device)
 
     def init(generator):
@@ -42,37 +53,44 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         (a generator on `device`, seeded with it)."""
         if isinstance(generator, int):
             generator = torch.Generator(device=dev).manual_seed(generator)
-        params = transformer.init_params(cfg, generator)
+        params = transformer.init_params(cfg, generator, mesh)
         return transformer.tree_map(lambda t: t.to(dev), params)
 
     def forward(params, batch):
-        logits, _, _ = transformer.forward_logits(params, cfg, batch, mode="train")
+        with tp.using(mesh):
+            logits, _, _ = transformer.forward_logits(params, cfg, batch, mode="train")
         return logits
 
     def loss_fn(params, batch):
         """(loss, {"ce", "aux"}): the sequence-chunked CE of the features
         against batch["labels"] under batch["loss_mask"] (if any), plus the
         MoE aux loss at its weight (0 for the dense family)."""
-        feats, aux, _ = transformer.forward_logits(params, cfg, batch, mode="features")
-        w = params["embed"]["embed"].T if cfg.tie_embeddings else params["lm_head"]["kernel"]
-        ce = layers.cross_entropy_from_features(
-            feats, w, batch["labels"], cfg.vocab_size, batch.get("loss_mask")
-        )
+        with tp.using(mesh):
+            feats, aux, _ = transformer.forward_logits(params, cfg, batch, mode="features")
+            w = params["embed"]["embed"].T if cfg.tie_embeddings else params["lm_head"]["kernel"]
+            ce = layers.cross_entropy_from_features(
+                feats, w, batch["labels"], cfg.vocab_size, batch.get("loss_mask"),
+                padded_vocab=cfg.padded_vocab,
+            )
         aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
         return ce + aux_w * aux, {"ce": ce, "aux": aux}
 
     def prefill(params, batch):
-        logits, _, caches = transformer.forward_logits(params, cfg, batch, mode="prefill")
+        tp.check_supported(cfg, mesh, serving=True)
+        with tp.using(mesh):
+            logits, _, caches = transformer.forward_logits(params, cfg, batch, mode="prefill")
         return logits[:, -1:], caches
 
     def decode_step(params, tokens, caches, pos):
-        return transformer.decode_step(params, cfg, tokens, caches, pos)
+        tp.check_supported(cfg, mesh, serving=True)
+        with tp.using(mesh):
+            return transformer.decode_step(params, cfg, tokens, caches, pos)
 
     def input_specs(cell: ShapeCell, enc_seq: int = 4096) -> Dict[str, Any]:
         return make_input_specs(cfg, cell, enc_seq)
 
     def cache_specs(batch, seq, enc_seq: int = 4096):
-        return transformer.cache_specs(cfg, batch, seq, enc_seq)
+        return transformer.cache_specs(cfg, batch, seq, enc_seq, mesh)
 
     return Model(cfg, init, loss_fn, forward, prefill, decode_step, input_specs, cache_specs)
 

@@ -24,8 +24,16 @@ Capacity couples the tokens of a chunk: at a decode step the chunk is the
 whole slot batch, so a row can lose an expert to an earlier row (see
 serve/engine.py).
 
-Expert weights are (E, d_in, d_out), so expert-parallel layouts shard the
-leading dim (distributed/sharding.py; the port trains data-parallel only).
+Expert weights are (E, d_in, d_out). On a model axis (distributed/
+tensor_parallel.py) a rank holds the experts of its block (the leading dim
+over "model") or, where the axis does not divide the experts, every
+expert's block of d_ff columns (sharding.param_specs' fallback). The router
+is replicated, so every rank routes every token alike (the aux loss too);
+the routed weights enter the rank's region through copy_to_model, so the
+router's gradient is whole on every rank. A rank computes its experts' slots
+(or its d_ff columns of every slot), the shared expert column then row
+parallel, and one reduce_from_model of their summed partials combines the
+ranks.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_full_f32_matmul
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers
 
 
@@ -89,6 +98,14 @@ def route(p, moe, x) -> Routing:
     # lax.top_k's order: a stable descending sort puts equal values lowest
     # index first
     top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+    return assign(probs, top_e, cap)
+
+
+def assign(probs, top_e, cap: int) -> Routing:
+    """The routing of a chunk whose tokens go to the experts top_e (T, K):
+    their probs renormalised and their capacity positions."""
+    t, k = top_e.shape
+    e = probs.shape[-1]
     top_p = torch.gather(probs, 1, top_e)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     flat = _one_hot(top_e, e).reshape(t * k, e)
@@ -108,18 +125,23 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return out.scatter_(-1, idx.unsqueeze(-1), 1)
 
 
-def _route_chunk(p, moe, x):
+def _route_chunk(p, moe, x, xm):
     """Routing, capacity dispatch, the experts and combine for one chunk
-    x (T, D). Returns (y (T, D), aux)."""
+    x (T, D) (xm: x after copy_to_model, what the experts read). Returns
+    (y (T, D), aux): y the rank's partial on a model axis."""
     e = moe.num_experts
     r = route(p, moe, x)
     cap, dt = r.cap, x.dtype
+    local = p["w_gate"].shape[0]  # the rank's experts (all of them under the d_ff layout)
     onehot = _one_hot(r.top_e, e).to(dt)  # (T, K, E)
+    if local < e:
+        onehot = onehot[..., tp.rank() * local:(tp.rank() + 1) * local]
     slot = _one_hot(torch.where(r.keep, r.pos, cap), cap + 1).to(dt)  # (T, K, C+1)
     disp = (onehot[..., None] * slot[..., None, :])[..., :cap].sum(dim=1)  # (T, E, C)
-    comb = disp * torch.einsum("tk,tke->te", r.top_p.to(dt), onehot)[..., None]
+    top_p = tp.copy_to_model(r.top_p)
+    comb = disp * torch.einsum("tk,tke->te", top_p.to(dt), onehot)[..., None]
 
-    xe = torch.einsum("tec,td->ecd", disp, x)  # (E, C, D)
+    xe = torch.einsum("tec,td->ecd", disp, xm)  # (E, C, D)
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) * torch.einsum(
         "ecd,edf->ecf", xe, p["w_in"]
     )
@@ -139,20 +161,22 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch
     moe = cfg.moe
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
+    flat_m = tp.copy_to_model(flat)
     chunk = min(moe.router_chunk, b * s)
     n = flat.shape[0] // chunk
     ys = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
-        y, a = _route_chunk(p, moe, flat[i * chunk:(i + 1) * chunk])
+        part = slice(i * chunk, (i + 1) * chunk)
+        y, a = _route_chunk(p, moe, flat[part], flat_m[part])
         ys.append(y)
         aux = aux + a
     if flat.shape[0] > n * chunk:
-        y, a = _route_chunk(p, moe, flat[n * chunk:])
+        y, a = _route_chunk(p, moe, flat[n * chunk:], flat_m[n * chunk:])
         ys.append(y)
         aux = aux + a
         n += 1
     y = torch.cat(ys, dim=0).reshape(b, s, d)
     if moe.num_shared:
-        y = y + layers.apply_mlp(p["shared"], x, "swiglu")
-    return y, aux / max(n, 1)
+        y = y + layers.apply_mlp(p["shared"], x, "swiglu", reduce=False)
+    return tp.reduce_from_model(y), aux / max(n, 1)

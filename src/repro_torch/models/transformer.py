@@ -48,6 +48,17 @@ leaves as it is. A batch of an encoder-decoder arch without
 encoder_frames raises ValueError (the reference fails on it with a
 KeyError); so the entry points that feed token batches only (the LM Engine
 and the trainer) refuse whisper at their first prefill or step.
+
+On a mesh whose "model" axis is wider than 1 (the dense and MoE families:
+distributed/tensor_parallel.py) `init_params(cfg, generator, mesh)` gives a
+rank its blocks of the one-rank init's leaves (sharding.param_specs), drawn
+layer by layer as one rank draws them, so a rank holds at most one layer's
+whole leaves beyond its blocks; the layers compute on blocks (attention
+heads, MLP and expert columns, vocab rows) with the collectives in the
+layers' code; a parallel block sums its mixer's and its MLP's row-parallel
+partials before one all-reduce; `cache_specs(..., mesh=mesh)` gives a rank's
+cache blocks (sharding.cache_spec_for), which prefill returns and decode
+writes in place, and which `pad_caches` pads as it pads whole caches.
 """
 
 from __future__ import annotations
@@ -59,8 +70,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention, layers, mamba, moe, xlstm
 from repro_torch.models.layers import TensorSpec  # noqa: F401 (the package's name for it)
+from repro_torch.tree import leaves_with_path, path_str, unflatten
 from repro_torch.tree import tree_map  # noqa: F401 (the package's name for it)
 
 _MIXERS = ("attn", "swa", "mla", "mamba", "mlstm", "slstm")
@@ -105,6 +119,21 @@ def _init_layer(generator, cfg: ModelConfig, spec: LayerSpec, dtype, cross=False
     return p
 
 
+def _fused_parallel(cfg: ModelConfig, spec: LayerSpec, p) -> bool:
+    """Whether a parallel block's attention and MLP partials are summed
+    before one all-reduce (a model axis wider than 1)."""
+    return (tp.active() is not None and cfg.parallel_block and spec.mixer in ("attn", "swa")
+            and spec.mlp == "mlp" and "mlp" in p)
+
+
+def _fused_sum(p, cfg: ModelConfig, y_attn, xn):
+    """A parallel block's output on a model axis: the attention's and the
+    MLP's row-parallel partials summed, one all-reduce, the biases once."""
+    y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type, reduce=False)
+    return tp.reduce_from_model(y_attn + y_mlp) + layers.out_bias(p["mixer"]["wo"],
+                                                                  p["mlp"]["w_out"])
+
+
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: str, causal=True,
                    enc_out=None):
     """Full-sequence layer (mode "train" | "prefill"). Returns (x, aux,
@@ -114,6 +143,7 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
     enc_out's k / v under "cross"."""
     aux = None
     want_cache = mode == "prefill"
+    fused = _fused_parallel(cfg, spec, p)
     if spec.mixer in ("mlstm", "slstm"):  # x in, x (with the block's residual) out
         fwd = xlstm.mlstm_forward if spec.mixer == "mlstm" else xlstm.slstm_forward
         out = fwd(p["mixer"], cfg, x, return_cache=want_cache)
@@ -127,7 +157,7 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
             out = attention.attn_forward(
                 p["mixer"], cfg, xn, positions, causal=causal,
                 window=cfg.sliding_window if spec.mixer == "swa" else 0,
-                return_cache=want_cache,
+                return_cache=want_cache, reduce=not fused,
             )
     cache = None
     if want_cache:
@@ -137,6 +167,8 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, mode: 
         y = out
     if spec.mixer in ("mlstm", "slstm"):
         x = y
+    elif fused:
+        return x + _fused_sum(p, cfg, y, xn), aux, cache
     elif cfg.parallel_block and spec.mixer != "mamba" and spec.mlp != "none":
         y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
         return x + y + y_mlp, aux, cache
@@ -174,7 +206,11 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos):
             y, _ = mamba.mamba_decode(p["mixer"], cfg, xn, cache["self"])
         else:
             window = cfg.sliding_window if spec.mixer == "swa" else 0
-            y, _ = attention.attn_decode(p["mixer"], cfg, xn, cache["self"], pos, window=window)
+            fused = _fused_parallel(cfg, spec, p)
+            y, _ = attention.attn_decode(p["mixer"], cfg, xn, cache["self"], pos, window=window,
+                                         reduce=not fused)
+            if fused:
+                return x + _fused_sum(p, cfg, y, xn), cache
         if cfg.parallel_block and spec.mixer in ("attn", "swa") and "mlp" in p:
             y_mlp = layers.apply_mlp(p["mlp"], xn, cfg.mlp_type)
             return x + y + y_mlp, cache
@@ -225,32 +261,51 @@ def _dtype_of(cfg: ModelConfig):
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator):
+def init_params(cfg: ModelConfig, generator: torch.Generator, mesh=None):
     """Random parameters drawn from `generator`, on the generator's device,
     in the reference's pytree layout (period leaves stacked; an encoder's
-    layers a list, unstacked)."""
+    layers a list, unstacked). With a mesh whose model axis is wider than 1,
+    the rank's blocks (sharding.param_specs) of the same draws."""
     check_supported(cfg)
     dtype = _dtype_of(cfg)
     cross = cfg.encoder_layers > 0
+    specs = None
+    if tp.axis_of(mesh) is not None:
+        specs = shd.param_specs(mesh, param_template(cfg))
+
+    def cut(part, *keys):
+        """A part's blocks: its layouts are specs[keys...] (stacked
+        layouts without their leading num_periods entry)."""
+        if specs is None:
+            return part
+        layout = specs
+        for k in keys:
+            layout = layout[k]
+        if keys[0] == "stack":
+            layout = tree_map(lambda s: s[1:], layout)
+        return tp.shard_params(part, mesh, layout)
+
     p: Dict[str, Any] = {}
-    p["embed"] = layers.make_embedding(generator, cfg.padded_vocab, cfg.d_model, dtype)
+    p["embed"] = cut(layers.make_embedding(generator, cfg.padded_vocab, cfg.d_model, dtype),
+                     "embed")
     if not cfg.tie_embeddings:
-        p["lm_head"] = layers.make_dense(
+        p["lm_head"] = cut(layers.make_dense(
             generator, cfg.d_model, cfg.padded_vocab, dtype, scale=cfg.d_model**-0.5
-        )
+        ), "lm_head")
     p["final_norm"] = layers.make_norm(cfg.norm_type, cfg.d_model, dtype, generator.device)
     if cfg.prefix:
-        p["prefix"] = [_init_layer(generator, cfg, spec, dtype, cross) for spec in cfg.prefix]
+        p["prefix"] = [cut(_init_layer(generator, cfg, spec, dtype, cross), "prefix", i)
+                       for i, spec in enumerate(cfg.prefix)]
     if cfg.num_periods > 0:
         # [layer][...] leaves of (P, ...), filled as the layers are drawn (in
-        # order, period by period): a layer's leaves are copied into row i and
-        # dropped, so the peak holds the stack and one layer, not every layer
-        # twice
+        # order, period by period): a layer's leaves (its blocks, on a model
+        # axis) are copied into row i and dropped, so the peak holds the
+        # stack and one layer, not every layer twice
         p_count = cfg.num_periods
         stack = [None] * len(cfg.period)
         for i in range(p_count):
             for j, spec in enumerate(cfg.period):
-                layer = _init_layer(generator, cfg, spec, dtype, cross)
+                layer = cut(_init_layer(generator, cfg, spec, dtype, cross), "stack", j)
                 if stack[j] is None:
                     stack[j] = tree_map(lambda t: t.new_empty((p_count,) + tuple(t.shape)), layer)
                 tree_map(lambda dst, src: dst[i].copy_(src), stack[j], layer)
@@ -288,6 +343,11 @@ def _stack_leaves(trees):
     return torch.stack(trees)
 
 
+def _embed(p, cfg: ModelConfig, tokens):
+    return layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale,
+                               vocab=cfg.padded_vocab, d_model=cfg.d_model)
+
+
 def _positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
@@ -300,7 +360,7 @@ def _embed_inputs(p, cfg: ModelConfig, batch):
         b, s, _ = x.shape
     else:
         tokens = batch["tokens"]
-        x = layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale)
+        x = _embed(p, cfg, tokens)
         b, s = tokens.shape
     if cfg.pos_type == "sinusoidal":
         x = x + layers.sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)
@@ -376,7 +436,7 @@ def forward_logits(p, cfg: ModelConfig, batch, mode="train"):
                              f"(B, Se, d_model) beside its tokens; got {sorted(batch)}")
         enc_out = encode(p, cfg, batch["encoder_frames"])
         tokens = batch["tokens"]
-        x = layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale)
+        x = _embed(p, cfg, tokens)
         b, s = tokens.shape
         x = x + p["dec_pos"][:s][None].to(x.dtype)
         positions = _positions(b, s, x.device)
@@ -392,6 +452,7 @@ def forward_logits(p, cfg: ModelConfig, batch, mode="train"):
         x = x[:, -1:]
     logits = layers.lm_logits(
         p.get("lm_head"), x, tied_embed=p["embed"] if cfg.tie_embeddings else None,
+        padded_vocab=cfg.padded_vocab,
     )
     return logits, aux, caches
 
@@ -400,7 +461,7 @@ def decode_step(p, cfg: ModelConfig, tokens, caches, pos):
     """One decode step. tokens: (B, 1) int; pos: (B,) write position.
     Updates `caches` in place; returns (logits, caches)."""
     check_supported(cfg)
-    x = layers.embed_tokens(p["embed"], tokens, scale=cfg.embed_scale)
+    x = _embed(p, cfg, tokens)
     if cfg.encoder_layers:
         x = x + p["dec_pos"][pos.long()][:, None].to(x.dtype)
     if cfg.prefix:
@@ -415,6 +476,7 @@ def decode_step(p, cfg: ModelConfig, tokens, caches, pos):
     x = layers.apply_norm(p["final_norm"], x)
     logits = layers.lm_logits(
         p.get("lm_head"), x, tied_embed=p["embed"] if cfg.tie_embeddings else None,
+        padded_vocab=cfg.padded_vocab,
     )
     return logits, caches
 
@@ -455,9 +517,11 @@ def pad_caches(cfg: ModelConfig, caches, capacity: int):
     return out
 
 
-def cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 4096):
+def cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 4096, mesh=None):
     """TensorSpec pytree of a decode cache of capacity `seq`; `enc_seq` sizes
-    an encoder-decoder arch's static cross cache (the encoder's length)."""
+    an encoder-decoder arch's static cross cache (the encoder's length).
+    With a mesh, a rank's blocks (sharding.cache_spec_for's layouts: the
+    batch over the batch axes, the kv heads over "model")."""
     check_supported(cfg)
     dtype = _dtype_of(cfg)
 
@@ -478,4 +542,9 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 4096):
              for part, sub in layer.items()}
             for layer in per
         ]
-    return out
+    if mesh is None:
+        return out
+    flat = [TensorSpec(tp.block_shape(s.shape, shd.cache_spec_for(path_str(path), s, mesh), mesh),
+                       s.dtype)
+            for path, s in leaves_with_path(out)]
+    return unflatten(out, flat)

@@ -19,6 +19,16 @@ leaf's at a time, and UPDATES params and state IN PLACE (the reference
 returns new trees); it returns the same trees. `state_specs(mesh,
 param_specs, params)` gives the states' layouts (distributed/sharding.py's
 tuples) from the parameters'.
+
+On a model axis wider than 1 (distributed/tensor_parallel.py active) the
+leaves are a rank's blocks, and `dims` (one entry per leaf in jax's order:
+the dim a leaf is split on over "model", or None) tells the functions that
+take it which reductions span the whole leaf: `global_norm` sums a split
+leaf's squares over the axis (one all-reduce for every split leaf) and
+counts a replicated leaf once; Adafactor's row, column and update-RMS means
+are over the whole leaf (an all-reduce of the block means wherever the
+mean runs along the split dim); the int8 compressor's scale is the whole
+leaf's max (a MAX all-reduce). AdamW and SGD are elementwise.
 """
 
 from __future__ import annotations
@@ -30,12 +40,13 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 
 
 class Optimizer(NamedTuple):
     name: str
     init: Callable  # (params, device=None) -> state
-    update: Callable  # (params, grads, state, step) -> (params, state), in place
+    update: Callable  # (params, grads, state, step, dims=None) -> (params, state), in place
     state_specs: Callable  # (mesh, param_specs, params) -> state layouts
 
 
@@ -54,9 +65,31 @@ def cosine_schedule(step, base_lr=3e-4, warmup=200, total=10_000, min_frac=0.1):
     return base_lr * torch.where(step < warmup, warm, cos)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves (jax's order) of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.leaves(grads)))
+def _split(dims, i):
+    """Whether leaf i is a block split over an active model axis."""
+    return dims is not None and dims[i] is not None and tp.active() is not None
+
+
+def global_norm(grads, dims=None) -> torch.Tensor:
+    """sqrt of the sum over leaves (jax's order) of each leaf's f32 sum of
+    squares; a leaf split over the model axis (dims) sums its blocks'."""
+    sq = [torch.sum(torch.square(x.float())) for x in tree.leaves(grads)]
+    split = [i for i in range(len(sq)) if _split(dims, i)]
+    if split:
+        whole = tp.reduce_from_model(torch.stack([sq[i] for i in split]))
+        for j, i in enumerate(split):
+            sq[i] = whole[j]
+    return torch.sqrt(sum(sq))
+
+
+def _mean(t, dim, split: bool):
+    """t's mean along `dim` (every element where dim is None), over the
+    whole leaf: the blocks' means averaged over the model axis where the
+    mean runs along the split dim (blocks are equal in size)."""
+    m = torch.mean(t) if dim is None else torch.mean(t, dim=dim)
+    if split:
+        m = tp.reduce_from_model(m) / tp.size()
+    return m
 
 
 def clip_by_global_norm(grads, max_norm, gnorm=None):
@@ -104,7 +137,7 @@ def make_adamw(lr_fn=cosine_schedule, b1=0.9, b2=0.95, eps=1e-8, wd=0.1):
         return {"mu": _zeros_f32(params, device), "nu": _zeros_f32(params, device)}
 
     @torch.no_grad()
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, dims=None):
         walk = _walk(params, grads, state["mu"], state["nu"])
         if not walk:
             return params, state
@@ -149,20 +182,23 @@ def make_adafactor(lr_fn=cosine_schedule, eps=1e-30, clip_thresh=1.0, wd=0.0):
         return tree.tree_map(st, params)
 
     @torch.no_grad()
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, dims=None):
         walk = _walk(params, grads, state)
         if not walk:
             return params, state
         step_t = _f32(step, walk[0][0])
         lr = lr_fn(step_t)
         beta2 = 1.0 - (step_t + 1.0) ** -0.8
-        for p, g, s in walk:
+        for i, (p, g, s) in enumerate(walk):
+            split = _split(dims, i)
+            d = dims[i] % p.dim() if split else None
             g = g.float()
             g2 = g * g + eps
             if _factored(p):
-                vr = beta2 * s["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
-                vc = beta2 * s["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
-                denom = torch.mean(vr, dim=-1, keepdim=True)
+                last, second = p.dim() - 1, p.dim() - 2
+                vr = beta2 * s["vr"] + (1 - beta2) * _mean(g2, -1, d == last)
+                vc = beta2 * s["vc"] + (1 - beta2) * _mean(g2, -2, d == second)
+                denom = _mean(vr, -1, d == second)[..., None]
                 pre = (vr / torch.clamp(denom, min=eps))[..., None] * vc[..., None, :]
                 u = g * torch.rsqrt(torch.clamp(pre, min=eps))
                 s["vr"].copy_(vr)
@@ -172,7 +208,7 @@ def make_adafactor(lr_fn=cosine_schedule, eps=1e-30, clip_thresh=1.0, wd=0.0):
                 u = g * torch.rsqrt(torch.clamp(v, min=eps))
                 s["v"].copy_(v)
             # update clipping (Adafactor's RMS rule)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms = torch.sqrt(_mean(u * u, None, split) + 1e-30)
             u = u / torch.clamp(rms / clip_thresh, min=1.0)
             delta = u + wd * p.float()
             p.copy_((p.float() - lr * delta).to(p.dtype))
@@ -201,7 +237,7 @@ def make_sgd(lr_fn=cosine_schedule, momentum=0.9):
         return {"mom": _zeros_f32(params, device)}
 
     @torch.no_grad()
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, dims=None):
         walk = _walk(params, grads, state["mom"])
         if not walk:
             return params, state
@@ -234,20 +270,28 @@ def make_optimizer(name: str, cfg=None, lr_fn=cosine_schedule) -> Optimizer:
 
 def make_compressor(kind: str):
     """Per-tensor int8 quantize -> dequantize on a gradient tree ("int8"),
-    or the identity ("none").
+    or the identity ("none"): compress(grads, dims=None).
 
     The value effect of an int8 gradient exchange, applied in place of it,
     as the reference applies it; the byte effect on the wire is
-    distributed/collectives.compressed_psum's."""
+    distributed/collectives.compressed_psum's. A leaf split over the model
+    axis (dims) takes the whole leaf's scale."""
     if kind == "none":
-        return lambda g: g
+        return lambda g, dims=None: g
     if kind == "int8":
 
-        def q(g):
+        def q(g, split):
             gf = g.float()
-            scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+            top = gf.abs().max()
+            if split:
+                top = tp.max_over_model(top)
+            scale = torch.clamp(top, min=1e-12) / 127.0
             qi = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
             return (qi.float() * scale).to(g.dtype)
 
-        return lambda grads: tree.tree_map(q, grads)
+        def compress(grads, dims=None):
+            out = [q(g, _split(dims, i)) for i, g in enumerate(tree.leaves(grads))]
+            return tree.unflatten(grads, out)
+
+        return compress
     raise ValueError(kind)

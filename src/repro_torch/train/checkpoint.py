@@ -15,9 +15,16 @@ its uint16 bits.
 
 The write is crash-safe: into `.tmp_step_XXXXXXXX`, the manifest fsynced,
 then an atomic rename, so a partly written checkpoint is never visible
-under its final name; `keep` garbage-collects the oldest steps. Training is
-data-parallel only, so every rank holds every leaf: one rank writes
-(train_loop.py), every rank restores the whole tree onto its device.
+under its final name; `keep` garbage-collects the oldest steps.
+
+The format holds whole leaves under any mesh, so a checkpoint stays readable
+by either package and under any layout. Data parallel, every rank holds
+every leaf: one rank writes (train_loop.py), every rank restores the whole
+tree. On a model axis wider than 1 (`mesh`, `layouts`: the {"params",
+"opt_state"} layout tree), the ranks of the writer's model group gather
+each leaf over "model" in turn (one whole leaf on the card at a time) and
+the writer writes; every rank restores its blocks, each leaf sliced on the
+host.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 
 
 def _dtype_name(dtype) -> str:
@@ -65,7 +73,22 @@ def save_checkpoint(
     opt_state,
     extra: Optional[Dict[str, Any]] = None,
     keep: int = 3,
-) -> Path:
+    mesh=None,
+    layouts=None,
+    write: bool = True,
+) -> Optional[Path]:
+    """Write a checkpoint of whole leaves; with `layouts` on a mesh, this
+    rank's blocks gathered over "model" leaf by leaf (every rank of the
+    model group calls it; only write=True writes, the others return None)."""
+    names, leaves = _names(params, opt_state)
+    if layouts is not None:
+        specs = tree.leaves(layouts)
+        arrays = {f"a{i}": _to_numpy(tp.gather_leaf(leaf, spec, mesh))
+                  for i, (leaf, spec) in enumerate(zip(leaves, specs))}
+    else:
+        arrays = {f"a{i}": _to_numpy(leaf) for i, leaf in enumerate(leaves)}
+    if not write:
+        return None
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
@@ -73,13 +96,12 @@ def save_checkpoint(
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    names, leaves = _names(params, opt_state)
-    np.savez(tmp / "arrays.npz", **{f"a{i}": _to_numpy(leaf) for i, leaf in enumerate(leaves)})
+    np.savez(tmp / "arrays.npz", **arrays)
     manifest = {
         "step": step,
         "names": names,
         "dtypes": [_dtype_name(leaf.dtype) for leaf in leaves],
-        "shapes": [list(leaf.shape) for leaf in leaves],
+        "shapes": [list(arrays[f"a{i}"].shape) for i in range(len(leaves))],
         "extra": extra or {},
     }
     with open(tmp / "manifest.json", "w") as f:
@@ -108,12 +130,12 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str | Path, step: Optional[int], params_template,
-                       opt_template, device=None):
+                       opt_template, device=None, mesh=None, layouts=None):
     """(params, opt_state, extra, step) from the checkpoint of `step` (the
     latest when None), every leaf on `device` ("cuda" by default; raises
-    without a card unless device="cpu"). The templates (tensors or
-    TensorSpecs) give the tree structure; their names must be the
-    manifest's."""
+    without a card unless device="cpu"); with `layouts` on a mesh, this
+    rank's block of every leaf. The templates (tensors or TensorSpecs) give
+    the tree structure; their names must be the manifest's."""
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
@@ -125,12 +147,17 @@ def restore_checkpoint(ckpt_dir: str | Path, step: Optional[int], params_templat
     names, _ = _names(params_template, opt_template)
     if names != manifest["names"]:
         raise ValueError(f"checkpoint/model tree mismatch in {d}")
+    specs = None if layouts is None else tree.leaves(layouts)
     leaves = []
     with np.load(d / "arrays.npz") as data:
         for i, (name, dt, shp) in enumerate(zip(names, manifest["dtypes"], manifest["shapes"])):
             arr = data[f"a{i}"]
             if list(arr.shape) != shp:
                 raise ValueError(f"{name}: stored shape {arr.shape}, manifest {shp}")
-            leaves.append(_from_numpy(arr, dt, dev))
+            if specs is None:
+                leaves.append(_from_numpy(arr, dt, dev))
+            else:
+                whole = _from_numpy(arr, dt, "cpu")
+                leaves.append(tp.block(whole, specs[i], mesh).contiguous().to(dev))
     state = tree.unflatten({"params": params_template, "opt_state": opt_template}, leaves)
     return state["params"], state["opt_state"], manifest["extra"], step

@@ -14,8 +14,14 @@ generator), where the reference draws from PRNGKey(0): the two packages
 start from different weights unless the port resumes from a reference
 checkpoint (train/checkpoint.py reads either package's).
 
-A mesh (`train(cfg, loop, mesh=DeviceMesh)`) is DATA PARALLEL only. Each
-rank computes its slice of the global batch (`batch_specs`' layout for the
+A mesh (`train(cfg, loop, mesh=DeviceMesh)`) splits the batch over its
+batch axes and, where its "model" axis is wider than 1, the model over that
+axis (tensor parallel: distributed/tensor_parallel.py; the dense and MoE
+families, other archs NotImplementedError naming item 13j before any
+collective). Every model rank of a batch coordinate takes the same rows;
+its parameters and optimizer state are its blocks (sharding.param_specs /
+the optimizer's state_specs), from the one-rank init's draws or sliced from
+a whole-leaf checkpoint. Each rank computes its slice of the global batch (`batch_specs`' layout for the
 tokens: rows over ("pod", "data"), or over "data", or replicated where the
 axes do not divide the batch), weights its loss and gradients by its mask
 sum over the global mask sum, and the gradients are summed over the batch
@@ -27,10 +33,12 @@ The weighting and the sums run in f32 whatever the gradients' dtype. With
 microbatches (ValueError otherwise, before any collective), and a rank is
 weighted by its share of the rows: the sum is then the reference's mean of
 every microbatch's mean.
-Every rank then applies the same update. Rank 0 writes checkpoints and the
-heartbeat, behind a barrier; every rank restores. A model axis wider than
-1 raises NotImplementedError (ROADMAP queue 1 item 13b, tensor-parallel
-training) before any collective.
+The gradient sums run over the batch axes only: a replicated leaf's
+gradient is whole, and bit-identical, on every model rank. Every rank then
+applies the same update to its blocks. Rank 0 writes checkpoints (in the
+reference's whole-leaf format: the ranks of its model group gather each
+leaf over "model", one leaf at a time) and the heartbeat, behind a barrier
+over every mesh dim; every rank restores its blocks.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, to_device
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer
 from repro_torch.models.transformer import TensorSpec
@@ -88,12 +97,11 @@ COLLECTIVES = {"all_reduce": 0}
 
 class DataParallel:
     """A rank's share of a global batch on a DeviceMesh, and the gradient
-    reduction over its batch axes."""
+    reduction over its batch axes (every model rank of a batch coordinate
+    takes the same rows)."""
 
     def __init__(self, mesh, global_batch: int, microbatch: int = 0):
         sizes = shd.axis_sizes(mesh)
-        if sizes.get("model", 1) > 1:
-            raise NotImplementedError(shd.TP_TODO)
         self.mesh = mesh
         layout = shd.batch_specs(mesh, {"tokens": TensorSpec((global_batch, 1), torch.int32)})
         entry = layout["tokens"][0]
@@ -118,6 +126,8 @@ class DataParallel:
         self.replicated = [(mesh.get_group(a), sizes[a])
                            for a in shd._batch_axes(mesh) if a not in split]
         self.writer = dist.get_rank() == 0
+        # the ranks of the writer's model group, which gather a checkpoint's leaves
+        self.gathers = all(int(coord[names.index(a)]) == 0 for a in shd._batch_axes(mesh))
 
     def _all_reduce(self, t: torch.Tensor, group) -> None:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
@@ -156,9 +166,9 @@ class DataParallel:
         return loss, grads
 
     def barrier(self) -> None:
-        """A barrier over every rank of the mesh: one over each batch axis
-        in turn (orthogonal groups; the model axis has size 1)."""
-        for a in shd._batch_axes(self.mesh):
+        """A barrier over every rank of the mesh: one over each mesh dim in
+        turn (orthogonal groups)."""
+        for a in self.mesh.mesh_dim_names:
             dist.barrier(group=self.mesh.get_group(a))
 
 
@@ -170,6 +180,7 @@ def train(cfg: ModelConfig, loop: LoopConfig, mesh=None, device=None) -> List[Di
     encoder-decoder arch (whisper: no encoder frames) raises ValueError at
     its first step."""
     dev = resolve_device(device)
+    tp.check_supported(cfg, mesh)
     dp = None if mesh is None else DataParallel(mesh, loop.global_batch, loop.microbatch)
     train_step, opt, model = steps_mod.make_train_step(
         cfg,
@@ -181,19 +192,25 @@ def train(cfg: ModelConfig, loop: LoopConfig, mesh=None, device=None) -> List[Di
         total_steps=max(loop.total_steps, 100),
         device=dev,
         grad_sync=None if dp is None else dp.sync,
+        mesh=mesh,
     )
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=loop.seq_len,
                                       global_batch=loop.global_batch, seed=loop.data_seed))
     writer = dp is None or dp.writer
+    gathers = dp is None or dp.gathers
+    params_t = transformer.param_template(cfg)
+    opt_t = opt.init(params_t, device="meta")
+    layouts = None
+    if tp.axis_of(mesh) is not None:
+        pspecs = shd.param_specs(mesh, params_t)
+        layouts = {"params": pspecs, "opt_state": opt.state_specs(mesh, pspecs, params_t)}
 
     # --- init or resume -----------------------------------------------------
     start_step = 0
     resumed = False
     if loop.resume and ckpt_mod.latest_step(loop.ckpt_dir) is not None:
-        params_t = transformer.param_template(cfg)
-        opt_t = opt.init(params_t, device="meta")
         params, opt_state, _, start_step = ckpt_mod.restore_checkpoint(
-            loop.ckpt_dir, None, params_t, opt_t, device=dev)
+            loop.ckpt_dir, None, params_t, opt_t, device=dev, mesh=mesh, layouts=layouts)
         start_step += 1  # the checkpoint stores the completed step
         resumed = True
     else:
@@ -204,9 +221,10 @@ def train(cfg: ModelConfig, loop: LoopConfig, mesh=None, device=None) -> List[Di
     hb_path.parent.mkdir(parents=True, exist_ok=True)
 
     def save(step, extra):
-        if writer:
+        if gathers:
             ckpt_mod.save_checkpoint(loop.ckpt_dir, step, params, opt_state, extra=extra,
-                                     keep=loop.keep_ckpts)
+                                     keep=loop.keep_ckpts, mesh=mesh, layouts=layouts,
+                                     write=writer)
         if dp is not None:
             dp.barrier()
 

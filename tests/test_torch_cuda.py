@@ -387,6 +387,9 @@ def _plain_bshd(q, k, v, causal, window):
         ((4, 8, 8, 1, 1500, 64), False, 0),  # whisper's cross decode, 4 rows
         ((2, 8, 8, 300, 100, 64), False, 0),  # bidirectional, Sq > Sk
         ((1, 8, 8, 1500, 1500, 64), False, 0),  # whisper's encoder
+        ((4, 16, 4, 200, 200, 80), True, 64),  # h2o-danube's heads a rank, model axis 2
+        ((4, 4, 1, 200, 200, 80), True, 64),  # h2o-danube's heads a rank, model axis 8
+        ((4, 8, 8, 300, 300, 128), True, 0),  # qwen2-moe's heads a rank, model axis 2
     ],
 )
 def test_flash_matches_plain(cuda, dtype, shape, causal, window):

@@ -22,9 +22,13 @@ core/ensemble.lower_sharded_ensemble) on the CPU.
     prefill on the card.)
   - The sharded ensemble's dry run on a fake (2, 2) mesh counts as many
     all-gathers as api.sharded.GATHERS, with each result's bytes.
-  - The production mesh is (32, 8); a production LM cell raises
-    NotImplementedError naming item 13b (a model axis of 8) and leaves no
-    process group behind; the production reservoir dry run (N = 16 384,
+  - The production mesh is (32, 8); h2o-danube's decode_32k cell runs
+    tensor parallel on it (--device cpu): a rank's argument bytes are its
+    parameter and cache blocks' and its rows', its all-reduces on "model"
+    the hand count (the embedding, each layer's attention and MLP, the
+    greedy token's two), no other collective; an MLA cell raises
+    NotImplementedError naming item 13j before any process group exists; no
+    process group is left behind; the production reservoir dry run (N = 16 384,
     E = 8 192, 2 steps) completes in a subprocess.
   - The roofline's MODEL_FLOPS equal the reference's formulas
     (repro.models.counting and its inline prefill formula), and its terms
@@ -261,8 +265,38 @@ def test_production_mesh():
 
 
 def test_production_lm_cell_waits_on_13b():
-    with pytest.raises(NotImplementedError, match="13b"):
-        dryrun.lower_cell("h2o-danube-1.8b", "train_4k", multi_pod=False)
+    """A dense production cell now runs tensor parallel (model axis 8);
+    deepseek's MLA cell is refused (item 13j) before any process group."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import transformer
+
+    arch, cell = "h2o-danube-1.8b", SHAPES["decode_32k"]
+    rec = dryrun.lower_cell(arch, "decode_32k", multi_pod=False, device="cpu")
+    assert not dist.is_initialized()
+    cfg = get_config(arch)
+    mesh = shd.AbstractMesh((32, 8), ("data", "model"))
+    template = transformer.param_template(cfg)
+    specs = shd.param_specs(mesh, template)
+
+    def nbytes(shape, dtype):
+        return math.prod(shape) * dtype.itemsize
+
+    params = sum(nbytes(tp.block_shape(t.shape, s, mesh), t.dtype)
+                 for t, s in zip(tree.leaves(template), tree.leaves(specs)))
+    rows = cell.global_batch // 32
+    caches = transformer.cache_specs(cfg, rows, cell.seq_len, mesh=shd.AbstractMesh(
+        (1, 8), ("data", "model")))  # the rank's rows, its kv heads
+    assert caches["stack"][0]["self"]["k"].shape == (24, rows, cell.seq_len, 1, 80)
+    cache = sum(nbytes(c.shape, c.dtype) for c in tree.leaves(caches))
+    assert rec["argument_size_in_bytes"] == params + cache + 2 * rows * 4  # + tokens, pos
+    reduces = 1 + 2 * cfg.num_layers + 2  # embedding; attention, MLP; greedy token
+    assert rec["collectives"]["all-reduce"]["count"] == reduces
+    assert {k: v["count"] for k, v in rec["collectives"].items() if v["count"]} == {
+        "all-reduce": reduces}
+    assert set(rec["collective_bytes_by_dim"]) == {"model"}
+    with pytest.raises(NotImplementedError, match="item 13j"):
+        dryrun.lower_cell("deepseek-v2-lite-16b", "decode_32k", multi_pod=False, device="cpu")
     assert not dist.is_initialized()
 
 

@@ -738,16 +738,24 @@ def test_batch_and_cache_specs_match_reference(arch, shape, names, mode, monkeyp
 
 
 def test_constraints_refuse_a_model_axis():
+    """constrain is the identity with or without a registered mesh (the
+    port's collectives are explicit); a model axis of 2 registers, and what
+    it does not run yet (here deepseek-v2-lite's MLA) is refused, naming
+    item 13j."""
     x = torch.ones(2, 3)
     assert shd.constrain(x, shd.BATCH, None) is x  # no mesh registered
     one = shd.AbstractMesh((2, 1), ("data", "model"))
-    shd.enable_constraints(one)
-    try:
-        assert shd.constrain(x, shd.BATCH, shd.MODEL) is x
-    finally:
-        shd.enable_constraints(None)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        shd.enable_constraints(shd.AbstractMesh((2, 2), ("data", "model")))
+    two = shd.AbstractMesh((2, 2), ("data", "model"))
+    for mesh in (one, two):
+        shd.enable_constraints(mesh)
+        try:
+            assert shd.constrain(x, shd.BATCH, shd.MODEL) is x
+        finally:
+            shd.enable_constraints(None)
+    from repro_torch.distributed import tensor_parallel as tp
+
+    with pytest.raises(NotImplementedError, match="item 13j"):
+        tp.check_supported(reduce_config(get_config("deepseek-v2-lite-16b")), two)
 
 
 @pytest.mark.parametrize("name", ["adamw", "adafactor", "sgd"])

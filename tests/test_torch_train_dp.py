@@ -16,9 +16,10 @@ against the reference's unsharded run with microbatch 1 resumed from the
 same checkpoint: the mean of the 4 microbatches' means. The ranks also train
 a global batch of 3 from init (which the data axis does not divide:
 replicated, the gradients averaged), held against one process's run of it,
-and ask for a (1, 2) mesh and for a global batch of 12 with microbatch 4
-(6 rows a rank, not whole microbatches), each refused before any
-collective.
+and ask for reduced deepseek-v2-lite (MLA) on a (1, 2) mesh (tensor
+parallelism for MLA waits on item 13j) and for a global batch of 12 with
+microbatch 4 (6 rows a rank, not whole microbatches), each refused before
+any collective.
 
 Tolerances: every rank's parameters bit-identical (one all-reduce result,
 one update rule); losses and final parameters within 1e-5 relative per leaf
@@ -108,17 +109,24 @@ for tag, shape, names, extra in (
     for i, leaf in enumerate(tree.leaves(last["params"])):
         out["%s/p%d" % (tag, i)] = leaf.detach().numpy()
 
-for tag, shape, extra, exc_type in (("tp", (1, 2), {{}}, NotImplementedError),
-                                    ("partial", (2, 1), {PARTIAL}, ValueError)):
+from repro_torch.launch import costs
+
+mla = reduce_config(get_config("deepseek-v2-lite-16b"))
+for tag, shape, extra, exc_type, arch_cfg in (
+        ("tp", (1, 2), {{}}, NotImplementedError, mla),
+        ("partial", (2, 1), {PARTIAL}, ValueError, cfg)):
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-    before = train_loop.COLLECTIVES["all_reduce"]
+    mode = costs.CostMode(mesh)  # counts every collective, of every kind and mesh dim
     try:
-        train(cfg, LoopConfig(ckpt_dir=os.path.join(out_dir, tag), **dict(LOOP, **extra)),
-              mesh=mesh, device="cpu")
+        with mode:
+            train(arch_cfg, LoopConfig(ckpt_dir=os.path.join(out_dir, tag), **dict(LOOP, **extra)),
+                  mesh=mesh, device="cpu")
         out[tag + "/refused"] = np.array("")
     except exc_type as exc:
         out[tag + "/refused"] = np.array(str(exc))
-    out[tag + "/collectives"] = np.array(train_loop.COLLECTIVES["all_reduce"] - before)
+    finally:
+        mode.close()
+    out[tag + "/collectives"] = np.array(sum(c["count"] for c in mode.collectives.values()))
 np.savez(os.path.join(out_dir, "rank%d.npz" % rank), **out)
 dist.destroy_process_group()
 '''
@@ -241,25 +249,29 @@ def test_a_batch_the_axis_does_not_divide_is_replicated_and_trains(runs):
 
 
 @pytest.mark.parametrize("tag,message", [
-    ("tp", "item 13b (tensor-parallel training)"),
+    ("tp", "item 13j"),
     ("partial", "gives each 6 rows, not a multiple of microbatch 4"),
 ])
 def test_refused_before_any_collective(runs, tag, message):
-    """A model axis of 2, and a global batch of 12 with microbatch 4 on 2
-    ranks (the reference trains its 3 microbatches; a rank's 6 rows are not
-    whole microbatches)."""
+    """MLA on a model axis of 2 (item 13j), and a global batch of 12 with
+    microbatch 4 on 2 ranks (the reference trains its 3 microbatches; a
+    rank's 6 rows are not whole microbatches)."""
     for out in runs["ranks"]:
         assert message in str(out[tag + "/refused"])
         assert int(out[tag + "/collectives"]) == 0
 
 
 def test_model_axis_refused_without_a_process_group():
-    """DataParallel refuses from the mesh's sizes alone."""
+    """train and DataParallel refuse from the config and the mesh's sizes
+    alone: xlstm-125m on a model axis of 2 (item 13j), and a partial
+    microbatch."""
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.train.train_loop import DataParallel
 
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        DataParallel(AbstractMesh((2, 2), ("data", "model")), 4)
+    xlstm = reduce_config(get_config("xlstm-125m"))
+    with pytest.raises(NotImplementedError, match="item 13j"):
+        train(xlstm, LoopConfig(**LOOP), mesh=AbstractMesh((2, 2), ("data", "model")),
+              device="cpu")
     with pytest.raises(ValueError, match="not a multiple of microbatch 4"):
         DataParallel(AbstractMesh((2, 1), ("data", "model")), 12, microbatch=4)
 
