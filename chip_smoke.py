@@ -2687,12 +2687,42 @@ def event_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def plain_delay_line_graphed(s0, h_t, pvec, dt, hold_steps):
+    """kref.tm_delay_line_plain, its RK4 step (kref.rk4_step_planes, the
+    plain version's own ops) captured once as a CUDA graph and replayed N x
+    hold_steps times: the same kernels in the same order on the same
+    operands, so the same bits, at one host launch a step where the eager
+    loop pays ~240. Returns the snapshots (3, N, E)."""
+    dt_c = torch.full((), float(dt), dtype=s0.dtype)
+    w_zero = torch.zeros((1, 1), dtype=s0.dtype, device=s0.device)
+    s = s0.reshape(3, 1, -1).clone()
+    h = h_t[0:1].clone()
+    side = torch.cuda.Stream()  # warm the step up off the capture stream, as CUDA graphs ask
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kref.rk4_step_planes(s.clone(), w_zero, pvec, dt_c, h)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # capture records the step; s still holds s0
+        s.copy_(kref.rk4_step_planes(s, w_zero, pvec, dt_c, h))
+    snaps = torch.empty((3, h_t.shape[0], s.shape[-1]), dtype=s.dtype, device=s.device)
+    for j in range(h_t.shape[0]):
+        h.copy_(h_t[j:j + 1])
+        for _ in range(hold_steps):
+            graph.replay()
+        snaps[:, j].copy_(s[:, 0])
+    return snaps
+
+
 def delay_line_check(name, name_power):
     """3f(a): tm_delay_line against its plain version. One K = 2 chunk at
     N = 256 (tm_chunk against tm_chunk_planes on the card, lanes frozen all
     chunk or for its second tick); one tick at N = 2500 against the plain
     version on the card (every lane) and on the host CPU (lanes 0-7), and
-    with lanes 0-63 masked. Bit-equal required. Returns the kernel's row."""
+    with lanes 0-63 masked. Bit-equal required. The N = 2500 tick's plain
+    version on the card replays its RK4 step from a CUDA graph
+    (plain_delay_line_graphed; plain_ms is that replay's). Returns the
+    kernel's row."""
     dev = torch.device("cuda")
     n, k = TM_SMALL_N, 2
     spec_s = make_time_multiplexed_spec(n, hold_steps=HOLD, device="cuda")
@@ -2719,7 +2749,8 @@ def delay_line_check(name, name_power):
     m, pv, h = delay_line_inputs(N, dev, seed=2)
     kern = lambda: sto_step.tm_delay_line(m, h, pv, DT, HOLD)  # noqa: E731
     out = kern()
-    plain, plain_ms = event_ms(lambda: kref.tm_delay_line_plain(m[:, N - 1], h, pv, DT, HOLD))
+    # the plain version's step replayed from a CUDA graph (45-62 s eager)
+    plain, plain_ms = event_ms(lambda: plain_delay_line_graphed(m[:, N - 1], h, pv, DT, HOLD))
     err = (out - plain).abs().max().item()
     assert torch.equal(out, plain), f"tm_delay_line differs from its plain version by {err}"
     lanes = TM_CPU_LANES
@@ -2752,7 +2783,7 @@ def delay_line_check(name, name_power):
         f"vs plain on the card max |diff| {err:.3e}, bit-equal; lanes 0-{lanes - 1} vs plain on "
         f"the host CPU {cpu_err:.3e}, bit-equal ({cpu_s:.3f} s); lanes 0-63 masked: exact; "
         f"kernel {ms:.4f} ms per call, {card_ms:.4f} ms card, plain {plain_ms:.3f} ms on the "
-        f"card; bound {b_ms:.5f} ms ({b_by}); chain estimate, derived and not measured, "
+        f"card (its RK4 step replayed from a CUDA graph); bound {b_ms:.5f} ms ({b_by}); chain estimate, derived and not measured, "
         f"{chain_ms:.4f} ms ({CHAIN_OPS} dependent FP32 ops a step x an assumed "
         f"{FP32_LATENCY_CYCLES}-cycle latency at the max SM clock) = {100 * chain_ms / ms:.1f} % "
         f"of the kernel's time; ptxas {row['ptxas']} ({name_power})",
@@ -4438,8 +4469,9 @@ def train_launcher(name_power):
 def train_phase(name_power):
     """Phase 5b: training on the card. 5b(e)'s child and 5b(f)'s process
     tree, which spend most of their time starting up, run beside 5b(c), as
-    do 5g(c)'s two children and phase 5h's two ranks (5b(c) holds a resumed
-    run's losses: a correctness check, whose seconds only inform)."""
+    do 5g(c)'s two children and phases 5h's and 5i's two ranks each (5b(c)
+    holds a resumed run's losses: a correctness check, whose seconds only
+    inform)."""
     t0 = time.perf_counter()
     train_card_vs_cpu(name_power)
     train_full_width(name_power)
@@ -4453,7 +4485,11 @@ def train_phase(name_power):
             try:
                 finish_tp = tp_children(name_power)
                 try:
-                    train_resume(name_power)
+                    finish_tp5i = tp_mixers_children(name_power)
+                    try:
+                        train_resume(name_power)
+                    finally:
+                        finish_tp5i()
                 finally:
                     finish_tp()
             finally:
@@ -4462,7 +4498,7 @@ def train_phase(name_power):
             finish_dp()
     finally:
         finish_launcher()
-    print(f"phase 5b (with 5g(a), 5g(c) and 5h): {time.perf_counter() - t0:.1f} s "
+    print(f"phase 5b (with 5g(a), 5g(c), 5h and 5i): {time.perf_counter() - t0:.1f} s "
           f"({name_power})", flush=True)
 
 
@@ -4860,8 +4896,14 @@ def _tp_routing(force=None):
         moe.route = real
 
 
-def _tp_serve_run(cfg, mesh, dev, force=None):
-    """One prefill of TP_PROMPT tokens at TP_ROWS rows and the decode steps
+def _tp_new(cfg):
+    """5h's decode steps for cfg: TP_MOE_NEW where it has an MoE config."""
+    return TP_NEW if cfg.moe is None else TP_MOE_NEW
+
+
+def _tp_serve_run(cfg, mesh, dev, force=None, prompt=TP_PROMPT, new=None, frames=0, count=True):
+    """One prefill of `prompt` tokens at TP_ROWS rows (with `frames`
+    encoder frames for an encoder-decoder arch) and the decode steps
     (teacher tokens, make_serve_steps' greedy token beside each), on one
     rank (mesh None) or on the mesh; every input from numpy seed 0, weights
     init(0); MoE routing replayed from `force` where given. Returns the
@@ -4869,14 +4911,21 @@ def _tp_serve_run(cfg, mesh, dev, force=None):
     block on the mesh), the greedy tokens, the flash launches of the prefill
     and the (H, KVH) of each, the route calls (MoE) and how many the
     prefill made, host ms (gloo-staged on the mesh), peak bytes and, on the
-    mesh, each call's all-reduces on "model" under costs.CostMode."""
+    mesh (with `count`), each call's collectives on "model" under
+    costs.CostMode."""
     from repro_torch.launch import costs, steps
     from repro_torch.models import attention
 
-    new = TP_NEW if cfg.moe is None else TP_MOE_NEW
+    if new is None:
+        new = _tp_new(cfg)
     rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_ROWS, TP_PROMPT))).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_ROWS, prompt))).to(dev)
     teacher = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_ROWS, new))).to(dev)
+    batch = {"tokens": tokens}
+    if frames:
+        batch["encoder_frames"] = torch.from_numpy(
+            0.02 * rng.standard_normal((TP_ROWS, frames, cfg.d_model))).to(dev,
+                                                                          transformer._dtype_of(cfg))
     _tp_peak_reset(dev)
     params = build_model(cfg, dev, mesh).init(0)
     prefill, decode = steps.make_serve_steps(cfg, dev, mesh)
@@ -4892,18 +4941,18 @@ def _tp_serve_run(cfg, mesh, dev, force=None):
         try:
             sto_step.reset_launches()
             t0 = time.perf_counter()
-            last, caches = prefill(params, {"tokens": tokens})
+            last, caches = prefill(params, batch)
             _tp_sync(dev)
             prefill_ms = 1e3 * (time.perf_counter() - t0)
             launches = sto_step.LAUNCHES["flash_attention"]
         finally:
             attention.flash_attention_bshd = launch
         n_prefill_routes = len(routes)
-        caches = transformer.pad_caches(cfg, caches, TP_PROMPT + new)
+        caches = transformer.pad_caches(cfg, caches, prompt + new, mesh)
         logits, toks = [last[:, -1].float().cpu()], []
         t0 = time.perf_counter()
         for i in range(new):
-            pos = torch.full((TP_ROWS,), TP_PROMPT + i, dtype=torch.int32, device=dev)
+            pos = torch.full((TP_ROWS,), prompt + i, dtype=torch.int32, device=dev)
             tok, lg, caches = decode(params, {"tokens": teacher[:, i:i + 1], "caches": caches,
                                               "pos": pos})
             logits.append(lg[:, -1].float().cpu())
@@ -4911,20 +4960,20 @@ def _tp_serve_run(cfg, mesh, dev, force=None):
         _tp_sync(dev)
     rec = dict(logits=torch.stack(logits), toks=torch.stack(toks), launches=launches, heads=heads,
                prefill_ms=prefill_ms, decode_ms=1e3 * (time.perf_counter() - t0) / new,
-               peak=_tp_peak(dev), routes=routes, n_prefill_routes=n_prefill_routes)
-    if mesh is not None:
-        _, c = costs.measure(prefill, params, {"tokens": tokens}, mesh=mesh)
+               peak=_tp_peak(dev), routes=routes, n_prefill_routes=n_prefill_routes, prompt=prompt)
+    if mesh is not None and count:
+        _, c = costs.measure(prefill, params, batch, mesh=mesh)
         rec["prefill_reduces"] = c["collective_counts_by_dim"].get("model", 0)
-        pos = torch.full((TP_ROWS,), TP_PROMPT + new - 1, dtype=torch.int32, device=dev)
+        pos = torch.full((TP_ROWS,), prompt + new - 1, dtype=torch.int32, device=dev)
         _, c = costs.measure(decode, params, {"tokens": teacher[:, :1], "caches": caches,
                                               "pos": pos}, mesh=mesh)
         rec["decode_reduces"] = c["collective_counts_by_dim"].get("model", 0)
     return rec
 
 
-def _tp_train_run(cfg, mesh, dev):
-    """TP_TRAIN_STEPS AdamW steps of 5b's cell from init(0) on one rank or on
-    the mesh. Returns the losses, grad norms, host ms a step, peak bytes and
+def _tp_train_run(cfg, mesh, dev, batch_rows=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """TP_TRAIN_STEPS AdamW steps of 5b's cell (or of batch_rows x seq
+    tokens) from init(0) on one rank or on the mesh. Returns the losses, grad norms, host ms a step, peak bytes and
     every leaf after the last step (on the host; the rank's blocks on the
     mesh), and on the mesh the init(0) blocks and one more step's
     all-reduces on "model"."""
@@ -4938,7 +4987,7 @@ def _tp_train_run(cfg, mesh, dev):
     params = model.init(0)
     init = [t.to("cpu", copy=True) for t in tree.leaves(params)] if mesh is not None else None
     state = opt.init(params, device=dev)
-    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, seq, batch_rows))
     losses, norms, ms = [], [], []
     for s in range(TP_TRAIN_STEPS):
         batch = to_device(data.batch(s), dev)
@@ -4957,10 +5006,14 @@ def _tp_train_run(cfg, mesh, dev):
     return rec
 
 
-def _tp_hold_serve(tag, cfg, got, want, rank, name_power, against="one rank"):
+def _tp_hold_serve(tag, cfg, got, want, rank, name_power, against="one rank", launches=None,
+                   heads=None, rtol=None, phase="5h"):
     """A rank's serving run against one rank's: its vocab block of every
-    call's last-position logits, its greedy tokens (flips and their gaps in
-    one rank's logits), the flash launches and heads a prefill."""
+    call's last-position logits (within `rtol`, TP_LOGIT_RTOL by default),
+    its greedy tokens (flips and their gaps in one rank's logits), the flash
+    launches (`launches`, a layer each by default) and heads a prefill
+    (`heads`, the rank's (H, KVH) by default)."""
+    rtol = TP_LOGIT_RTOL if rtol is None else rtol
     n = got["logits"].shape[-1]
     ref = want["logits"][..., rank * n:(rank + 1) * n]
     err = float((got["logits"] - ref).abs().max() / ref.abs().max())
@@ -4968,27 +5021,28 @@ def _tp_hold_serve(tag, cfg, got, want, rank, name_power, against="one rank"):
     flips = (got["toks"] != ref_tok).nonzero().tolist()
     full = want["logits"][1:]
     gaps = [float(full[s, r].max() - full[s, r, got["toks"][s, r]]) for s, r in flips]
-    local = (cfg.num_heads // 2, cfg.num_kv_heads // 2)
-    print(f"5h{tag} rank {rank}, {cfg.name} ({cfg.num_layers} layers, full width, {cfg.dtype}) "
-          f"on a (1, 2) mesh over gloo against {against}: prefill {TP_PROMPT} tokens x "
+    local = (cfg.num_heads // 2, cfg.num_kv_heads // 2) if heads is None else heads
+    launches = cfg.num_layers if launches is None else launches
+    print(f"{phase}{tag} rank {rank}, {cfg.name} ({cfg.num_layers} layers, full width, {cfg.dtype}) "
+          f"on a (1, 2) mesh over gloo against {against}: prefill {got['prompt']} tokens x "
           f"{TP_ROWS} rows and {got['toks'].shape[0]} teacher-fed decode steps; logits (vocab "
           f"block {n} of {cfg.padded_vocab}) max |diff| / max |one rank's| {err:.3e} (at most "
-          f"{TP_LOGIT_RTOL}); greedy tokens off one rank's argmax {len(flips)} of "
+          f"{rtol}); greedy tokens off one rank's argmax {len(flips)} of "
           f"{got['toks'].numel()}, gaps {[f'{g:.3e}' for g in gaps]} (at most {TP_FLIP_GAP}); "
           f"flash launches a prefill "
-          f"{got['launches']} (layers {cfg.num_layers}) on (H, KVH) {sorted(set(got['heads']))}; "
+          f"{got['launches']} (expected {launches}) on (H, KVH) {sorted(set(got['heads']))}; "
           f"host ms, gloo staging the all-reduces through the host (no speed claim): prefill "
           f"{got['prefill_ms']:.1f} (one rank {want['prefill_ms']:.1f}), a decode step "
           f"{got['decode_ms']:.1f} (one rank {want['decode_ms']:.1f}); peak "
           f"{got['peak'] / 2**30:.3f} GiB, one rank {want['peak'] / 2**30:.3f} GiB "
           f"({name_power})", flush=True)
-    assert got["launches"] == cfg.num_layers, (got["launches"], cfg.num_layers)
-    assert set(got["heads"]) == {local}, (got["heads"], local)
-    assert err <= TP_LOGIT_RTOL, (tag, err)
+    assert got["launches"] == launches, (got["launches"], launches)
+    assert set(got["heads"]) == ({local} if launches else set()), (got["heads"], local)
+    assert err <= rtol, (tag, err)
     assert all(g <= TP_FLIP_GAP for g in gaps), (tag, gaps)
 
 
-def _tp_hold_routing(cfg, got, want, rank, mesh):
+def _tp_hold_routing(cfg, got, want, rank, mesh, phase="5h(d)"):
     """(d)'s routing on the mesh against one rank's run with the mesh's
     routing (`want`, whose calls hold what the rank's own top-k would have
     been), call by call: the same on both ranks; the router logits' drift
@@ -5003,7 +5057,9 @@ def _tp_hold_routing(cfg, got, want, rank, mesh):
     dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.get_group("model"))
     dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.get_group("model"))
     assert torch.equal(lo, hi), "the two ranks routed differently"
-    k, n_layers, n_pre = cfg.moe.top_k, cfg.num_layers, got["n_prefill_routes"]
+    k, n_pre = cfg.moe.top_k, got["n_prefill_routes"]
+    n_layers = (sum(s.mlp == "moe" for s in cfg.prefix)
+                + cfg.num_periods * sum(s.mlp == "moe" for s in cfg.period))  # routed layers
     drift, spread = 0.0, 0.0
     off = {(kind, layer): [] for kind in ("prefill", "decode") for layer in range(n_layers)}
     for i, ((lp, e), (lp1, e1)) in enumerate(zip(got["routes"], want["routes"])):
@@ -5017,7 +5073,8 @@ def _tp_hold_routing(cfg, got, want, rank, mesh):
             off[where].append(float(ranked[t, k - 1] - ranked[t, k]))
     gaps = sorted(g for v in off.values() for g in v)
     tokens = sum(int(e.shape[0]) for _, e in want["routes"][:n_pre // n_layers])
-    print(f"5h(d) rank {rank}, routing on the mesh against one rank with the mesh's routing: "
+    print(f"{phase} rank {rank}, {cfg.name}'s routing on the mesh against one rank with the "
+          f"mesh's routing: "
           f"the same on both ranks; "
           f"router logits' drift {drift:.3e} of the largest spread {spread:.3e} "
           f"({drift / spread:.3e}, at most {TP_ROUTE_RTOL:.3e}); tokens whose top-{k} experts "
@@ -5107,7 +5164,7 @@ def tp_child(out_dir):
     if rank == 0:
         t1 = time.perf_counter()
         dry = _tp_dry_counts(dev)
-        with open(os.path.join(out_dir, "dry.json"), "w") as f:
+        with open(os.path.join(out_dir, "dry0.json"), "w") as f:
             json.dump(dry, f)
         t_dry = time.perf_counter() - t1
         ref = {"a": _tp_serve_run(serve_cfg, None, dev), "d": _tp_serve_run(moe_cfg, None, dev)}
@@ -5196,17 +5253,22 @@ def tp_child(out_dir):
         dist.destroy_process_group()
 
 
-def tp_children(name_power):
-    """Start phase 5h's two ranks (tp_child) beside the caller's work;
-    returns finish(), which waits for them, prints their output and holds
-    the ranks' all-reduces on "model" (costs.CostMode on the card) equal to
-    the dry run's (rank 0's, over a fake (1, 2) group on fake tensors)."""
+def _tp_ranks(flag, label, name_power):
+    """Start a tensor-parallel phase's two ranks (`chip_smoke.py FLAG DIR`,
+    RANK 0 and 1, on card 0) beside the caller's work; returns finish(),
+    which waits for them, prints their output and holds the ranks'
+    collectives on "model" a call (DIR/rank{r}.json, costs.CostMode on the
+    card) equal to each other and to the dry run's (DIR/dry*.json, over a
+    fake (1, 2) group on fake tensors). `label` names the phase and the
+    part that prints the counts ("5h(c)")."""
+    import glob
     import shutil
     import tempfile
 
-    root = tempfile.mkdtemp(prefix="tp-")
+    phase = label.split("(")[0]
+    root = tempfile.mkdtemp(prefix=f"tp{phase}-")
     t0 = time.perf_counter()
-    waits = [_run_beside([sys.executable, os.path.abspath(__file__), "--tp-child", root],
+    waits = [_run_beside([sys.executable, os.path.abspath(__file__), flag, root],
                          timeout=900, env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
                                                LOCAL_RANK="0"))
              for r in (0, 1)]
@@ -5218,34 +5280,342 @@ def tp_children(name_power):
                 sys.stdout.write(proc.stdout)
                 sys.stdout.flush()
                 if proc.returncode != 0:
-                    raise RuntimeError(f"5h rank {r} failed ({proc.returncode}):\n"
+                    raise RuntimeError(f"{phase} rank {r} failed ({proc.returncode}):\n"
                                        f"{proc.stderr[-6000:]}")
-            counts = []
-            for name in ("rank0", "rank1", "dry"):
-                with open(os.path.join(root, f"{name}.json")) as f:
+            counts, dry = [], {}
+            for r in (0, 1):
+                with open(os.path.join(root, f"rank{r}.json")) as f:
                     counts.append(json.load(f))
+            for path in sorted(glob.glob(os.path.join(root, "dry*.json"))):
+                with open(path) as f:
+                    dry.update(json.load(f))
         finally:
             shutil.rmtree(root, ignore_errors=True)
-        dry = counts.pop()
-        print(f"5h(c) all-reduces on \"model\" a call, costs.CostMode on the card (rank 0 / "
+        print(f"{label} collectives on \"model\" a call, costs.CostMode on the card (rank 0 / "
               f"rank 1) against the dry run over a fake (1, 2) group: "
-              + "; ".join(f"{t} {counts[0][t]} / {counts[1][t]} vs {dry[t]}" for t in dry),
+              + "; ".join(f"{t} {counts[0][t]} / {counts[1][t]} vs {dry[t]}" for t in sorted(dry)),
               flush=True)
         for t in dry:
             assert counts[0][t] == counts[1][t] == dry[t] > 0, (t, counts, dry)
-        print(f"phase 5h: {time.perf_counter() - t0:.1f} s, its two ranks "
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s, its two ranks "
               f"{max(s for _, s in procs):.1f} s ({name_power})", flush=True)
 
     return finish
 
 
+def tp_children(name_power):
+    """Start phase 5h's two ranks (tp_child) beside the caller's work;
+    returns finish() (_tp_ranks'): 5h(c) holds their all-reduces on "model"
+    equal to rank 0's dry run's."""
+    return _tp_ranks("--tp-child", "5h(c)", name_power)
+
+
 def tp_only():
-    """`chip_smoke.py --tp`: build the kernels and run phase 5h alone."""
+    """`chip_smoke.py --tp`: build the kernels and run phases 5h and 5i alone,
+    their ranks beside each other."""
     name_power = card_line()
     print(f"card: {name_power}", flush=True)
     _build.load()
-    tp_children(name_power)()
-    print("5h held", flush=True)
+    finish_5h = tp_children(name_power)
+    try:
+        tp_mixers_children(name_power)()
+    finally:
+        finish_5h()
+    print("5h and 5i held", flush=True)
+
+
+# -- phase 5i: tensor parallelism for MLA, Mamba, xLSTM and whisper ---------------
+
+# two gloo ranks of a (1, 2) ("data", "model") mesh on card 0, a spawn of its
+# own beside 5h's (`chip_smoke.py --tp-mixers-child DIR`): (e) deepseek-v2-lite
+# cut to its dense prefix layer and one MoE layer (32 experts a rank), the
+# latent cache over the sequence; (f) jamba-1.5-large cut to its period's
+# first layer spec (Mamba and the dense MLP at d 8 192, d_inner 16 384); (g)
+# xlstm-125m whole, a prefill at each of 5e's XLSTM_PROMPTS lengths and
+# TP5I_XLSTM_NEW decode steps after each, and TP_TRAIN_STEPS AdamW steps at
+# TP5I_TRAIN_ROWS x TP5I_TRAIN_SEQ; (h) whisper-base whole, WHISPER_FRAMES
+# frames and 4 prompt tokens, served under REPRO_KV_SEQ_SHARD=auto (kv
+# heads) and =1 (self and cross caches over the sequence). (j) counts every
+# call's collectives on "model" as 5h(c) does.
+TP5I_MLA_LAYERS = 2
+TP5I_JAMBA_SPECS = 1
+TP5I_XLSTM_NEW = 4
+TP5I_WHISPER_NEW = 16
+TP5I_TRAIN_ROWS, TP5I_TRAIN_SEQ = 4, 64
+# (e), (f), (h) hold the logits at TP_LOGIT_RTOL and (e)'s routing at
+# TP_ROUTE_RTOL, 5h's bounds with 5h's basis: a row-parallel product's two
+# bf16 GEMMs summed in f32 carry one bf16 rounding more a layer than one
+# rank's GEMM. (g) runs xlstm-125m in f32: its recurrence amplifies that one
+# rounding beyond those bounds (a CPU rehearsal at reduced width in bf16 read
+# 5.2e-2 on the logits and 1.3e-2 on the grad norms; in f32 one rounding of
+# every parameter moves its gradient leaves by 6.3e-5, tools/
+# recurrent_grad_margin.py), so in f32 the ranks differ from one rank by sums
+# in another order alone; its logits, losses and grad norms are held at 5h's
+# TP_LOGIT_RTOL and TP_LOSS_RTOL, each leaf's update at TP_UPDATE_RTOL.
+
+
+def _tp5i_cfgs():
+    """(e)'s, (f)'s, (g)'s and (h)'s configs."""
+    import dataclasses
+
+    jamba = get_config(JAMBA_ARCH)
+    return (dataclasses.replace(get_config(MLA_ARCH), num_layers=TP5I_MLA_LAYERS),
+            dataclasses.replace(jamba, period=jamba.period[:TP5I_JAMBA_SPECS],
+                                num_layers=TP5I_JAMBA_SPECS),
+            dataclasses.replace(get_config(XLSTM_ARCH), dtype="float32"), get_config(WHISPER_ARCH))
+
+
+def _tp5i_dry_counts(dev, parts):
+    """The 5i calls of `parts` ("e" ... "h") dry-run over a fake (1, 2)
+    group on fake tensors: {call: collectives on "model"}. (g)'s prefill at
+    its shortest prompt: the count does not depend on the length, and the
+    sLSTM's loop over the tokens runs op by op on fake tensors too."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+
+    mla, jamba, xlstm, whisper = _tp5i_cfgs()
+    w_new = len(WHISPER_PROMPT) + TP5I_WHISPER_NEW
+    cells = {
+        "e_prefill": (mla, ShapeCell("5i", TP_PROMPT, TP_ROWS, "prefill"), "auto"),
+        "e_decode": (mla, ShapeCell("5i", TP_PROMPT + _tp_new(mla), TP_ROWS, "decode"), "auto"),
+        "f_prefill": (jamba, ShapeCell("5i", TP_PROMPT, TP_ROWS, "prefill"), "auto"),
+        "f_decode": (jamba, ShapeCell("5i", TP_PROMPT + _tp_new(jamba), TP_ROWS, "decode"),
+                     "auto"),
+        "g_prefill": (xlstm, ShapeCell("5i", XLSTM_PROMPTS[-1], TP_ROWS, "prefill"), "auto"),
+        "g_decode": (xlstm, ShapeCell("5i", XLSTM_PROMPTS[-1] + TP5I_XLSTM_NEW, TP_ROWS,
+                                      "decode"), "auto"),
+        "g_train": (xlstm, ShapeCell("5i", TP5I_TRAIN_SEQ, TP5I_TRAIN_ROWS, "train"), "auto"),
+        "h_prefill": (whisper, ShapeCell("5i", len(WHISPER_PROMPT), TP_ROWS, "prefill"), "auto"),
+        "h_decode": (whisper, ShapeCell("5i", w_new, TP_ROWS, "decode"), "auto"),
+        "h_prefill_seq": (whisper, ShapeCell("5i", len(WHISPER_PROMPT), TP_ROWS, "prefill"), "1"),
+        "h_decode_seq": (whisper, ShapeCell("5i", w_new, TP_ROWS, "decode"), "1"),
+    }
+    out = {}
+    with dryrun.fake_world(2):
+        fmesh = init_device_mesh(dev, (1, 2), mesh_dim_names=("data", "model"))
+        for tag, (cfg, cell, kv) in cells.items():
+            if tag[0] not in parts:
+                continue
+            with _kv_mode(kv):
+                rec = dryrun.lower_step(cfg, cell, fmesh, dev, enc_seq=WHISPER_FRAMES)
+            out[tag] = rec["collective_counts_by_dim"].get("model", 0)
+    return out
+
+
+@contextlib.contextmanager
+def _kv_mode(mode):
+    """REPRO_KV_SEQ_SHARD set to `mode` inside the block."""
+    before = os.environ.get("REPRO_KV_SEQ_SHARD")
+    os.environ["REPRO_KV_SEQ_SHARD"] = mode
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("REPRO_KV_SEQ_SHARD")
+        else:
+            os.environ["REPRO_KV_SEQ_SHARD"] = before
+
+
+def _tp5i_refs(rank, dev):
+    """The one-rank references of the parts a rank holds (rank 0: (e) and
+    (h); rank 1: (f) and (g)), with each part's seconds."""
+    mla, jamba, xlstm, whisper = _tp5i_cfgs()
+    ref, seconds = {}, {}
+    t0 = time.perf_counter()
+    if rank == 0:
+        ref["e"] = _tp_serve_run(mla, None, dev)
+        seconds["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for kv in ("auto", "1"):
+            with _kv_mode(kv):
+                ref["h_" + kv] = _tp_serve_run(whisper, None, dev, prompt=len(WHISPER_PROMPT),
+                                               new=TP5I_WHISPER_NEW, frames=WHISPER_FRAMES)
+        seconds["h"] = time.perf_counter() - t0
+    else:
+        ref["f"] = _tp_serve_run(jamba, None, dev)
+        seconds["f"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref["g"] = [_tp_serve_run(xlstm, None, dev, prompt=n, new=TP5I_XLSTM_NEW)
+                    for n in XLSTM_PROMPTS]
+        ref["g_train"] = _tp_train_run(xlstm, None, dev, TP5I_TRAIN_ROWS, TP5I_TRAIN_SEQ)
+        seconds["g"] = time.perf_counter() - t0
+    ref["seconds_" + str(rank)] = seconds
+    return ref
+
+
+def _tp5i_flash(rank, name_power):
+    """The kernel at the heads a rank launches it on in (e) and (h), against
+    its plain version: MLA's D 192 at H 8 (v zero-padded from 128), causal;
+    whisper's encoder (1500 x 1500, bidirectional), self prefill (4 x 4,
+    causal) and cross prefill (4 x 1500, unmasked) at H 4, D 64."""
+    mla, _, _, whisper = _tp5i_cfgs()
+    g = torch.Generator(device="cuda").manual_seed(rank)
+    hw = whisper.num_heads // 2
+    cases = (("MLA prefill", mla.num_heads // 2, TP_PROMPT, TP_PROMPT, 192, True),
+             ("whisper encoder", hw, WHISPER_FRAMES, WHISPER_FRAMES, whisper.head_dim, False),
+             ("whisper self prefill", hw, len(WHISPER_PROMPT), len(WHISPER_PROMPT),
+              whisper.head_dim, True),
+             ("whisper cross prefill", hw, len(WHISPER_PROMPT), WHISPER_FRAMES, whisper.head_dim,
+              False))
+    for label, h, sq, sk, d, causal in cases:
+        q = torch.randn((TP_ROWS, sq, h, d), generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((TP_ROWS, sk, h, d), generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        if label == "MLA prefill":
+            v[..., mla.mla.v_head_dim:] = 0
+        err = float((fa.flash_attention_bshd(q, k, v, causal=causal, window=0).float()
+                     - plain_bshd(q, k, v, 0, causal).float()).abs().max())
+        print(f"5i rank {rank}: flash_bf16<{d}> at {label}'s shapes on a rank's heads: H = KVH "
+              f"{h}, B {TP_ROWS}, {sq} x {sk}, {'causal' if causal else 'no mask'}, against its "
+              f"plain version: max |err| {err:.3e} (at most {FLASH_ATOL[torch.bfloat16]}) "
+              f"({name_power})", flush=True)
+        assert err <= FLASH_ATOL[torch.bfloat16], (label, err)
+
+
+def _tp5i_peaks(tag, got, want):
+    return (f"{tag} peak {got['peak'] / 2**30:.3f} GiB a rank, one rank "
+            f"{want['peak'] / 2**30:.3f} GiB")
+
+
+def tp_mixers_child(out_dir):
+    """Phase 5i's ranks (`chip_smoke.py --tp-mixers-child DIR`, RANK 0 or 1
+    of a gloo world of two over a FileStore in DIR, both on card 0). Before
+    the group exists, the one-rank references and (j)'s dry runs over a fake
+    group, split over the two (rank 0: (e) and (h), the dry runs of (e), (g)
+    and (h); rank 1: (f) and (g), the dry runs of (f)); then
+    on a (1, 2) ("data", "model") mesh (e) to (h), each rank held against the
+    slices of the references ((e)'s logits against one rank run with the
+    mesh's routing); the collective counts go to DIR/rank{r}.json."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    rank, dev = int(os.environ["RANK"]), TP_DEVICE
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    name_power = card_line()
+    t_child = time.perf_counter()
+    mla, jamba, xlstm, whisper = _tp5i_cfgs()
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, f"dry{rank}.json"), "w") as f:
+        json.dump(_tp5i_dry_counts(dev, "egh" if rank == 0 else "f"), f)
+    t_dry = time.perf_counter() - t0
+    torch.save(_tp5i_refs(rank, dev), os.path.join(out_dir, f"ref{rank}.pt"))
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out_dir, "store"), 2),
+                            rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh(dev, (1, 2), mesh_dim_names=("data", "model"))
+        dist.barrier()
+        ref = {}
+        for r in (0, 1):
+            ref.update(torch.load(os.path.join(out_dir, f"ref{r}.pt")))
+        if dev == "cuda":
+            _tp5i_flash(rank, name_power)
+        counts, seconds = {}, {}
+
+        t0 = time.perf_counter()
+        e_run = _tp_serve_run(mla, mesh, dev)
+        forced = _tp_serve_run(mla, None, dev, force=e_run["routes"])
+        _tp_hold_routing(mla, e_run, forced, rank, mesh, phase="5i(e)")
+        n = e_run["logits"].shape[-1]
+        own = ref["e"]["logits"][..., rank * n:(rank + 1) * n]
+        print(f"5i(e) rank {rank}: logits against one rank with its own routing "
+              f"{float((e_run['logits'] - own).abs().max() / own.abs().max()):.3e} (not held: "
+              f"a token routed otherwise changes the tokens after it)", flush=True)
+        forced.update(prefill_ms=ref["e"]["prefill_ms"], decode_ms=ref["e"]["decode_ms"],
+                      peak=ref["e"]["peak"])
+        _tp_hold_serve("(e)", mla, e_run, forced, rank, name_power, phase="5i",
+                       against="one rank with the mesh's routing (the latent cache over the "
+                               "sequence)")
+        counts.update(e_prefill=e_run["prefill_reduces"], e_decode=e_run["decode_reduces"])
+        peaks = [_tp5i_peaks("(e)", e_run, ref["e"])]
+        del e_run, forced
+        gc.collect()
+        seconds["e"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        f_run = _tp_serve_run(jamba, mesh, dev)
+        _tp_hold_serve("(f)", jamba, f_run, ref["f"], rank, name_power, phase="5i", launches=0)
+        counts.update(f_prefill=f_run["prefill_reduces"], f_decode=f_run["decode_reduces"])
+        peaks.append(_tp5i_peaks("(f)", f_run, ref["f"]))
+        del f_run
+        gc.collect()
+        seconds["f"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        last = len(XLSTM_PROMPTS) - 1  # counted at the shortest prompt, as the dry run
+        for i, (n_tok, want) in enumerate(zip(XLSTM_PROMPTS, ref["g"])):
+            g_run = _tp_serve_run(xlstm, mesh, dev, prompt=n_tok, new=TP5I_XLSTM_NEW,
+                                  count=i == last)
+            _tp_hold_serve("(g)", xlstm, g_run, want, rank, name_power, phase="5i", launches=0)
+            if i == 0:  # the longest prompt's
+                peaks.append(_tp5i_peaks("(g) serving", g_run, want))
+            if i == last:
+                counts.update(g_prefill=g_run["prefill_reduces"],
+                              g_decode=g_run["decode_reduces"])
+        b = _tp_train_run(xlstm, mesh, dev, TP5I_TRAIN_ROWS, TP5I_TRAIN_SEQ)
+        want = ref["g_train"]
+        worst = _tp_hold_updates(xlstm, b, want, mesh, dev)
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], want["losses"]))
+        norm_err = max(abs(x - y) / abs(y) for x, y in zip(b["norms"], want["norms"]))
+        print(f"5i(g) rank {rank}, {xlstm.name} whole ({xlstm.dtype}), {TP_TRAIN_STEPS} AdamW "
+              f"steps (batch {TP5I_TRAIN_ROWS} x {TP5I_TRAIN_SEQ}) on the mesh against one rank: "
+              f"losses {' '.join(f'{x:.6f}' for x in b['losses'])} against "
+              f"{' '.join(f'{x:.6f}' for x in want['losses'])} (largest relative gap "
+              f"{loss_err:.3e}), grad norms largest relative gap {norm_err:.3e} (at most "
+              f"{TP_LOSS_RTOL}); init(0) blocks equal to the one-rank draws' slices; every "
+              f"leaf's update, ||diff|| / ||one rank's||: worst {worst[0]:.3e} ({worst[1]}; at "
+              f"most {TP_UPDATE_RTOL}); replicated leaves bit-equal across the ranks; host ms a "
+              f"step, gloo-staged (no speed claim) {' '.join(f'{x:.1f}' for x in b['ms'])} (one "
+              f"rank {' '.join(f'{x:.1f}' for x in want['ms'])}) ({name_power})", flush=True)
+        assert loss_err <= TP_LOSS_RTOL and norm_err <= TP_LOSS_RTOL, (loss_err, norm_err)
+        assert worst[0] <= TP_UPDATE_RTOL, worst
+        counts["g_train"] = b["train_reduces"]
+        peaks.append(f"(g) training peak {b['peak'] / 2**30:.3f} GiB a rank, one rank "
+                     f"{want['peak'] / 2**30:.3f} GiB")
+        del b
+        gc.collect()
+        seconds["g"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        layers = whisper.encoder_layers + 2 * whisper.num_layers  # encoder, self, cross
+        for kv, tag in (("auto", ""), ("1", "_seq")):
+            with _kv_mode(kv):
+                h_run = _tp_serve_run(whisper, mesh, dev, prompt=len(WHISPER_PROMPT),
+                                      new=TP5I_WHISPER_NEW, frames=WHISPER_FRAMES)
+            _tp_hold_serve(f"(h) REPRO_KV_SEQ_SHARD={kv}", whisper, h_run, ref["h_" + kv], rank,
+                           name_power, phase="5i", launches=layers,
+                           heads=(whisper.num_heads // 2, whisper.num_kv_heads // 2))
+            counts.update({"h_prefill" + tag: h_run["prefill_reduces"],
+                           "h_decode" + tag: h_run["decode_reduces"]})
+            peaks.append(_tp5i_peaks(f"(h) {kv}", h_run, ref["h_" + kv]))
+            del h_run
+        seconds["h"] = time.perf_counter() - t0
+
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(counts, f)
+        print(f"5i rank {rank}: " + "; ".join(peaks) + f" ({name_power})", flush=True)
+        ref_s = ref["seconds_" + str(rank)]
+        print(f"5i rank {rank}: references {t_ref:.1f} s ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in ref_s.items())
+              + f", the dry runs {t_dry:.1f}"
+              + "), the mesh's parts " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+              + f" s, the child {time.perf_counter() - t_child:.1f} s ({name_power})",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_mixers_children(name_power):
+    """Start phase 5i's two ranks (tp_mixers_child) beside the caller's
+    work; returns finish() (_tp_ranks'): (j) holds their collectives on
+    "model" equal to each other and to the dry runs' the two ranks made."""
+    return _tp_ranks("--tp-mixers-child", "5i(j)", name_power)
 
 
 # -- phase 5c: MoE, qwen2-moe-a2.7b at full width ----------------------------------
@@ -6026,9 +6396,9 @@ def mla_spans(mla):
     name."""
     from repro_torch.models import attention, moe
 
-    saved = (attention.torch, attention._mla_qsplit, attention.dense, attention.apply_norm,
-             attention.apply_rope, moe.apply_moe)
-    qsplit, dense, apply_norm, apply_rope, apply_moe = saved[1:]
+    saved = (attention.torch, attention._mla_qsplit, attention.dense, attention.row_dense,
+             attention.apply_norm, attention.apply_rope, moe.apply_moe)
+    qsplit, dense, row_dense, apply_norm, apply_rope, apply_moe = saved[1:]
     in_q = []
 
     def span(label, fn, *a, **kw):
@@ -6043,7 +6413,7 @@ def mla_spans(mla):
             in_q.pop()
 
     def dense_part(p, x):
-        if in_q:  # wq, inside the q span
+        if in_q:  # inside the q span
             return dense(p, x)
         latent = p["kernel"].shape[-1] == mla.kv_lora_rank + mla.qk_rope_head_dim
         return span("mla wkv_a + norm + rope" if latent else "mla wo", dense, p, x)
@@ -6054,14 +6424,15 @@ def mla_spans(mla):
     attention.torch = _MlaTorchSpans()
     attention._mla_qsplit = q_part
     attention.dense = dense_part
+    attention.row_dense = lambda *a, **kw: span("mla wo", row_dense, *a, **kw)
     attention.apply_norm = lambda *a, **kw: span("mla wkv_a + norm + rope", apply_norm, *a, **kw)
     attention.apply_rope = rope_part
     moe.apply_moe = lambda *a, **kw: span("moe layer", apply_moe, *a, **kw)
     try:
         yield
     finally:
-        (attention.torch, attention._mla_qsplit, attention.dense, attention.apply_norm,
-         attention.apply_rope, moe.apply_moe) = saved
+        (attention.torch, attention._mla_qsplit, attention.dense, attention.row_dense,
+         attention.apply_norm, attention.apply_rope, moe.apply_moe) = saved
 
 
 MLA_SPLIT = {  # span label -> the split's part
@@ -6462,10 +6833,9 @@ def mamba_spans(cfg):
     and apply_moe as a whole. The flash kernel is read by its name."""
     from repro_torch.models import mamba, moe
 
-    saved = (mamba.torch, mamba.dense, mamba._conv_causal, mamba._ssm_inputs,
-             mamba._chunk_states, mamba._gate_output, moe.apply_moe)
-    _, dense, conv, ssm, states, gate, apply_moe = saved
-    two_di = 2 * mamba._dims(cfg)[1]
+    saved = (mamba.torch, mamba.whole_cols, mamba.row_dense, mamba._conv_causal,
+             mamba._ssm_inputs, mamba._chunk_states, mamba._gate_output, moe.apply_moe)
+    _, whole_cols, row_dense, conv, ssm, states, gate, apply_moe = saved
     in_ssm = []
 
     def span(label, fn, *a, **kw):
@@ -6479,14 +6849,13 @@ def mamba_spans(cfg):
         finally:
             in_ssm.pop()
 
-    def dense_part(p, x):
-        if in_ssm:  # x_proj, dt_proj: inside their span
-            return dense(p, x)
-        label = "mamba in_proj" if p["kernel"].shape[-1] == two_di else "mamba gate + out_proj"
-        return span(label, dense, p, x)
+    def row_part(*a, **kw):  # x_proj inside its span, else out_proj
+        return row_dense(*a, **kw) if in_ssm else span("mamba gate + out_proj", row_dense, *a,
+                                                       **kw)
 
     mamba.torch = _MambaTorchSpans()
-    mamba.dense = dense_part
+    mamba.whole_cols = lambda *a, **kw: span("mamba in_proj", whole_cols, *a, **kw)
+    mamba.row_dense = row_part
     mamba._conv_causal = lambda *a, **kw: span("mamba conv", conv, *a, **kw)
     mamba._ssm_inputs = ssm_part
     mamba._chunk_states = lambda *a, **kw: span("mamba scan + C einsum", states, *a, **kw)
@@ -6495,8 +6864,8 @@ def mamba_spans(cfg):
     try:
         yield
     finally:
-        (mamba.torch, mamba.dense, mamba._conv_causal, mamba._ssm_inputs, mamba._chunk_states,
-         mamba._gate_output, moe.apply_moe) = saved
+        (mamba.torch, mamba.whole_cols, mamba.row_dense, mamba._conv_causal, mamba._ssm_inputs,
+         mamba._chunk_states, mamba._gate_output, moe.apply_moe) = saved
 
 
 MAMBA_SPLIT = {  # span label -> the split's part
@@ -7554,5 +7923,7 @@ if __name__ == "__main__":
         tp_only()
     elif sys.argv[1:2] == ["--tp-child"]:
         tp_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-mixers-child"]:
+        tp_mixers_child(sys.argv[2])
     else:
         main()

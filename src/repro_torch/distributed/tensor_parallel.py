@@ -35,10 +35,29 @@ an AbstractMesh (layouts only) leaves it inactive, and then every function
 here is the identity on its input: the one-rank path is unchanged, bit for
 bit. Collectives are counted by launch/costs.CostMode, per mesh dim.
 
+Layouts that a contiguous block does not fit are computed otherwise:
+
+  a column-parallel product whose output splits into parts (Mamba's
+  in_proj and the mLSTM's up_proj: x | z; the sLSTM's w_gates: i, f, z, o)
+  is gathered whole over the axis (`whole_cols`), and each consumer takes
+  its block of it (`local_slice`): a rank's contiguous block of such a leaf
+  holds x on one rank and z on the other, so the blocks stay the
+  reference's slices and the checkpoint, shard and convert code stays leaf
+  agnostic, at the cost of one all-gather of the output a layer;
+  a layout that replicates heads the axis does not divide (xlstm-125m's 4
+  heads on 8 ranks) computes every head on every rank and takes the rank's
+  block of d_inner for the row-parallel product;
+  a KV cache laid out over the sequence (sharding.cache_spec_for under
+  REPRO_KV_SEQ_SHARD) is combined flash-decode style (models/attention.py:
+  a MAX and a SUM all-reduce of each rank's partial softmax).
+
 `check_supported(cfg, mesh, serving)` refuses, before any collective, what
-this slice does not carry (ROADMAP queue 1 item 13j): MLA, Mamba, xLSTM and
-encoder-decoder archs on a model axis wider than 1, and (for prefill and
-decode) a KV cache laid out over the sequence.
+the port does not lay out: a config whose q heads, k / v columns, d_ff,
+experts, d_inner or MLA heads the axis does not divide (the layout would
+replicate what the port computes in blocks), and (serving) a cache over the
+sequence whose fallback widths the axis does not divide either, whose
+block could not then be told from a replicated cache by its shape. None of
+the ten registered archs at model axes 2 and 8.
 """
 
 from __future__ import annotations
@@ -51,9 +70,6 @@ import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.distributed import sharding as shd
-
-TP_13J = ("ROADMAP queue 1 item 13j (tensor parallelism for MLA, Mamba, xLSTM and "
-          "encoder-decoder layers, and the sequence-sharded KV layout)")
 
 class ModelAxis(NamedTuple):
     """A mesh's "model" group, this rank's coordinate on it and its size."""
@@ -110,37 +126,98 @@ def rank() -> int:
 # ---------------------------------------------------------------------------
 
 
-def check_supported(cfg, mesh, serving: bool = False) -> None:
-    """Raise NotImplementedError naming item 13j for an arch (or, serving, a
-    KV layout) that a model axis wider than 1 does not run yet."""
-    m = 1 if mesh is None else shd.axis_sizes(mesh).get("model", 1)
-    if m == 1:
-        return
-    kinds = sorted({s.mixer for s in cfg.layer_kinds()} - {"attn", "swa"})
-    if kinds or cfg.encoder_layers:
-        what = ", ".join(kinds + (["an encoder"] if cfg.encoder_layers else []))
-        raise NotImplementedError(f"{cfg.name} ({what}) on a model axis of {m}: {TP_13J}")
+def _widths(cfg, m) -> dict:
+    """{what: width} of the widths the port splits over the model axis, for
+    cfg's layer kinds, that an axis of m does not divide."""
+    kinds = {s.mixer for s in cfg.layer_kinds()}
+    mlps = {s.mlp for s in cfg.layer_kinds()}
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    widths = {"q heads": h, "k / v columns": kvh * hd}
-    if any(s.mlp == "mlp" for s in cfg.layer_kinds()):
+    widths = {}
+    if kinds & {"attn", "swa"} or cfg.encoder_layers:
+        widths.update({"q heads": h, "k / v columns": kvh * hd})
+    if "mla" in kinds:
+        widths["MLA heads"] = h
+    if "mlp" in mlps or cfg.encoder_layers:
         widths["d_ff"] = cfg.d_ff
-    if cfg.moe is not None:
+    if "mamba" in kinds:
+        widths["Mamba d_inner"] = cfg.mamba.expand * cfg.d_model
+    if "mlstm" in kinds:
+        widths["mLSTM d_inner"] = int(cfg.xlstm.mlstm_proj_factor * cfg.d_model)
+    if cfg.moe is not None and "moe" in mlps:
         widths["experts or expert d_ff"] = (
             cfg.moe.num_experts if cfg.moe.num_experts % m == 0 else cfg.moe.d_ff_expert)
         if cfg.moe.num_shared:
             widths["shared expert d_ff"] = cfg.moe.d_ff_expert * cfg.moe.num_shared
     odd = {k: v for k, v in widths.items() if v % m}
     g, local = h // kvh, h // m
-    if kvh % m and local % g and g % local:
+    if "q heads" in widths and kvh % m and local % g and g % local:
         odd["q heads a rank against the GQA group"] = local
+    return odd
+
+
+def check_supported(cfg, mesh, serving: bool = False) -> None:
+    """Raise NotImplementedError for a config (or, serving, a KV layout)
+    that a model axis wider than 1 would lay out in a way the port does not
+    compute (see the module's docstring)."""
+    m = 1 if mesh is None else shd.axis_sizes(mesh).get("model", 1)
+    if m == 1:
+        return
+    odd = _widths(cfg, m)
     if odd:
         raise NotImplementedError(
             f"{cfg.name} on a model axis of {m}: {odd} not a multiple of it (the layout would "
             f"replicate or split what the port computes in blocks)")
-    if serving and shd.want_kv_seq_shard(cfg.num_kv_heads, mesh):
+    if not serving:
+        return
+    kinds = {s.mixer for s in cfg.layer_kinds()}
+    mode = shd.kv_seq_mode()
+    if (kinds & {"attn", "swa"} or cfg.encoder_layers) and kv_seq(cfg.num_kv_heads, m) and (
+            cfg.num_kv_heads % m and cfg.head_dim % m):
         raise NotImplementedError(
-            f"{cfg.name}: a KV cache over the sequence (REPRO_KV_SEQ_SHARD="
-            f"{shd.kv_seq_mode()}, {cfg.num_kv_heads} kv heads on a model axis of {m}): {TP_13J}")
+            f"{cfg.name}: a KV cache over the sequence (REPRO_KV_SEQ_SHARD={mode}) whose "
+            f"{cfg.num_kv_heads} kv heads and head_dim {cfg.head_dim} a model axis of {m} does "
+            f"not divide: a prompt it does not divide either would be replicated")
+    if "mla" in kinds and kv_seq(0, m) and (
+            cfg.mla.kv_lora_rank % m or cfg.mla.qk_rope_head_dim % m):
+        raise NotImplementedError(
+            f"{cfg.name}: a latent cache over the sequence (REPRO_KV_SEQ_SHARD={mode}) whose "
+            f"kv_lora_rank {cfg.mla.kv_lora_rank} or rope dims {cfg.mla.qk_rope_head_dim} a "
+            f"model axis of {m} does not divide")
+
+
+def kv_seq(kv_heads: int, m: Optional[int] = None) -> bool:
+    """sharding.want_kv_seq_shard on a model axis of m (the active axis's
+    size by default): whether a KV cache of kv_heads heads (0: MLA's latent
+    cache) is laid out over the sequence where the axis divides it."""
+    return shd.want_kv_seq_shard(kv_heads, _model_only(size() if m is None else m))
+
+
+def _model_only(m: int):
+    return shd.AbstractMesh((m,), ("model",))
+
+
+class _Leaf(NamedTuple):
+    shape: tuple
+
+
+def cache_dim(key: str, shape, stacked: bool = False) -> Optional[int]:
+    """The dim sharding.cache_spec_for splits over the active model axis in
+    a whole cache leaf `key` ("k", "c_kv", "h", ...) of `shape` (batch first;
+    stacked: the periods first), or None (no axis, or a layout that keeps it
+    whole)."""
+    if _AXIS is None:
+        return None
+    path = ("stack/0/self/" if stacked else "self/") + key
+    return model_dim(shd.cache_spec_for(path, _Leaf(tuple(shape)), _model_only(_AXIS.size)))
+
+
+def cache_block(t: torch.Tensor, key: str, stacked: bool = False) -> torch.Tensor:
+    """The rank's block (a new tensor) of a whole cache leaf `key` under
+    sharding.cache_spec_for; t itself where the layout keeps it whole."""
+    dim = cache_dim(key, t.shape, stacked)
+    if dim is None:
+        return t
+    return local_slice(t, t.shape[dim] // size(), dim).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +314,32 @@ def argmax_over_model(logits: torch.Tensor) -> torch.Tensor:
     cand = torch.where(best == top, idx + rank() * n, torch.full_like(idx, n * size()))
     dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=_AXIS.group)
     return cand
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the axis in f32, no gradient (a new f32 tensor)."""
+    x = x.detach().float().clone()
+    if _AXIS is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_AXIS.group)
+    return x
+
+
+def gather_whole(x: torch.Tensor, whole: int, dim: int = -1) -> torch.Tensor:
+    """x whole along `dim`: gather_from_model where x is the rank's block of
+    `whole` entries, x itself where it already holds them all."""
+    return x if x.shape[dim] == whole else gather_from_model(x, dim)
+
+
+@contextlib.contextmanager
+def local():
+    """No axis inside the block: a layer whose layout replicated every leaf
+    it reads computes as one rank does, with no collective."""
+    global _AXIS
+    before, _AXIS = _AXIS, None
+    try:
+        yield
+    finally:
+        _AXIS = before
 
 
 # ---------------------------------------------------------------------------

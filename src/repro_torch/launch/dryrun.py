@@ -22,16 +22,17 @@ reference's keys where the quantity exists in the port: argument / output /
 temp bytes, hlo_flops and hlo_bytes (eager aten counts, not HLO), and the
 collectives per kind.
 
-The port's layouts are the reference's: on the production mesh an LM cell of
-the dense and MoE families runs tensor parallel over "model" (distributed/
-tensor_parallel.py): a rank's parameters, optimizer state and caches are
-its blocks under `distributed.sharding.param_specs`, the optimizer's
-state_specs and `cache_spec_for`, its collectives on the model group are
-the step's explicit ones, and the batch's rows split over ("pod", "data") as
-`batch_specs` lays them out. MLA, Mamba, xLSTM and encoder-decoder archs
-(and a KV cache over the sequence) raise NotImplementedError naming item
-13j before any collective; `mesh_override` with a model axis of 1 runs them
-data parallel. The reservoir runs on the production mesh: its sharded plans
+The port's layouts are the reference's: on the production mesh an LM cell
+runs tensor parallel over "model" (distributed/tensor_parallel.py): a
+rank's parameters, optimizer state and caches are its blocks under
+`distributed.sharding.param_specs`, the optimizer's state_specs and
+`cache_spec_for` (the KV layout REPRO_KV_SEQ_SHARD picks, heads or the
+sequence), its collectives on the model group are the step's explicit
+ones, and the batch's rows split over ("pod", "data") as `batch_specs` lays
+them out. A config whose widths the axis does not divide raises
+NotImplementedError before any collective (tensor_parallel.
+check_supported); `mesh_override` with a model axis of 1 runs it data
+parallel. The reservoir runs on the production mesh: its sharded plans
 split N over "model" (api/sharded.py), and take global tensors on every
 rank, which its argument bytes show.
 

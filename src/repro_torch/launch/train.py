@@ -11,8 +11,8 @@ runs under the watchdog as it is (python -m repro_torch.train.watchdog
 ...).
 
 `--mesh DxM` trains on a ("data", "model") mesh (`PxDxM`: ("pod", "data",
-"model")): data parallel over D, tensor parallel over M (the dense and MoE
-families; other archs are refused with item 13j), one process a rank under
+"model")): data parallel over D, tensor parallel over M (every arch; a
+config whose widths M does not divide is refused), one process a rank under
 torchrun, which sets RANK, WORLD_SIZE, LOCAL_RANK and the rendezvous
 address:
 

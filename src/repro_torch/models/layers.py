@@ -92,6 +92,18 @@ def row_dense(p, x, reduce: bool = True):
     return y
 
 
+def whole_cols(p, x, width: int):
+    """A column-parallel projection's whole output (..., width) on every
+    rank: the rank's columns gathered over the model axis (x is consumed in
+    part first, so through copy_to_model); a plain product where the layout
+    left the kernel whole. For a product whose output splits into parts
+    that a contiguous block does not respect (x | z, or the four gates):
+    each consumer then takes its block with tp.local_slice."""
+    if p["kernel"].shape[-1] == width:
+        return dense(p, x)
+    return tp.gather_from_model(col_dense(p, tp.copy_to_model(x)), -1)
+
+
 def out_bias(*ps):
     """The sum of the row-parallel projections' biases (0 where none has one)."""
     return sum((p["bias"] for p in ps if "bias" in p), 0)
@@ -121,6 +133,20 @@ def apply_norm(p, x, eps: float = 1e-6):
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def rms_norm_split(p, x, width: int, eps: float = 1e-6):
+    """An RMS norm over `width` features of which x holds the rank's block
+    (the rest on the other ranks): the sum of squares over the axis (one
+    all-reduce; its gradient summed back, since each rank reads it for its
+    block alone) and the rank's slice of the replicated scale. apply_norm
+    where x holds them all."""
+    if x.shape[-1] == width:
+        return apply_norm(p, x, eps)
+    xf = x.float()
+    ss = tp.copy_to_model(tp.reduce_from_model((xf * xf).sum(dim=-1, keepdim=True)))
+    y = xf * torch.rsqrt(ss / width + eps)
+    return (y * tp.local_slice(p["scale"], x.shape[-1]).float()).to(x.dtype)
 
 
 # --- MLPs ------------------------------------------------------------------

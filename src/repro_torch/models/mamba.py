@@ -18,9 +18,16 @@ cache dict it is given (the reference returns a new one): the transformer's
 decode hands a layer views of the period-stacked cache leaves and ignores
 what the layer returns.
 
-The reference's `constrain` calls (d_inner activations on the model axis)
-have no counterpart: the port runs a model axis of 1 only
-(distributed/sharding.py).
+On a model axis wider than 1 (distributed/tensor_parallel.py; the
+reference's `constrain` calls put d_inner on it) a rank holds its block of
+d_inner: in_proj is column-parallel, but its contiguous block does not
+respect the x | z split (on 2 ranks rank 0 holds all of x, rank 1 all of
+z), so its output is gathered whole (layers.whole_cols: one all-gather a
+call) and the rank takes its block of x and of z; conv_w / conv_b, dt_proj
+(column-parallel, its bias a block), a_log and d_skip are d_inner blocks;
+x_proj is row-parallel (one all-reduce makes dt, B and C whole before their
+norms); out_proj is row-parallel. The chunked scan and the states h and
+conv_tail are the rank's d_inner block, with no collective.
 """
 
 from __future__ import annotations
@@ -32,8 +39,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_full_f32_matmul
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import (
-    TensorSpec, _normal, apply_norm, dense, make_dense, make_norm,
+    TensorSpec, _normal, apply_norm, col_dense, make_dense, make_norm, row_dense, whole_cols,
 )
 
 
@@ -103,11 +111,12 @@ def _ssm_inputs(p, cfg: ModelConfig, xc):
     chunk at a time), so the (B, S, di, ds) tensors stay chunk-sized."""
     mc, _, dtr = _dims(cfg)
     ds = mc.d_state
-    xdb = dense(p["x_proj"], xc)  # (B, S, dtr + 2 ds)
-    dt = apply_norm(p["dt_norm"], xdb[..., :dtr])
-    bc = apply_norm(p["b_norm"], xdb[..., dtr : dtr + ds])
-    cc = apply_norm(p["c_norm"], xdb[..., dtr + ds :])
-    dt = F.softplus(dense(p["dt_proj"], dt).float())  # (B, S, di)
+    xdb = row_dense(p["x_proj"], xc)  # (B, S, dtr + 2 ds), whole
+    # the normed dt, B and C are whole; each rank reads them for its d_inner
+    dt = tp.copy_to_model(apply_norm(p["dt_norm"], xdb[..., :dtr]))
+    bc = tp.copy_to_model(apply_norm(p["b_norm"], xdb[..., dtr : dtr + ds]))
+    cc = tp.copy_to_model(apply_norm(p["c_norm"], xdb[..., dtr + ds :]))
+    dt = F.softplus(col_dense(p["dt_proj"], dt).float())  # (B, S, di)
     a = -torch.exp(p["a_log"])  # (di, ds)
     da = torch.exp(dt[..., None] * a)  # (B, S, di, ds)
     dbx = (dt * xc.float())[..., None] * bc.float()[..., None, :]  # (B, S, di, ds)
@@ -131,19 +140,27 @@ def _gate_output(p, y, xc, z, dtype):
     return (y * F.silu(z.float())).to(dtype)
 
 
+def _x_and_z(p, cfg: ModelConfig, x):
+    """in_proj's x and z parts, the rank's d_inner block of each."""
+    _, di, _ = _dims(cfg)
+    xz = whole_cols(p["in_proj"], x, 2 * di)
+    local = p["conv_w"].shape[1]
+    return tp.local_slice(xz[..., :di], local), tp.local_slice(xz[..., di:], local)
+
+
 def mamba_forward(p, cfg: ModelConfig, x, *, return_cache=False):
     """x: (B, S, D) -> (B, S, D) (+ decode cache {h, conv_tail}).
 
     Discretisation, the scan and the C projection all run one chunk at a
     time, so nothing of shape (B, S, di, ds) materialises; peak extra memory
     is (B, chunk, di, ds)."""
-    mc, di, _ = _dims(cfg)
+    mc, _, _ = _dims(cfg)
     ds = mc.d_state
     b, s, _ = x.shape
+    di = p["conv_w"].shape[1]  # the rank's d_inner
     if x.device.type == "cuda":
         require_full_f32_matmul()
-    xz = dense(p["in_proj"], x)
-    x1, z = xz[..., :di], xz[..., di:]
+    x1, z = _x_and_z(p, cfg, x)
     xc, tail = _conv_causal(p["conv_w"], p["conv_b"], x1)
     xc = F.silu(xc)
 
@@ -162,7 +179,7 @@ def mamba_forward(p, cfg: ModelConfig, x, *, return_cache=False):
         ys.append(torch.einsum("bsdn,bsn->bsd", h_all, cc))  # (B, chunk, di)
         h = h_all[:, -1]
     y = torch.cat(ys, dim=1)[:, :s]
-    out = dense(p["out_proj"], _gate_output(p, y, xc, z, x.dtype))
+    out = row_dense(p["out_proj"], _gate_output(p, y, xc, z, x.dtype))
     if return_cache:  # h: a copy, not a view that keeps the last chunk alive
         return out, {"h": h.clone(), "conv_tail": tail}
     return out
@@ -171,17 +188,15 @@ def mamba_forward(p, cfg: ModelConfig, x, *, return_cache=False):
 def mamba_decode(p, cfg: ModelConfig, x, cache):
     """One-token recurrent step. x: (B, 1, D). Writes the new h and
     conv_tail into `cache` IN PLACE and returns (y, cache)."""
-    _, di, _ = _dims(cfg)
     if x.device.type == "cuda":
         require_full_f32_matmul()
-    xz = dense(p["in_proj"], x)
-    x1, z = xz[..., :di], xz[..., di:]
+    x1, z = _x_and_z(p, cfg, x)
     xc, tail = _conv_causal(p["conv_w"], p["conv_b"], x1, cache["conv_tail"])
     xc = F.silu(xc)
     da, dbx, cc = _ssm_inputs(p, cfg, xc)  # (B, 1, di, ds)
     h = da[:, 0] * cache["h"] + dbx[:, 0]  # (B, di, ds)
     y = torch.einsum("bdn,bn->bd", h, cc[:, 0])[:, None]  # (B, 1, di)
-    out = dense(p["out_proj"], _gate_output(p, y, xc, z, x.dtype))
+    out = row_dense(p["out_proj"], _gate_output(p, y, xc, z, x.dtype))
     cache["h"].copy_(h)
     cache["conv_tail"].copy_(tail)
     return out, cache

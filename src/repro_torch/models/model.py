@@ -8,12 +8,13 @@ an explicit torch.Generator; parameters and caches live on `device`
 ("cuda" by default; raises without a card unless device="cpu").
 
 `build_model(cfg, device, mesh)` on a mesh whose "model" axis is wider than 1
-(the dense and MoE families; distributed/tensor_parallel.py) runs on a
-rank's blocks: `init` gives the blocks of the one-rank init, `loss_fn`,
-`forward`, `prefill` and `decode_step` compute the rank's share with the
-mesh's model axis active (prefill's logits and the caches are the rank's
-blocks), and `cache_specs` gives the blocks' shapes. Other archs, and a KV
-cache laid out over the sequence, raise NotImplementedError (item 13j).
+(every arch; distributed/tensor_parallel.py) runs on a rank's blocks: `init`
+gives the blocks of the one-rank init, `loss_fn`, `forward`, `prefill` and
+`decode_step` compute the rank's share with the mesh's model axis active
+(prefill's logits and the caches are the rank's blocks, its heads or, under
+REPRO_KV_SEQ_SHARD, its rows of the sequence), and `cache_specs` gives the
+blocks' shapes. A config whose widths the axis does not divide raises
+NotImplementedError (tensor_parallel.check_supported).
 """
 
 from __future__ import annotations

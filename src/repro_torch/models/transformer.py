@@ -49,16 +49,20 @@ encoder_frames raises ValueError (the reference fails on it with a
 KeyError); so the entry points that feed token batches only (the LM Engine
 and the trainer) refuse whisper at their first prefill or step.
 
-On a mesh whose "model" axis is wider than 1 (the dense and MoE families:
-distributed/tensor_parallel.py) `init_params(cfg, generator, mesh)` gives a
-rank its blocks of the one-rank init's leaves (sharding.param_specs), drawn
-layer by layer as one rank draws them, so a rank holds at most one layer's
-whole leaves beyond its blocks; the layers compute on blocks (attention
-heads, MLP and expert columns, vocab rows) with the collectives in the
+On a mesh whose "model" axis is wider than 1 (distributed/
+tensor_parallel.py) `init_params(cfg, generator, mesh)` gives a rank its
+blocks of the one-rank init's leaves (sharding.param_specs; an encoder's
+layers too), drawn layer by layer as one rank draws them, so a rank holds at
+most one layer's whole leaves beyond its blocks; the layers compute on
+blocks (attention and MLA heads, MLP and expert columns, Mamba's and the
+mLSTM's d_inner, the sLSTM's heads, vocab rows) with the collectives in the
 layers' code; a parallel block sums its mixer's and its MLP's row-parallel
 partials before one all-reduce; `cache_specs(..., mesh=mesh)` gives a rank's
 cache blocks (sharding.cache_spec_for), which prefill returns and decode
-writes in place, and which `pad_caches` pads as it pads whole caches.
+writes in place, and which `pad_caches(..., mesh=mesh)` pads: a leaf whose
+layout lies over the sequence, at the prompt's length or at the capacity,
+is gathered whole, padded and cut to the rank's block of the padded cache,
+so rows move between ranks.
 """
 
 from __future__ import annotations
@@ -313,8 +317,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, mesh=None):
         p["stack"] = stack
     if cross:
         p["encoder"] = {
-            "layers": [_init_layer(generator, cfg, _ENCODER_SPEC, dtype)
-                       for _ in range(cfg.encoder_layers)],
+            "layers": [cut(_init_layer(generator, cfg, _ENCODER_SPEC, dtype),
+                           "encoder", "layers", i) for i in range(cfg.encoder_layers)],
             "final_norm": layers.make_norm(cfg.norm_type, cfg.d_model, dtype, generator.device),
         }
         # the decoder's learned positions (whisper's)
@@ -484,13 +488,20 @@ def decode_step(p, cfg: ModelConfig, tokens, caches, pos):
 _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")
 
 
-def pad_caches(cfg: ModelConfig, caches, capacity: int):
+def pad_caches(cfg: ModelConfig, caches, capacity: int, mesh=None):
     """Grow prefill caches (seq axis) to `capacity` with zeros so decode can
     append: attention k / v (B, S, KVH, D) and MLA latents c_kv (B, S, r) /
     k_rope (B, S, dr). Self caches in the period stack carry a leading
     num_periods axis (seq axis 2); prefix-layer caches have it at axis 1.
     A "cross" cache (the encoder's k / v) passes through as it is: decode
-    reads every row of it, so a padded zero key would change the result."""
+    reads every row of it, so a padded zero key would change the result.
+
+    With a mesh whose model axis is wider than 1 the caches are a rank's
+    blocks: a leaf laid out over the sequence (its prompt rows, or the
+    capacity's under cache_spec_for) is gathered whole over the axis,
+    padded, and cut to the rank's block of the padded leaf (its rows
+    [r C / m, (r + 1) C / m), or, where the axis does not divide the
+    capacity, its heads or columns); other blocks are padded in place."""
 
     def pad_layer(c, stacked):
         out = {}
@@ -498,23 +509,48 @@ def pad_caches(cfg: ModelConfig, caches, capacity: int):
             if part == "cross":
                 out[part] = sub
                 continue
-            o = {}
-            for k, v in sub.items():
-                if k in _SEQ_CACHE_KEYS:
-                    axis = 2 if stacked else 1
-                    pad = [0, 0] * (v.dim() - axis - 1) + [0, capacity - v.shape[axis]]
-                    o[k] = torch.nn.functional.pad(v, pad)
-                else:
-                    o[k] = v
-            out[part] = o
+            axis = 2 if stacked else 1
+            out[part] = {k: _pad_leaf(cfg, k, v, axis, capacity) if k in _SEQ_CACHE_KEYS else v
+                         for k, v in sub.items()}
         return out
 
     out = {}
-    if "prefix" in caches:
-        out["prefix"] = [pad_layer(c, stacked=False) for c in caches["prefix"]]
-    if "stack" in caches:
-        out["stack"] = [pad_layer(c, stacked=True) for c in caches["stack"]]
+    with tp.using(mesh):
+        if "prefix" in caches:
+            out["prefix"] = [pad_layer(c, stacked=False) for c in caches["prefix"]]
+        if "stack" in caches:
+            out["stack"] = [pad_layer(c, stacked=True) for c in caches["stack"]]
     return out
+
+
+def _seq_leaf_widths(cfg: ModelConfig, key: str):
+    """A sequence cache leaf's whole widths after its seq axis, and the kv
+    heads its layout policy reads (0: a latent cache)."""
+    if key in ("k", "v"):
+        return (cfg.num_kv_heads, cfg.head_dim), cfg.num_kv_heads
+    if key == "c_kv":
+        return (cfg.mla.kv_lora_rank,), 0
+    return (cfg.mla.qk_rope_head_dim,), 0
+
+
+def _pad_seq(t, axis: int, capacity: int):
+    pad = [0, 0] * (t.dim() - axis - 1) + [0, capacity - t.shape[axis]]
+    return torch.nn.functional.pad(t, pad)
+
+
+def _pad_leaf(cfg: ModelConfig, key: str, t, axis: int, capacity: int):
+    """One leaf (a rank's block on an active model axis) padded to
+    `capacity` rows along `axis` (see pad_caches)."""
+    whole, kv = _seq_leaf_widths(cfg, key)
+    before = attention.cache_model_dim(t.shape[axis - 1:], whole, kv)  # the block's
+    if before is None:
+        return _pad_seq(t, axis, capacity)
+    before += axis - 1
+    after = tp.cache_dim(key, t.shape[:axis] + (capacity,) + whole, stacked=axis == 2)
+    if before == after != axis:  # the same heads or columns: pad the block in place
+        return _pad_seq(t, axis, capacity)
+    t = _pad_seq(tp.gather_from_model(t, before), axis, capacity)
+    return tp.cache_block(t, key, stacked=axis == 2)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 4096, mesh=None):

@@ -25,17 +25,41 @@ REPRO_REMAT_POLICY is not (models/transformer.py).
 Both decodes write their new states IN PLACE into the cache dict they are
 given (the reference returns new ones): the transformer's decode hands a
 layer views of the period-stacked cache leaves and ignores what it returns.
+
+On a model axis wider than 1 (distributed/tensor_parallel.py) a rank holds
+the reference's blocks. mLSTM: up_proj's output is gathered whole (its
+contiguous block does not respect the x | z split: layers.whole_cols) and
+the rank takes its d_inner block of x for its conv (conv_w / conv_b blocks)
+and of z for the gate; the conv's output is gathered whole, since wq / wk /
+wv (column-parallel) and w_if (replicated) read all of d_inner. Where the
+axis divides the heads a rank computes its heads (wq / wk / wv's blocks are
+whole heads) and the hidden state's RMS norm sums its squares over the axis
+(layers.rms_norm_split); where it does not (xlstm-125m's 4 heads on 8 ranks:
+the layout replicates the states), every rank computes every head from q, k
+and v gathered whole and takes its block of d_inner for down_proj, which is
+row-parallel. sLSTM: w_gates' contiguous block holds whole gates (i and f
+on one rank of 2), not heads, so its output is gathered whole once a layer
+(never once a token) and the rank runs the recurrence on its heads of
+r_gates, with no collective inside the loop; the hidden states are gathered
+whole for hnorm, and the c state, whose layout is replicated, is gathered
+after the loop; heads the axis does not divide run whole on every rank. The
+gelu FFN is column then row parallel, or whole where the axis does not
+divide its width (a reduced config's 85).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_full_f32_matmul
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import (
-    TensorSpec, _normal, apply_mlp, apply_norm, dense, make_dense, make_mlp, make_norm,
+    TensorSpec, _normal, apply_mlp, apply_norm, col_dense, dense, make_dense, make_mlp, make_norm,
+    rms_norm_split, row_dense, whole_cols,
 )
 from repro_torch.models.mamba import _conv_causal
 
@@ -81,20 +105,43 @@ def make_mlstm(generator, cfg: ModelConfig, dtype):
 
 
 def _mlstm_qkvgates(p, cfg: ModelConfig, x_in, conv_tail=None):
-    di = p["wq"]["kernel"].shape[0]
-    h = cfg.num_heads
-    dh = di // h
-    up = dense(p["up_proj"], x_in)
+    """q, k, v (B, S, heads, dh) and the gates' pre-activations (B, S, heads)
+    of the rank's heads (every head where the axis does not divide them),
+    the rank's d_inner block of z, the conv's new tail, (heads, dh)."""
+    di, h, dh = _mlstm_dims(cfg)
+    local = p["conv_w"].shape[1]  # the rank's d_inner
+    up = whole_cols(p["up_proj"], x_in, 2 * di)
     xm, z = up[..., :di], up[..., di:]
-    xcv, tail = _conv_causal(p["conv_w"], p["conv_b"], xm, conv_tail)
-    xcv = F.silu(xcv)
+    xcv, tail = _conv_causal(p["conv_w"], p["conv_b"], tp.local_slice(xm, local), conv_tail)
+    xcv = tp.gather_whole(F.silu(xcv), di)
     b, s, _ = xm.shape
-    q = dense(p["wq"], xcv).reshape(b, s, h, dh)
-    k = dense(p["wk"], xcv).reshape(b, s, h, dh) * dh**-0.5
-    v = dense(p["wv"], xm).reshape(b, s, h, dh)
-    gates = dense(p["w_if"], xm).float()  # (B, S, 2H)
-    i_pre, f_pre = gates[..., :h], gates[..., h:]
-    return q, k, v, i_pre, f_pre, z, tail, (h, dh)
+    if local < di and h % tp.size() == 0:  # the rank's heads
+        hl = h // tp.size()
+        q = col_dense(p["wq"], tp.copy_to_model(xcv)).reshape(b, s, hl, dh)
+        k = col_dense(p["wk"], tp.copy_to_model(xcv)).reshape(b, s, hl, dh) * dh**-0.5
+        v = col_dense(p["wv"], tp.copy_to_model(xm)).reshape(b, s, hl, dh)
+        gates = tp.copy_to_model(dense(p["w_if"], xm).float())  # (B, S, 2H), whole
+        h0 = tp.rank() * hl
+        i_pre, f_pre = gates[..., h0:h0 + hl], gates[..., h + h0:h + h0 + hl]
+    else:  # every head
+        hl = h
+        q = whole_cols(p["wq"], xcv, di).reshape(b, s, h, dh)
+        k = whole_cols(p["wk"], xcv, di).reshape(b, s, h, dh) * dh**-0.5
+        v = whole_cols(p["wv"], xm, di).reshape(b, s, h, dh)
+        gates = dense(p["w_if"], xm).float()  # (B, S, 2H)
+        i_pre, f_pre = gates[..., :h], gates[..., h:]
+    return q, k, v, i_pre, f_pre, tp.local_slice(z, local), tail, (hl, dh)
+
+
+def _mlstm_out(p, cfg: ModelConfig, x, hid, z):
+    """x + down_proj(hnorm(hid) * silu(z)): hid the rank's heads (its block
+    of d_inner) or every head, z its block; down_proj row-parallel."""
+    di, local = _mlstm_dims(cfg)[0], z.shape[-1]
+    if hid.shape[-1] > local:  # every head: the rank's block of the normed whole
+        hid = tp.local_slice(apply_norm(p["hnorm"], hid), local)
+    else:
+        hid = rms_norm_split(p["hnorm"], hid, di)
+    return x + row_dense(p["down_proj"], hid * F.silu(z))
 
 
 def mlstm_forward(p, cfg: ModelConfig, x, *, return_cache=False):
@@ -132,9 +179,7 @@ def mlstm_forward(p, cfg: ModelConfig, x, *, return_cache=False):
     else:
         hid = hid_chunk(q, cumf, 0, s)
 
-    hid = hid.reshape(b, s, h * dh).to(x.dtype)
-    hid = apply_norm(p["hnorm"], hid) * F.silu(z)
-    out = x + dense(p["down_proj"], hid)
+    out = _mlstm_out(p, cfg, x, hid.reshape(b, s, h * dh).to(x.dtype), z)
     if not return_cache:
         return out
     # the recurrent state equivalent to having consumed the sequence
@@ -173,9 +218,7 @@ def mlstm_decode(p, cfg: ModelConfig, x, cache):
     n = fw * cache["n"] + iw * k
     num = torch.einsum("bhde,bhd->bhe", c, q)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, q)), torch.exp(-m_new))
-    hid = (num / den[..., None]).reshape(b, 1, h * dh).to(x.dtype)
-    hid = apply_norm(p["hnorm"], hid) * F.silu(z)
-    out = x + dense(p["down_proj"], hid)
+    out = _mlstm_out(p, cfg, x, (num / den[..., None]).reshape(b, 1, h * dh).to(x.dtype), z)
     for key, new in (("c", c), ("n", n), ("m", m_new), ("conv_tail", tail)):
         cache[key].copy_(new)
     return out, cache
@@ -214,15 +257,24 @@ def make_slstm(generator, cfg: ModelConfig, dtype):
     }
 
 
-def _slstm_recurrent(p, cfg: ModelConfig):
-    """The step's f32 recurrent matrices (4, H, dh, dh) and biases (1, 4, H,
-    dh)."""
-    return p["r_gates"].float(), p["b_gates"].float().reshape(1, 4, cfg.num_heads, -1)
+def _slstm_inputs(p, cfg: ModelConfig, xn):
+    """The input pre-activations (B, S, 4, heads, dh) f32, the recurrent
+    matrices (4, heads, dh, dh) f32 and biases (1, 4, heads, dh) of the
+    rank's heads (every head where r_gates is whole). w_gates' output is
+    gathered whole first (its block holds gates, not heads)."""
+    b, s, d = xn.shape
+    h = cfg.num_heads
+    wx = whole_cols(p["w_gates"], xn, 4 * d).float().reshape(b, s, 4, h, d // h)
+    r, bias = p["r_gates"].float(), p["b_gates"].float().reshape(1, 4, h, -1)
+    hl = r.shape[1]
+    if hl < h:
+        wx, bias = tp.local_slice(wx, hl, dim=3), tp.local_slice(bias, hl, dim=2)
+    return wx, r, bias
 
 
 def _slstm_step(r, bias, wx_t, state):
     """wx_t: (B, 4, H, dh) input pre-activations; r, bias from
-    _slstm_recurrent; state: (c, n, m, h_prev)."""
+    _slstm_inputs; state: (c, n, m, h_prev)."""
     c, n, m, h_prev = state
     rh = torch.einsum("ghde,bhe->bghd", r, h_prev)
     pre = wx_t + rh + bias
@@ -244,11 +296,14 @@ def _slstm_init_state(b, h, dh, device):
     return (z, z, torch.full((b, h, dh), 0.0, dtype=torch.float32, device=device), z)
 
 
-def _slstm_out(p, x, hid):
-    """The block's output from the hidden states: hnorm, the residual, then
-    the gelu FFN with its own norm and residual."""
+def _slstm_out(p, cfg: ModelConfig, x, hid):
+    """The block's output from the hidden states (every head's, whole):
+    hnorm, the residual, then the gelu FFN with its own norm and residual
+    (whole, with no collective, where the layout replicated it)."""
     y = x + apply_norm(p["hnorm"], hid.to(x.dtype))
-    return y + apply_mlp(p["ffn"], apply_norm(p["ffn_norm"], y), "gelu")
+    whole = p["ffn"]["w_in"]["kernel"].shape[1] == int(cfg.xlstm.slstm_proj_factor * cfg.d_model)
+    with tp.local() if whole else contextlib.nullcontext():
+        return y + apply_mlp(p["ffn"], apply_norm(p["ffn_norm"], y), "gelu")
 
 
 def slstm_forward(p, cfg: ModelConfig, x, *, return_cache=False):
@@ -256,18 +311,18 @@ def slstm_forward(p, cfg: ModelConfig, x, *, return_cache=False):
     b, s, d = x.shape
     h, dh = cfg.num_heads, d // cfg.num_heads
     xn = apply_norm(p["norm"], x)
-    wx = dense(p["w_gates"], xn).float().reshape(b, s, 4, h, dh)
-    r, bias = _slstm_recurrent(p, cfg)
-    state = _slstm_init_state(b, h, dh, x.device)
+    wx, r, bias = _slstm_inputs(p, cfg, xn)
+    state = _slstm_init_state(b, r.shape[1], dh, x.device)
     hs = []
     for wx_t in wx.unbind(1):
         state = _slstm_step(r, bias, wx_t, state)
         hs.append(state[3])
-    y = _slstm_out(p, x, torch.stack(hs, dim=1).reshape(b, s, d))
+    hid = tp.gather_whole(torch.stack(hs, dim=1), h, 2)
+    y = _slstm_out(p, cfg, x, hid.reshape(b, s, d))
     if not return_cache:
         return y
-    c, n, m, hp = state
-    return y, {"c": c, "n": n, "m": m, "h": hp}
+    c, n, m, hp = state  # c's layout is whole (cache_spec_for); n, m, h by heads
+    return y, {"c": tp.gather_whole(c, h, 1), "n": n, "m": m, "h": hp}
 
 
 def slstm_decode(p, cfg: ModelConfig, x, cache):
@@ -277,11 +332,13 @@ def slstm_decode(p, cfg: ModelConfig, x, cache):
     b, _, d = x.shape
     h, dh = cfg.num_heads, d // cfg.num_heads
     xn = apply_norm(p["norm"], x)
-    wx = dense(p["w_gates"], xn).float().reshape(b, 4, h, dh)
-    r, bias = _slstm_recurrent(p, cfg)
-    new = _slstm_step(r, bias, wx, (cache["c"], cache["n"], cache["m"], cache["h"]))
-    y = _slstm_out(p, x, new[3].reshape(b, 1, d))
-    for key, t in zip(("c", "n", "m", "h"), new):
+    wx, r, bias = _slstm_inputs(p, cfg, xn)
+    hl = r.shape[1]
+    c = cache["c"] if hl == h else cache["c"].narrow(1, tp.rank() * hl, hl)
+    new = _slstm_step(r, bias, wx[:, 0], (c, cache["n"], cache["m"], cache["h"]))
+    y = _slstm_out(p, cfg, x, tp.gather_whole(new[3], h, 1).reshape(b, 1, d))
+    cache["c"].copy_(tp.gather_whole(new[0], h, 1))
+    for key, t in zip(("n", "m", "h"), new[1:]):
         cache[key].copy_(t)
     return y, cache
 

@@ -16,8 +16,8 @@ checkpoint (train/checkpoint.py reads either package's).
 
 A mesh (`train(cfg, loop, mesh=DeviceMesh)`) splits the batch over its
 batch axes and, where its "model" axis is wider than 1, the model over that
-axis (tensor parallel: distributed/tensor_parallel.py; the dense and MoE
-families, other archs NotImplementedError naming item 13j before any
+axis (tensor parallel: distributed/tensor_parallel.py; every arch, and a
+config whose widths the axis does not divide NotImplementedError before any
 collective). Every model rank of a batch coordinate takes the same rows;
 its parameters and optimizer state are its blocks (sharding.param_specs /
 the optimizer's state_specs), from the one-rank init's draws or sliced from

@@ -390,6 +390,12 @@ def _plain_bshd(q, k, v, causal, window):
         ((4, 16, 4, 200, 200, 80), True, 64),  # h2o-danube's heads a rank, model axis 2
         ((4, 4, 1, 200, 200, 80), True, 64),  # h2o-danube's heads a rank, model axis 8
         ((4, 8, 8, 300, 300, 128), True, 0),  # qwen2-moe's heads a rank, model axis 2
+        ((4, 8, 8, 300, 300, 192), True, 0),  # deepseek's MLA heads a rank, model axis 2
+        ((4, 2, 2, 300, 300, 192), True, 0),  # deepseek's MLA heads a rank, model axis 8
+        ((4, 4, 4, 1500, 1500, 64), False, 0),  # whisper's encoder heads a rank, axis 2
+        ((4, 4, 4, 4, 4, 64), True, 0),  # whisper's self prefill heads a rank, axis 2
+        ((4, 4, 4, 4, 1500, 64), False, 0),  # whisper's cross prefill heads a rank, axis 2
+        ((4, 1, 1, 4, 1500, 64), False, 0),  # whisper's cross prefill heads a rank, axis 8
     ],
 )
 def test_flash_matches_plain(cuda, dtype, shape, causal, window):

@@ -26,8 +26,9 @@ core/ensemble.lower_sharded_ensemble) on the CPU.
     tensor parallel on it (--device cpu): a rank's argument bytes are its
     parameter and cache blocks' and its rows', its all-reduces on "model"
     the hand count (the embedding, each layer's attention and MLP, the
-    greedy token's two), no other collective; an MLA cell raises
-    NotImplementedError naming item 13j before any process group exists; no
+    greedy token's two), no other collective; an MLA cell passes
+    tp.check_supported on it, and on a model axis of 3, which divides none
+    of its heads, raises NotImplementedError before any process group; no
     process group is left behind; the production reservoir dry run (N = 16 384,
     E = 8 192, 2 steps) completes in a subprocess.
   - The roofline's MODEL_FLOPS equal the reference's formulas
@@ -265,8 +266,9 @@ def test_production_mesh():
 
 
 def test_production_lm_cell_waits_on_13b():
-    """A dense production cell now runs tensor parallel (model axis 8);
-    deepseek's MLA cell is refused (item 13j) before any process group."""
+    """A dense production cell runs tensor parallel (model axis 8);
+    deepseek's MLA cell is laid out there too (item 13j), and refused on a
+    model axis of 3 before any process group."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import transformer
@@ -295,8 +297,10 @@ def test_production_lm_cell_waits_on_13b():
     assert {k: v["count"] for k, v in rec["collectives"].items() if v["count"]} == {
         "all-reduce": reduces}
     assert set(rec["collective_bytes_by_dim"]) == {"model"}
-    with pytest.raises(NotImplementedError, match="item 13j"):
-        dryrun.lower_cell("deepseek-v2-lite-16b", "decode_32k", multi_pod=False, device="cpu")
+    tp.check_supported(get_config("deepseek-v2-lite-16b"), mesh, serving=True)
+    with pytest.raises(NotImplementedError, match="not a multiple of it"):
+        dryrun.lower_cell("deepseek-v2-lite-16b", "decode_32k", multi_pod=False, device="cpu",
+                          mesh_override=((32, 3), ("data", "model")))
     assert not dist.is_initialized()
 
 

@@ -67,7 +67,7 @@ from repro.train import LoopConfig as JLoopConfig
 from repro.train import restore_checkpoint as jrestore
 from repro.train import train as jtrain
 from repro_torch import tree
-from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs import get_config, list_configs, reduce_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import transformer
@@ -477,18 +477,46 @@ def test_only_a_split_head_gathers(runs, case):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "xlstm-125m", "whisper-base",
                                   "jamba-1.5-large-398b"])
 def test_other_archs_wait_on_13j(arch):
+    """Item 13j is done: MLA, xLSTM, whisper and jamba lay out on a model
+    axis of 2, for training and serving (tests/test_torch_tp_mixers.py runs
+    them); an axis of 3 divides none of their split widths (heads, d_inner)
+    and is refused, and data parallel runs."""
     cfg = reduce_config(get_config(arch))
-    mesh = shd.AbstractMesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 13j"):
-        tp.check_supported(cfg, mesh)
+    tp.check_supported(cfg, shd.AbstractMesh((2, 2), ("data", "model")))
+    tp.check_supported(cfg, shd.AbstractMesh((2, 2), ("data", "model")), serving=True)
+    with pytest.raises(NotImplementedError, match="not a multiple of it"):
+        tp.check_supported(cfg, shd.AbstractMesh((1, 3), ("data", "model")))
     tp.check_supported(cfg, shd.AbstractMesh((4, 1), ("data", "model")))  # data parallel runs
 
 
 def test_a_sequence_sharded_cache_waits_on_13j(monkeypatch):
+    """A KV cache over the sequence serves (item 13j is done), except where
+    the axis divides neither the kv heads nor head_dim: a prompt it does not
+    divide either would be replicated, a block the port could not tell from
+    the rows of a sequence-sharded cache by its shape."""
     cfg = reduce_config(get_config("h2o-danube-1.8b"))
     mesh = shd.AbstractMesh((1, 2), ("data", "model"))
     tp.check_supported(cfg, mesh, serving=True)
     monkeypatch.setenv("REPRO_KV_SEQ_SHARD", "1")
-    tp.check_supported(cfg, mesh)  # training keeps no cache
-    with pytest.raises(NotImplementedError, match="item 13j"):
-        tp.check_supported(cfg, mesh, serving=True)
+    tp.check_supported(cfg, mesh, serving=True)
+    odd = dataclasses.replace(cfg, num_kv_heads=2, head_dim=6)
+    four = shd.AbstractMesh((1, 4), ("data", "model"))
+    tp.check_supported(odd, four)  # training keeps no cache
+    with pytest.raises(NotImplementedError, match="over the sequence"):
+        tp.check_supported(odd, four, serving=True)
+    monkeypatch.setenv("REPRO_KV_SEQ_SHARD", "0")
+    tp.check_supported(odd, four, serving=True)
+
+
+@pytest.mark.parametrize("arch", sorted(list_configs()))
+def test_every_arch_runs_on_model_axes_2_and_8(arch, monkeypatch):
+    """tp.check_supported refuses none of the registered archs on model
+    axes 2 and 8 (the production mesh's), for training and serving, under
+    every KV layout policy."""
+    cfg = get_config(arch)
+    for mode in ("0", "1", "auto"):
+        monkeypatch.setenv("REPRO_KV_SEQ_SHARD", mode)
+        for m in (2, 8):
+            mesh = shd.AbstractMesh((32 // m, m), ("data", "model"))
+            tp.check_supported(cfg, mesh)
+            tp.check_supported(cfg, mesh, serving=True)

@@ -739,9 +739,9 @@ def test_batch_and_cache_specs_match_reference(arch, shape, names, mode, monkeyp
 
 def test_constraints_refuse_a_model_axis():
     """constrain is the identity with or without a registered mesh (the
-    port's collectives are explicit); a model axis of 2 registers, and what
-    it does not run yet (here deepseek-v2-lite's MLA) is refused, naming
-    item 13j."""
+    port's collectives are explicit); a model axis of 2 registers and runs
+    deepseek-v2-lite's MLA (item 13j), and an axis that does not divide its
+    heads is refused."""
     x = torch.ones(2, 3)
     assert shd.constrain(x, shd.BATCH, None) is x  # no mesh registered
     one = shd.AbstractMesh((2, 1), ("data", "model"))
@@ -754,8 +754,10 @@ def test_constraints_refuse_a_model_axis():
             shd.enable_constraints(None)
     from repro_torch.distributed import tensor_parallel as tp
 
-    with pytest.raises(NotImplementedError, match="item 13j"):
-        tp.check_supported(reduce_config(get_config("deepseek-v2-lite-16b")), two)
+    mla = reduce_config(get_config("deepseek-v2-lite-16b"))
+    tp.check_supported(mla, two, serving=True)
+    with pytest.raises(NotImplementedError, match="not a multiple of it"):
+        tp.check_supported(mla, shd.AbstractMesh((1, 3), ("data", "model")))
 
 
 @pytest.mark.parametrize("name", ["adamw", "adafactor", "sgd"])

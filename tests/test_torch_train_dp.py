@@ -16,8 +16,8 @@ against the reference's unsharded run with microbatch 1 resumed from the
 same checkpoint: the mean of the 4 microbatches' means. The ranks also train
 a global batch of 3 from init (which the data axis does not divide:
 replicated, the gradients averaged), held against one process's run of it,
-and ask for reduced deepseek-v2-lite (MLA) on a (1, 2) mesh (tensor
-parallelism for MLA waits on item 13j) and for a global batch of 12 with
+and ask for reduced deepseek-v2-lite (MLA) with 3 heads on a (1, 2) mesh
+(the axis does not divide its heads) and for a global batch of 12 with
 microbatch 4 (6 rows a rank, not whole microbatches), each refused before
 any collective.
 
@@ -111,7 +111,9 @@ for tag, shape, names, extra in (
 
 from repro_torch.launch import costs
 
-mla = reduce_config(get_config("deepseek-v2-lite-16b"))
+import dataclasses
+
+mla = dataclasses.replace(reduce_config(get_config("deepseek-v2-lite-16b")), num_heads=3)
 for tag, shape, extra, exc_type, arch_cfg in (
         ("tp", (1, 2), {{}}, NotImplementedError, mla),
         ("partial", (2, 1), {PARTIAL}, ValueError, cfg)):
@@ -249,11 +251,11 @@ def test_a_batch_the_axis_does_not_divide_is_replicated_and_trains(runs):
 
 
 @pytest.mark.parametrize("tag,message", [
-    ("tp", "item 13j"),
+    ("tp", "not a multiple of it"),
     ("partial", "gives each 6 rows, not a multiple of microbatch 4"),
 ])
 def test_refused_before_any_collective(runs, tag, message):
-    """MLA on a model axis of 2 (item 13j), and a global batch of 12 with
+    """MLA with 3 heads on a model axis of 2, and a global batch of 12 with
     microbatch 4 on 2 ranks (the reference trains its 3 microbatches; a
     rank's 6 rows are not whole microbatches)."""
     for out in runs["ranks"]:
@@ -263,14 +265,14 @@ def test_refused_before_any_collective(runs, tag, message):
 
 def test_model_axis_refused_without_a_process_group():
     """train and DataParallel refuse from the config and the mesh's sizes
-    alone: xlstm-125m on a model axis of 2 (item 13j), and a partial
-    microbatch."""
+    alone: xlstm-125m on a model axis of 3, which divides no d_inner of its
+    (item 13j carried the axis of 2), and a partial microbatch."""
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.train.train_loop import DataParallel
 
     xlstm = reduce_config(get_config("xlstm-125m"))
-    with pytest.raises(NotImplementedError, match="item 13j"):
-        train(xlstm, LoopConfig(**LOOP), mesh=AbstractMesh((2, 2), ("data", "model")),
+    with pytest.raises(NotImplementedError, match="not a multiple of it"):
+        train(xlstm, LoopConfig(**LOOP), mesh=AbstractMesh((1, 3), ("data", "model")),
               device="cpu")
     with pytest.raises(ValueError, match="not a multiple of microbatch 4"):
         DataParallel(AbstractMesh((2, 1), ("data", "model")), 12, microbatch=4)

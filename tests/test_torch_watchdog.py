@@ -90,8 +90,8 @@ def test_launcher_trains_and_resumes_in_process(tmp_path, capsys):
 @pytest.mark.parametrize("argv,env,message", [
     (["--virtual-devices", "4"], {}, "no torch counterpart"),
     (["--mesh", "2x1"], {}, "torchrun's environment"),
-    (["--mesh", "1x2", "--arch", "xlstm-125m"], {"RANK": "0", "WORLD_SIZE": "2",
-                                                 "LOCAL_RANK": "0"}, "item 13j"),
+    (["--mesh", "1x3", "--arch", "xlstm-125m"], {"RANK": "0", "WORLD_SIZE": "3",
+                                                 "LOCAL_RANK": "0"}, "not a multiple of it"),
     (["--mesh", "2x1"], {"RANK": "0", "WORLD_SIZE": "4", "LOCAL_RANK": "0"}, "needs 2 ranks"),
 ])
 def test_launcher_refusals(argv, env, message, tmp_path, monkeypatch, capsys):

@@ -40,7 +40,7 @@ def main(argv=None):
     ap.add_argument("--mesh", default="pod32x8")
     ap.add_argument("--dir", default=str(ROOT / "experiments" / "dryrun_torch"))
     args = ap.parse_args(argv)
-    print("| arch | cell | arguments GiB | temp GiB | sum GiB | fits 80 GB | all-reduces a step "
+    print("| arch | cell | arguments GiB | temp GiB | sum GiB | fits 80 GB | collectives a step "
           "(by mesh dim) | dry run s |")
     print("| --- | --- | --- | --- | --- | --- | --- | --- |")
     for arch in args.archs:
