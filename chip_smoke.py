@@ -128,11 +128,16 @@ on failure:
    plain version, bit-equal required: one K = 2 chunk at N = 256 through
    tm_chunk against tm_chunk_planes on the card (lanes frozen), one tick at
    N = 2500 against the plain version on the card (every lane) and on the
-   host CPU (lanes 0-7), lanes 0-63 masked; its time per call and on the
-   card, the plain version's, the roofline bound and, on the 3f(a) line
-   only, a dependency-chain estimate (CHAIN_OPS dependent FP32 ops a step x
-   an assumed FP32_LATENCY_CYCLES / the max SM clock; derived, not
-   measured); (b) the 512 sessions through each engine of FAMILY_RUNS
+   host CPU (lanes 0-7), lanes 0-63 masked; its division bit-equal to
+   __fdiv_rn over the lanes' numerators x every f32 denominator in
+   [2^-32, 2] (sto_step.tm_quotient_sweep); its time per call and on the
+   card, the plain version's, the roofline bound and the chain bound: the
+   step loop's dependency chain recounted from its SASS
+   (tools/sto_sass_mix.py delay_line_chain: FADD, FMUL and the division as
+   compiled, MUFU.RCP and its FFMAs) priced at the latencies of those ops
+   measured on the card by sto_step.tm_latencies (one warp, clock64) and
+   at the SM clock measured beside them (null where the toolkit has no
+   cuobjdump); (b) the 512 sessions through each engine of FAMILY_RUNS
    (time_multiplexed chunk with an f32 and a bf16 feedback W;
    array_transient fused, tiled, tiled with a bf16 W, chunk), each
    launching exactly its impl's kernels: sessions/s, a chunk's CUDA-event
@@ -2628,17 +2633,6 @@ TM_SMALL_N = 256
 TM_CPU_LANES = 8  # lanes of the full-N tick held against the host CPU
 # array_transient's readout window (the reference smoke's, benchmarks/run.py:91)
 AT_WINDOW = 3
-# The delay line's longest dependency chain per RK4 step, counted in
-# csrc/sto_delay_line.cu: 4 field evaluations of 14 dependent FP32 ops (m . p:
-# mul, add, add; lam *, 1 +, the division; hs *, h +: b_x; c_y: mul, sub;
-# d_x: mul, sub; k_x: mul, sub), the 3 stage updates' 2 (mul, add) and the
-# final combination's 3 (+ k4, * dt/6, m +). The division counts as one op
-# here though it is a reciprocal and Newton steps: a lower bound.
-CHAIN_OPS = 4 * 14 + 3 * 2 + 3
-# an FP32 add / mul / FMA's dependent-issue latency on Hopper, assumed (not
-# measured here): the chain estimate is printed in 3f(a) and kept out of the
-# kernels line
-FP32_LATENCY_CYCLES = 4
 # the ops of one RK4 step of one lane in the kernel (4 x 51 in the field, 18 in
 # the stage updates, 21 in the combination), for the roofline bound
 STEP_OPS = sto_step.STEP_OPS
@@ -2766,30 +2760,85 @@ def delay_line_check(name, name_power):
     out_m = sto_step.tm_delay_line(m, h, pv, DT, HOLD, frozen)
     assert torch.equal(out_m[:, :, :64], m[:, :, :64]), "tm_delay_line: frozen lanes changed"
     assert torch.equal(out_m[:, :, 64:], out[:, :, 64:]), "tm_delay_line: a mask moved live lanes"
+    # the kernel's division against __fdiv_rn: the lanes' numerators (hs_coef)
+    # against every f32 denominator in [2^-32, 2], the inline division's range up to 2
+    hs = pv[kref.PARAM_LAYOUT.index("hs_coef")].contiguous()
+    t0 = time.perf_counter()
+    div_bad, div_pairs = sto_step.tm_quotient_sweep(hs, 95 << 23, 0x40000001)
+    div_s = time.perf_counter() - t0
+    assert div_bad == 0, f"tm_delay_line's division differs from __fdiv_rn in {div_bad} quotients"
     ms = time_ms(kern, 5)
     card_ms = queued_ms(kern, 6)[0]
     steps = N * HOLD
     nbytes = 4 * (7 * N * E + 10 * E)  # m in and out, h; params
     b_ms, b_by = bound_ms(name, 0.0, float(STEP_OPS) * steps * E, nbytes, False)
-    chain_ms = 1e3 * steps * CHAIN_OPS * FP32_LATENCY_CYCLES / max_sm_clock_hz()
+    chain = delay_line_chain(steps, card_ms)
     row = dict(
         max_abs_err=err, ms=ms, card_ms=card_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, share_of_bound=b_ms / ms, cpu_lanes=lanes, cpu_max_abs_err=cpu_err,
-        cpu_plain_s=cpu_s, bit_equal=True, frozen_lanes="exact",
+        cpu_plain_s=cpu_s, bit_equal=True, frozen_lanes="exact", division_pairs=div_pairs,
+        chain_bound_ms=chain["bound_ms"],
+        share_of_chain_bound=None if chain["bound_ms"] is None else chain["bound_ms"] / card_ms,
         ptxas=ptxas_info(_build.BUILD_LOG, "tm_delay_line_kernel"),
     )
     print(
         f"3f(a) tm_delay_line at N={N}, E={E}, hold {HOLD} (one tick, {steps} RK4 steps a lane): "
         f"vs plain on the card max |diff| {err:.3e}, bit-equal; lanes 0-{lanes - 1} vs plain on "
         f"the host CPU {cpu_err:.3e}, bit-equal ({cpu_s:.3f} s); lanes 0-63 masked: exact; "
+        f"its division bit-equal to __fdiv_rn over {div_pairs} pairs (the {hs.numel()} lanes' "
+        f"hs_coef x every f32 in [2^-32, 2]; {div_s:.2f} s); "
         f"kernel {ms:.4f} ms per call, {card_ms:.4f} ms card, plain {plain_ms:.3f} ms on the "
-        f"card (its RK4 step replayed from a CUDA graph); bound {b_ms:.5f} ms ({b_by}); chain estimate, derived and not measured, "
-        f"{chain_ms:.4f} ms ({CHAIN_OPS} dependent FP32 ops a step x an assumed "
-        f"{FP32_LATENCY_CYCLES}-cycle latency at the max SM clock) = {100 * chain_ms / ms:.1f} % "
-        f"of the kernel's time; ptxas {row['ptxas']} ({name_power})",
+        f"card (its RK4 step replayed from a CUDA graph); roofline bound {b_ms:.5f} ms ({b_by}), "
+        f"{100 * b_ms / card_ms:.2f} % of the card time; chain bound "
+        + (f"{chain['bound_ms']:.4f} ms, {100 * chain['bound_ms'] / card_ms:.1f} % of the card "
+           "time" if chain["bound_ms"] is not None else "not measured")
+        + f"; ptxas {row['ptxas']} "
+        f"({name_power})",
         flush=True,
     )
     return row
+
+
+def delay_line_chain(steps, card_ms):
+    """The delay line's chain bound: the fast step loop's dependency chain
+    recounted from the library's SASS and priced at the latencies measured
+    on the card (sto_step.tm_latencies), both by
+    tools/sto_sass_mix.delay_line_chain, over `steps` RK4 steps at the SM
+    clock measured beside the latencies. Prints the latencies, the recount
+    and the bound beside the kernel's card time; returns them (the bound
+    None where the toolkit has no cuobjdump)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import sto_sass_mix
+
+    lat = sto_step.tm_latencies()
+    head = (
+        "3f(a) tm_delay_line chain: latencies measured on the card, cycles from one result to "
+        "the next (one warp, clock64): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in lat.items() if k != "clock_ghz")
+        + f"; SM clock over those chains {lat['clock_ghz']:.3f} GHz (nvidia-smi max "
+        f"{max_sm_clock_hz() / 1e9:.3f})"
+    )
+    if sto_sass_mix.cuobjdump() is None:
+        print(f"{head}; no cuobjdump in the toolkit: the chain bound is not measured", flush=True)
+        return dict(bound_ms=None, cycles_per_step=None, latencies=lat, sass=None)
+    t0 = time.perf_counter()
+    sass = sto_sass_mix.delay_line_chain(_build.build(), lat)
+    sass_s = time.perf_counter() - t0
+    cycles = sass["cycles_per_step"]
+    bound = steps * cycles / (1e6 * lat["clock_ghz"])
+    print(
+        f"{head}; the fast step loop's SASS ({sass['instructions']} instructions, "
+        f"{sass['steps']} step(s) a pass; {sass['control']}; divisions as (refining FFMAs, "
+        f"instructions from MUFU.RCP to the quotient's first use) {sass['divisions'][:4]}; "
+        f"recounted in {sass_s:.2f} s): chain ops a step {sass['chain_per_step']}, priced at "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sass["latency"].items())
+        + f" (MUFU.RCP: the quotient less its refining FFMAs) = {cycles:.1f} cycles a step; "
+        f"chain bound {steps} steps x {cycles:.1f} cycles at {lat['clock_ghz']:.3f} GHz = "
+        f"{bound:.4f} ms; the kernel's card time {card_ms:.4f} ms = {card_ms / bound:.3f}x the "
+        f"chain bound",
+        flush=True,
+    )
+    return dict(bound_ms=bound, cycles_per_step=cycles, latencies=lat, sass=sass)
 
 
 def delay_line_only():
@@ -7809,7 +7858,8 @@ def main():
     # the tiled engine with a bf16 coupling: field_tiled and round_bf16
     _, seconds, launches, _ = serve(spec, "tiled", precision="bf16_coupling")
     assert launches["field_tiled"] > 0 and launches["round_bf16"] > 0, launches
-    assert launches["field_tiled"] == 4 * launches["round_bf16"], launches
+    # a hold window rounds m^x once: its later steps take stage 4's bf16 plane
+    assert launches["field_tiled"] == 4 * HOLD * launches["round_bf16"], launches
     rows["round_bf16"]["launches"] = launches["round_bf16"]
     rows["field_tiled"]["bf16_w"]["launches"] = launches["field_tiled"]
     print(

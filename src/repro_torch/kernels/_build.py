@@ -81,6 +81,9 @@ _SIGNATURES = {
     "flash_bf16_config": ((_I, _P), _I),
     "sto_tm_lanes": ((), _I),
     "sto_tm_delay_line": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P), _I),
+    "sto_tm_quotient": ((_P, _P, _P, _P, _L, _P), _I),
+    "sto_tm_quotient_sweep": ((_P, _I, ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P), _I),
+    "sto_tm_latency": ((_I, _I, _P, _P, _P), _I),
 }
 
 

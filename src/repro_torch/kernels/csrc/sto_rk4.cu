@@ -85,8 +85,12 @@
 //   k1 + 2 k2 + 2 k3 (in place) and, at stage 4, m + (dt/6)(sum + k4), in
 //   the reference's left-to-right order: rk4_tiled_step is four launches and
 //   no elementwise torch op, and field_tiled is the same kernel with those
-//   outputs off. For a bf16 W the caller's (or m's) f32 x-plane is first
-//   rounded by round_bf16_kernel.
+//   outputs off. Stage 4 also writes, when asked, the new state's x-plane in
+//   W's type (x_next: for a bf16 W the value it stores in m_out, rounded as
+//   round_bf16_kernel rounds it), which is the next step's first operand: a
+//   tiled hold window rounds once, where its first step's x-plane comes from
+//   the caller (or from a lane mask's select) in f32 and round_bf16_kernel
+//   rounds it.
 //
 //   What bounds one stage (N = 2500 -> 2560, E = 256, 2 N^2 E = 3.2 GFLOP):
 //   - f32 W: FP32 operations on the CUDA cores, 48 us at 67 TFLOP/s;
@@ -746,7 +750,8 @@ struct FieldArgs {
     const float* kprev;      // (3, N, E): y = m + c kprev; null: y = m
     const float* acc_in;     // (3, N, E) RK4 sum so far; null: kprev (stage 2)
     float* k;                // (3, N, E) this stage's slope
-    void* x_next;            // (N, E) next operand m^x + c_next k^x, in x's type
+    void* x_next;            // (N, E) the next launch's operand, in x's type: m^x + c_next k^x,
+                             // or with m_out (stage 4) m_out's x-plane
     float* acc_out;          // (3, N, E) acc_in + 2 k (may alias acc_in)
     float* m_out;            // (3, N, E) m + c_out (acc_in + k)
     float c, c_next, c_out;
@@ -836,7 +841,7 @@ __global__ void __launch_bounds__(Product<WT>::THREADS, 1) field_stage_kernel(Fi
             st4(a.k + plane + idx, ky, keep_pol);
             st4(a.k + 2 * plane + idx, kz, keep_pol);
         }
-        if (a.x_next != nullptr) {
+        if (a.x_next != nullptr && a.m_out == nullptr) {
             float xn[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) xn[j] = mx[j] + a.c_next * kx[j];
@@ -878,6 +883,13 @@ __global__ void __launch_bounds__(Product<WT>::THREADS, 1) field_stage_kernel(Fi
                 st4(a.m_out + idx, ox, keep_pol);
                 st4(a.m_out + plane + idx, oy, keep_pol);
                 st4(a.m_out + 2 * plane + idx, oz, keep_pol);
+                if (a.x_next != nullptr) {  // the next step's operand
+                    if constexpr (sizeof(XT) == 2) {
+                        st4_bf16(static_cast<__nv_bfloat16*>(a.x_next) + idx, ox, keep_pol);
+                    } else {
+                        st4(static_cast<float*>(a.x_next) + idx, ox, keep_pol);
+                    }
+                }
             }
         }
     }
@@ -886,7 +898,8 @@ __global__ void __launch_bounds__(Product<WT>::THREADS, 1) field_stage_kernel(Fi
 
 // y = x rounded to bf16 (round to nearest even), four values a thread per
 // step: the bf16 coupling operand of a stage whose x-plane comes from the
-// caller in f32 (field_tiled, and the first stage of rk4_tiled_step).
+// caller in f32 (field_tiled, and the first stage of a hold window's first
+// rk4_tiled_step; its later steps take the plane stage 4 wrote).
 __global__ void round_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ y,
                                   long long count) {
     const uint64_t pol = l2_evict_last();

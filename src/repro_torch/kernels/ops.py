@@ -424,13 +424,7 @@ def _integrate_planes(
             else:
                 m = sto_step.rk4_fused(m, w, pv, dt, n_inner=n_inner, block_e=block_e, h_in=h)
     elif impl == "tiled":
-        for _ in range(n_steps):
-            if interpret:
-                m = sto_step.rk4_tiled_step_plain(m, w, pv, dt, h_in=h)
-            else:
-                m = sto_step.rk4_tiled_step(
-                    m, w, pv, dt, block_n=block_n, block_e=block_e, h_in=h
-                )
+        m = _tiled_steps(m, w, pv, dt, h, n_steps, block_n, block_e, interpret)
     else:
         raise ValueError(f"unknown impl: {impl}")
 
@@ -438,6 +432,22 @@ def _integrate_planes(
     if lane_mask is not None:
         # frozen lanes return their input state bit-identically (a select)
         m = torch.where(lane_mask[None, None, :], m, m0)
+    return m
+
+
+def _tiled_steps(m, w, pv, dt, h, n_steps, block_n, block_e, interpret):
+    """n_steps tiled RK4 steps under one drive. For a bf16 W each step after
+    the first takes the x-plane the step before wrote in bf16 (stage 4's
+    x_out), so round_bf16_kernel rounds m^x once, not once a step; the same
+    bits, since that plane is m^x rounded as the kernel rounds it."""
+    x = None
+    for _ in range(n_steps):
+        if interpret:
+            m = sto_step.rk4_tiled_step_plain(m, w, pv, dt, h_in=h)
+        else:
+            m, x = sto_step.rk4_tiled_step(
+                m, w, pv, dt, block_n=block_n, block_e=block_e, h_in=h, x_in=x, x_out=True
+            )
     return m
 
 
@@ -525,14 +535,8 @@ def _tick_chunk_planes(
                         )
                     )
             else:
-                for _ in range(hold_steps):
-                    m_new = (
-                        sto_step.rk4_tiled_step_plain(m_new, w, pv, dt, h_in=h_t)
-                        if interpret
-                        else sto_step.rk4_tiled_step(
-                            m_new, w, pv, dt, block_n=block_n, block_e=block_e, h_in=h_t
-                        )
-                    )
+                m_new = _tiled_steps(m_new, w, pv, dt, h_t, hold_steps, block_n, block_e,
+                                     interpret)
             mm = torch.where(mask_block[t][None, None, :], m_new, mm)
             rows.append(mm[0])
         mT, states = mm, torch.stack(rows)

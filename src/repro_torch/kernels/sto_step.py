@@ -21,14 +21,20 @@ the Pallas kernel of the same name in the reference's kernels/sto_step.py:
    stage's x-plane, the running RK4 sum and, at stage 4, the new state; no
    elementwise torch op runs between them. For a bf16 W, a small kernel
    (`round_bf16_kernel`, counted under LAUNCHES["round_bf16"]) first rounds
-   the f32 x-plane the caller gives (field_tiled) or m^x (rk4_tiled_step).
+   the f32 x-plane the caller gives (field_tiled) or m^x (rk4_tiled_step),
+   and stage 4 can also write the new state's x-plane in bf16, which the
+   next rk4_tiled_step takes (`x_in` / `x_out`): kernels/ops.py rounds once
+   a hold window, not once a step.
 
 A fourth kernel (kernels/csrc/sto_delay_line.cu) runs the time-multiplexed
 family's delay line: `tm_delay_line` is one tick of it for every lane (one
-thread a lane, the oscillator in registers), and `tm_chunk` K ticks, each
-the feedback product (torch.matmul) and one launch. It replaces the node
-loop of the reference's plain-jnp `tm_chunk_planes`, which XLA compiles
-into one device loop on the TPU, and gives its plain version's bits.
+thread a lane, the oscillator in registers, the division written out
+inline), and `tm_chunk` K ticks, each the feedback product (torch.matmul)
+and one launch. It replaces the node loop of the reference's plain-jnp
+`tm_chunk_planes`, which XLA compiles into one device loop on the TPU, and
+gives its plain version's bits. `tm_quotient`, `tm_quotient_sweep` and
+`tm_latencies` check its division against __fdiv_rn and read the latencies
+of its chain on the card (tests/test_torch_cuda.py, chip_smoke.py 3f(a)).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with torch.empty, launches on the current stream,
@@ -469,7 +475,8 @@ def _field_launch(
     m_out=None, c=0.0, c_next=0.0, c_out=0.0,
 ):
     """One field_stage_kernel launch (csrc/sto_rk4.cu FieldArgs); x and x_next
-    are in W's dtype, every other plane f32."""
+    (the next launch's operand: with m_out, m_out's x-plane) are in W's
+    dtype, every other plane f32."""
     _, n, e = m.shape
     if _build.is_fake(m):
         _fake_launch("field_tiled", (m, x, w_cp, params, h_in, kprev, acc_in, k, x_next, acc_out,
@@ -645,6 +652,60 @@ def tm_chunk(
     return m, torch.stack(states)
 
 
+# the ops of latency_kernel (csrc/sto_delay_line.cu), by its op code: the
+# delay line's chain is FMUL, FADD and its division ("quotient")
+LATENCY_OPS = ("fadd", "fmul", "ffma", "fdiv_rn", "quotient")
+
+
+def tm_quotient(a: torch.Tensor, b: torch.Tensor):
+    """a / b elementwise (f32, on the card) as tm_delay_line_kernel divides
+    (the inline division for operands in range, else div.rn), and
+    __fdiv_rn(a, b): (q, q_rn). A check of the kernel's division, not a
+    kernel of the path."""
+    if (a.shape != b.shape or a.dtype != torch.float32 or b.dtype != torch.float32
+            or a.device.type != "cuda" or b.device != a.device):
+        raise ValueError("tm_quotient: two f32 tensors of one shape on one card expected")
+    a, b = a.contiguous(), b.contiguous()
+    q, q_rn = torch.empty_like(a), torch.empty_like(a)
+    _raise_on(_lib().sto_tm_quotient(_ptr(a), _ptr(b), _ptr(q), _ptr(q_rn), a.numel(),
+                                     _stream(a.device)), "tm_quotient")
+    return q, q_rn
+
+
+def tm_quotient_sweep(nums: torch.Tensor, lo: int, hi: int):
+    """Every denominator whose f32 bits lie in [lo, hi) against every
+    numerator of `nums` (f32, on the card): (quotients whose bits differ
+    from __fdiv_rn's, pairs that took the inline division)."""
+    if nums.dtype != torch.float32 or nums.device.type != "cuda":
+        raise ValueError("tm_quotient_sweep: f32 numerators on the card expected")
+    nums = nums.contiguous()
+    counts = torch.zeros(2, dtype=torch.int64, device=nums.device)
+    _raise_on(_lib().sto_tm_quotient_sweep(_ptr(nums), nums.numel(), lo, hi, _ptr(counts),
+                                           _stream(nums.device)), "tm_quotient_sweep")
+    bad, took = counts.tolist()
+    return bad, took
+
+
+def tm_latencies() -> dict:
+    """Cycles from one result to the next dependent one for each op of
+    LATENCY_OPS on the current card (one warp, a chain of 2^20 ops, clock64
+    on its SM), and the SM clock over those chains in GHz (cycles /
+    globaltimer ns)."""
+    lib, dev, iters = _lib(), torch.device("cuda"), 1 << 15
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    sink = torch.empty(32, dtype=torch.float32, device=dev)
+    res, cycles, ns = {}, 0, 0
+    for code, op in enumerate(LATENCY_OPS):
+        for _ in range(2):  # the first chain warms the instruction cache
+            _raise_on(lib.sto_tm_latency(code, iters, _ptr(out), _ptr(sink), _stream(dev)),
+                      "tm_latencies")
+            c, t = out.tolist()
+        res[op] = c / (32 * iters)
+        cycles, ns = cycles + c, ns + t
+    res["clock_ghz"] = cycles / ns
+    return res
+
+
 # ---------------------------------------------------------------------------
 # One RK4 step from four field_stage_kernel launches
 # ---------------------------------------------------------------------------
@@ -673,11 +734,13 @@ def rk4_tiled_stage_plain(stage, m, yx, k_prev, acc, w_cp, params, dt, h_in):
     return k, m[0] + coefs[stage] * k[0], acc_out
 
 
-def rk4_tiled_step_plain(m, w_cp, params, dt, h_in=None):
-    """`rk4_tiled_step` through the plain stages (any device)."""
+def rk4_tiled_step_plain(m, w_cp, params, dt, h_in=None, x_in=None):
+    """`rk4_tiled_step` through the plain stages (any device); x_in, m^x in
+    W's dtype, is the first stage's coupling operand when given."""
     if h_in is None:
         h_in = torch.zeros(m.shape[1:], dtype=m.dtype, device=m.device)
-    yx, k, acc = m[0], None, None
+    yx = m[0] if x_in is None else x_in.to(m.dtype)
+    k, acc = None, None
     for stage in range(1, STAGES):
         k, yx, acc = rk4_tiled_stage_plain(stage, m, yx, k, acc, w_cp, params, dt, h_in)
     return rk4_tiled_stage_plain(STAGES, m, yx, k, acc, w_cp, params, dt, h_in)
@@ -691,24 +754,40 @@ def rk4_tiled_step(
     block_n: int = TILE_N,
     block_e: int = TILE_E,
     h_in: torch.Tensor = None,
-) -> torch.Tensor:
+    x_in: torch.Tensor = None,
+    x_out: bool = False,
+):
     """One RK4 step: four field_stage_kernel launches (`field_tiled` with
     the stage algebra in the epilogue), no elementwise torch op between
-    them; for a bf16 W, round_bf16_kernel first rounds m^x to bf16. Each
-    launch reads the x-plane the one before wrote (double-buffered)."""
+    them. Each launch reads the x-plane the one before wrote
+    (double-buffered).
+
+    For a bf16 W the first stage's operand is m^x in bf16: `x_in` when given
+    (it must be m[0] rounded to bf16, as the previous step's x_out is), else
+    round_bf16_kernel rounds m[0]. With x_out=True the step returns (m', x')
+    where x' is m'[0] in bf16, written by stage 4's epilogue (None for an
+    f32 W, whose operand is m[0] itself); else m'."""
     _, n, e = m.shape
     if h_in is None:
         h_in = torch.zeros((n, e), dtype=m.dtype, device=m.device)
+    bf16 = w_cp.dtype == torch.bfloat16
+    if x_in is not None and (not bf16 or x_in.shape != (n, e) or x_in.dtype != w_cp.dtype):
+        raise ValueError("rk4_tiled_step: x_in is m^x in bf16 (N, E), for a bf16 W only")
     if _on_cpu(m):
-        return rk4_tiled_step_plain(m, w_cp, params, dt, h_in)
+        out = rk4_tiled_step_plain(m, w_cp, params, dt, h_in, x_in)
+        return (out, out[0].to(w_cp.dtype) if bf16 else None) if x_out else out
     _check_field("rk4_tiled_step", m, w_cp, params, h_in, block_n, block_e)
     coefs, sixth = _stage_coefs(float(dt))
     ka, kb, acc, out = (torch.empty_like(m) for _ in range(4))
     x1, x2 = torch.empty((2, n, e), dtype=w_cp.dtype, device=m.device)
-    x0 = _round_bf16(m[0]) if w_cp.dtype == torch.bfloat16 else m[0]
+    if bf16:
+        x0 = _round_bf16(m[0]) if x_in is None else x_in
+        xo = torch.empty((n, e), dtype=w_cp.dtype, device=m.device) if x_out else None
+    else:
+        x0, xo = m[0], None
     launch = functools.partial(_field_launch, m, w_cp=w_cp, params=params, h_in=h_in)
     launch(x0, k=ka, x_next=x1, c_next=coefs[1])
     launch(x1, kprev=ka, k=kb, x_next=x2, acc_out=acc, c=coefs[1], c_next=coefs[2])
     launch(x2, kprev=kb, acc_in=acc, k=ka, x_next=x1, acc_out=acc, c=coefs[2], c_next=coefs[3])
-    launch(x1, kprev=ka, acc_in=acc, m_out=out, c=coefs[3], c_out=sixth)
-    return out
+    launch(x1, kprev=ka, acc_in=acc, m_out=out, x_next=xo, c=coefs[3], c_out=sixth)
+    return (out, xo) if x_out else out

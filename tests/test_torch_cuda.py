@@ -316,6 +316,33 @@ def test_round_bf16_matches_torch(cuda):
 
 
 @pytest.mark.cuda
+def test_bf16_tiled_tick_rounds_once_a_hold_window(cuda):
+    """A bf16 tiled chunk carries the state's bf16 x-plane from step to step
+    (stage 4 writes it): bit-equal to rounding m^x at every step, with
+    round_bf16 launched once a tick, not once a step."""
+    n, e, k, hold = 128, 64, 3, 4
+    m, w, pv, h, mask = _inputs(cuda, n=n, e=e, k=k)
+    wb = w.to(torch.bfloat16)
+    sto_step.reset_launches()
+    mk, sk = ops.sto_rk4_tick_chunk_planes(m, w, pv, DT, hold, h, mask > 0.5, impl="tiled",
+                                           precision="bf16_coupling")
+    assert sto_step.LAUNCHES["round_bf16"] == k
+    assert sto_step.LAUNCHES["field_tiled"] == 4 * hold * k
+    mm, rows = m, []
+    for t in range(k):
+        m_new = mm
+        for _ in range(hold):  # rounds m^x every step
+            m_new = sto_step.rk4_tiled_step(m_new, wb, pv, DT, h_in=h[t])
+        mm = torch.where(mask[t][None, None, :] > 0.5, m_new, mm)
+        rows.append(mm[0])
+    assert torch.equal(mk, mm) and torch.equal(sk, torch.stack(rows))
+    out, x = sto_step.rk4_tiled_step(m, wb, pv, DT, h_in=h[0], x_out=True)
+    assert torch.equal(x, out[0].to(torch.bfloat16))
+    assert torch.equal(sto_step.rk4_tiled_step(out, wb, pv, DT, h_in=h[0], x_in=x),
+                       sto_step.rk4_tiled_step(out, wb, pv, DT, h_in=h[0]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["chunk", "fused", "tiled"])
 def test_ragged_tick_chunk_matches_plain(cuda, impl):
     """N=70, E=5: ops pads to the kernel tiles and slices back."""
@@ -1027,6 +1054,46 @@ def test_tm_chunk_is_bit_equal_to_plain(cuda):
         assert sto_step.LAUNCHES["tm_delay_line"] == k
         mp, sp = kref.tm_chunk_planes(m, w_k, pv, DT, 2, hb, mask)
         assert torch.equal(mk, mp) and torch.equal(sk, sp)
+
+
+def _quotient_numerators(dev):
+    """The delay line's numerators (hs_coef at drive currents over two
+    decades), random f32 of every sign and exponent, and zeros, subnormals,
+    infinities, NaN and the largest finite values."""
+    params = broadcast_params(constants.default_params(torch.float64, device="cpu"), 64,
+                              current=np.geomspace(1e-4, 1e-2, 64))
+    hs = kref.pack_params(params, 64, torch.float32)[kref.PARAM_LAYOUT.index("hs_coef")]
+    rng = np.random.default_rng(5)
+    rand = rng.integers(0, 2**32, 176, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    fmax = np.finfo(np.float32).max
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, np.inf, -np.inf, np.nan, fmax, -fmax,
+                        2.0**-32, 2.0**32, 1.0, -1.0, 3.0, 1.0 - 2.0**-24], np.float32)
+    nums = np.concatenate([hs.numpy(), rand, special]).astype(np.float32)
+    return torch.as_tensor(nums).to(dev)
+
+
+@pytest.mark.cuda
+def test_tm_quotient_is_div_rn(cuda):
+    """The delay line's division (the inline division for operands in range,
+    else div.rn) against __fdiv_rn, bit for bit: every f32 denominator in
+    (0, 2], the kernel's range, against 256 numerators (the kernel's
+    hs_coef values, random f32 and special values), then 2^24 random f32
+    pairs with zeros, subnormals, infinities, NaN and near-overflow values
+    among them."""
+    nums = _quotient_numerators(cuda)
+    bad, took = sto_step.tm_quotient_sweep(nums, 1, 0x40000001)  # (0, 2] by bits
+    assert bad == 0
+    # the 64 hs_coef numerators against the 33 binades [2^-32, 2] took it at least
+    assert took >= 64 * 33 * 2**23
+    rng = np.random.default_rng(6)
+    bits = rng.integers(0, 2**32, (2, 2**24), dtype=np.uint64).astype(np.uint32)
+    pairs = bits.view(np.float32).copy()
+    edge = _quotient_numerators("cpu").numpy()
+    pairs[0, : edge.size ** 2] = np.repeat(edge, edge.size)
+    pairs[1, : edge.size ** 2] = np.tile(edge, edge.size)
+    a, b = (torch.as_tensor(x).to(cuda) for x in pairs)
+    q, q_rn = sto_step.tm_quotient(a, b)
+    assert torch.equal(q.view(torch.int32), q_rn.view(torch.int32))
 
 
 @pytest.mark.cuda

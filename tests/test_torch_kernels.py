@@ -320,6 +320,43 @@ def test_bf16_coupling_matches_reference(precision):
         assert np.abs(mt.numpy() - np.asarray(mj)).max() < np.abs(mt.numpy() - np.asarray(m32)).max()
 
 
+@pytest.mark.parametrize("entry", ["integrate", "tick_chunk"])
+def test_tiled_bf16_carried_x_plane_matches_reference(entry):
+    """impl="tiled" with a bf16 W through the wrappers (ops._tiled_steps:
+    each step after a hold window's first takes the previous step's bf16
+    x-plane, x_in / x_out) on the CPU: bit-equal to the plain steps, which
+    round m^x every step (interpret=True), and within BF16_ATOL of the
+    reference's tiled path in interpret mode."""
+    n, e, k, hold = 20, 6, 3, 4
+    m, w, current, h, mask = _inputs(n, e, k)
+    pj, pt = _params(e, current, jnp.float32), _tparams(e, current, torch.float32)
+    if entry == "integrate":
+        m_user = np.ascontiguousarray(np.transpose(m, (2, 1, 0)))  # (E, N, 3)
+        want = np.asarray(jops.sto_rk4_integrate(
+            jnp.asarray(m_user, jnp.float32), jnp.asarray(w, jnp.float32), pj, DT, hold,
+            impl="tiled", interpret=True, precision="bf16_coupling",
+        ))
+        run = lambda interpret: (ops.sto_rk4_integrate(  # noqa: E731
+            _t(m_user), _t(w), pt, DT, hold, impl="tiled", interpret=interpret,
+            precision="bf16_coupling",
+        ),)
+        want = (want,)
+    else:
+        want = jops.sto_rk4_tick_chunk_planes(
+            jnp.asarray(m, jnp.float32), jnp.asarray(w, jnp.float32), pj, DT, hold,
+            jnp.asarray(h, jnp.float32), jnp.asarray(mask), impl="tiled", interpret=True,
+            precision="bf16_coupling",
+        )
+        run = lambda interpret: ops.sto_rk4_tick_chunk_planes(  # noqa: E731
+            _t(m), _t(w), pt, DT, hold, _t(h), torch.as_tensor(mask), impl="tiled",
+            interpret=interpret, precision="bf16_coupling",
+        )
+    got, plain = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=BF16_ATOL)
+
+
 def test_coupling_dot_rounds_operand_and_accumulates_f32():
     rng = np.random.default_rng(3)
     w = torch.as_tensor(rng.normal(size=(8, 8)), dtype=torch.float32)

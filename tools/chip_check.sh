@@ -10,11 +10,13 @@
 # then of the delay-line kernel, against them (tools/plant_faults.py);
 # field_tiled at every cluster size, as the source stands and as its regs128
 # variant
-# (tools/field_split_sweep.py); the loops' instruction mix, STO and flash
-# (tools/sto_sass_mix.py); and, given PARENT_SRC (the src/ of an older
-# checkout), field_tiled and rk4_tiled_step, then the flash kernel, of that
-# checkout against this one's, in the order parent, this, this, parent
-# (tools/field_tiled_time.py, tools/flash_time.py). Each step writes its
+# (tools/field_split_sweep.py); the loops' instruction mix, STO, delay line
+# and flash (tools/sto_sass_mix.py); and, given PARENT_SRC (the src/ of an
+# older checkout), field_tiled, rk4_tiled_step and round_bf16, then the
+# delay line, then the flash kernel, of that checkout against this one's, in
+# the order parent, this, this, parent (twice for field_tiled, whose bf16
+# hold window swings with a run's position; tools/field_tiled_time.py,
+# tools/delay_line_time.py, tools/flash_time.py). Each step writes its
 # whole output to OUT_DIR/<step>.txt (default OUT_DIR:
 # chiprun_out/chip_check) and prints its exit code and the end of its
 # output. Exits non-zero if a step failed.
@@ -55,8 +57,12 @@ step split_sweep ok 6000 600 python3 tools/field_split_sweep.py --variant regs12
 step sass_mix ok 9000 300 python3 tools/sto_sass_mix.py
 if [ -n "$parent" ]; then
     step parent_vs_this ok 4000 1200 bash -c "
-        for src in '$parent' src src '$parent'; do
+        for src in '$parent' src src '$parent' '$parent' src src '$parent'; do
             python3 tools/field_tiled_time.py --src \"\$src\" || exit 1
+        done"
+    step delay_parent_vs_this ok 2000 600 bash -c "
+        for src in '$parent' src src '$parent'; do
+            python3 tools/delay_line_time.py --src \"\$src\" || exit 1
         done"
     step flash_parent_vs_this ok 6000 900 bash -c "
         for src in '$parent' src src '$parent'; do
